@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of psgd_torch_tpu (PSGD Kron whitening on NVIDIA Hopper).
+
+The package mirrors the JAX package's layout (``ops``, ``precond``,
+``optim``, ``models``).  It imports torch, numpy and the standard library
+only.  Entry points (``models.gpt2.GPT2``, ``optim.KronWhiten``,
+``models.gpt2.synthetic_lm_batch``) run on the CUDA device unless the
+caller passes ``device="cpu"``; without a card they raise instead of
+falling back.  On CUDA tensors the two hot-path kernels
+(``ops.kernels.fused_ns_update`` and ``ops.kernels.damped_noise``) are
+hand-written CUDA C++ for sm_90a, built with nvcc at first use.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another one.  Raises when CUDA is asked for (or defaulted to) and no
+    card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

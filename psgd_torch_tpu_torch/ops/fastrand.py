@@ -1,0 +1,102 @@
+"""Randomness for the PSGD hot path: host-side key derivation and noise.
+
+Keys.  The JAX package threads threefry keys through its state
+(``state.key -> (key, k_gate, k_fit)``, ``fold_in(k_fit, leaf)``,
+``split(key, n_layer)``, ``split -> (kd, krest)``, ``fold_in(krest, i)``).
+The port derives the same key tree on the host: ``split``, ``fold_in`` and
+``uniform01`` below are threefry2x32 in numpy, bit-identical to
+``jax.random`` with partitionable threefry (the JAX default).  A key is a
+(..., 2) uint32 array, the raw key data.  Deriving keys uses no device RNG
+state and causes no device sync, and every stream is a pure function of
+(seed, step, leaf, layer, purpose).  Gates are decided on the host from the
+same derivation.
+
+Noise.  The device draws come from Philox4x32-10 keyed by a key's two words
+(``ops.philox``; on CUDA the kernels of ``ops.kernels``).  Distribution:
+uniform(-sqrt3, sqrt3), zero mean and unit variance -- the whitening math
+only uses E[v v^T] = I, so any white unit-variance noise is sound (same
+argument as psgd_torch_tpu/ops/fastrand.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on uint32 arrays (broadcasting);
+    additions wrap modulo 2**32."""
+    with np.errstate(over="ignore"):
+        ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+        x0 = x0 + ks[0]
+        x1 = x1 + ks[1]
+        for g in range(5):
+            for r in _ROT[g % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r)
+                x1 = x0 ^ x1
+            x0 = x0 + ks[(g + 1) % 3]
+            x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return x0, x1
+
+
+def as_keys(keys) -> np.ndarray:
+    keys = np.asarray(keys, dtype=np.uint32)
+    if keys.shape[-1:] != (2,):
+        raise ValueError(f"keys must have a trailing axis of 2, got {keys.shape}")
+    return keys
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """Key data of ``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**64."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def split(keys, num: int = 2) -> np.ndarray:
+    """(..., 2) -> (..., num, 2): ``jax.random.split`` on each key."""
+    keys = as_keys(keys)
+    k0, k1 = keys[..., 0:1], keys[..., 1:2]
+    lo = np.arange(num, dtype=np.uint32)
+    b0, b1 = _threefry2x32(k0, k1, np.zeros_like(lo), lo)
+    return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(keys, data: int) -> np.ndarray:
+    """(..., 2) -> (..., 2): ``jax.random.fold_in(key, data)``."""
+    keys = as_keys(keys)
+    k0, k1 = keys[..., 0], keys[..., 1]
+    x1 = np.full(k0.shape, int(data) & 0xFFFFFFFF, np.uint32)
+    b0, b1 = _threefry2x32(k0, k1, np.zeros_like(x1), x1)
+    return np.stack([b0, b1], axis=-1)
+
+
+def uniform01(keys) -> np.ndarray:
+    """(..., 2) -> (...,): float32 ``jax.random.uniform(key)`` per key."""
+    keys = as_keys(keys)
+    k0, k1 = keys[..., 0], keys[..., 1]
+    z = np.zeros_like(k0)
+    b0, b1 = _threefry2x32(k0, k1, z, z)
+    bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def unit_noise_stacked(keys, shape, dtype, device) -> torch.Tensor:
+    """(B,)+shape white noise; batch element i's stream is a pure function
+    of keys[i].  On CUDA it is one launch of the Philox noise kernel."""
+    from .kernels import key_seed_words, unit_noise
+    if dtype.is_complex:
+        raise NotImplementedError(
+            "complex noise is not ported yet (ROADMAP A2)")
+    return unit_noise(key_seed_words(keys, device), tuple(shape), dtype)
+
+
+def unit_noise(key, shape, dtype, device) -> torch.Tensor:
+    """Zero-mean unit-variance white noise from one key."""
+    return unit_noise_stacked(as_keys(key)[None], shape, dtype, device)[0]

@@ -1,0 +1,146 @@
+"""L0 numerical utilities for PSGD, in PyTorch.
+
+Counterpart of psgd_torch_tpu/ops/linalg.py for what the Kron whitening
+main path calls: the dtype policy, the subspace-iteration spectral-norm
+lower bounds and the second-order Procrustes rotation.  Every function
+works on a single matrix (..., n, n) with any number of leading batch
+dims, so a layer stack is one call.
+
+Randomness is explicit.  A function that draws takes either ``v0``, the
+pre-drawn (..., k, n) subspace start (tests replay the JAX draws through
+it), or ``seeds``, (B, 2) Philox seed words, from which it draws
+uniform(-1, 1) with ``ops.philox`` -- the same bits the CUDA kernel draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .philox import uniform_pm1
+
+
+def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """Real counterpart of a (possibly complex) dtype."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
+
+
+def lifted_real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Real dtype with at least single precision (for L-constants etc.):
+    half and bfloat16 lift to float32, float32/float64 pass through."""
+    rd = real_dtype_of(dtype)
+    return torch.float32 if torch.finfo(rd).eps > 1e-6 else rd
+
+
+def lift2single(x: torch.Tensor) -> torch.Tensor:
+    """Lift half/bfloat16 to single precision; others pass through."""
+    if x.dtype.is_complex:
+        return x
+    return x.float() if torch.finfo(x.dtype).eps > 1e-6 else x
+
+
+def resolve_norm_k(norm_k, dtype: torch.dtype) -> int:
+    """Subspace dimension of the norm bounds: explicit k as given, else 128
+    for half/bf16 Q and 32 for single/double (reference psgd.py:48-49).
+    The bounds additionally floor k at 128 above width 1024
+    (``width_norm_k``)."""
+    if norm_k is not None:
+        return int(norm_k)
+    return 128 if torch.finfo(real_dtype_of(dtype)).eps > 1e-6 else 32
+
+
+def width_norm_k(k: int, n: int) -> int:
+    """Floor the subspace dim at 128 for factors wider than 1024 (a fixed
+    small k loosens the bound as n grows; the kernels apply the same rule)."""
+    return max(k, 128) if n > 1024 else k
+
+
+def sgn(x: torch.Tensor) -> torch.Tensor:
+    """Complex-safe sign: x/|x| with sgn(0) = 0."""
+    return torch.sgn(x)
+
+
+def _row_norms(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(torch.real(v * torch.conj(v)), dim=-1,
+                                keepdim=True))
+
+
+def _tiny(dtype: torch.dtype) -> float:
+    return torch.finfo(real_dtype_of(dtype)).tiny
+
+
+def _start(a: torch.Tensor, k: int, v0, seeds) -> torch.Tensor:
+    if v0 is not None:
+        return v0.to(a.dtype)
+    if seeds is None:
+        raise ValueError("pass either v0 (a pre-drawn start) or seeds")
+    return uniform_pm1(seeds, (k, a.shape[-1])).reshape(
+        a.shape[:-2] + (k, a.shape[-1])).to(a.dtype)
+
+
+def _subspace_norm_bound(a: torch.Tensor, normalizer: torch.Tensor, k: int,
+                         half_iters: int, v0=None, seeds=None) -> torch.Tensor:
+    """Shared subspace-iteration core of the two norm lower bounds: the k x n
+    start is rotated toward the largest row of ``a`` (reference
+    psgd.py:52-56); rows are renormalized between half-iterations."""
+    tiny = _tiny(a.dtype)
+    a = a / normalizer[..., None, None]
+    j = torch.argmax(torch.sum(torch.real(a * torch.conj(a)), dim=-1), dim=-1)
+    aj = torch.take_along_dim(a, j[..., None, None], dim=-2)   # (..., 1, n)
+    v = _start(a, k, v0, seeds)
+    v = aj + sgn(torch.sum(aj * torch.conj(v), dim=-1, keepdim=True)) * v
+    for _ in range(half_iters):
+        v = v @ a
+        v = v / (_row_norms(v) + tiny)
+        v = v @ a
+    return normalizer * torch.amax(_row_norms(v)[..., 0], dim=-1)
+
+
+def norm_lower_bound_spd(a: torch.Tensor, seeds=None, k: int = 32,
+                         half_iters: int = 2, v0=None) -> torch.Tensor:
+    """Cheap lower bound of the spectral norm of an SPD matrix, normalized by
+    the max diagonal entry (reference psgd.py:46-68)."""
+    tiny = _tiny(a.dtype)
+    k = width_norm_k(k, a.shape[-1])
+    normalizer = torch.amax(torch.real(torch.diagonal(a, dim1=-2, dim2=-1)),
+                            dim=-1) + tiny
+    return torch.real(_subspace_norm_bound(a, normalizer, k, half_iters,
+                                           v0, seeds))
+
+
+def norm_lower_bound_skh(a: torch.Tensor, seeds=None, k: int = 32,
+                         half_iters: int = 2, v0=None) -> torch.Tensor:
+    """Same bound for a skew-Hermitian matrix, normalized by max |a|
+    (reference psgd.py:71-93)."""
+    tiny = _tiny(a.dtype)
+    k = width_norm_k(k, a.shape[-1])
+    normalizer = torch.amax(torch.abs(a), dim=(-2, -1)) + tiny
+    return torch.real(_subspace_norm_bound(a, normalizer, k, half_iters,
+                                           v0, seeds))
+
+
+def _real_trace_f32(m: torch.Tensor) -> torch.Tensor:
+    """Real part of the trace, accumulated in at least float32."""
+    d = torch.real(torch.diagonal(m, dim1=-2, dim2=-1))
+    return torch.sum(d.to(lifted_real_dtype(d.dtype)), dim=-1)
+
+
+def procrustes_step2(q: torch.Tensor, max_step_size: float = 1 / 8,
+                     norm_k: int = 32, seeds=None, v0=None) -> torch.Tensor:
+    """One online Procrustes rotation Q <- (I + aR + (aR)^2/2) Q with
+    R = Q^H - Q and a clamped line search (reference psgd.py:101-124)."""
+    rd = real_dtype_of(q.dtype)
+    tiny = _tiny(q.dtype)
+    r = torch.conj(q.transpose(-2, -1)) - q
+    r = r / (norm_lower_bound_skh(r, seeds, k=norm_k, v0=v0)
+             + tiny)[..., None, None]
+    rq = r @ q
+    rrq = r @ rq
+    tr_rq = _real_trace_f32(rq)
+    tr_rrq = _real_trace_f32(rrq)
+    neg = tr_rrq < 0
+    safe_den = torch.where(neg, tr_rrq, -torch.ones_like(tr_rrq))
+    a = torch.where(neg, torch.clamp(-tr_rq / safe_den, max=max_step_size),
+                    torch.full_like(tr_rq, max_step_size))
+    a = a.to(rd)[..., None, None]
+    return q + a * (rq + (0.5 * a) * rrq)
