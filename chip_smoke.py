@@ -8,33 +8,51 @@
 2. Build the kernels from psgd_torch_tpu_torch/ops/csrc with nvcc (sm_90a)
    and print the -Xptxas -v report (registers, shared memory, spills).
 3. Hold each kernel against its plain PyTorch version on the same inputs at
-   the main path's shapes: the noise kernel bit for bit, the NS update
-   within the tolerances stated below, the norm bound under the true norm.
-   Time kernel, plain version and (for the noise) torch.rand with CUDA
-   events.
-4. Main path: GPT-2 124M, batch 4 x 1024, bf16 compute, trained by
-   KronWhiten in the bench configuration (momentum whitening, bf16 Q and
-   momentum, max_skew 2, norm_k 128, weight decay 0.01, one preconditioner
-   per layer) for 5 steps at update probability 1.0 and 5 at 0.1, on one
-   fixed batch.  Fails on a non-finite loss, a final loss not below the
-   first, or launch counts other than 8 NS updates and 16 noise launches
-   per fit step.
-5. Prints the kernels' JSON line, then the fixed last line.
+   the main paths' shapes, and time kernel, plain version and (where one
+   PyTorch call computes the same function or its dominant product) that
+   call with CUDA events:
+   - the noise kernel bit for bit (GPT-2's and LLaMA's largest stacks);
+   - the single NS route (GPT-2's widths), the split route at LLaMA's 2048
+     and the tiled route at LLaMA's 2560 in bf16, and both in f32, within
+     the tolerances stated in ``check_routes``, each bound at most 1.001 x
+     the true norm, each problem taking both branches of the procrustes
+     step (clamped at 1/8, and the trace ratio);
+   - each piece of the split and tiled routes alone (``check_split`` and
+     ``check_tiled``): transpose-subtract and combine bit for bit, the
+     products (ns_step's q1 too) to f32 accumulation order, the tiled bound
+     within 1e-5 of its plain version.
+4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path.
+5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
+   bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
+   on one fixed batch; one fit and one no-fit step profiled.
+6. LLaMA-1.1B (TinyLlama widths, all 22 layers), batch 1 x 1024, bf16
+   compute, f32 parameters, trained by KronWhiten in the configuration of
+   tools/bench_llama.py for 3 steps at p = 1.0 and 3 at 0.1; one fit step
+   profiled.  The GPT-2 state is freed first.
+   Each path fails on a non-finite loss, a last loss not below the first,
+   or other launch counts per fit step than ``GPT2_PER_FIT`` and
+   ``LLAMA_PER_FIT``.  Counts are reset just before each path and read
+   just after it; the launches made by the checks of step 3 count nowhere.
+7. Prints the kernels' JSON line (``launches`` is the sum over the two
+   paths), the card's name and power limit, then the fixed last line.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
-from psgd_torch_tpu_torch.models import gpt2
+from psgd_torch_tpu_torch.models import gpt2, llama
 from psgd_torch_tpu_torch.ops import kernels
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import KronWhiten
@@ -44,12 +62,33 @@ from psgd_torch_tpu_torch.optim import KronWhiten
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-NS_PER_FIT_STEP = 8
-NOISE_PER_FIT_STEP = 16
+# kernel launches per fit step on each path
+GPT2_PER_FIT = {"fused_ns_update": 8, "damped_noise": 16}
+LLAMA_PER_FIT = {"ns_step": 7, "procrustes": 7, "norm_bound": 2,
+                 "tiled_step": 1, "tsub": 1, "scaled_matmul_trace": 2,
+                 "combine": 1, "fused_ns_update": 0, "damped_noise": 9}
+# the JSON line's rows: wrapper, source, the TPU kernel it replaces
+SRC = "psgd_torch_tpu_torch/ops/csrc/"
+TPU = "psgd_torch_tpu/ops/pallas_kernels.py:"
+ROWS = (("fused_ns_update", "ns_update.cu", 142),
+        ("damped_noise", "noise.cu", 626),
+        ("ns_step", "ns_update.cu", 221),
+        ("procrustes", "ns_update.cu", 255),
+        ("norm_bound", "ns_tiled.cu", 369),
+        ("tiled_step", "ns_tiled.cu", 427),
+        ("tsub", "ns_tiled.cu", 436),
+        ("scaled_matmul_trace", "ns_tiled.cu", 441),
+        ("combine", "ns_tiled.cu", 457))
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"  # git-ignored
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"== {name} (t = {time.perf_counter() - T0:.1f} s)")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -67,6 +106,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time for the work: max(operations / peak, bytes / HBM)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def preflight() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card")
@@ -82,12 +127,24 @@ def preflight() -> tuple[str, str]:
 
 
 def build() -> None:
+    """Build and bind the kernels; summarize nvcc's -Xptxas -v report
+    (the whole report goes to OUT_DIR/chip_smoke_ptxas.txt)."""
     t0 = time.perf_counter()
     path, report = kernels.build()
     kernels.library()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
+    if not report:
+        return
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_ptxas.txt").write_text(report)
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", report))
+    smem = [int(m) for m in re.findall(r"(\d+) bytes smem", report)]
+    log(f"  ptxas: {len(regs)} kernels, registers max {max(regs, default=0)}, "
+        f"static shared memory max {max(smem, default=0)} bytes, spill stores "
+        f"{spills} bytes in all")
     for line in report.splitlines():
-        if "ptxas" in line or "error" in line.lower():
+        if "error" in line.lower() or "warning" in line.lower():
             log(f"  {line.strip()}")
 
 
@@ -95,15 +152,21 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+def _seeds(b, gen, dev):
+    return torch.randint(-2**31, 2**31 - 1, (b, 2), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
 def check_noise(dev) -> dict:
-    """Noise kernel, unit and fused mode, bit-exact against plain."""
+    """Noise kernel, unit and fused mode, bit-exact against plain, at GPT-2
+    124M's and LLaMA-1.1B's largest stacks; the row is LLaMA's."""
     row = None
     gen = torch.Generator(device=dev).manual_seed(7)
     for shape, dtype in (((12, 768, 2304), torch.bfloat16),
-                         ((1, 1024, 768), torch.float32)):
+                         ((1, 1024, 768), torch.float32),
+                         ((22, 2048, 11264), torch.bfloat16)):
         b = shape[0]
-        seeds = torch.randint(-2**31, 2**31 - 1, (b, 2), generator=gen,
-                              device=dev, dtype=torch.int64).to(torch.int32)
+        seeds = _seeds(b, gen, dev)
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         unit_k = kernels.unit_noise(seeds, shape[1:], dtype)
         unit_p = kernels.unit_noise_plain(seeds, shape[1:], dtype)
@@ -119,62 +182,106 @@ def check_noise(dev) -> dict:
         log(f"noise {shape} {dtype}: unit and fused bit-exact; unit mean "
             f"{u.mean().item():.2e} var {u.var().item():.4f} "
             f"range [{u.min().item():.4f}, {u.max().item():.4f}]")
+        del unit_k, unit_p, damp_k, damp_p, u
         numel, size = math.prod(shape), torch.finfo(dtype).bits // 8
         ms_unit = cuda_ms(lambda: kernels.unit_noise(seeds, shape[1:], dtype), 20)
         ms_fused = cuda_ms(lambda: kernels.damped_noise(g, seeds, 1e-9), 20)
         ms_rand = cuda_ms(lambda: torch.rand(shape, dtype=dtype, device=dev), 20)
         ms_plain_unit = cuda_ms(
-            lambda: kernels.unit_noise_plain(seeds, shape[1:], dtype), 3, 1)
+            lambda: kernels.unit_noise_plain(seeds, shape[1:], dtype), 2, 1)
         ms_plain_fused = cuda_ms(
-            lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 3, 1)
+            lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)
         bound_unit = numel * size / PEAK_BYTES * 1e3
         bound_fused = 2 * numel * size / PEAK_BYTES * 1e3
         log(f"  unit  kernel {ms_unit:.4f} ms  plain {ms_plain_unit:.3f} ms  "
             f"torch.rand {ms_rand:.4f} ms  bound {bound_unit:.4f} ms (bytes)")
         log(f"  fused kernel {ms_fused:.4f} ms  plain {ms_plain_fused:.3f} ms  "
             f"bound {bound_fused:.4f} ms (bytes)")
-        if row is None:   # the main path's stacked shape
-            row = dict(ms=ms_fused, plain_ms=ms_plain_fused,
-                       bound_ms=bound_fused, max_abs_err=0.0)
+        row = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=bound_fused,
+                   bound_by="bytes", max_abs_err=0.0, library_ms=None)
+        del g
+        torch.cuda.empty_cache()
     return row
 
 
-def check_ns(dev) -> dict:
-    """NS update kernel against the plain version on the same inputs.
+def _ns_problem(b, n, dtype, seed, dev):
+    """A whitening-like NS input: term1 = X X^T / m (m = 3n), Q = I + noise,
+    L = 0, term2 = 1.  The noise is 1e-2 on even batch entries and 1e-3 on
+    odd ones: the procrustes step a, about the norm of Q's skew part, is
+    then clamped at 1/8 on the first and the trace ratio on the second."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, 3 * n), generator=gen, device=dev)
+    term1 = (x @ x.mT / (3 * n)).to(dtype)
+    del x
+    noise = torch.tensor([1e-2, 1e-3], device=dev).repeat(b)[:b, None, None]
+    q = (torch.eye(n, device=dev) + noise * torch.randn(
+        (b, n, n), generator=gen, device=dev)).to(dtype)
+    return (term1, q, torch.zeros(b, device=dev),
+            torch.full((b,), 1.0, device=dev), _seeds(b, gen, dev))
 
-    Tolerances: with f32 Q the kernel and the plain version do the same f32
-    arithmetic in another order: q' within 1e-4 relative (Frobenius), L
-    within 1e-4.  With bf16 Q the kernel rounds product operands to bf16
-    (the TPU kernel's precision) where the plain version keeps f32: q'
-    within 1e-2, L within 2e-2.  The norm bound (L' - term2 with L = 0)
-    must stay <= 1.001 x the true norm (eigvalsh)."""
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _step_a(q1, seeds):
+    """The procrustes step a of q1 from the plain pieces in f32: the step
+    the split and tiled routes take, up to their storage points."""
+    f = q1.float()
+    r = kernels.tsub_plain(f)
+    inv = 1.0 / (kernels.norm_bound_plain(r, seeds, "skh", kernels.SKH_TAG,
+                                          k=128) + torch.finfo(f.dtype).tiny)
+    rq, tr = kernels.scaled_matmul_trace_plain(r, f, inv)
+    _, tr2 = kernels.scaled_matmul_trace_plain(r, rq, inv)
+    return kernels.step_size(tr, tr2)
+
+
+def _branches(a) -> tuple[str, bool]:
+    """a for logging, and whether both branches of the step were taken
+    (some a clamped at 1/8, some a trace ratio below it)."""
+    shown = [round(x, 5) for x in a.tolist()[:4]]
+    return f"a = {shown}...", bool((a == 0.125).any() and (a < 0.125).any())
+
+
+def _true_norm(mat, mode):
+    """Spectral norm of each matrix: the top eigenvalue (spd), or the root
+    of the top eigenvalue of R^T R (skew)."""
+    m = mat.float()
+    if mode == "spd":
+        return torch.linalg.eigvalsh(m)[:, -1]
+    return torch.linalg.eigvalsh(m.mT @ m)[:, -1].clamp(min=0).sqrt()
+
+
+# Tolerances of a route or a split stage against its plain version.  f32:
+# the same arithmetic in another order, 1e-4 (Frobenius-relative q', L).
+# bf16: the kernels round the bounds' thin operands to bf16 where the plain
+# chains keep f32, 1e-2 on q' and 2e-2 on L.
+ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def check_ns(dev) -> dict:
+    """The single route (GPT-2's widths) against its plain version; the
+    norm bound (L' - term2 with L = 0) at most 1.001 x the true norm."""
     row = None
-    gen = torch.Generator(device=dev).manual_seed(11)
     for b, n, dtype in ((12, 768, torch.bfloat16), (1, 1024, torch.bfloat16),
                         (2, 768, torch.float32)):
-        m = 3 * n
-        x = torch.randn((b, n, m), generator=gen, device=dev)
-        term1 = (x @ x.transpose(1, 2) / m).to(dtype)
-        a = 1e-2 * torch.randn((b, n, n), generator=gen, device=dev)
-        q = (torch.eye(n, device=dev) + a).to(dtype)
-        lips = torch.zeros(b, device=dev)
-        term2 = torch.full((b,), 1.0, device=dev)
-        seeds = torch.randint(-2**31, 2**31 - 1, (b, 2), generator=gen,
-                              device=dev, dtype=torch.int64).to(torch.int32)
-        args = (term1, q, lips, term2, seeds, 0.1, 0.9)
+        args = _ns_problem(b, n, dtype, 11, dev) + (0.1, 0.9)
+        assert kernels.ns_route(n, dtype) == "single"
         qk, lk = kernels.fused_ns_update(*args, k=128)
         qp, lp = kernels.fused_ns_update_plain(*args, k=128)
         torch.cuda.synchronize()
         if not (torch.isfinite(qk.float()).all() and torch.isfinite(lk).all()):
             raise AssertionError(f"NS kernel {b}x{n} {dtype}: non-finite output")
-        q_err = ((qk.float() - qp.float()).norm() / qp.float().norm()).item()
-        l_err = ((lk - lp).abs() / lp.abs()).max().item()
-        true = torch.linalg.eigvalsh(term1.float())[:, -1]
-        ratio = ((lk - term2) / true).max().item()
-        tol_q, tol_l = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2e-2)
-        max_abs = (qk.float() - qp.float()).abs().max().item()
-        log(f"ns {b}x{n}x{n} {dtype}: q rel err {q_err:.2e} (tol {tol_q}), "
-            f"L rel err {l_err:.2e} (tol {tol_l}), bound/true max "
+        q_err, l_err = _rel(qk, qp), ((lk - lp).abs() / lp.abs()).max().item()
+        ratio = ((lk - args[3]) / _true_norm(args[0], "spd")).max().item()
+        tol_q, tol_l = ROUTE_TOL[dtype]
+        max_abs = _max_abs(qk, qp)
+        log(f"ns single {b}x{n}x{n} {dtype}: q rel err {q_err:.2e} (tol "
+            f"{tol_q}), L rel err {l_err:.2e} (tol {tol_l}), bound/true max "
             f"{ratio:.5f}, max abs err {max_abs:.3e}")
         if q_err > tol_q or l_err > tol_l or ratio > 1.001:
             raise AssertionError(f"NS kernel {b}x{n} {dtype} disagrees with "
@@ -183,19 +290,208 @@ def check_ns(dev) -> dict:
         ms_plain = cuda_ms(lambda: kernels.fused_ns_update_plain(*args, k=128),
                            5, 1)
         k = width_norm_k(128, n)
-        flops = b * (6 * n ** 3 + 8 * 2 * k * n * n)
+        # three n x n x n products, two bounds of four thin k x n x n each
+        flops = b * (6 * n ** 3 + 16 * k * n * n)
         size = torch.finfo(dtype).bits // 8
-        nbytes = b * (3 * n * n * size + 3 * 4)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-        bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"
+        bound, by = bound_ms(flops, b * (3 * n * n * size + 3 * 4), peak)
         log(f"  kernel {ms:.3f} ms  plain {ms_plain:.3f} ms  bound "
             f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP)  kernel rate "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
-        if row is None:   # the main path's stacked shape
+        if row is None:   # the GPT-2 path's stacked shape
             row = dict(ms=ms, plain_ms=ms_plain, bound_ms=bound, bound_by=by,
-                       max_abs_err=max_abs)
+                       max_abs_err=max_abs, library_ms=None)
     return row
+
+
+def check_routes(dev) -> None:
+    """The split and tiled routes, chosen by the width rule, against their
+    plain versions at LLaMA-1.1B's widths in bf16 and at the routes' f32
+    widths, with ROUTE_TOL; each spd bound at most 1.001 x the true norm.
+    Each problem takes both branches of the procrustes step (``_ns_problem``),
+    read from the plain pieces on the plain q1."""
+    for route, b, n, dtype in (("split", 22, 2048, torch.bfloat16),
+                               ("tiled", 22, 2560, torch.bfloat16),
+                               ("split", 2, 1536, torch.float32),
+                               ("tiled", 2, 2048, torch.float32)):
+        if kernels.ns_route(n, dtype) != route:
+            raise AssertionError(f"{n} {dtype} routes to "
+                                 f"{kernels.ns_route(n, dtype)}, not {route}")
+        args = _ns_problem(b, n, dtype, n, dev) + (0.1, 0.9)
+        kernels.reset_launch_counts()
+        qk, lk = kernels.fused_ns_update(*args, k=128)
+        used = {f.__name__: f.launches for f in
+                kernels.SPLIT_KERNELS + kernels.TILED_KERNELS if f.launches}
+        qp, lp = kernels.fused_ns_update_plain(*args, k=128)
+        shown, both = _branches(_step_a(kernels.ns_step_plain(*args, k=128)[0],
+                                        args[4]))
+        torch.cuda.synchronize()
+        if not (torch.isfinite(qk.float()).all() and torch.isfinite(lk).all()):
+            raise AssertionError(f"{route} {b}x{n} {dtype}: non-finite output")
+        q_err, l_err = _rel(qk, qp), ((lk - lp).abs() / lp.abs()).max().item()
+        ratio = ((lk - args[3]) / _true_norm(args[0], "spd")).max().item()
+        tol_q, tol_l = ROUTE_TOL[dtype]
+        ms = cuda_ms(lambda: kernels.fused_ns_update(*args, k=128), 3, 1)
+        ms_plain = cuda_ms(lambda: kernels.fused_ns_update_plain(*args, k=128),
+                           2, 1)
+        log(f"ns {route} {b}x{n}x{n} {dtype}: launches {used}; q rel err "
+            f"{q_err:.2e} (tol {tol_q}), L rel err {l_err:.2e} (tol {tol_l}), "
+            f"bound/true max {ratio:.5f}, max abs err {_max_abs(qk, qp):.3e}, "
+            f"{shown}; route {ms:.2f} ms, plain {ms_plain:.2f} ms")
+        if q_err > tol_q or l_err > tol_l or ratio > 1.001 or not both:
+            raise AssertionError(f"{route} route {b}x{n} {dtype} disagrees "
+                                 "with the plain version")
+        del args, qk, qp
+        torch.cuda.empty_cache()
+
+
+def _within_order(got, ref) -> bool:
+    """Products accumulated in f32 in another order: within 1e-5 of the
+    largest entry, plus one unit in the last place of each bf16 entry (a
+    reordered sum may round to the neighbouring bf16 value)."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    r = ref.float()
+    tol = ulp * r.abs() + 1e-5 * r.abs().max()
+    return bool(((got.float() - r).abs() <= tol).all())
+
+
+def _row(ms, plain_ms, flops, nbytes, peak, err, library_ms=None):
+    bound, by = bound_ms(flops, nbytes, peak)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=library_ms)
+
+
+def _log_row(name, shape, row):
+    lib = "" if row["library_ms"] is None else \
+        f"  library {row['library_ms']:.3f} ms"
+    log(f"  {name} {shape}: kernel {row['ms']:.3f} ms  plain "
+        f"{row['plain_ms']:.3f} ms{lib}  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})  max abs err {row['max_abs_err']:.3e}")
+
+
+def check_split(dev, b, n, dtype, timed) -> dict:
+    """ns_step and procrustes alone against their plain versions (procrustes
+    on the kernel's q1): q1 to f32 accumulation order (``_within_order``),
+    L' and q' with ROUTE_TOL; the procrustes step takes both branches."""
+    term1, q, lips, term2, seeds = _ns_problem(b, n, dtype, 3 * n, dev)
+    step = lambda: kernels.ns_step(term1, q, lips, term2, seeds, 0.1, 0.9, k=128)
+    step_p = lambda: kernels.ns_step_plain(term1, q, lips, term2, seeds, 0.1,
+                                           0.9, k=128)
+    (q1, lk), (q1p, lp) = step(), step_p()
+    proc = lambda: kernels.procrustes(q1, seeds, k=128)
+    proc_p = lambda: kernels.procrustes_plain(q1, seeds, k=128)
+    qk, qp = proc(), proc_p()
+    shown, both = _branches(_step_a(q1, seeds))
+    torch.cuda.synchronize()
+    tol_q, tol_l = ROUTE_TOL[dtype]
+    q1_ok = _within_order(q1, q1p)
+    errs = (_rel(q1, q1p), ((lk - lp).abs() / lp.abs()).max().item(), _rel(qk, qp))
+    log(f"split stages {b}x{n}x{n} {dtype}: ns_step q1 to accumulation order "
+        f"{q1_ok} (rel err {errs[0]:.2e}), L rel err {errs[1]:.2e} (tol "
+        f"{tol_l}); procrustes q' rel err {errs[2]:.2e} (tol {tol_q}), {shown}")
+    if not q1_ok or errs[1] > tol_l or errs[2] > tol_q or not both or \
+            q1.dtype != dtype or qk.dtype != dtype:
+        raise AssertionError(f"split stages {b}x{n} {dtype} disagree with "
+                             "their plain versions")
+    if not timed:
+        return {}
+    k, size, shape = width_norm_k(128, n), 2, (b, n, n)
+    rows = {
+        "ns_step": _row(cuda_ms(step, 3, 1), cuda_ms(step_p, 2, 1),
+                        b * (2 * n ** 3 + 8 * k * n * n), b * 3 * n * n * size,
+                        PEAK_BF16, _max_abs(q1, q1p),
+                        cuda_ms(lambda: torch.bmm(term1, q), 5)),
+        "procrustes": _row(cuda_ms(proc, 3, 1), cuda_ms(proc_p, 2, 1),
+                           b * (4 * n ** 3 + 8 * k * n * n), b * 2 * n * n * size,
+                           PEAK_BF16, _max_abs(qk, qp)),
+    }
+    for name, row in rows.items():
+        _log_row(name, shape, row)
+    return rows
+
+
+def check_tiled(dev, b, n, dtype, timed) -> dict:
+    """The five tiled pieces alone against their plain versions, chained as
+    the route chains them: norm_bound within 1e-5 of the plain bound (the
+    same start, the same storage-dtype energies) and at most 1.001 x the
+    true norm (spd and skew); tiled_step and scaled_matmul_trace to f32
+    accumulation order (``_within_order``), traces within 1e-4 of the sum of
+    |diagonal| (they cancel); tsub and combine bit for bit, with a step that
+    takes both branches."""
+    term1, q, lips, term2, seeds = _ns_problem(b, n, dtype, 5 * n, dev)
+    bad = []
+
+    def bound_check(mat, mode, tag):
+        bk = kernels.norm_bound(mat, seeds, mode, tag, k=128)
+        bp = kernels.norm_bound_plain(mat, seeds, mode, tag, k=128)
+        rel = ((bk - bp).abs() / bp).max().item()
+        ratio = (bk / _true_norm(mat, mode)).max().item()
+        log(f"  norm_bound {mode}: rel err vs plain {rel:.2e} (tol 1e-5), "
+            f"bound/true max {ratio:.5f}")
+        if rel > 1e-5 or ratio > 1.001:
+            bad.append(f"norm_bound {mode}")
+        return bk, bp
+
+    bk, bp = bound_check(term1, "spd", 0)
+    coeff = (0.1 / (bk + term2)).contiguous()
+    q1 = kernels.tiled_step(term1, q, coeff, term2)
+    q1p = kernels.tiled_step_plain(term1, q, coeff, term2)
+    r = kernels.tsub(q1)
+    rp = kernels.tsub_plain(q1)
+    rk, _ = bound_check(r, "skh", kernels.SKH_TAG)
+    inv = 1.0 / (rk + torch.finfo(torch.float32).tiny)
+    (rq, tr), (rqp, trp) = (kernels.scaled_matmul_trace(r, q1, inv),
+                            kernels.scaled_matmul_trace_plain(r, q1, inv))
+    rrq, tr2 = kernels.scaled_matmul_trace(r, rq, inv)
+    a = kernels.step_size(tr, tr2)
+    out = kernels.combine(q1, rq, rrq, a)
+    outp = kernels.combine_plain(q1, rq, rrq, a)
+    torch.cuda.synchronize()
+    shown, both = _branches(a)
+    scale = torch.diagonal(r.float() @ q1.float(), dim1=-2,
+                           dim2=-1).abs().sum(-1) * inv
+    tr_err = ((tr - trp).abs() / scale).max().item()
+    checks = {"tiled_step": _within_order(q1, q1p), "tsub": torch.equal(r, rp),
+              "scaled_matmul_trace": _within_order(rq, rqp) and tr_err <= 1e-4,
+              "combine": torch.equal(out, outp), "both step branches": both}
+    log(f"tiled pieces {b}x{n}x{n} {dtype}: {checks}; trace err / sum|diag| "
+        f"{tr_err:.2e}; {shown}")
+    bad += [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tiled pieces {b}x{n} {dtype} disagree with "
+                             f"their plain versions: {bad}")
+    if not timed:
+        return {}
+    k, size, nn, shape = width_norm_k(128, n), 2, n * n, (b, n, n)
+    rows = {
+        "norm_bound": _row(
+            cuda_ms(lambda: kernels.norm_bound(term1, seeds, "spd", 0, k=128), 5),
+            cuda_ms(lambda: kernels.norm_bound_plain(term1, seeds, "spd", 0,
+                                                     k=128), 2, 1),
+            b * 8 * k * nn, b * (nn * size + 4), PEAK_BF16, _max_abs(bk, bp)),
+        "tiled_step": _row(
+            cuda_ms(lambda: kernels.tiled_step(term1, q, coeff, term2), 3, 1),
+            cuda_ms(lambda: kernels.tiled_step_plain(term1, q, coeff, term2), 2, 1),
+            b * 2 * n ** 3, b * 3 * nn * size, PEAK_BF16, _max_abs(q1, q1p),
+            cuda_ms(lambda: torch.bmm(term1, q), 5)),
+        "tsub": _row(
+            cuda_ms(lambda: kernels.tsub(q1), 10),
+            cuda_ms(lambda: kernels.tsub_plain(q1), 3, 1),
+            0, b * 2 * nn * size, PEAK_BF16, 0.0,
+            cuda_ms(lambda: torch.sub(q1.mT, q1), 10)),
+        "scaled_matmul_trace": _row(
+            cuda_ms(lambda: kernels.scaled_matmul_trace(r, q1, inv), 3, 1),
+            cuda_ms(lambda: kernels.scaled_matmul_trace_plain(r, q1, inv), 2, 1),
+            b * 2 * n ** 3, b * 3 * nn * size, PEAK_BF16, _max_abs(rq, rqp),
+            cuda_ms(lambda: torch.bmm(r, q1), 5)),
+        "combine": _row(
+            cuda_ms(lambda: kernels.combine(q1, rq, rrq, a), 10),
+            cuda_ms(lambda: kernels.combine_plain(q1, rq, rrq, a), 3, 1),
+            0, b * 4 * nn * size, PEAK_BF16, 0.0),
+    }
+    for name, row in rows.items():
+        _log_row(name, shape, row)
+    return rows
 
 
 def _train_tiny(device, steps: int = 3):
@@ -236,22 +532,15 @@ def check_small_path(dev) -> None:
                              "path on a small input")
 
 
-def main_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
-    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
-    model = gpt2.GPT2(cfg, device=dev, seed=0)
-    tokens, targets = gpt2.synthetic_lm_batch(
-        torch.Generator().manual_seed(1), 4, cfg.block_size, cfg.vocab_size,
-        device=dev)
-    opt = KronWhiten(
-        model.named_parameters(), lr=1e-3 / 4, weight_decay=0.01,
-        momentum=0.9, whiten_grad=False, preconditioner_max_skew=2.0,
-        preconditioner_init_scale=1.0,
-        preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
-        preconditioner_dtype=torch.bfloat16, momentum_dtype=torch.bfloat16,
-        norm_k=128, scanned_layers=gpt2.scanned_layers_mask(model), device=dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"main path: GPT-2 124M ({n_params / 1e6:.1f}M params), batch 4 x "
-        f"{cfg.block_size}, bf16 compute, KronWhiten bench configuration")
+def _median(xs):
+    return round(sorted(xs)[len(xs) // 2], 2) if xs else None
+
+
+def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
+          per_fit, card) -> dict:
+    """Train on one fixed batch, with the launch counts reset just before
+    and read just after; check finite, falling loss and the launch counts
+    per fit step.  Returns the counts."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -260,7 +549,7 @@ def main_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = gpt2.loss_gpt2(model, tokens, targets)
+        loss = loss_fn(model, tokens, targets)
         loss.backward()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -277,34 +566,79 @@ def main_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
             f"  optimizer {opt_ms[-1]:.1f} ms")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fits = sum(fitted)
-    launches = {"fused_ns_update": kernels.fused_ns_update.launches,
-                "damped_noise": kernels.damped_noise.launches}
-    log(f"  fit steps {fits}; launches {launches}; peak memory {peak_gb:.2f} GB")
+    launches = {name: getattr(kernels, name).launches for name in per_fit}
+    log(f"  {label}: fit steps {fits}; launches {launches}; peak memory "
+        f"{peak_gb:.2f} GB")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    if launches["fused_ns_update"] != NS_PER_FIT_STEP * fits or \
-            launches["damped_noise"] != NOISE_PER_FIT_STEP * fits or fits == 0:
-        raise AssertionError(f"launch counts {launches} for {fits} fit steps")
+        raise AssertionError(f"{label}: loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    if fits == 0 or any(launches[k] != n * fits for k, n in per_fit.items()):
+        raise AssertionError(f"{label}: launch counts {launches} for {fits} "
+                             f"fit steps, expected {per_fit} per fit step")
     fit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if f]
     nofit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if not f]
-    log(f"  [{card}] optimizer step (median, first step excluded): fit "
-        f"{_median(fit_opt)} ms, no fit {_median(nofit_opt)} ms")
-    log(f"  [{card}] train step (median): p=1.0 "
+    log(f"  [{card}] {label} optimizer step (median, first step excluded): "
+        f"fit {_median(fit_opt)} ms, no fit {_median(nofit_opt)} ms")
+    log(f"  [{card}] {label} train step (median): p=1.0 "
         f"{_median(step_ms[1:steps_p1])} ms, p=0.1 "
         f"{_median(step_ms[steps_p1:])} ms; peak memory {peak_gb:.2f} GB")
-    return launches, (model, opt, tokens, targets)
+    return launches
+
+
+def _bench_opt(model, mask, steps_p1, dev):
+    """KronWhiten in the bench configuration (bench.py:170-177,
+    tools/bench_llama.py:108-114)."""
+    return KronWhiten(
+        model.named_parameters(), lr=1e-3 / 4, weight_decay=0.01,
+        momentum=0.9, whiten_grad=False, preconditioner_max_skew=2.0,
+        preconditioner_init_scale=1.0,
+        preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
+        preconditioner_dtype=torch.bfloat16, momentum_dtype=torch.bfloat16,
+        norm_k=128, scanned_layers=mask, device=dev)
+
+
+def gpt2_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), 4, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    opt = _bench_opt(model, gpt2.scanned_layers_mask(model), steps_p1, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"GPT-2 124M ({n_params / 1e6:.1f}M params), batch 4 x "
+        f"{cfg.block_size}, bf16 compute, KronWhiten bench configuration")
+    launches = train("GPT-2 124M", model, gpt2.loss_gpt2, opt, tokens,
+                     targets, steps_p1, steps_p01, GPT2_PER_FIT, card)
+    return launches, (model, gpt2.loss_gpt2, opt, tokens, targets)
+
+
+def llama_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
+    cfg = llama.llama_1b(compute_dtype=torch.bfloat16)
+    model = llama.Llama(cfg, device=dev, seed=0)
+    tokens, targets = llama.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), 1, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    opt = _bench_opt(model, llama.scanned_layers_mask(model), steps_p1, dev)
+    log(f"LLaMA-1.1B ({llama.count_params(model) / 1e6:.1f}M params, "
+        f"{cfg.n_layer} x {cfg.n_embd}, GQA {cfg.n_head}q/{cfg.n_kv_head}kv, "
+        f"SwiGLU {cfg.hidden_dim}, vocab {cfg.vocab_size}), batch 1 x "
+        f"{cfg.block_size}, bf16 compute, f32 params, KronWhiten "
+        f"bench_llama configuration")
+    launches = train("LLaMA-1.1B", model, llama.loss_llama, opt, tokens,
+                     targets, steps_p1, steps_p01, LLAMA_PER_FIT, card)
+    return launches, (model, llama.loss_llama, opt, tokens, targets)
 
 
 _NS_KERNELS = ("gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
-               "transpose_sub_kernel", "combine_kernel")
+               "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
 
 
 def _category(kernel: str) -> str:
     if any(k in kernel for k in _NS_KERNELS):
-        return "NS update chain (ours)"
+        return "NS update kernels (ours)"
     if "noise_kernel" in kernel:
         return "noise (ours)"
     if "nvjet" in kernel or "gemm" in kernel.lower() or "cutlass" in kernel:
@@ -316,24 +650,24 @@ def _category(kernel: str) -> str:
     return "PyTorch elementwise and copies"
 
 
-def profile_steps(state, card: str) -> None:
-    """Where one training step's device time goes, for a fit step (p = 1)
-    and a step without a fit (p = 0), from torch.profiler's CUDA kernel
-    events.  The full tables go to the git-ignored output directory."""
-    from pathlib import Path
+def profile_steps(label, state, card: str, probs) -> None:
+    """Where one training step's device time goes, for each update
+    probability in ``probs`` (1: a fit step, 0: none), from
+    torch.profiler's CUDA kernel events.  The full tables go to the
+    git-ignored OUT_DIR."""
     from torch.profiler import ProfilerActivity, profile
-    model, opt, tokens, targets = state
-    out_dir = Path(__file__).resolve().parent / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
+    model, loss_fn, opt, tokens, targets = state
+    OUT_DIR.mkdir(exist_ok=True)
     group = opt.param_groups[0]
-    for label, prob in (("fit step (p=1)", 1.0), ("no-fit step (p=0)", 0.0)):
+    for prob in probs:
+        what = "fit step (p=1)" if prob else "no-fit step (p=0)"
         group["preconditioner_update_probability"] = prob
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             opt.zero_grad(set_to_none=True)
-            gpt2.loss_gpt2(model, tokens, targets).backward()
+            loss_fn(model, tokens, targets).backward()
             opt.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -346,27 +680,23 @@ def profile_steps(state, card: str) -> None:
                   for e in kern}
         total_ms = sum(t for t, _ in dev_us.values()) / 1e3
         if total_ms == 0.0:
-            log(f"  profile {label}: the profiler saw no device time")
+            log(f"  profile {label} {what}: the profiler saw no device time")
             continue
         cats = {}
         for k, (t, c) in dev_us.items():
-            cat = _category(k)
-            tt, cc = cats.get(cat, (0.0, 0))
-            cats[cat] = (tt + t, cc + c)
-        log(f"  [{card}] profile {label}: wall {wall_ms:.1f} ms (profiler "
-            f"on), kernels {total_ms:.1f} ms, device idle share "
+            tt, cc = cats.get(_category(k), (0.0, 0))
+            cats[_category(k)] = (tt + t, cc + c)
+        log(f"  [{card}] profile {label} {what}: wall {wall_ms:.1f} ms "
+            f"(profiler on), kernels {total_ms:.1f} ms, device idle share "
             f"{max(0.0, 1 - total_ms / wall_ms):.2f}")
         for cat, (t, c) in sorted(cats.items(), key=lambda x: -x[1][0]):
             log(f"    {t / 1e3:8.2f} ms  {c:5d} launches  {cat}")
-        fname = out_dir / f"chip_smoke_profile_{'fit' if prob else 'nofit'}.txt"
+        tag = label.split()[0].lower().replace("-", "")
+        fname = OUT_DIR / f"chip_smoke_profile_{tag}_{'fit' if prob else 'nofit'}.txt"
         with open(fname, "w") as fh:
-            fh.write(f"{card}\n{label}\n")
+            fh.write(f"{card}\n{label} {what}\n")
             for k, (t, c) in sorted(dev_us.items(), key=lambda x: -x[1][0]):
                 fh.write(f"{t / 1e3:10.3f} ms {c:6d}  {k}\n")
-
-
-def _median(xs):
-    return round(sorted(xs)[len(xs) // 2], 2) if xs else None
 
 
 def main() -> int:
@@ -376,30 +706,43 @@ def main() -> int:
     # full float32 products in every plain version and in the model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase("build")
     build()
-    noise = check_noise(dev)
-    ns = check_ns(dev)
+    phase("kernels against their plain versions")
+    rows = {"damped_noise": check_noise(dev), "fused_ns_update": check_ns(dev)}
+    check_routes(dev)
+    rows.update(check_split(dev, 22, 2048, torch.bfloat16, timed=True))
+    check_split(dev, 2, 1536, torch.float32, timed=False)
+    rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True))
+    check_tiled(dev, 2, 2048, torch.float32, timed=False)
+    torch.cuda.empty_cache()
+    phase("small path")
     check_small_path(dev)
-    launches, state = main_path(dev, smi)
-    profile_steps(state, smi)
-    log(smi)
-    rows = [
-        dict(name="fused_ns_update", route="cuda",
-             source="psgd_torch_tpu_torch/ops/csrc/ns_update.cu",
-             replaces="psgd_torch_tpu/ops/pallas_kernels.py:142",
-             launches=launches["fused_ns_update"],
-             max_abs_err=ns["max_abs_err"], ms=ns["ms"],
-             plain_ms=ns["plain_ms"], bound_ms=ns["bound_ms"],
-             bound_by=ns["bound_by"], library_ms=None),
-        dict(name="damped_noise", route="cuda",
-             source="psgd_torch_tpu_torch/ops/csrc/noise.cu",
-             replaces="psgd_torch_tpu/ops/pallas_kernels.py:626",
-             launches=launches["damped_noise"],
-             max_abs_err=noise["max_abs_err"], ms=noise["ms"],
-             plain_ms=noise["plain_ms"], bound_ms=noise["bound_ms"],
-             bound_by="bytes", library_ms=None),
-    ]
-    print(json.dumps({"kernels": rows}), flush=True)
+    phase("GPT-2 124M path")
+    launches = {k: 0 for k in rows}
+    counted, state = gpt2_path(dev, smi)
+    for k, v in counted.items():
+        launches[k] += v
+    profile_steps("GPT-2 124M", state, smi, (1.0, 0.0))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("LLaMA-1.1B path")
+    counted, state = llama_path(dev, smi)
+    for k, v in counted.items():
+        launches[k] += v
+    profile_steps("LLaMA-1.1B", state, smi, (1.0,))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("done")
+    out = [dict(name=k, route="cuda", source=SRC + src, replaces=f"{TPU}{line}",
+                launches=launches[k], **rows[k]) for k, src, line in ROWS]
+    for row in out:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was launched on no path")
+    print(json.dumps({"kernels": out}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,12 +2,12 @@
 
 The package mirrors the JAX package's layout (``ops``, ``precond``,
 ``optim``, ``models``).  It imports torch, numpy and the standard library
-only.  Entry points (``models.gpt2.GPT2``, ``optim.KronWhiten``,
-``models.gpt2.synthetic_lm_batch``) run on the CUDA device unless the
-caller passes ``device="cpu"``; without a card they raise instead of
-falling back.  On CUDA tensors the two hot-path kernels
-(``ops.kernels.fused_ns_update`` and ``ops.kernels.damped_noise``) are
-hand-written CUDA C++ for sm_90a, built with nvcc at first use.
+only.  Entry points (``models.gpt2.GPT2``, ``models.llama.Llama``,
+``optim.KronWhiten``, ``models.gpt2.synthetic_lm_batch``) run on the CUDA
+device unless the caller passes ``device="cpu"``; without a card they
+raise instead of falling back.  On CUDA tensors the hot-path kernels
+(``ops.kernels``: the Newton-Schulz update's three routes and the damping
+noise) are hand-written CUDA C++ for sm_90a, built with nvcc at first use.
 """
 
 from __future__ import annotations

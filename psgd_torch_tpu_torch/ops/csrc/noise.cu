@@ -19,22 +19,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
 #include "philox.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 template <typename T, bool kFused>
 __global__ void noise_kernel(const T* __restrict__ g, T* __restrict__ out,
@@ -55,12 +43,12 @@ __global__ void noise_kernel(const T* __restrict__ g, T* __restrict__ out,
       if (e >= per_batch) break;
       const float v = __fmul_rn(__fsub_rn(psgd::float_in_1_2(words[t]), 1.5f), scale);
       if (kFused) {
-        const float vr = round_to(v, out);
-        const float gv = load_f(g, base + e);
+        const float vr = psgd::stored<T>(v);
+        const float gv = psgd::ld(g, base + e);
         const float d = __fadd_rn(damping, __fmul_rn(eps, fabsf(gv)));
-        store_f(out, base + e, __fadd_rn(gv, __fmul_rn(d, vr)));
+        psgd::st(out, base + e, __fadd_rn(gv, __fmul_rn(d, vr)));
       } else {
-        store_f(out, base + e, v);
+        psgd::st(out, base + e, v);
       }
     }
   }

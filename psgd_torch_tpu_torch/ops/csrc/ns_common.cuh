@@ -1,0 +1,387 @@
+// Device code shared by the Newton-Schulz (NS) update kernels: block
+// reductions, the tiled FFMA GEMM with its epilogues, the
+// subspace-iteration norm bound, the transpose-subtract and the scratch
+// layout of the bound.  Included by ns_update.cu (the single and split
+// routes) and ns_tiled.cu (the tiled route); each includes it once, so the
+// anonymous namespace gives each translation unit its own instances.
+//
+// Bound on the H100 of every GEMM here: operations.  The GEMM is simple
+// and right first: a 64 x 64 output tile per block, 16-deep k slices
+// through shared memory, 4 x 4 outputs per thread, FFMA with f32
+// accumulation, batched over the layer stack with blockIdx.z.  No tensor
+// cores, no TMA: it sits far below the bf16 tensor-core bound.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "dtypes.cuh"
+#include "philox.cuh"
+
+namespace {
+
+constexpr float kTiny = 1.17549435e-38f;  // finfo(float32).tiny, as the plain versions
+constexpr uint32_t kSkhTag = 0x5BD1E995u;  // separates the skew bound's stream
+constexpr int kTile = 64, kDepth = 16, kThreads = 256;
+enum Mode { kSpd = 0, kSkh = 1 };
+// GEMM epilogues (den is a per-batch scalar on the device):
+//   kDiv:      C = acc / den[b]
+//   kStep:     C = Q - den[b] * (acc - term2[b] * Q)      (den = lr / L')
+//   kDivTrace: C = acc / den[b], diagonal partial sums to trace[b, tile]
+//   kMulTrace: C = acc * den[b], diagonal partial sums to trace[b, tile]
+enum Epilogue { kDiv = 0, kStep = 1, kDivTrace = 2, kMulTrace = 3 };
+// What bound_scalars_kernel writes from the bound s * max(norms):
+//   kOutLips:  ell = bound + term2, L' = max(beta L + (1 - beta) ell, ell)
+//              to lips_out and lr / L' to out
+//   kOutDen:   bound + tiny (the divisor of R)
+//   kOutBound: the bound itself
+enum ScalarOut { kOutLips = 0, kOutDen = 1, kOutBound = 2 };
+
+using psgd::bf16_round;
+using psgd::ld;
+using psgd::st;
+using psgd::stored;
+
+// Block-wide reductions for blockDim.x a multiple of 32 (<= 1024).
+__device__ float block_sum(float v, float* sh) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += sh[w];
+  return t;
+}
+
+__device__ float block_max(float v, float* sh) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  float t = -INFINITY;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t = fmaxf(t, sh[w]);
+  return t;
+}
+
+// C[b] = epilogue(A[b] (M x K) @ B[b] (K x N)), all row-major, C stored as
+// TC (f32 or Q's dtype; the trace partials come from the f32 values before
+// that rounding).  kRound rounds both operands to bf16 (the bf16-Q
+// precision of the TPU kernels' _dot).
+template <typename TA, typename TB, typename TC, bool kRound>
+__global__ void __launch_bounds__(kThreads)
+gemm_kernel(const TA* __restrict__ A, const TB* __restrict__ Bm,
+            TC* __restrict__ C, int M, int N, int K, int epi,
+            const float* __restrict__ den, const float* __restrict__ term2,
+            float* __restrict__ trace) {
+  __shared__ float As[kDepth][kTile + 4];  // As[k][m]
+  __shared__ float Bs[kDepth][kTile + 4];  // Bs[k][n]
+  __shared__ float diag[kTile];
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const long long a_off = (long long)b * M * K, b_off = (long long)b * K * N,
+                  c_off = (long long)b * M * N;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kDepth) {
+    for (int i = tid; i < kTile * kDepth; i += kThreads) {
+      const int mm = i / kDepth, kk = i % kDepth;
+      const int gm = m0 + mm, gk = k0 + kk;
+      float v = (gm < M && gk < K) ? ld(A, a_off + (long long)gm * K + gk) : 0.f;
+      As[kk][mm] = kRound ? bf16_round(v) : v;
+    }
+    for (int i = tid; i < kDepth * kTile; i += kThreads) {
+      const int kk = i / kTile, nn = i % kTile;
+      const int gk = k0 + kk, gn = n0 + nn;
+      float v = (gk < K && gn < N) ? ld(Bm, b_off + (long long)gk * N + gn) : 0.f;
+      Bs[kk][nn] = kRound ? bf16_round(v) : v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const bool traced = epi == kDivTrace || epi == kMulTrace;
+  const bool tile_has_diag = traced && (m0 == n0);
+  if (tile_has_diag && tid < kTile) diag[tid] = 0.f;
+  __syncthreads();
+  const float d = den[b];
+  const float t2 = (epi == kStep) ? term2[b] : 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gm < M && gn < N) {
+        const long long idx = (long long)gm * N + gn;
+        float v = acc[i][j];
+        if (epi == kStep) {
+          const float q = ld(Bm, b_off + idx);  // the step's right operand is Q
+          v = q - d * (v - t2 * q);
+        } else {
+          v = (epi == kMulTrace) ? v * d : v / d;
+          if (tile_has_diag && gm == gn) diag[gm - m0] = v;
+        }
+        st(C, c_off + idx, v);
+      }
+    }
+  }
+  if (tile_has_diag) {
+    __syncthreads();
+    if (tid == 0) {
+      float t = 0.f;
+      for (int i = 0; i < kTile; ++i) t += diag[i];
+      trace[b * gridDim.y + blockIdx.y] = t;
+    }
+  }
+}
+
+// Per row r of A[b]: energy = sum a^2, and rowval = a[r][r] (spd) or
+// max_c |a[r][c]| (skh).  kStoredEnergy takes the energy in the storage
+// type T, as the TPU's tiled bound does: each square rounded to T, the sum
+// accumulated in f32 and rounded to T.  grid (n, B).
+template <typename T, bool kStoredEnergy>
+__global__ void row_stats_kernel(const T* __restrict__ A, int n, int mode,
+                                 float* __restrict__ energy,
+                                 float* __restrict__ rowval) {
+  __shared__ float sh[32];
+  const int r = blockIdx.x, b = blockIdx.y;
+  const long long row = ((long long)b * n + r) * n;
+  float e = 0.f, mx = 0.f;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const float v = ld(A, row + c);
+    e = kStoredEnergy ? e + stored<T>(v * v) : fmaf(v, v, e);
+    mx = fmaxf(mx, fabsf(v));
+  }
+  e = block_sum(e, sh);
+  mx = block_max(mx, sh);
+  if (threadIdx.x == 0) {
+    energy[(long long)b * n + r] = kStoredEnergy ? stored<T>(e) : e;
+    rowval[(long long)b * n + r] = (mode == kSpd) ? ld(A, row + r) : mx;
+  }
+}
+
+// Per batch: s = max rowval + tiny, j = first row of maximal energy.  grid (B).
+__global__ void select_kernel(const float* __restrict__ energy,
+                              const float* __restrict__ rowval, int n,
+                              float* __restrict__ s, int* __restrict__ j) {
+  __shared__ float sv[256];
+  __shared__ float se[256];
+  __shared__ int si[256];
+  const int b = blockIdx.x, t = threadIdx.x;
+  float vmax = -INFINITY, emax = -INFINITY;
+  int eidx = n;
+  for (int r = t; r < n; r += blockDim.x) {
+    const float v = rowval[(long long)b * n + r], e = energy[(long long)b * n + r];
+    vmax = fmaxf(vmax, v);
+    if (e > emax) { emax = e; eidx = r; }
+  }
+  sv[t] = vmax; se[t] = emax; si[t] = eidx;
+  __syncthreads();
+  for (int o = blockDim.x / 2; o > 0; o >>= 1) {
+    if (t < o) {
+      sv[t] = fmaxf(sv[t], sv[t + o]);
+      const float e2 = se[t + o];
+      const int i2 = si[t + o];
+      if (e2 > se[t] || (e2 == se[t] && i2 < si[t])) { se[t] = e2; si[t] = i2; }
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    s[b] = sv[0] + kTiny;
+    j[b] = si[0] < n ? si[0] : 0;
+  }
+}
+
+// Subspace start row r: v = a_j/s + sgn(<a_j/s, u>) u with u uniform(-1, 1)
+// from Philox keyed by the batch element's seed words (word 1 ^ tag).
+// grid (k, B); out is (B, k, n) f32.
+template <typename T>
+__global__ void start_kernel(const T* __restrict__ A, const float* __restrict__ s,
+                             const int* __restrict__ j,
+                             const uint32_t* __restrict__ seeds, uint32_t tag,
+                             int n, float* __restrict__ out) {
+  __shared__ float sh[32];
+  const int r = blockIdx.x, b = blockIdx.y, k = gridDim.x;
+  const uint32_t k0 = seeds[2 * b], k1 = seeds[2 * b + 1] ^ tag;
+  const long long arow = ((long long)b * n + j[b]) * n;
+  const float sb = s[b];
+  float dot = 0.f;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const float u = (psgd::float_in_1_2(psgd::philox_word(k0, k1, (long long)r * n + c)) - 1.5f) * 2.0f;
+    dot = fmaf(ld(A, arow + c) / sb, u, dot);
+  }
+  dot = block_sum(dot, sh);
+  const float sg = dot > 0.f ? 1.f : (dot < 0.f ? -1.f : 0.f);
+  float* o = out + ((long long)b * k + r) * n;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const float u = (psgd::float_in_1_2(psgd::philox_word(k0, k1, (long long)r * n + c)) - 1.5f) * 2.0f;
+    o[c] = ld(A, arow + c) / sb + sg * u;
+  }
+}
+
+// Row norms of V (B, k, n) into norms (B, k); with normalize, V's rows are
+// divided by (norm + tiny) in place.  grid (k, B).
+__global__ void row_norm_kernel(float* __restrict__ V, int n, int normalize,
+                                float* __restrict__ norms) {
+  __shared__ float sh[32];
+  const int r = blockIdx.x, b = blockIdx.y, k = gridDim.x;
+  float* row = V + ((long long)b * k + r) * n;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) ss = fmaf(row[c], row[c], ss);
+  const float nrm = sqrtf(block_sum(ss, sh));
+  if (normalize) {
+    const float dn = nrm + kTiny;
+    for (int c = threadIdx.x; c < n; c += blockDim.x) row[c] = row[c] / dn;
+  }
+  if (threadIdx.x == 0) norms[(long long)b * k + r] = nrm;
+}
+
+// bound = s * max_r norms, then what ScalarOut says.  One thread per batch
+// element.
+__global__ void bound_scalars_kernel(const float* __restrict__ norms, int k,
+                                     const float* __restrict__ s, int batch,
+                                     int what, const float* __restrict__ term2,
+                                     const float* __restrict__ lips, float lr,
+                                     float beta, float one_minus_beta,
+                                     float* __restrict__ lips_out,
+                                     float* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  float m = 0.f;
+  for (int r = 0; r < k; ++r) m = fmaxf(m, norms[(long long)b * k + r]);
+  const float bound = s[b] * m;
+  if (what == kOutLips) {
+    const float ell = bound + term2[b];
+    const float L = fmaxf(beta * lips[b] + one_minus_beta * ell, ell);
+    lips_out[b] = L;
+    out[b] = lr / L;
+  } else {
+    out[b] = (what == kOutDen) ? bound + kTiny : bound;
+  }
+}
+
+// R = Q1^T - Q1 through a 32 x 33 shared tile: one f32 subtraction
+// (__fsub_rn), one rounding to TO.  grid (tiles, tiles, B), block (32, 8).
+template <typename TI, typename TO>
+__global__ void transpose_sub_kernel(const TI* __restrict__ Q1, int n,
+                                     TO* __restrict__ R) {
+  __shared__ float tile[32][33];
+  const int b = blockIdx.z, bx = blockIdx.x * 32, by = blockIdx.y * 32;
+  const long long off = (long long)b * n * n;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int r = bx + i, c = by + tx;
+    if (r < n && c < n) tile[i][tx] = ld(Q1, off + (long long)r * n + c);
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int r = by + i, c = bx + tx;
+    if (r < n && c < n) {
+      const long long idx = off + (long long)r * n + c;
+      st(R, idx, __fsub_rn(tile[tx][i], ld(Q1, idx)));
+    }
+  }
+}
+
+inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+template <typename TA, typename TB, typename TC, bool kRound>
+void gemm(const TA* A, const TB* Bm, TC* C, int M, int N, int K, int batch,
+          int epi, const float* den, const float* term2, float* trace,
+          cudaStream_t s) {
+  const dim3 grid(cdiv(N, kTile), cdiv(M, kTile), batch);
+  gemm_kernel<TA, TB, TC, kRound><<<grid, kThreads, 0, s>>>(A, Bm, C, M, N, K, epi,
+                                                            den, term2, trace);
+}
+
+template <typename TI, typename TO>
+void transpose_sub(const TI* Q1, TO* R, int B, int n, cudaStream_t s) {
+  transpose_sub_kernel<TI, TO><<<dim3(cdiv(n, 32), cdiv(n, 32), B), dim3(32, 8), 0, s>>>(
+      Q1, n, R);
+}
+
+// Scratch is carved from one float buffer, each piece 64-aligned; with a
+// null base only the size is counted.
+struct Carver {
+  float* base;
+  long long off = 0;
+  explicit Carver(float* b) : base(b) {}
+  float* take(long long count) {
+    float* p = base ? base + off : nullptr;
+    off += (count + 63) / 64 * 64;
+    return p;
+  }
+};
+
+// The norm bound's scratch: normalizer, argmax row, row statistics, the
+// (B, k, n) iterates and their row norms.
+struct BoundWs {
+  float *s, *energy, *rowval, *v, *w, *norms;
+  int* j;
+};
+
+inline BoundWs carve_bound(Carver& c, int B, int n, int k) {
+  BoundWs ws;
+  ws.s = c.take(B);
+  ws.j = reinterpret_cast<int*>(c.take(B));
+  ws.energy = c.take((long long)B * n);
+  ws.rowval = c.take((long long)B * n);
+  ws.v = c.take((long long)B * k * n);
+  ws.w = c.take((long long)B * k * n);
+  ws.norms = c.take((long long)B * k);
+  return ws;
+}
+
+// Subspace-iteration norm bound of A (B, n, n) held in its storage type TA:
+// leaves the normalizer s in ws.s and the final row norms in ws.norms, so
+// bound = s * max(norms).  The normalizer divides each thin product (not
+// the matrix, which is never copied): each row normalization is
+// scale-invariant, so this is the same bound.
+template <typename TA, bool kRound, bool kStoredEnergy>
+void norm_bound(const TA* A, int B, int n, int k, int mode,
+                const uint32_t* seeds, uint32_t tag, const BoundWs& ws,
+                cudaStream_t st) {
+  row_stats_kernel<TA, kStoredEnergy><<<dim3(n, B), 128, 0, st>>>(A, n, mode, ws.energy,
+                                                                  ws.rowval);
+  select_kernel<<<B, 256, 0, st>>>(ws.energy, ws.rowval, n, ws.s, ws.j);
+  start_kernel<TA><<<dim3(k, B), 256, 0, st>>>(A, ws.s, ws.j, seeds, tag, n, ws.v);
+  // two half-iterations: v = v A/s; v /= |v|; v = v A/s   (twice)
+  gemm<float, TA, float, kRound>(ws.v, A, ws.w, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, n, 1, ws.norms);
+  gemm<float, TA, float, kRound>(ws.w, A, ws.v, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
+  gemm<float, TA, float, kRound>(ws.v, A, ws.w, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, n, 1, ws.norms);
+  gemm<float, TA, float, kRound>(ws.w, A, ws.v, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.v, n, 0, ws.norms);
+}
+
+inline void bound_scalars(const BoundWs& ws, int B, int k, int what,
+                          const float* term2, const float* lips, float lr, float beta,
+                          float one_minus_beta, float* lips_out, float* out,
+                          cudaStream_t st) {
+  bound_scalars_kernel<<<cdiv(B, 128), 128, 0, st>>>(ws.norms, k, ws.s, B, what, term2,
+                                                      lips, lr, beta, one_minus_beta,
+                                                      lips_out, out);
+}
+
+}  // namespace

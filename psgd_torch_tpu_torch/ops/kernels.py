@@ -1,12 +1,24 @@
 """The hand-written Hopper kernels of the PSGD hot path, their plain PyTorch
 versions, and the build that makes them.
 
-Counterpart of psgd_torch_tpu/ops/pallas_kernels.py.  Two kernels carry the
-Kron whitening main path:
+Counterpart of psgd_torch_tpu/ops/pallas_kernels.py, all nine of its
+kernels:
 
-* ``fused_ns_update`` (csrc/ns_update.cu) -- the whole Q0.5EQ1.5 dense-factor
-  update (spd norm bound, L and lr/L, the q1 step, the Procrustes rotation),
-  batched over a layer stack.  Replaces ``fused_ns_update``/``_ns_kernel``.
+* ``fused_ns_update`` -- the Q0.5EQ1.5 dense-factor update (spd norm bound,
+  L and lr/L, the q1 step, the Procrustes rotation), batched over a layer
+  stack.  It routes by factor width and dtype as the JAX package does
+  (``ns_route``), because the routes store their intermediates
+  differently in bf16:
+
+  - ``"single"`` (csrc/ns_update.cu): one chain with q1, R, RQ and RRQ in
+    f32.  Replaces ``_ns_kernel``.
+  - ``"split"``: ``ns_step`` then ``procrustes`` (csrc/ns_update.cu), q1
+    stored in Q's dtype between them.  Replaces ``_ns_step_kernel`` and
+    ``_procrustes_kernel`` of ``_split_ns_update``.
+  - ``"tiled"``: ``norm_bound``, ``tiled_step``, ``tsub``,
+    ``scaled_matmul_trace`` (twice) and ``combine`` (csrc/ns_tiled.cu), q1,
+    R, RQ and RRQ stored in Q's dtype.  Replaces the five kernels of
+    ``_tiled_ns_update``.
 * ``damped_noise`` and ``unit_noise`` (csrc/noise.cu) -- per-batch-seeded
   Philox4x32-10 uniform(-sqrt3, sqrt3) noise, alone or fused into the
   whitening damping g + (damping + eps|g|) v.  Replaces
@@ -15,7 +27,7 @@ Kron whitening main path:
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
 Each wrapper counts its launches in a plain integer attribute
-(``fused_ns_update.launches`` and so on).
+(``ns_step.launches`` and so on); a route counts nothing itself.
 
 Build: at first use, nvcc compiles every ``csrc/*.cu`` for sm_90a (one
 process per source, all started together) and links them into one shared
@@ -34,11 +46,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from .linalg import norm_lower_bound_spd, procrustes_step2, width_norm_k
+from .linalg import (compute_dtype_of, lifted_real_dtype, norm_bound_stored,
+                     norm_lower_bound_spd, procrustes_step2, width_norm_k)
 from .philox import UNIT_SCALE, seed_words_u32, unit_uniform
 
 NORM_K = 32
@@ -47,6 +61,13 @@ SKH_TAG = 0x5BD1E995  # xored into seed word 1 for the skew bound's stream
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MODE_CODE = {"spd": 0, "skh": 1}
+
+# Width caps of the JAX package's NS routes (pallas_kernels.py:215-218 and
+# :552-553): the single route up to the first, the split up to the second,
+# the tiled up to the third; n a multiple of 128.
+NS_CAPS = {torch.bfloat16: (1536, 2048, 4096), torch.float32: (1280, 1536, 3072)}
+NS_ROUTES = ("single", "split", "tiled")
 
 
 # ---------------------------------------------------------------------------
@@ -106,13 +127,27 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.psgd_noise.argtypes = [vp, vp, vp, i32, i64, i32, i32, f32, f32, f32, vp]
-    lib.psgd_noise.restype = i32
-    lib.psgd_ns_workspace_bytes.argtypes = [i32, i32, i32]
-    lib.psgd_ns_workspace_bytes.restype = i64
-    lib.psgd_ns_update.argtypes = [vp] * 8 + [i32, i32, i32, i32, f32, f32, f32,
-                                              f32, vp]
-    lib.psgd_ns_update.restype = i32
+    signatures = {
+        "psgd_noise": ([vp, vp, vp, i32, i64, i32, i32, f32, f32, f32, vp], i32),
+        "psgd_ns_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_ns_update": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, f32, vp],
+                           i32),
+        "psgd_ns_step_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_ns_step": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, vp], i32),
+        "psgd_procrustes_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_procrustes": ([vp] * 4 + [i32, i32, i32, i32, f32, vp], i32),
+        "psgd_bound_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_norm_bound": ([vp] * 4 + [i32, i32, i32, i32, i32, ctypes.c_uint,
+                                        vp], i32),
+        "psgd_tiled_step": ([vp] * 5 + [i32, i32, i32, vp], i32),
+        "psgd_tsub": ([vp, vp, i32, i32, i32, vp], i32),
+        "psgd_smm_workspace_bytes": ([i32, i32], i64),
+        "psgd_scaled_matmul_trace": ([vp] * 6 + [i32, i32, i32, vp], i32),
+        "psgd_tiled_combine": ([vp] * 5 + [i32, i32, i32, vp], i32),
+    }
+    for name, (args, res) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
     return lib
 
 
@@ -136,6 +171,37 @@ def _require(t: torch.Tensor, name: str, device, dtypes, shape=None) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _require_stack(x: torch.Tensor, name: str):
+    """Check a (B, n, n) f32/bf16 CUDA stack; returns (device, B, n)."""
+    if x.ndim != 3 or x.shape[1] != x.shape[2]:
+        raise ValueError(f"{name} must be a (B, n, n) stack, not {tuple(x.shape)}")
+    b, n = x.shape[0], x.shape[-1]
+    _require(x, name, x.device, _DTYPE_CODE, (b, n, n))
+    return x.device, b, n
+
+
+def _require_scalars(dev, b, **named) -> None:
+    """Check (B,) float32 per-batch scalars."""
+    for name, t in named.items():
+        _require(t, name, dev, (torch.float32,), (b,))
+
+
+def _no_start(start) -> None:
+    if start is not None:
+        raise ValueError("pre-drawn starts are taken by the plain version "
+                         "only; the kernel draws its own from seeds")
+
+
+def _workspace(nbytes: int, dev) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _counted(fn):
+    """Give a wrapper its launch counter."""
+    fn.launches = 0
+    return fn
 
 
 def key_seed_words(keys, device) -> torch.Tensor:
@@ -187,6 +253,7 @@ def _noise_launch(g, out, seeds, fused, damping, eps):
     _check(err, "psgd_noise")
 
 
+@_counted
 def unit_noise(seeds: torch.Tensor, shape, dtype) -> torch.Tensor:
     """(B,)+shape white noise; element i's stream is a pure function of
     seeds[i] (two 32-bit words).  CUDA: one kernel launch."""
@@ -202,9 +269,7 @@ def unit_noise(seeds: torch.Tensor, shape, dtype) -> torch.Tensor:
     return out
 
 
-unit_noise.launches = 0
-
-
+@_counted
 def damped_noise(g: torch.Tensor, seeds: torch.Tensor,
                  damping: float) -> torch.Tensor:
     """g + (damping + eps(dtype)|g|) v for a stack g (B, ...), v white noise
@@ -220,69 +285,88 @@ def damped_noise(g: torch.Tensor, seeds: torch.Tensor,
     return out
 
 
-damped_noise.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# NS update (replaces pallas_kernels.fused_ns_update / _ns_kernel)
+# NS update: routing
 # ---------------------------------------------------------------------------
 
 
-def _tagged(seeds: torch.Tensor) -> torch.Tensor:
+def ns_route(n: int, dtype: torch.dtype) -> str:
+    """The NS route the JAX package takes for a factor of width n and
+    ``dtype`` (``fused_ns_update`` :164-176 with ``ns_update_supported``):
+    "single" up to the first cap of ``NS_CAPS``, "split" up to the second,
+    "tiled" up to the third.  Above the caps, for n not a multiple of 128,
+    and for other dtypes it is "single", whose plain version is exactly the
+    XLA tail (``kron._ns_tail_stacked_xla``) the JAX package runs there.
+
+    The routes are not only memory layouts: in bf16 they store q1 (split)
+    or q1, R, RQ and RRQ (tiled) in Q's dtype where the single route keeps
+    them in f32, so each width computes what the JAX package computes for
+    it."""
+    caps = NS_CAPS.get(dtype)
+    if caps is None or n % 128 or not caps[0] < n <= caps[2]:
+        return "single"
+    return "split" if n <= caps[1] else "tiled"
+
+
+def _tagged(seeds: torch.Tensor, tag: int = SKH_TAG) -> torch.Tensor:
     s = seed_words_u32(seeds)
-    return torch.stack([s[:, 0], s[:, 1] ^ SKH_TAG], dim=1)
+    return torch.stack([s[:, 0], s[:, 1] ^ tag], dim=1)
 
 
-def fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
-                          max_step=1 / 8, k=NORM_K, starts=None):
-    """The ``_ns_tail_stacked_xla`` math (psgd_torch_tpu/precond/kron.py),
-    batched, in float64 for f64 Q and float32 otherwise.
-
-    ``starts`` = (spd start, skh start), pre-drawn (B, k', n) subspace
-    starts with k' = width_norm_k(k, n); without them the starts are drawn
-    from Philox keyed by ``seeds`` (and ``seeds`` ^ tag for the skew bound),
-    the kernel's bits.  Returns (q' in q's dtype, L' in lips' dtype)."""
-    cd = torch.float64 if q.dtype == torch.float64 else torch.float32
-    n = q.shape[-1]
-    k = width_norm_k(k, n)
-    t1, f = term1.to(cd), q.to(cd)
-    t2 = term2.to(cd)
-    v_spd, v_skh = starts if starts is not None else (None, None)
-    ell = norm_lower_bound_spd(t1, seeds, k=k, v0=v_spd) + t2
-    ell = ell.to(lips.dtype)
+def _lips_update(bound, lips, term2, lr, beta_l):
+    """ell = bound + term2, L' = max(betaL L + (1 - betaL) ell, ell) in L's
+    dtype, and coeff = lr / L'."""
+    ell = (bound + term2).to(lips.dtype)
     lip = torch.maximum(beta_l * lips + (1.0 - beta_l) * ell, ell)
-    coeff = (lr / lip).to(cd)[:, None, None]
-    fq = f - coeff * (t1 @ f - t2[:, None, None] * f)
-    fq = procrustes_step2(fq, max_step, norm_k=k, seeds=_tagged(seeds),
-                          v0=v_skh)
-    return fq.to(q.dtype), lip
+    return lip, lr / lip
 
 
-def fused_ns_update(term1, q, lips, term2, seeds, lr, beta_l,
-                    max_step=1 / 8, k=NORM_K, starts=None):
-    """Batched Q0.5EQ1.5 dense-factor update.
+def _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start):
+    """ell, L' and q1 = q - lr/L' (term1 q - term2 q), computed in f32 (f64
+    for f64 Q) and not yet stored."""
+    cd = compute_dtype_of(q.dtype)
+    n = q.shape[-1]
+    t1, f, t2 = term1.to(cd), q.to(cd), term2.to(cd)
+    bound = norm_lower_bound_spd(t1, seeds, k=width_norm_k(k, n), v0=start)
+    lip, coeff = _lips_update(bound, lips, t2, lr, beta_l)
+    q1 = f - coeff.to(cd)[:, None, None] * (t1 @ f - t2[:, None, None] * f)
+    return q1, lip
 
-    term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32
-    Philox seed words.  Returns (new q (B, n, n) in q's dtype, new L (B,)).
-    On CUDA: one chain of kernel launches, no host sync; ``starts`` (the
-    plain version's replay hook) is refused there."""
+
+def _procrustes_plain(q1, seeds, max_step, k, start):
+    return procrustes_step2(q1, max_step, norm_k=width_norm_k(k, q1.shape[-1]),
+                            seeds=_tagged(seeds), v0=start)
+
+
+# ---------------------------------------------------------------------------
+# the single route (replaces pallas_kernels._ns_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
+                  k=NORM_K, starts=None):
+    """The ``_ns_tail_stacked_xla`` math (psgd_torch_tpu/precond/kron.py),
+    batched, in float64 for f64 Q and float32 otherwise, q1 kept unrounded."""
+    v_spd, v_skh = starts if starts is not None else (None, None)
+    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd)
+    return _procrustes_plain(q1, seeds, max_step, k, v_skh).to(q.dtype), lip
+
+
+def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
+            starts=None):
+    """The single route on CUDA: one chain of launches (counted as
+    ``fused_ns_update.launches``)."""
     if q.device.type == "cpu":
-        return fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
-                                     max_step, k, starts)
-    if starts is not None:
-        raise ValueError("pre-drawn starts are taken by the plain version "
-                         "only; the kernel draws its own from seeds")
-    dev = q.device
-    b, n = q.shape[0], q.shape[-1]
-    _require(q, "q", dev, _DTYPE_CODE, (b, n, n))
+        return _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step,
+                             k, starts)
+    _no_start(starts)
+    dev, b, n = _require_stack(q, "q")
     _require(term1, "term1", dev, (q.dtype,), (b, n, n))
-    _require(lips, "lips", dev, (torch.float32,), (b,))
-    _require(term2, "term2", dev, (torch.float32,), (b,))
+    _require_scalars(dev, b, lips=lips, term2=term2)
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
-    ws = torch.empty(lib.psgd_ns_workspace_bytes(b, n, kk), dtype=torch.uint8,
-                     device=dev)
+    ws = _workspace(lib.psgd_ns_workspace_bytes(b, n, kk), dev)
     q_out = torch.empty_like(q)
     lips_out = torch.empty_like(lips)
     with torch.cuda.device(dev):
@@ -296,9 +380,325 @@ def fused_ns_update(term1, q, lips, term2, seeds, lr, beta_l,
     return q_out, lips_out
 
 
-fused_ns_update.launches = 0
+# ---------------------------------------------------------------------------
+# the split route (replaces pallas_kernels._split_ns_update)
+# ---------------------------------------------------------------------------
+
+
+def ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K,
+                  start=None):
+    """Split stage 1: (q1 stored in Q's dtype, L')."""
+    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start)
+    return q1.to(q.dtype), lip
+
+
+@_counted
+def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None):
+    """Split stage 1 (replaces ``_ns_step_kernel``): the spd bound of term1,
+    L' = max(betaL L + (1 - betaL) ell, ell) with ell = bound + term2, and
+    q1 = q - lr/L' (term1 q - term2 q) stored in Q's dtype.
+
+    term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32.
+    Returns (q1 (B, n, n), L' (B,)).  CUDA: one chain of launches."""
+    if q.device.type == "cpu":
+        return ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start)
+    _no_start(start)
+    dev, b, n = _require_stack(q, "q")
+    _require(term1, "term1", dev, (q.dtype,), (b, n, n))
+    _require_scalars(dev, b, lips=lips, term2=term2)
+    _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
+    kk = width_norm_k(k, n)
+    lib = library()
+    ws = _workspace(lib.psgd_ns_step_workspace_bytes(b, n, kk), dev)
+    q1 = torch.empty_like(q)
+    lips_out = torch.empty_like(lips)
+    with torch.cuda.device(dev):
+        err = lib.psgd_ns_step(
+            term1.data_ptr(), q.data_ptr(), lips.data_ptr(), term2.data_ptr(),
+            seeds.data_ptr(), q1.data_ptr(), lips_out.data_ptr(), ws.data_ptr(),
+            b, n, kk, _DTYPE_CODE[q.dtype], float(lr), float(beta_l),
+            1.0 - float(beta_l), _stream(dev))
+    _check(err, "psgd_ns_step")
+    ns_step.launches += 1
+    return q1, lips_out
+
+
+def procrustes_plain(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
+    """Split stage 2: procrustes_step2 of the stored q1, in f32 (f64)."""
+    f = q1.to(compute_dtype_of(q1.dtype))
+    return _procrustes_plain(f, seeds, max_step, k, start).to(q1.dtype)
+
+
+@_counted
+def procrustes(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
+    """Split stage 2 (replaces ``_procrustes_kernel``): procrustes_step2 of
+    q1 (B, n, n), its skew bound keyed by seed word 1 ^ 0x5BD1E995; R, RQ
+    and RRQ in f32, q' in q1's dtype.  CUDA: one chain of launches."""
+    if q1.device.type == "cpu":
+        return procrustes_plain(q1, seeds, max_step, k, start)
+    _no_start(start)
+    dev, b, n = _require_stack(q1, "q1")
+    _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
+    kk = width_norm_k(k, n)
+    lib = library()
+    ws = _workspace(lib.psgd_procrustes_workspace_bytes(b, n, kk), dev)
+    out = torch.empty_like(q1)
+    with torch.cuda.device(dev):
+        err = lib.psgd_procrustes(
+            q1.data_ptr(), seeds.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+            n, kk, _DTYPE_CODE[q1.dtype], float(max_step), _stream(dev))
+    _check(err, "psgd_procrustes")
+    procrustes.launches += 1
+    return out
+
+
+def _split_route(ops, term1, q, lips, term2, seeds, lr, beta_l, max_step, k,
+                 starts):
+    v_spd, v_skh = starts if starts is not None else (None, None)
+    q1, lip = ops.ns_step(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd)
+    return ops.procrustes(q1, seeds, max_step, k, v_skh), lip
+
+
+# ---------------------------------------------------------------------------
+# the tiled route (replaces pallas_kernels._tiled_ns_update)
+# ---------------------------------------------------------------------------
+
+
+def norm_bound_plain(mat, seeds, mode="spd", tag=0, k=NORM_K, start=None):
+    """The bound on a matrix stack in its storage dtype
+    (``linalg.norm_bound_stored``), start keyed by seed word 1 ^ tag."""
+    return norm_bound_stored(mat, mode, seeds=_tagged(seeds, tag), k=k,
+                             v0=start).to(lifted_real_dtype(mat.dtype))
+
+
+@_counted
+def norm_bound(mat, seeds, mode="spd", tag=0, k=NORM_K, start=None):
+    """Spectral-norm lower bound of each matrix of ``mat`` (B, n, n) read in
+    its storage dtype (replaces ``_tiled_bound_kernel``): normalizer max
+    diagonal (``mode="spd"``) or max |a| (``"skh"``), the subspace start
+    keyed by ``seeds`` (B, 2) with word 1 ^ ``tag``.  Returns (B,) float32.
+    CUDA: one chain of launches."""
+    if mat.device.type == "cpu":
+        return norm_bound_plain(mat, seeds, mode, tag, k, start)
+    _no_start(start)
+    dev, b, n = _require_stack(mat, "mat")
+    _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
+    kk = width_norm_k(k, n)
+    lib = library()
+    ws = _workspace(lib.psgd_bound_workspace_bytes(b, n, kk), dev)
+    out = torch.empty(b, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.psgd_norm_bound(
+            mat.data_ptr(), seeds.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+            n, kk, _DTYPE_CODE[mat.dtype], _MODE_CODE[mode], tag, _stream(dev))
+    _check(err, "psgd_norm_bound")
+    norm_bound.launches += 1
+    return out
+
+
+def tiled_step_plain(step, q, coeff, term2):
+    """q - coeff (step q - term2 q), products of the stored operands
+    accumulated in f32 (f64), stored in Q's dtype."""
+    cd = compute_dtype_of(q.dtype)
+    f = q.to(cd)
+    prod = step.to(cd) @ f
+    c, t2 = coeff.to(cd)[:, None, None], term2.to(cd)[:, None, None]
+    return (f - c * (prod - t2 * f)).to(q.dtype)
+
+
+@_counted
+def tiled_step(step, q, coeff, term2):
+    """q1 = q - coeff (step q - term2 q) for stacks step, q (B, n, n) and
+    per-batch coeff, term2 (B,) float32, stored in Q's dtype (replaces
+    ``_tiled_step_kernel``).  CUDA: one GEMM launch."""
+    if q.device.type == "cpu":
+        return tiled_step_plain(step, q, coeff, term2)
+    dev, b, n = _require_stack(q, "q")
+    _require(step, "step", dev, (q.dtype,), (b, n, n))
+    _require_scalars(dev, b, coeff=coeff, term2=term2)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = library().psgd_tiled_step(
+            step.data_ptr(), q.data_ptr(), coeff.data_ptr(), term2.data_ptr(),
+            out.data_ptr(), b, n, _DTYPE_CODE[q.dtype], _stream(dev))
+    _check(err, "psgd_tiled_step")
+    tiled_step.launches += 1
+    return out
+
+
+def tsub_plain(x):
+    """x^T - x: one subtraction in f32 (f64), one rounding to x's dtype."""
+    cd = compute_dtype_of(x.dtype)
+    return (x.mT.to(cd) - x.to(cd)).to(x.dtype)
+
+
+@_counted
+def tsub(x):
+    """R = x^T - x for a stack x (B, n, n), in x's dtype (replaces
+    ``_tiled_tsub_kernel``).  CUDA: one launch."""
+    if x.device.type == "cpu":
+        return tsub_plain(x)
+    dev, b, n = _require_stack(x, "x")
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        err = library().psgd_tsub(x.data_ptr(), out.data_ptr(), b, n,
+                                  _DTYPE_CODE[x.dtype], _stream(dev))
+    _check(err, "psgd_tsub")
+    tsub.launches += 1
+    return out
+
+
+def scaled_matmul_trace_plain(a, b, inv):
+    """((a b) inv stored in a's dtype, its trace from the unrounded values)."""
+    cd = compute_dtype_of(a.dtype)
+    prod = (a.to(cd) @ b.to(cd)) * inv.to(cd)[:, None, None]
+    trace = torch.diagonal(prod, dim1=-2, dim2=-1).sum(-1)
+    return prod.to(a.dtype), trace.to(lifted_real_dtype(a.dtype))
+
+
+@_counted
+def scaled_matmul_trace(a, b, inv):
+    """(a b) * inv for stacks a, b (B, n, n) and inv (B,) float32, stored in
+    a's dtype, with its trace (B,) float32 summed from the f32 product
+    before rounding (replaces ``_tiled_smm_kernel``).  CUDA: one GEMM launch
+    and one fixed-order sum of the diagonal tiles' partials."""
+    if a.device.type == "cpu":
+        return scaled_matmul_trace_plain(a, b, inv)
+    dev, bb, n = _require_stack(a, "a")
+    _require(b, "b", dev, (a.dtype,), (bb, n, n))
+    _require_scalars(dev, bb, inv=inv)
+    lib = library()
+    ws = _workspace(lib.psgd_smm_workspace_bytes(bb, n), dev)
+    out = torch.empty_like(a)
+    trace = torch.empty(bb, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.psgd_scaled_matmul_trace(
+            a.data_ptr(), b.data_ptr(), inv.data_ptr(), out.data_ptr(),
+            trace.data_ptr(), ws.data_ptr(), bb, n, _DTYPE_CODE[a.dtype],
+            _stream(dev))
+    _check(err, "psgd_scaled_matmul_trace")
+    scaled_matmul_trace.launches += 1
+    return out, trace
+
+
+def combine_plain(q1, rq, rrq, a):
+    """q1 + a rq + (a^2 / 2) rrq, left to right, one rounding per f32 (f64)
+    operation, stored in q1's dtype."""
+    cd = compute_dtype_of(q1.dtype)
+    a = a.to(cd)
+    c = ((0.5 * a) * a)[:, None, None]
+    a = a[:, None, None]
+    return (q1.to(cd) + a * rq.to(cd) + c * rrq.to(cd)).to(q1.dtype)
+
+
+@_counted
+def combine(q1, rq, rrq, a):
+    """q' = q1 + a rq + (a^2 / 2) rrq for stacks (B, n, n) in one dtype and
+    the step a (B,) float32 (replaces ``_tiled_combine_kernel``).  CUDA: one
+    launch."""
+    if q1.device.type == "cpu":
+        return combine_plain(q1, rq, rrq, a)
+    dev, b, n = _require_stack(q1, "q1")
+    _require(rq, "rq", dev, (q1.dtype,), (b, n, n))
+    _require(rrq, "rrq", dev, (q1.dtype,), (b, n, n))
+    _require_scalars(dev, b, a=a)
+    out = torch.empty_like(q1)
+    with torch.cuda.device(dev):
+        err = library().psgd_tiled_combine(
+            q1.data_ptr(), rq.data_ptr(), rrq.data_ptr(), a.data_ptr(),
+            out.data_ptr(), b, n, _DTYPE_CODE[q1.dtype], _stream(dev))
+    _check(err, "psgd_tiled_combine")
+    combine.launches += 1
+    return out
+
+
+def _tiled_route(ops, term1, q, lips, term2, seeds, lr, beta_l, max_step, k,
+                 starts):
+    """The six steps of ``_tiled_ns_update``; the scalar glue between them
+    is PyTorch on (B,) tensors on q's device (no host sync)."""
+    v_spd, v_skh = starts if starts is not None else (None, None)
+    bound = ops.norm_bound(term1, seeds, "spd", 0, k, v_spd)
+    lip, coeff = _lips_update(bound, lips, term2, lr, beta_l)
+    q1 = ops.tiled_step(term1, q, coeff, term2)
+    r = ops.tsub(q1)
+    rnorm = ops.norm_bound(r, seeds, "skh", SKH_TAG, k, v_skh)
+    inv = 1.0 / (rnorm + torch.finfo(rnorm.dtype).tiny)
+    rq, tr_rq = ops.scaled_matmul_trace(r, q1, inv)
+    rrq, tr_rrq = ops.scaled_matmul_trace(r, rq, inv)
+    return ops.combine(q1, rq, rrq, step_size(tr_rq, tr_rrq, max_step)), lip
+
+
+def step_size(tr_rq, tr_rrq, max_step=1 / 8):
+    """The procrustes step a = min(-tr RQ / tr RRQ, max_step) where
+    tr RRQ < 0, else max_step; (B,) tensors on their device."""
+    neg = tr_rrq < 0
+    safe = torch.where(neg, tr_rrq, -torch.ones_like(tr_rrq))
+    return torch.where(neg, torch.clamp(-tr_rq / safe, max=max_step),
+                       torch.full_like(tr_rq, max_step))
+
+
+# ---------------------------------------------------------------------------
+# the NS update (replaces pallas_kernels.fused_ns_update)
+# ---------------------------------------------------------------------------
+
+_KERNELS = SimpleNamespace(ns_step=ns_step, procrustes=procrustes,
+                           norm_bound=norm_bound, tiled_step=tiled_step,
+                           tsub=tsub, scaled_matmul_trace=scaled_matmul_trace,
+                           combine=combine)
+_PLAIN = SimpleNamespace(ns_step=ns_step_plain, procrustes=procrustes_plain,
+                         norm_bound=norm_bound_plain, tiled_step=tiled_step_plain,
+                         tsub=tsub_plain,
+                         scaled_matmul_trace=scaled_matmul_trace_plain,
+                         combine=combine_plain)
+
+
+def _dispatch(ops, single, term1, q, lips, term2, seeds, lr, beta_l, max_step,
+              k, starts, route):
+    route = ns_route(q.shape[-1], q.dtype) if route is None else route
+    args = (term1, q, lips, term2, seeds, lr, beta_l, max_step, k, starts)
+    if route == "single":
+        return single(*args)
+    if route == "split":
+        return _split_route(ops, *args)
+    if route == "tiled":
+        return _tiled_route(ops, *args)
+    raise ValueError(f"unknown NS route {route!r}; routes are {NS_ROUTES}")
+
+
+def fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
+                          max_step=1 / 8, k=NORM_K, starts=None, route=None):
+    """The NS update's plain version: each route composed of its pieces'
+    plain versions.
+
+    ``starts`` = (spd start, skh start), pre-drawn (B, k', n) subspace
+    starts with k' = width_norm_k(k, n); without them the starts are drawn
+    from Philox keyed by ``seeds`` (and ``seeds`` ^ tag for the skew bound),
+    the kernels' bits.  Returns (q' in q's dtype, L' in lips' dtype)."""
+    return _dispatch(_PLAIN, _single_plain, term1, q, lips, term2, seeds, lr,
+                     beta_l, max_step, k, starts, route)
+
+
+@_counted
+def fused_ns_update(term1, q, lips, term2, seeds, lr, beta_l,
+                    max_step=1 / 8, k=NORM_K, starts=None, route=None):
+    """Batched Q0.5EQ1.5 dense-factor update.
+
+    term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32
+    Philox seed words.  Returns (new q (B, n, n) in q's dtype, new L (B,)).
+    ``route`` picks "single", "split" or "tiled" explicitly; by default
+    ``ns_route(n, q.dtype)``.  On CUDA every route is kernel launches with
+    no host sync; ``starts`` (the plain versions' replay hook) is refused
+    there.  ``fused_ns_update.launches`` counts the single route's chains;
+    the other routes count in their pieces' counters."""
+    return _dispatch(_KERNELS, _single, term1, q, lips, term2, seeds, lr,
+                     beta_l, max_step, k, starts, route)
+
+
+SPLIT_KERNELS = (ns_step, procrustes)
+TILED_KERNELS = (norm_bound, tiled_step, tsub, scaled_matmul_trace, combine)
 
 
 def reset_launch_counts() -> None:
-    for fn in (fused_ns_update, damped_noise, unit_noise):
+    for fn in (fused_ns_update, damped_noise, unit_noise, *SPLIT_KERNELS,
+               *TILED_KERNELS):
         fn.launches = 0

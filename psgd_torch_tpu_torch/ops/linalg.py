@@ -119,6 +119,55 @@ def norm_lower_bound_skh(a: torch.Tensor, seeds=None, k: int = 32,
                                            v0, seeds))
 
 
+def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """Where a plain version computes for factors of ``dtype``: float64 for
+    float64, float32 for float32 and bfloat16 (the kernels' f32
+    accumulation)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def norm_bound_stored(a: torch.Tensor, mode: str, seeds=None, k: int = 32,
+                      half_iters: int = 2, v0=None) -> torch.Tensor:
+    """The norm lower bound of ``a`` (..., n, n) read in its storage dtype,
+    as the tiled NS route takes it (pallas_kernels._tiled_bound_kernel):
+
+    * the normalizer s (max diagonal for ``mode="spd"``, max |a| for
+      ``"skh"``) divides each thin product instead of the matrix, so no
+      (n, n) copy is made (row normalization is scale-invariant: the same
+      bound as normalizing first);
+    * the start row j has the largest row energy computed in a's dtype
+      (each square rounded, the f32 sum rounded), first index on ties;
+    * the thin iterate is rounded to a's dtype before each product (the
+      TPU ``_dot``), products accumulate in f32 (f64 for f64 a).
+
+    Returns the bound in f32 (f64 for f64 a)."""
+    cd = compute_dtype_of(a.dtype)
+    tiny = _tiny(cd)
+    k = width_norm_k(k, a.shape[-1])
+    if mode == "spd":
+        s = torch.amax(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1).to(cd)
+    elif mode == "skh":
+        s = torch.amax(torch.abs(a), dim=(-2, -1)).to(cd)
+    else:
+        raise ValueError(f"unknown bound mode {mode!r}")
+    s = (s + tiny)[..., None, None]
+    energy = torch.sum((a * a).to(cd), dim=-1).to(a.dtype)
+    j = torch.argmax(energy, dim=-1)
+    am = a.to(cd)
+    aj = torch.take_along_dim(am, j[..., None, None], dim=-2) / s
+    v = _start(am, k, v0, seeds)
+    v = aj + sgn(torch.sum(aj * v, dim=-1, keepdim=True)) * v
+
+    def thin(x):
+        return (x.to(a.dtype).to(cd) @ am) / s
+
+    for _ in range(half_iters):
+        v = thin(v)
+        v = v / (_row_norms(v) + tiny)
+        v = thin(v)
+    return s[..., 0, 0] * torch.amax(_row_norms(v)[..., 0], dim=-1)
+
+
 def _real_trace_f32(m: torch.Tensor) -> torch.Tensor:
     """Real part of the trace, accumulated in at least float32."""
     d = torch.real(torch.diagonal(m, dim1=-2, dim2=-1))

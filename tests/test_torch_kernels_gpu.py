@@ -39,10 +39,14 @@ def test_noise_kernel_bit_exact(dev, dtype):
 
 
 def _ns_inputs(b, n, dev, dtype):
+    """Q's noise is 0.02 on even batch entries and 1e-3 on odd ones, so the
+    procrustes step takes both branches: clamped at 1/8, and the trace
+    ratio (about the norm of Q's skew part)."""
     gen = torch.Generator(device=dev).manual_seed(n)
     a = torch.randn((b, n, n), generator=gen, device=dev)
     term1 = (a @ a.transpose(1, 2) / n + 0.5 * torch.eye(n, device=dev))
-    q = 0.7 * torch.eye(n, device=dev) + 0.02 * torch.randn(
+    noise = torch.tensor([0.02, 1e-3], device=dev).repeat(b)[:b, None, None]
+    q = 0.7 * torch.eye(n, device=dev) + noise * torch.randn(
         (b, n, n), generator=gen, device=dev)
     return (term1.to(dtype), q.to(dtype), torch.zeros(b, device=dev),
             torch.full((b,), 3.0, device=dev), _seeds(b, dev), 0.1, 0.9)
@@ -71,6 +75,108 @@ def test_ns_kernel_matches_plain_bf16(dev):
     assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
 
 
+# f32: the same arithmetic in another order; bf16: the kernels round the
+# bounds' thin operands to bf16 where the plain chains keep f32
+_ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _both_branches(q1, seeds):
+    """Whether the procrustes step of q1, from the plain pieces in f32, is
+    clamped at 1/8 for some matrices and a trace ratio below it for others."""
+    f = q1.float()
+    r = kernels.tsub_plain(f)
+    inv = 1.0 / kernels.norm_bound_plain(r, seeds, "skh", kernels.SKH_TAG, k=128)
+    rq, tr = kernels.scaled_matmul_trace_plain(r, f, inv)
+    a = kernels.step_size(tr, kernels.scaled_matmul_trace_plain(r, rq, inv)[1])
+    return bool((a == 0.125).any() and (a < 0.125).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 384])
+@pytest.mark.parametrize("route", ["split", "tiled"])
+def test_routes_match_plain(dev, route, n, dtype):
+    """Each route at a small width (n = 200 exercises the masked edges):
+    q' within 1e-4 (f32) or 1e-2 (bf16) Frobenius-relative, L within 1e-4
+    or 2e-2, and two runs give the same bits; the procrustes step takes both
+    branches."""
+    args = _ns_inputs(3, n, dev, dtype)
+    assert _both_branches(kernels.ns_step_plain(*args, k=128)[0], args[4])
+    qk, lk = kernels.fused_ns_update(*args, k=128, route=route)
+    qp, lp = kernels.fused_ns_update_plain(*args, k=128, route=route)
+    tol_q, tol_l = _ROUTE_TOL[dtype]
+    assert qk.dtype == dtype and _rel(qk, qp) < tol_q
+    torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
+    qk2, lk2 = kernels.fused_ns_update(*args, k=128, route=route)
+    assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
+
+
+def _one_ulp_or_order(got, ref):
+    """Products accumulated in f32 in another order: within 1e-5 of the
+    largest entry, plus one unit in the last place of each bf16 entry
+    (a reordered sum may round to the neighbouring bf16 value)."""
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - ref.float()).abs()
+    tol = ulp * ref.float().abs() + 1e-5 * ref.float().abs().max()
+    return bool((diff <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 384])
+def test_split_stages_match_plain(dev, n, dtype):
+    """ns_step and procrustes alone, each on the same inputs as its plain
+    version (procrustes on the kernel's q1): q1 to f32 accumulation order,
+    L and q' at the route tolerances."""
+    term1, q, lips, term2, seeds, lr, beta = _ns_inputs(3, n, dev, dtype)
+    q1k, lk = kernels.ns_step(term1, q, lips, term2, seeds, lr, beta, k=128)
+    q1p, lp = kernels.ns_step_plain(term1, q, lips, term2, seeds, lr, beta, k=128)
+    tol_q, tol_l = _ROUTE_TOL[dtype]
+    assert q1k.dtype == dtype and _one_ulp_or_order(q1k, q1p)
+    torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
+    qk = kernels.procrustes(q1k, seeds, k=128)
+    qp = kernels.procrustes_plain(q1k, seeds, k=128)
+    assert qk.dtype == dtype and _rel(qk, qp) < tol_q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [200, 384])
+def test_tiled_pieces_match_plain(dev, n, dtype):
+    """Each tiled piece on the same inputs as its plain version: tsub and
+    combine bit for bit; tiled_step and scaled_matmul_trace to f32
+    accumulation order, traces within 1e-4 of the sum of |diagonal|;
+    norm_bound within 1e-5 of the plain bound (the same start) and at most
+    1.001 x the true norm; combine on a step that takes both branches and on
+    a fixed one."""
+    term1, q, lips, term2, seeds, _, _ = _ns_inputs(3, n, dev, dtype)
+    for mat, mode, tag in ((term1, "spd", 0), (q.mT - q, "skh", kernels.SKH_TAG)):
+        mat = mat.contiguous()
+        bk = kernels.norm_bound(mat, seeds, mode, tag, k=128)
+        bp = kernels.norm_bound_plain(mat, seeds, mode, tag, k=128)
+        torch.testing.assert_close(bk, bp, rtol=1e-5, atol=0)
+        true = torch.linalg.matrix_norm(mat.double(), ord=2)
+        assert (bk.double() <= 1.001 * true).all(), (bk, true)
+    coeff = torch.full((3,), 0.02, device=dev)
+    q1 = kernels.tiled_step(term1, q, coeff, term2)
+    assert _one_ulp_or_order(q1, kernels.tiled_step_plain(term1, q, coeff, term2))
+    r = kernels.tsub(q1)
+    assert torch.equal(r, kernels.tsub_plain(q1))
+    inv = 1.0 / kernels.norm_bound(r, seeds, "skh", kernels.SKH_TAG, k=128)
+    rq, tr = kernels.scaled_matmul_trace(r, q1, inv)
+    rq_p, tr_p = kernels.scaled_matmul_trace_plain(r, q1, inv)
+    assert _one_ulp_or_order(rq, rq_p)
+    scale = torch.diagonal(r.float() @ q1.float(), dim1=-2, dim2=-1).abs().sum(-1) * inv
+    assert ((tr - tr_p).abs() <= 1e-4 * scale).all(), (tr, tr_p)
+    rrq, tr2 = kernels.scaled_matmul_trace(r, rq, inv)
+    a = kernels.step_size(tr, tr2)
+    assert (a == 0.125).any() and (a < 0.125).any(), a
+    for a in (a, torch.tensor([0.125, 0.05, -0.01], device=dev)):
+        assert torch.equal(kernels.combine(q1, rq, rrq, a),
+                           kernels.combine_plain(q1, rq, rrq, a))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     term1, q, lips, term2, seeds, lr, beta = _ns_inputs(1, 64, dev, torch.float32)
     with pytest.raises(ValueError):
@@ -84,5 +190,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                 lr, beta)
     with pytest.raises(TypeError):
         kernels.damped_noise(q.double(), seeds, 1e-9)
+    with pytest.raises(ValueError):
+        kernels.fused_ns_update(term1, q, lips, term2, seeds, lr, beta,
+                                route="monolith")
+    with pytest.raises(ValueError):
+        kernels.ns_step(term1, q, lips, term2, seeds, lr, beta,
+                        start=q[:, :8])
+    with pytest.raises(TypeError):
+        kernels.procrustes(q.double(), seeds)
+    with pytest.raises(ValueError):
+        kernels.norm_bound(q[:, :32], seeds)          # not square
+    with pytest.raises(TypeError):
+        kernels.tiled_step(term1, q.to(torch.bfloat16), lips, term2)
+    with pytest.raises(ValueError):
+        kernels.tsub(q.transpose(1, 2))               # not contiguous
+    with pytest.raises(TypeError):
+        kernels.scaled_matmul_trace(q, q, lips.double())
+    with pytest.raises(ValueError):
+        kernels.combine(q, q, q[:, :32], lips)
     assert np.isfinite(kernels.fused_ns_update(
         term1, q, lips, term2, seeds, lr, beta)[1].cpu().numpy()).all()

@@ -1,5 +1,6 @@
-"""The slice as a whole: the tiny GPT-2 trained by the port's KronWhiten
-against the same model trained by psgd_torch_tpu.optim.kron_whiten."""
+"""The slices as a whole: the tiny GPT-2 and the tiny LLaMA trained by the
+port's KronWhiten against the same models trained by
+psgd_torch_tpu.optim.kron_whiten."""
 
 import jax
 import jax.numpy as jnp
@@ -9,8 +10,11 @@ import pytest
 import torch
 
 import psgd_torch_tpu.optim as jopt
+import test_torch_llama
 from psgd_torch_tpu.models import gpt2 as jg
+from psgd_torch_tpu.models import llama as jl
 from psgd_torch_tpu_torch.models import gpt2 as tg
+from psgd_torch_tpu_torch.models import llama as tl
 from psgd_torch_tpu_torch.optim import KronWhiten
 from test_torch_gpt2 import carried_pair, tokens
 from test_torch_kron import jax_draw
@@ -27,12 +31,23 @@ CONFIGS = {
         momentum=0.0, whiten_grad=True, preconditioner_init_scale=None,
         preconditioner_max_skew=2.0, norm_k=128, weight_decay=0.01,
         weight_decay_mode="classic"),
+    # the tiny LLaMA (GQA, RoPE, SwiGLU, tied head) in the bench configuration
+    "llama_bench_fit_first": dict(BENCH, model="llama"),
+}
+
+# (carried pair, tokens, JAX loss, JAX mask, port loss, port mask) per model
+MODELS = {
+    "gpt2": (carried_pair, tokens, jg.loss_gpt2, jg.scanned_layers_mask,
+             tg.loss_gpt2, tg.scanned_layers_mask),
+    "llama": (test_torch_llama.carried_pair, test_torch_llama.tokens,
+              jl.loss_llama, jl.scanned_layers_mask, tl.loss_llama,
+              tl.scanned_layers_mask),
 }
 
 
-def _port_step(model, opt, x, y):
+def _port_step(model, opt, x, y, loss_fn=tg.loss_gpt2):
     opt.zero_grad()
-    loss = tg.loss_gpt2(model, x, y)
+    loss = loss_fn(model, x, y)
     loss.backward()
     opt.step()
     return loss.item()
@@ -41,26 +56,25 @@ def _port_step(model, opt, x, y):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_three_steps_match_jax(name):
     """f64 parameters and Q on both sides, p = 1.0, the JAX draws replayed.
-    Both models compute float32 logits, so their gradients agree to ~1e-7
+    Both sides of each model compute float32 logits, so their gradients agree to ~1e-7
     relative: parameters within 1e-5 of each leaf's largest entry, Q and L
     within rtol 1e-6."""
-    kw = CONFIGS[name]
-    params, cfgj, model = carried_pair(torch.float64, jnp.float64)
-    x, y = tokens(1)
+    kw = dict(CONFIGS[name])
+    pair, toks, jloss, jmask, tloss, tmask = MODELS[kw.pop("model", "gpt2")]
+    params, cfgj, model = pair(torch.float64, jnp.float64)
+    x, y = toks(1)
     jx, jy = jnp.asarray(x), jnp.asarray(y)
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)
-    jo = jopt.kron_whiten(learning_rate=LR,
-                          scanned_layers=jg.scanned_layers_mask(params), **kw)
+    jo = jopt.kron_whiten(learning_rate=LR, scanned_layers=jmask(params), **kw)
     state = jo.init(params)
-    grad = jax.jit(jax.grad(lambda p: jg.loss_gpt2(p, jx, jy, cfgj)))
+    grad = jax.jit(jax.grad(lambda p: jloss(p, jx, jy, cfgj)))
     update = jax.jit(jo.update)
     to = KronWhiten(model.named_parameters(), lr=LR, device="cpu",
-                    scanned_layers=tg.scanned_layers_mask(model),
-                    draw=jax_draw, **kw)
+                    scanned_layers=tmask(model), draw=jax_draw, **kw)
     for _ in range(3):
         upd, state = update(grad(params), state, params)
         params = optax.apply_updates(params, upd)
-        _port_step(model, to, tx, ty)
+        _port_step(model, to, tx, ty, tloss)
     assert to.fit_steps == 3
     got = dict(model.named_parameters())
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
