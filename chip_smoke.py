@@ -6,7 +6,8 @@
 1. Preflight: find the card (exit non-zero without one), print its name,
    the device count and nvidia-smi's name and power limit.
 2. Build the kernels from psgd_torch_tpu_torch/ops/csrc with nvcc (sm_90a)
-   and print the -Xptxas -v report (registers, shared memory, spills).
+   and print the -Xptxas -v report (registers, shared memory, spills), the
+   tensor-core GEMM's entries one by one.
 3. Hold each kernel against its plain PyTorch version on the same inputs at
    the main paths' shapes, and time kernel, plain version and (where one
    PyTorch call computes the same function or its dominant product) that
@@ -20,7 +21,11 @@
    - each piece of the split and tiled routes alone (``check_split`` and
      ``check_tiled``): transpose-subtract and combine bit for bit, the
      products (ns_step's q1 too) to f32 accumulation order, the tiled bound
-     within 1e-5 of its plain version.
+     within 1e-5 of its plain version.  The two rows on the tensor-core
+     GEMM (``ns_step``, ``scaled_matmul_trace`` in bf16) also log their
+     rate, their share of the bound, ``torch.bmm`` at the same shape and
+     the GEMM's registers and shared memory, and ``ns_step`` its kernels
+     one by one (torch.profiler).
 4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path.
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
@@ -79,6 +84,10 @@ ROWS = (("fused_ns_update", "ns_update.cu", 142),
         ("tsub", "ns_tiled.cu", 436),
         ("scaled_matmul_trace", "ns_tiled.cu", 441),
         ("combine", "ns_tiled.cu", 457))
+# the rows whose bf16 products run on the tensor-core GEMM (ns_gemm_sm90.cuh)
+TC_ROWS = ("ns_step", "scaled_matmul_trace")
+# its epilogues by template argument (ns_common.cuh's Epilogue)
+TC_EPILOGUES = {"0": "kDiv", "1": "kStep", "3": "kMulTrace"}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"  # git-ignored
 T0 = time.perf_counter()
 
@@ -126,15 +135,48 @@ def preflight() -> tuple[str, str]:
     return name, smi
 
 
-def build() -> None:
+def ptxas_entries(report: str) -> dict:
+    """Registers, static shared memory and spill stores of each kernel entry
+    in nvcc's -Xptxas -v report, keyed by its (mangled) name."""
+    entries, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = {"registers": 0, "smem": 0, "spill": 0}
+            continue
+        if name is None:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores", line):
+            entries[name]["spill"] = int(m.group(1))
+        if m := re.search(r"Used (\d+) registers", line):
+            entries[name]["registers"] = int(m.group(1))
+            if s := re.search(r"(\d+) bytes smem", line):
+                entries[name]["smem"] = int(s.group(1))
+    return entries
+
+
+def build() -> list[str]:
     """Build and bind the kernels; summarize nvcc's -Xptxas -v report
-    (the whole report goes to OUT_DIR/chip_smoke_ptxas.txt)."""
+    (the whole report goes to OUT_DIR/chip_smoke_ptxas.txt).  Returns the
+    tensor-core GEMM's lines (registers, shared memory, spills), which its
+    rows log again."""
     t0 = time.perf_counter()
     path, report = kernels.build()
-    kernels.library()
+    lib = kernels.library()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
     if not report:
-        return
+        return []
+    dyn, tc_lines = lib.psgd_tc_gemm_smem_bytes(), []
+    for name, e in ptxas_entries(report).items():
+        if "tc_gemm_kernel" not in name:
+            continue
+        epi = re.search(r"tc_gemm_kernelILi(\d+)E", name)
+        tc_lines.append(
+            f"tc_gemm_kernel<{TC_EPILOGUES.get(epi.group(1) if epi else '', '?')}>: "
+            f"{e['registers']} registers, {e['smem']} bytes static + "
+            f"{dyn} bytes dynamic shared memory, {e['spill']} bytes spill stores")
+        log(f"  ptxas: {tc_lines[-1]}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_ptxas.txt").write_text(report)
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
@@ -146,6 +188,7 @@ def build() -> None:
     for line in report.splitlines():
         if "error" in line.lower() or "warning" in line.lower():
             log(f"  {line.strip()}")
+    return tc_lines
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -361,15 +404,47 @@ def _row(ms, plain_ms, flops, nbytes, peak, err, library_ms=None):
                 max_abs_err=err, library_ms=library_ms)
 
 
-def _log_row(name, shape, row):
+def _log_row(name, shape, row, flops, tc_lines):
     lib = "" if row["library_ms"] is None else \
         f"  library {row['library_ms']:.3f} ms"
     log(f"  {name} {shape}: kernel {row['ms']:.3f} ms  plain "
         f"{row['plain_ms']:.3f} ms{lib}  bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})  max abs err {row['max_abs_err']:.3e}")
+    if name in TC_ROWS:
+        log(f"    tensor cores: {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound, "
+            f"{row['ms'] / row['library_ms']:.2f}x torch.bmm "
+            f"({row['library_ms']:.3f} ms at {shape})")
+        for line in tc_lines:
+            log(f"    {line}")
 
 
-def check_split(dev, b, n, dtype, timed) -> dict:
+def _device_us(event) -> float:
+    return (getattr(event, "self_device_time_total", 0.0) or
+            getattr(event, "self_cuda_time_total", 0.0))
+
+
+def log_kernel_split(name, fn, calls: int = 3) -> None:
+    """Where one call of fn spends its device time: each kernel's ms per
+    call and launches per call, from torch.profiler's CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    total = sum(_device_us(e) for e in kern) / 1e3 / calls
+    log(f"    {name} per call: {total:.3f} ms of kernels")
+    for e in sorted(kern, key=lambda e: -_device_us(e)):
+        short = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+        short = short.split("(")[0]
+        log(f"      {_device_us(e) / 1e3 / calls:8.3f} ms  {e.count // calls:2d}x  {short}")
+
+
+def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     """ns_step and procrustes alone against their plain versions (procrustes
     on the kernel's q1): q1 to f32 accumulation order (``_within_order``),
     L' and q' with ROUTE_TOL; the procrustes step takes both branches."""
@@ -396,21 +471,24 @@ def check_split(dev, b, n, dtype, timed) -> dict:
     if not timed:
         return {}
     k, size, shape = width_norm_k(128, n), 2, (b, n, n)
+    flops = {"ns_step": b * (2 * n ** 3 + 8 * k * n * n),
+             "procrustes": b * (4 * n ** 3 + 8 * k * n * n)}
     rows = {
-        "ns_step": _row(cuda_ms(step, 3, 1), cuda_ms(step_p, 2, 1),
-                        b * (2 * n ** 3 + 8 * k * n * n), b * 3 * n * n * size,
+        "ns_step": _row(cuda_ms(step, 10, 2), cuda_ms(step_p, 2, 1),
+                        flops["ns_step"], b * 3 * n * n * size,
                         PEAK_BF16, _max_abs(q1, q1p),
-                        cuda_ms(lambda: torch.bmm(term1, q), 5)),
+                        cuda_ms(lambda: torch.bmm(term1, q), 10)),
         "procrustes": _row(cuda_ms(proc, 3, 1), cuda_ms(proc_p, 2, 1),
-                           b * (4 * n ** 3 + 8 * k * n * n), b * 2 * n * n * size,
+                           flops["procrustes"], b * 2 * n * n * size,
                            PEAK_BF16, _max_abs(qk, qp)),
     }
     for name, row in rows.items():
-        _log_row(name, shape, row)
+        _log_row(name, shape, row, flops[name], tc_lines)
+    log_kernel_split("ns_step", step)
     return rows
 
 
-def check_tiled(dev, b, n, dtype, timed) -> dict:
+def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     """The five tiled pieces alone against their plain versions, chained as
     the route chains them: norm_bound within 1e-5 of the plain bound (the
     same start, the same storage-dtype energies) and at most 1.001 x the
@@ -480,17 +558,17 @@ def check_tiled(dev, b, n, dtype, timed) -> dict:
             0, b * 2 * nn * size, PEAK_BF16, 0.0,
             cuda_ms(lambda: torch.sub(q1.mT, q1), 10)),
         "scaled_matmul_trace": _row(
-            cuda_ms(lambda: kernels.scaled_matmul_trace(r, q1, inv), 3, 1),
+            cuda_ms(lambda: kernels.scaled_matmul_trace(r, q1, inv), 10, 2),
             cuda_ms(lambda: kernels.scaled_matmul_trace_plain(r, q1, inv), 2, 1),
             b * 2 * n ** 3, b * 3 * nn * size, PEAK_BF16, _max_abs(rq, rqp),
-            cuda_ms(lambda: torch.bmm(r, q1), 5)),
+            cuda_ms(lambda: torch.bmm(r, q1), 10)),
         "combine": _row(
             cuda_ms(lambda: kernels.combine(q1, rq, rrq, a), 10),
             cuda_ms(lambda: kernels.combine_plain(q1, rq, rrq, a), 3, 1),
             0, b * 4 * nn * size, PEAK_BF16, 0.0),
     }
     for name, row in rows.items():
-        _log_row(name, shape, row)
+        _log_row(name, shape, row, b * 2 * n ** 3, tc_lines)
     return rows
 
 
@@ -631,7 +709,7 @@ def llama_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
     return launches, (model, llama.loss_llama, opt, tokens, targets)
 
 
-_NS_KERNELS = ("gemm_kernel", "row_stats_kernel", "select_kernel",
+_NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
                "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
 
@@ -675,9 +753,7 @@ def profile_steps(label, state, card: str, probs) -> None:
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and "#" not in e.key and not e.key.startswith("Optimizer.")]
-        dev_us = {e.key: (getattr(e, "self_device_time_total", 0.0) or
-                          getattr(e, "self_cuda_time_total", 0.0), e.count)
-                  for e in kern}
+        dev_us = {e.key: (_device_us(e), e.count) for e in kern}
         total_ms = sum(t for t, _ in dev_us.values()) / 1e3
         if total_ms == 0.0:
             log(f"  profile {label} {what}: the profiler saw no device time")
@@ -686,9 +762,11 @@ def profile_steps(label, state, card: str, probs) -> None:
         for k, (t, c) in dev_us.items():
             tt, cc = cats.get(_category(k), (0.0, 0))
             cats[_category(k)] = (tt + t, cc + c)
+        ns_ms = cats.get(_category("gemm_kernel"), (0.0, 0))[0] / 1e3
         log(f"  [{card}] profile {label} {what}: wall {wall_ms:.1f} ms "
             f"(profiler on), kernels {total_ms:.1f} ms, device idle share "
-            f"{max(0.0, 1 - total_ms / wall_ms):.2f}")
+            f"{max(0.0, 1 - total_ms / wall_ms):.2f}, NS share of kernel time "
+            f"{ns_ms / total_ms:.3f}")
         for cat, (t, c) in sorted(cats.items(), key=lambda x: -x[1][0]):
             log(f"    {t / 1e3:8.2f} ms  {c:5d} launches  {cat}")
         tag = label.split()[0].lower().replace("-", "")
@@ -707,13 +785,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase("build")
-    build()
+    tc_lines = build()
     phase("kernels against their plain versions")
     rows = {"damped_noise": check_noise(dev), "fused_ns_update": check_ns(dev)}
     check_routes(dev)
-    rows.update(check_split(dev, 22, 2048, torch.bfloat16, timed=True))
+    rows.update(check_split(dev, 22, 2048, torch.bfloat16, timed=True,
+                            tc_lines=tc_lines))
     check_split(dev, 2, 1536, torch.float32, timed=False)
-    rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True))
+    rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True,
+                            tc_lines=tc_lines))
     check_tiled(dev, 2, 2048, torch.float32, timed=False)
     torch.cuda.empty_cache()
     phase("small path")

@@ -2,14 +2,25 @@
 // reductions, the tiled FFMA GEMM with its epilogues, the
 // subspace-iteration norm bound, the transpose-subtract and the scratch
 // layout of the bound.  Included by ns_update.cu (the single and split
-// routes) and ns_tiled.cu (the tiled route); each includes it once, so the
-// anonymous namespace gives each translation unit its own instances.
+// routes) and ns_tiled.cu (the tiled route), directly and through
+// ns_gemm_sm90.cuh; each includes it once, so the anonymous namespace gives
+// each translation unit its own instances.
 //
-// Bound on the H100 of every GEMM here: operations.  The GEMM is simple
+// Which GEMM runs where.  The bf16 products of psgd_ns_step (its step
+// product and the four thin products of its spd bound) and of
+// psgd_scaled_matmul_trace run on the tensor-core GEMM of
+// ns_gemm_sm90.cuh (TMA + wgmma).  Every other product runs on
+// gemm_kernel below: the single route (psgd_ns_update), psgd_procrustes,
+// psgd_norm_bound, psgd_tiled_step and every f32 entry (f32 products, never
+// TF32).  norm_bound and ns_step_chain take the GEMM as a policy type
+// (FfmaGemm here, TcGemm there).
+//
+// Bound on the H100 of every GEMM here: operations.  gemm_kernel is simple
 // and right first: a 64 x 64 output tile per block, 16-deep k slices
 // through shared memory, 4 x 4 outputs per thread, FFMA with f32
 // accumulation, batched over the layer stack with blockIdx.z.  No tensor
-// cores, no TMA: it sits far below the bf16 tensor-core bound.
+// cores, no TMA: ~20 TFLOP/s at n = 2048-2560, far below the bf16
+// tensor-core bound.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +49,7 @@ enum Epilogue { kDiv = 0, kStep = 1, kDivTrace = 2, kMulTrace = 3 };
 //   kOutBound: the bound itself
 enum ScalarOut { kOutLips = 0, kOutDen = 1, kOutBound = 2 };
 
+typedef __nv_bfloat16 bf16;
 using psgd::bf16_round;
 using psgd::ld;
 using psgd::st;
@@ -214,12 +226,12 @@ __global__ void select_kernel(const float* __restrict__ energy,
 
 // Subspace start row r: v = a_j/s + sgn(<a_j/s, u>) u with u uniform(-1, 1)
 // from Philox keyed by the batch element's seed words (word 1 ^ tag).
-// grid (k, B); out is (B, k, n) f32.
+// grid (k, B); out is (B, k, n) f32, out16 (if given) its bf16 copy.
 template <typename T>
 __global__ void start_kernel(const T* __restrict__ A, const float* __restrict__ s,
                              const int* __restrict__ j,
                              const uint32_t* __restrict__ seeds, uint32_t tag,
-                             int n, float* __restrict__ out) {
+                             int n, float* __restrict__ out, bf16* __restrict__ out16) {
   __shared__ float sh[32];
   const int r = blockIdx.x, b = blockIdx.y, k = gridDim.x;
   const uint32_t k0 = seeds[2 * b], k1 = seeds[2 * b + 1] ^ tag;
@@ -232,17 +244,20 @@ __global__ void start_kernel(const T* __restrict__ A, const float* __restrict__ 
   }
   dot = block_sum(dot, sh);
   const float sg = dot > 0.f ? 1.f : (dot < 0.f ? -1.f : 0.f);
-  float* o = out + ((long long)b * k + r) * n;
+  const long long o = ((long long)b * k + r) * n;
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
     const float u = (psgd::float_in_1_2(psgd::philox_word(k0, k1, (long long)r * n + c)) - 1.5f) * 2.0f;
-    o[c] = ld(A, arow + c) / sb + sg * u;
+    const float v = ld(A, arow + c) / sb + sg * u;
+    out[o + c] = v;
+    if (out16) st(out16, o + c, v);
   }
 }
 
 // Row norms of V (B, k, n) into norms (B, k); with normalize, V's rows are
-// divided by (norm + tiny) in place.  grid (k, B).
-__global__ void row_norm_kernel(float* __restrict__ V, int n, int normalize,
-                                float* __restrict__ norms) {
+// divided by (norm + tiny) in place, and V16 (if given) gets their bf16
+// copy.  grid (k, B).
+__global__ void row_norm_kernel(float* __restrict__ V, bf16* __restrict__ V16, int n,
+                                int normalize, float* __restrict__ norms) {
   __shared__ float sh[32];
   const int r = blockIdx.x, b = blockIdx.y, k = gridDim.x;
   float* row = V + ((long long)b * k + r) * n;
@@ -251,7 +266,11 @@ __global__ void row_norm_kernel(float* __restrict__ V, int n, int normalize,
   const float nrm = sqrtf(block_sum(ss, sh));
   if (normalize) {
     const float dn = nrm + kTiny;
-    for (int c = threadIdx.x; c < n; c += blockDim.x) row[c] = row[c] / dn;
+    bf16* row16 = V16 ? V16 + ((long long)b * k + r) * n : nullptr;
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+      row[c] = row[c] / dn;
+      if (row16) st(row16, c, row[c]);
+    }
   }
   if (threadIdx.x == 0) norms[(long long)b * k + r] = nrm;
 }
@@ -334,13 +353,15 @@ struct Carver {
 };
 
 // The norm bound's scratch: normalizer, argmax row, row statistics, the
-// (B, k, n) iterates and their row norms.
+// (B, k, n) iterates, their bf16 copies (for a GEMM that reads bf16
+// operands; null without half) and their row norms.
 struct BoundWs {
   float *s, *energy, *rowval, *v, *w, *norms;
+  bf16 *vh = nullptr, *wh = nullptr;
   int* j;
 };
 
-inline BoundWs carve_bound(Carver& c, int B, int n, int k) {
+inline BoundWs carve_bound(Carver& c, int B, int n, int k, bool half = false) {
   BoundWs ws;
   ws.s = c.take(B);
   ws.j = reinterpret_cast<int*>(c.take(B));
@@ -349,30 +370,57 @@ inline BoundWs carve_bound(Carver& c, int B, int n, int k) {
   ws.v = c.take((long long)B * k * n);
   ws.w = c.take((long long)B * k * n);
   ws.norms = c.take((long long)B * k);
+  if (half) {
+    ws.vh = reinterpret_cast<bf16*>(c.take(((long long)B * k * n + 1) / 2));
+    ws.wh = reinterpret_cast<bf16*>(c.take(((long long)B * k * n + 1) / 2));
+  }
   return ws;
 }
 
-// Subspace-iteration norm bound of A (B, n, n) held in its storage type TA:
-// leaves the normalizer s in ws.s and the final row norms in ws.norms, so
-// bound = s * max(norms).  The normalizer divides each thin product (not
-// the matrix, which is never copied): each row normalization is
-// scale-invariant, so this is the same bound.
-template <typename TA, bool kRound, bool kStoredEnergy>
+// The FFMA products of the bound and the step (the policy norm_bound and
+// ns_step_chain take; TcGemm in ns_gemm_sm90.cuh is the other).  kRound
+// rounds the operands to bf16 as they are loaded.
+template <bool kRound>
+struct FfmaGemm {
+  // w (k x n, f32) = v (k x n, f32) a / s; the bf16 copies are not used
+  template <typename TA>
+  static void thin(const float* v, const bf16*, const TA* a, float* w, bf16*, int k, int n,
+                   int batch, const float* s, cudaStream_t st) {
+    gemm<float, TA, float, kRound>(v, a, w, k, n, n, batch, kDiv, s, nullptr, nullptr, st);
+  }
+  // q1 = q - coeff (term1 q - term2 q), stored as TQ1
+  template <typename T, typename TQ1>
+  static void step(const T* term1, const T* q, TQ1* q1, int n, int batch,
+                   const float* coeff, const float* term2, cudaStream_t st) {
+    gemm<T, T, TQ1, false>(term1, q, q1, n, n, n, batch, kStep, coeff, term2, nullptr, st);
+  }
+};
+
+// Subspace-iteration norm bound of A (B, n, n) held in its storage type TA,
+// its thin products on the GEMM policy Gemm: leaves the normalizer s in
+// ws.s and the final row norms in ws.norms, so bound = s * max(norms).  The
+// normalizer divides each thin product (not the matrix, which is never
+// copied): each row normalization is scale-invariant, so this is the same
+// bound.  A policy that reads bf16 iterates gets their copies (ws.vh,
+// ws.wh) from the start, the row normalizations and the thin products
+// themselves: each copy is the f32 iterate rounded to bf16 once, the value
+// FfmaGemm<true> rounds it to at load.
+template <typename TA, typename Gemm, bool kStoredEnergy>
 void norm_bound(const TA* A, int B, int n, int k, int mode,
                 const uint32_t* seeds, uint32_t tag, const BoundWs& ws,
                 cudaStream_t st) {
   row_stats_kernel<TA, kStoredEnergy><<<dim3(n, B), 128, 0, st>>>(A, n, mode, ws.energy,
                                                                   ws.rowval);
   select_kernel<<<B, 256, 0, st>>>(ws.energy, ws.rowval, n, ws.s, ws.j);
-  start_kernel<TA><<<dim3(k, B), 256, 0, st>>>(A, ws.s, ws.j, seeds, tag, n, ws.v);
+  start_kernel<TA><<<dim3(k, B), 256, 0, st>>>(A, ws.s, ws.j, seeds, tag, n, ws.v, ws.vh);
   // two half-iterations: v = v A/s; v /= |v|; v = v A/s   (twice)
-  gemm<float, TA, float, kRound>(ws.v, A, ws.w, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
-  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, n, 1, ws.norms);
-  gemm<float, TA, float, kRound>(ws.w, A, ws.v, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
-  gemm<float, TA, float, kRound>(ws.v, A, ws.w, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
-  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, n, 1, ws.norms);
-  gemm<float, TA, float, kRound>(ws.w, A, ws.v, k, n, n, B, kDiv, ws.s, nullptr, nullptr, st);
-  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.v, n, 0, ws.norms);
+  Gemm::thin(ws.v, ws.vh, A, ws.w, ws.wh, k, n, B, ws.s, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, ws.wh, n, 1, ws.norms);
+  Gemm::thin(ws.w, ws.wh, A, ws.v, ws.vh, k, n, B, ws.s, st);
+  Gemm::thin(ws.v, ws.vh, A, ws.w, ws.wh, k, n, B, ws.s, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, ws.wh, n, 1, ws.norms);
+  Gemm::thin(ws.w, ws.wh, A, ws.v, nullptr, k, n, B, ws.s, st);
+  row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.v, nullptr, n, 0, ws.norms);
 }
 
 inline void bound_scalars(const BoundWs& ws, int B, int k, int what,

@@ -8,15 +8,21 @@
 //   _tiled_smm_kernel                         -> psgd_scaled_matmul_trace
 //   _tiled_combine_kernel                     -> psgd_tiled_combine
 // On the TPU these stream row blocks of a matrix against another held
-// whole in VMEM.  Here each product is the shared-memory-tiled GEMM of
-// ns_common.cuh; the scalar glue between the pieces (L', lr/L', 1/|R|, the
-// step a) is a few PyTorch ops on (B,) device tensors, so nothing waits on
-// the host.
+// whole in VMEM.  Here each product is a GEMM over shared-memory tiles; the
+// scalar glue between the pieces (L', lr/L', 1/|R|, the step a) is a few
+// PyTorch ops on (B,) device tensors, so nothing waits on the host.
 //
 // Bounds on the H100: the bound, the step and the two scaled products are
 // bound by operations (2 k n^2 per thin product, 2 n^3 per full product);
 // the transpose-subtract and the combine by bytes (each reads and writes
-// n^2 elements per matrix).
+// n^2 elements per matrix).  Which GEMM:
+//   * psgd_scaled_matmul_trace in bf16: the tensor-core GEMM of
+//     ns_gemm_sm90.cuh (TMA + wgmma, f32 accumulation, up to 989 TFLOP/s),
+//     its epilogue scaling by inv[b], storing bf16 and writing each
+//     diagonal 128 x 128 tile's f32 diagonal sum; n % 8 == 0 (16-byte rows
+//     for TMA), else cudaErrorInvalidValue (the wrapper raises first).
+//   * psgd_norm_bound, psgd_tiled_step and every f32 entry: the FFMA
+//     gemm_kernel of ns_common.cuh (~20 TFLOP/s at n = 2560).
 //
 // Storage points follow the TPU route: q1, R, Rq and RRq are stored in Q's
 // dtype; the bound reads its matrix in that dtype, takes the start row from
@@ -25,11 +31,9 @@
 // the f32 values before they are rounded; the elementwise pieces round
 // once per f32 operation (__fsub_rn, __fmul_rn, __fadd_rn), as the plain
 // versions do, so they agree bit for bit.
-#include "ns_common.cuh"
+#include "ns_gemm_sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 // q' = q1 + a rq + (a^2 / 2) rrq, evaluated left to right in f32 with one
 // rounding per operation.  grid (blocks, B).
@@ -71,7 +75,7 @@ void bound(const T* mat, const uint32_t* seeds, float* out, float* base, int B, 
            int k, int mode, uint32_t tag, cudaStream_t st) {
   BoundWs ws;
   carve_bound_only(base, B, n, k, &ws);
-  norm_bound<T, sizeof(T) == 2, true>(mat, B, n, k, mode, seeds, tag, ws, st);
+  norm_bound<T, FfmaGemm<sizeof(T) == 2>, true>(mat, B, n, k, mode, seeds, tag, ws, st);
   bound_scalars(ws, B, k, kOutBound, nullptr, nullptr, 0.f, 0.f, 0.f, nullptr, out, st);
 }
 
@@ -150,21 +154,29 @@ extern "C" int psgd_tsub(const void* x, void* out, int B, int n, int dtype,
   return (int)cudaGetLastError();
 }
 
+// Diagonal tiles per matrix of psgd_scaled_matmul_trace: the tile of its
+// GEMM (tensor cores in bf16, FFMA in f32).
+static int smm_tiles(int n, int dtype) { return cdiv(n, dtype == 0 ? kTile : kTcM); }
+
 // Bytes of device scratch of psgd_scaled_matmul_trace (the trace partials).
-extern "C" long long psgd_smm_workspace_bytes(int B, int n) {
+extern "C" long long psgd_smm_workspace_bytes(int B, int n, int dtype) {
   Carver c(nullptr);
-  c.take((long long)B * cdiv(n, kTile));
+  c.take((long long)B * smm_tiles(n, dtype));
   return c.off * 4LL;
 }
 
+// Dynamic shared memory of one block of the tensor-core GEMM, in bytes.
+extern "C" int psgd_tc_gemm_smem_bytes() { return kTcSmemBytes; }
+
 // out = (a b) * inv in a's dtype, trace[b] = tr((a b) * inv) from the f32
-// values.
+// values; in bf16 (tensor cores) n % 8 == 0.
 extern "C" int psgd_scaled_matmul_trace(const void* a, const void* b, const void* inv,
                                         void* out, void* trace, void* workspace, int B,
                                         int n, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* iv = static_cast<const float*>(inv);
   float* part = static_cast<float*>(workspace);
+  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
       gemm<float, float, float, false>(static_cast<const float*>(a),
@@ -172,13 +184,13 @@ extern "C" int psgd_scaled_matmul_trace(const void* a, const void* b, const void
                                        static_cast<float*>(out), n, n, n, B, kMulTrace, iv,
                                        nullptr, part, st);
     else
-      gemm<bf16, bf16, bf16, false>(static_cast<const bf16*>(a),
-                                    static_cast<const bf16*>(b), static_cast<bf16*>(out),
-                                    n, n, n, B, kMulTrace, iv, nullptr, part, st);
-    trace_sum_kernel<<<cdiv(B, 128), 128, 0, st>>>(part, cdiv(n, kTile), B,
+      tc_gemm<kMulTrace, bf16>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                               static_cast<bf16*>(out), nullptr, n, n, n, B, iv, nullptr,
+                               part, st);
+    trace_sum_kernel<<<cdiv(B, 128), 128, 0, st>>>(part, smm_tiles(n, dtype), B,
                                                     static_cast<float*>(trace));
   }
-  return (int)cudaGetLastError();
+  return tc_status();
 }
 
 // out = q1 + a rq + (a^2 / 2) rrq, a (B,) f32.

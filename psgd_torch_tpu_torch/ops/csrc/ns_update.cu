@@ -21,7 +21,16 @@
 // (2 k n^2 each) in the two norm bounds, against ~3 n^2 elements of HBM
 // traffic that must move.  One n = 768 f32 matrix (2.4 MB) is ten times an
 // SM's shared memory, so the TPU monolith cannot carry over: every product
-// is the shared-memory-tiled GEMM of ns_common.cuh.
+// is a GEMM over shared-memory tiles.  Which GEMM:
+//   * psgd_ns_step in bf16: the tensor-core GEMM of ns_gemm_sm90.cuh (TMA
+//     + wgmma, f32 accumulation) for the step product and the four thin
+//     products of its spd bound, whose iterates also get bf16 copies for
+//     TMA to load; 2 n^3 + 8 k n^2 flops at up to 989 TFLOP/s.  It needs
+//     n % 8 == 0 (16-byte rows for TMA) and returns cudaErrorInvalidValue
+//     otherwise (the wrapper raises first).
+//   * everything else here (psgd_ns_update, psgd_procrustes, and
+//     psgd_ns_step in f32): the FFMA gemm_kernel of ns_common.cuh, ~20
+//     TFLOP/s at n = 2048.
 //
 // Precision follows the TPU kernels' _dot: with a bf16 Q the product
 // operands are rounded to bf16 and accumulated in f32; with an f32 Q the
@@ -34,7 +43,7 @@
 // device scratch.  Traces are deterministic: each diagonal tile writes its
 // partial sum to a (B, tiles) buffer, and the combine kernel sums them in a
 // fixed order (no float atomics).
-#include "ns_common.cuh"
+#include "ns_gemm_sm90.cuh"
 
 namespace {
 
@@ -61,8 +70,9 @@ __global__ void combine_kernel(const TQ1* __restrict__ q1,
     st(out, off + i, ld(q1, off + i) + a * (rq[off + i] + half_a * rrq[off + i]));
 }
 
-// Parts of the scratch a chain needs.
-enum Part { kPartStep = 1, kPartQ1 = 2, kPartProc = 4 };
+// Parts of the scratch a chain needs (kPartHalf: the bound's bf16 iterate
+// copies, for the tensor-core GEMM).
+enum Part { kPartStep = 1, kPartQ1 = 2, kPartProc = 4, kPartHalf = 8 };
 
 struct NsWs {
   BoundWs bound;
@@ -73,7 +83,7 @@ long long carve(float* base, int B, int n, int k, int parts, NsWs* ws) {
   const long long nn = (long long)n * n;
   const int tiles = cdiv(n, kTile);
   Carver c(base);
-  ws->bound = carve_bound(c, B, n, k);
+  ws->bound = carve_bound(c, B, n, k, parts & kPartHalf);
   if (parts & kPartStep) ws->coeff = c.take(B);
   if (parts & kPartQ1) ws->q1 = c.take(B * nn);
   if (parts & kPartProc) {
@@ -88,16 +98,17 @@ long long carve(float* base, int B, int n, int k, int parts, NsWs* ws) {
 }
 
 // Stage 1: ell, L' and coeff = lr / L', then q1 = q - coeff (term1 q -
-// term2 q) stored as TQ1 (the operands are exact in Q's dtype).
-template <typename T, typename TQ1, bool kRound>
+// term2 q) stored as TQ1 (the operands are exact in Q's dtype); the bound's
+// thin products and the step product on the GEMM policy Gemm.
+template <typename T, typename TQ1, typename Gemm>
 void ns_step_chain(const T* term1, const T* q, const float* lips, const float* term2,
                    const uint32_t* seeds, TQ1* q1, float* lips_out, const NsWs& ws,
                    int B, int n, int k, float lr, float beta, float one_minus_beta,
                    cudaStream_t st) {
-  norm_bound<T, kRound, false>(term1, B, n, k, kSpd, seeds, 0u, ws.bound, st);
+  norm_bound<T, Gemm, false>(term1, B, n, k, kSpd, seeds, 0u, ws.bound, st);
   bound_scalars(ws.bound, B, k, kOutLips, term2, lips, lr, beta, one_minus_beta,
                 lips_out, ws.coeff, st);
-  gemm<T, T, TQ1, false>(term1, q, q1, n, n, n, B, kStep, ws.coeff, term2, nullptr, st);
+  Gemm::step(term1, q, q1, n, B, ws.coeff, term2, st);
 }
 
 // Stage 2: procrustes_step2 of q1 (TQ1) with R, Rq1 and RRq1 in f32.
@@ -107,7 +118,8 @@ void procrustes_chain(const TQ1* q1, const uint32_t* seeds, T* q_out, const NsWs
   const long long nn = (long long)n * n;
   // R = q1^T - q1 and its skew bound (den = bound + tiny)
   transpose_sub<TQ1, float>(q1, ws.r, B, n, st);
-  norm_bound<float, kRound, false>(ws.r, B, n, k, kSkh, seeds, kSkhTag, ws.bound, st);
+  norm_bound<float, FfmaGemm<kRound>, false>(ws.r, B, n, k, kSkh, seeds, kSkhTag, ws.bound,
+                                             st);
   bound_scalars(ws.bound, B, k, kOutDen, nullptr, nullptr, 0.f, 0.f, 0.f, nullptr,
                 ws.den, st);
   // Rq1 = (R / den) q1 and RRq1 = (R / den) Rq1, with diagonal partial sums
@@ -128,12 +140,10 @@ void ns_update(const T* term1, const T* q, const float* lips, const float* term2
                float max_step, cudaStream_t st) {
   NsWs ws;
   carve(base, B, n, k, kPartStep | kPartQ1 | kPartProc, &ws);
-  ns_step_chain<T, float, kRound>(term1, q, lips, term2, seeds, ws.q1, lips_out, ws, B,
-                                  n, k, lr, beta, one_minus_beta, st);
+  ns_step_chain<T, float, FfmaGemm<kRound>>(term1, q, lips, term2, seeds, ws.q1, lips_out,
+                                            ws, B, n, k, lr, beta, one_minus_beta, st);
   procrustes_chain<T, float, kRound>(ws.q1, seeds, q_out, ws, B, n, k, max_step, st);
 }
-
-typedef __nv_bfloat16 bf16;
 
 }  // namespace
 
@@ -146,7 +156,7 @@ extern "C" long long psgd_ns_workspace_bytes(int B, int n, int k) {
 }
 extern "C" long long psgd_ns_step_workspace_bytes(int B, int n, int k) {
   NsWs ws;
-  return carve(nullptr, B, n, k, kPartStep, &ws) * 4LL;
+  return carve(nullptr, B, n, k, kPartStep | kPartHalf, &ws) * 4LL;
 }
 extern "C" long long psgd_procrustes_workspace_bytes(int B, int n, int k) {
   NsWs ws;
@@ -184,7 +194,7 @@ extern "C" int psgd_ns_update(const void* term1, const void* q, const void* lips
 
 // Split stage 1 (_ns_step_kernel): the spd bound of term1, L' into
 // lips_out and q1 into q1_out, both in Q's dtype.  Arguments as
-// psgd_ns_update.
+// psgd_ns_update; in bf16 (tensor cores) n % 8 == 0.
 extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
                             const void* term2, const void* seeds, void* q1_out,
                             void* lips_out, void* workspace, int B, int n, int k,
@@ -196,18 +206,19 @@ extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   float* lo = static_cast<float*>(lips_out);
   NsWs ws;
-  carve(static_cast<float*>(workspace), B, n, k, kPartStep, &ws);
+  carve(static_cast<float*>(workspace), B, n, k, kPartStep | kPartHalf, &ws);
+  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
-      ns_step_chain<float, float, false>(
+      ns_step_chain<float, float, FfmaGemm<false>>(
           static_cast<const float*>(term1), static_cast<const float*>(q), l, t2, sd,
           static_cast<float*>(q1_out), lo, ws, B, n, k, lr, beta, one_minus_beta, st);
     else
-      ns_step_chain<bf16, bf16, true>(
+      ns_step_chain<bf16, bf16, TcGemm>(
           static_cast<const bf16*>(term1), static_cast<const bf16*>(q), l, t2, sd,
           static_cast<bf16*>(q1_out), lo, ws, B, n, k, lr, beta, one_minus_beta, st);
   }
-  return (int)cudaGetLastError();
+  return tc_status();
 }
 
 // Split stage 2 (_procrustes_kernel): procrustes_step2 of q1 (B, n, n) in

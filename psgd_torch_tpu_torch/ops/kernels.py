@@ -24,6 +24,12 @@ kernels:
   whitening damping g + (damping + eps|g|) v.  Replaces
   ``unit_noise``/``_noise_kernel`` and the damping around it.
 
+Products: in bf16, ``ns_step`` (its step product and the four thin products
+of its bound) and ``scaled_matmul_trace`` run on the Hopper tensor cores
+(csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32 accumulation), which
+need n % 8 == 0; every other product, and every f32 one, runs on the FFMA
+GEMM of csrc/ns_common.cuh.
+
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
 Each wrapper counts its launches in a plain integer attribute
@@ -62,6 +68,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MODE_CODE = {"spd": 0, "skh": 1}
+_TENSOR_MAP_ERROR = 10000  # + a CUresult: the tensor-core GEMM's host side
+# TMA moves 16-byte rows: the tensor-core GEMM's bf16 widths are multiples of 8
+_TC_WIDTH_MULTIPLE = 8
 
 # Width caps of the JAX package's NS routes (pallas_kernels.py:215-218 and
 # :552-553): the single route up to the first, the split up to the second,
@@ -85,15 +94,16 @@ def _nvcc() -> str:
 
 def build() -> tuple[Path, str]:
     """Compile csrc/*.cu into one shared library (if not already built for
-    these sources).  Returns (library path, nvcc's -Xptxas -v report; empty
-    when the library was already there)."""
+    these sources).  Returns (library path, nvcc's -Xptxas -v report, which
+    is kept beside the library)."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
         digest.update(f.name.encode() + f.read_bytes())
     lib = BUILD_DIR / f"libpsgd_kernels_{digest.hexdigest()[:16]}.so"
+    report_file = lib.with_suffix(".ptxas.txt")
     if lib.exists():
-        return lib, ""
+        return lib, report_file.read_text() if report_file.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,8 +127,9 @@ def build() -> tuple[Path, str]:
                           text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    report_file.write_text("".join(report))
     os.replace(tmp, lib)
-    return lib, "".join(report)
+    return lib, report_file.read_text()
 
 
 @functools.lru_cache(maxsize=1)
@@ -141,7 +152,8 @@ def library() -> ctypes.CDLL:
                                         vp], i32),
         "psgd_tiled_step": ([vp] * 5 + [i32, i32, i32, vp], i32),
         "psgd_tsub": ([vp, vp, i32, i32, i32, vp], i32),
-        "psgd_smm_workspace_bytes": ([i32, i32], i64),
+        "psgd_smm_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_tc_gemm_smem_bytes": ([], i32),
         "psgd_scaled_matmul_trace": ([vp] * 6 + [i32, i32, i32, vp], i32),
         "psgd_tiled_combine": ([vp] * 5 + [i32, i32, i32, vp], i32),
     }
@@ -152,6 +164,9 @@ def library() -> ctypes.CDLL:
 
 
 def _check(err: int, what: str) -> None:
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: TMA tensor-map encoding failed, CUresult "
+                           f"{err - _TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
@@ -180,6 +195,15 @@ def _require_stack(x: torch.Tensor, name: str):
     b, n = x.shape[0], x.shape[-1]
     _require(x, name, x.device, _DTYPE_CODE, (b, n, n))
     return x.device, b, n
+
+
+def _require_tc_width(x: torch.Tensor, what: str) -> None:
+    """The tensor-core GEMM (bf16) takes n % 8 == 0; refuse other widths."""
+    n = x.shape[-1]
+    if x.dtype == torch.bfloat16 and n % _TC_WIDTH_MULTIPLE:
+        raise ValueError(f"{what} runs bf16 products on the tensor cores, which "
+                         f"take widths that are multiples of {_TC_WIDTH_MULTIPLE} "
+                         f"(TMA needs 16-byte rows); n = {n}")
 
 
 def _require_scalars(dev, b, **named) -> None:
@@ -399,11 +423,13 @@ def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None):
     q1 = q - lr/L' (term1 q - term2 q) stored in Q's dtype.
 
     term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32.
-    Returns (q1 (B, n, n), L' (B,)).  CUDA: one chain of launches."""
+    Returns (q1 (B, n, n), L' (B,)).  CUDA: one chain of launches; in bf16
+    its products run on the tensor cores and n must be a multiple of 8."""
     if q.device.type == "cpu":
         return ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start)
     _no_start(start)
     dev, b, n = _require_stack(q, "q")
+    _require_tc_width(q, "ns_step")
     _require(term1, "term1", dev, (q.dtype,), (b, n, n))
     _require_scalars(dev, b, lips=lips, term2=term2)
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
@@ -561,14 +587,16 @@ def scaled_matmul_trace(a, b, inv):
     """(a b) * inv for stacks a, b (B, n, n) and inv (B,) float32, stored in
     a's dtype, with its trace (B,) float32 summed from the f32 product
     before rounding (replaces ``_tiled_smm_kernel``).  CUDA: one GEMM launch
-    and one fixed-order sum of the diagonal tiles' partials."""
+    (tensor cores in bf16, n a multiple of 8) and one fixed-order sum of the
+    diagonal tiles' partials."""
     if a.device.type == "cpu":
         return scaled_matmul_trace_plain(a, b, inv)
     dev, bb, n = _require_stack(a, "a")
     _require(b, "b", dev, (a.dtype,), (bb, n, n))
     _require_scalars(dev, bb, inv=inv)
+    _require_tc_width(a, "scaled_matmul_trace")
     lib = library()
-    ws = _workspace(lib.psgd_smm_workspace_bytes(bb, n), dev)
+    ws = _workspace(lib.psgd_smm_workspace_bytes(bb, n, _DTYPE_CODE[a.dtype]), dev)
     out = torch.empty_like(a)
     trace = torch.empty(bb, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -177,6 +177,54 @@ def test_tiled_pieces_match_plain(dev, n, dtype):
                            kernels.combine_plain(q1, rq, rrq, a))
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 384, 2048])
+def test_ns_step_on_tensor_cores(dev, n, b):
+    """ns_step in bf16 runs its step product and its bound's thin products
+    on the tensor-core GEMM: q1 to f32 accumulation order against the plain
+    version (n = 200 exercises TMA's zero-filled edges and the masked
+    stores), L' at the route tolerance, and two runs give the same bits."""
+    args = _ns_inputs(b, n, dev, torch.bfloat16)
+    q1, lk = kernels.ns_step(*args, k=128)
+    q1p, lp = kernels.ns_step_plain(*args, k=128)
+    assert q1.dtype == torch.bfloat16 and _one_ulp_or_order(q1, q1p)
+    torch.testing.assert_close(lk, lp, rtol=_ROUTE_TOL[torch.bfloat16][1], atol=0)
+    q1b, lkb = kernels.ns_step(*args, k=128)
+    assert torch.equal(q1, q1b) and torch.equal(lk, lkb)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 384, 2048])
+def test_scaled_matmul_trace_on_tensor_cores(dev, n, b):
+    """scaled_matmul_trace in bf16 on the tensor-core GEMM: R Q to f32
+    accumulation order, the trace (from the 128 x 128 diagonal tiles'
+    partials) within 1e-4 of the sum of |diagonal| (it cancels), and two
+    runs give the same bits."""
+    _, q, _, _, _, _, _ = _ns_inputs(b, n, dev, torch.bfloat16)
+    r = kernels.tsub_plain(q).contiguous()
+    inv = torch.linspace(0.5, 2.0, b, device=dev)
+    rq, tr = kernels.scaled_matmul_trace(r, q, inv)
+    rq_p, tr_p = kernels.scaled_matmul_trace_plain(r, q, inv)
+    assert rq.dtype == torch.bfloat16 and _one_ulp_or_order(rq, rq_p)
+    scale = torch.diagonal(r.float() @ q.float(), dim1=-2, dim2=-1).abs().sum(-1) * inv
+    assert ((tr - tr_p).abs() <= 1e-4 * scale).all(), (tr, tr_p)
+    rq2, tr2 = kernels.scaled_matmul_trace(r, q, inv)
+    assert torch.equal(rq, rq2) and torch.equal(tr, tr2)
+
+
+def test_tensor_core_widths_refused(dev):
+    """TMA needs 16-byte rows: a bf16 width that is not a multiple of 8 is
+    refused by both tensor-core wrappers; f32 at that width runs (FFMA)."""
+    args = _ns_inputs(1, 204, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.ns_step(*args, k=32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.scaled_matmul_trace(args[1], args[1], args[2] + 1.0)
+    f32 = _ns_inputs(1, 204, dev, torch.float32)
+    assert torch.isfinite(kernels.ns_step(*f32, k=32)[0]).all()
+    assert torch.isfinite(kernels.scaled_matmul_trace(f32[1], f32[1], f32[2] + 1.0)[0]).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     term1, q, lips, term2, seeds, lr, beta = _ns_inputs(1, 64, dev, torch.float32)
     with pytest.raises(ValueError):

@@ -1,16 +1,25 @@
 """Rules of the port: it imports no JAX, optax, opt_einsum or
-psgd_torch_tpu module, and its entry points refuse to fall back to the CPU
-when no card is present."""
+psgd_torch_tpu module, its entry points refuse to fall back to the CPU
+when no card is present, and its CUDA sources are its own kernels (no
+library GEMM), built for sm_90a."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = Path(ROOT) / "psgd_torch_tpu_torch" / "ops" / "csrc"
+# a call into cuBLAS, a CUTLASS device-level GEMM, or an include of one
+_LIBRARY_GEMM = re.compile(
+    r"cublas|cutlass::gemm::device|#\s*include\s*[<\"]cutlass/gemm/(device|kernel)/",
+    re.IGNORECASE)
 
 _CHECK = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -73,3 +82,63 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
         KronWhiten(model.named_parameters())
     assert resolve_device("cpu") == torch.device("cpu")
     KronWhiten(model.named_parameters(), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()))
+def test_kernel_sources_call_no_library_gemm(name):
+    """Every product on the port's kernel paths is its own device code."""
+    text = (CSRC / name).read_text()
+    assert not _LIBRARY_GEMM.search(text), _LIBRARY_GEMM.search(text).group(0)
+
+
+def test_build_compiles_every_source_for_sm90a(monkeypatch, tmp_path):
+    """build() runs one nvcc per source with
+    -gencode arch=compute_90a,code=sm_90a (wgmma exists only for sm_90a)
+    and the -Xptxas -v report, then links them (nvcc faked: no toolkit
+    here)."""
+    from psgd_torch_tpu_torch.ops import kernels
+    calls = []
+
+    class FakeCompile:
+        returncode = 0
+
+        def __init__(self, cmd, **_):
+            calls.append(cmd)
+
+        def communicate(self):
+            return "ptxas info : Used 1 registers\n", None
+
+    def fake_link(cmd, **_):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).touch()
+        return SimpleNamespace(returncode=0, stdout="")
+
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels.subprocess, "Popen", FakeCompile)
+    monkeypatch.setattr(kernels.subprocess, "run", fake_link)
+    lib, report = kernels.build()
+    compiles = [c for c in calls if "-c" in c]
+    assert sorted(Path(c[c.index("-c") + 1]).name for c in compiles) == \
+        sorted(p.name for p in CSRC.glob("*.cu"))
+    for cmd in compiles:
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a", cmd
+        assert cmd[cmd.index("-Xptxas") + 1] == "-v", cmd
+    assert lib.exists() and lib.parent == tmp_path and "Used 1 registers" in report
+    calls.clear()
+    assert kernels.build() == (lib, report) and not calls   # built: kept report
+
+
+def test_tensor_core_gemm_feeds_its_two_entries():
+    """The wgmma + TMA GEMM is in ns_gemm_sm90.cuh and is what psgd_ns_step
+    (bf16) and psgd_scaled_matmul_trace (bf16) launch."""
+    gemm = (CSRC / "ns_gemm_sm90.cuh").read_text()
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                  "cuTensorMapEncodeTiled"):
+        assert instr in gemm, instr
+    update, tiled = (CSRC / "ns_update.cu").read_text(), (CSRC / "ns_tiled.cu").read_text()
+    for text in (update, tiled):
+        assert '#include "ns_gemm_sm90.cuh"' in text
+    assert "ns_step_chain<bf16, bf16, TcGemm>" in update
+    assert "tc_gemm<kMulTrace, bf16>" in tiled
