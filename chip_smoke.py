@@ -21,11 +21,13 @@
    - each piece of the split and tiled routes alone (``check_split`` and
      ``check_tiled``): transpose-subtract and combine bit for bit, the
      products (ns_step's q1 too) to f32 accumulation order, the tiled bound
-     within 1e-5 of its plain version.  The two rows on the tensor-core
-     GEMM (``ns_step``, ``scaled_matmul_trace`` in bf16) also log their
-     rate, their share of the bound, ``torch.bmm`` at the same shape and
-     the GEMM's registers and shared memory, and ``ns_step`` its kernels
-     one by one (torch.profiler).
+     within 1e-5 of its plain version.  The four rows on the tensor-core
+     GEMM in bf16 (``TC_ROWS``) also log their rate, their share of the
+     bound, a ``torch.bmm`` at the same shape and the GEMM's registers,
+     shared memory and spills; ``ns_step``, ``procrustes`` and
+     ``tiled_step`` log their kernels one by one (torch.profiler), and the
+     last two fail if an FFMA ``gemm_kernel`` ran or no ``tc_gemm_kernel``
+     did.
 4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path.
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
@@ -85,9 +87,9 @@ ROWS = (("fused_ns_update", "ns_update.cu", 142),
         ("scaled_matmul_trace", "ns_tiled.cu", 441),
         ("combine", "ns_tiled.cu", 457))
 # the rows whose bf16 products run on the tensor-core GEMM (ns_gemm_sm90.cuh)
-TC_ROWS = ("ns_step", "scaled_matmul_trace")
+TC_ROWS = ("ns_step", "procrustes", "tiled_step", "scaled_matmul_trace")
 # its epilogues by template argument (ns_common.cuh's Epilogue)
-TC_EPILOGUES = {"0": "kDiv", "1": "kStep", "3": "kMulTrace"}
+TC_EPILOGUES = {"0": "kDiv", "1": "kStep", "2": "kDivTrace", "3": "kMulTrace"}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"  # git-ignored
 T0 = time.perf_counter()
 
@@ -404,17 +406,19 @@ def _row(ms, plain_ms, flops, nbytes, peak, err, library_ms=None):
                 max_abs_err=err, library_ms=library_ms)
 
 
-def _log_row(name, shape, row, flops, tc_lines):
+def _log_row(name, shape, row, flops, tc_lines, bmm=None):
+    """Log a row; a tensor-core row also its rate, its share of the bound
+    and its time over ``bmm`` = (what, ms), by default its library call."""
     lib = "" if row["library_ms"] is None else \
         f"  library {row['library_ms']:.3f} ms"
     log(f"  {name} {shape}: kernel {row['ms']:.3f} ms  plain "
         f"{row['plain_ms']:.3f} ms{lib}  bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})  max abs err {row['max_abs_err']:.3e}")
     if name in TC_ROWS:
+        what, ms = bmm or ("torch.bmm", row["library_ms"])
         log(f"    tensor cores: {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
             f"{row['bound_ms'] / row['ms']:.3f} of the bound, "
-            f"{row['ms'] / row['library_ms']:.2f}x torch.bmm "
-            f"({row['library_ms']:.3f} ms at {shape})")
+            f"{row['ms'] / ms:.2f}x {what} ({ms:.3f} ms at {shape})")
         for line in tc_lines:
             log(f"    {line}")
 
@@ -424,9 +428,10 @@ def _device_us(event) -> float:
             getattr(event, "self_cuda_time_total", 0.0))
 
 
-def log_kernel_split(name, fn, calls: int = 3) -> None:
+def log_kernel_split(name, fn, calls: int = 3) -> list[str]:
     """Where one call of fn spends its device time: each kernel's ms per
-    call and launches per call, from torch.profiler's CUDA events."""
+    call and launches per call, from torch.profiler's CUDA events.  Returns
+    the kernels' short names."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -438,10 +443,21 @@ def log_kernel_split(name, fn, calls: int = 3) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
     total = sum(_device_us(e) for e in kern) / 1e3 / calls
     log(f"    {name} per call: {total:.3f} ms of kernels")
+    names = []
     for e in sorted(kern, key=lambda e: -_device_us(e)):
         short = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-        short = short.split("(")[0]
-        log(f"      {_device_us(e) / 1e3 / calls:8.3f} ms  {e.count // calls:2d}x  {short}")
+        names.append(short.split("(")[0])
+        log(f"      {_device_us(e) / 1e3 / calls:8.3f} ms  {e.count // calls:2d}x  {names[-1]}")
+    return names
+
+
+def require_tensor_cores(name, kernel_names) -> None:
+    """Fail unless a bf16 entry's products ran on the tensor-core GEMM
+    alone: some tc_gemm_kernel, no FFMA gemm_kernel."""
+    ffma = [k for k in kernel_names if k.startswith("gemm_kernel")]
+    if ffma or not any(k.startswith("tc_gemm_kernel") for k in kernel_names):
+        raise AssertionError(f"{name} in bf16 ran {kernel_names}: expected "
+                             "tc_gemm_kernel and no FFMA gemm_kernel")
 
 
 def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
@@ -478,13 +494,19 @@ def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
                         flops["ns_step"], b * 3 * n * n * size,
                         PEAK_BF16, _max_abs(q1, q1p),
                         cuda_ms(lambda: torch.bmm(term1, q), 10)),
-        "procrustes": _row(cuda_ms(proc, 3, 1), cuda_ms(proc_p, 2, 1),
+        "procrustes": _row(cuda_ms(proc, 10, 2), cuda_ms(proc_p, 2, 1),
                            flops["procrustes"], b * 2 * n * n * size,
                            PEAK_BF16, _max_abs(qk, qp)),
     }
+    # no one PyTorch call computes procrustes: its first product, R16 q1,
+    # is the yardstick of its two
+    r16 = kernels.tsub_plain(q1)
+    bmm = ("torch.bmm(r16, q1)", cuda_ms(lambda: torch.bmm(r16, q1), 10))
     for name, row in rows.items():
-        _log_row(name, shape, row, flops[name], tc_lines)
+        _log_row(name, shape, row, flops[name], tc_lines,
+                 bmm if name == "procrustes" else None)
     log_kernel_split("ns_step", step)
+    require_tensor_cores("procrustes", log_kernel_split("procrustes", proc))
     return rows
 
 
@@ -548,7 +570,7 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
                                                      k=128), 2, 1),
             b * 8 * k * nn, b * (nn * size + 4), PEAK_BF16, _max_abs(bk, bp)),
         "tiled_step": _row(
-            cuda_ms(lambda: kernels.tiled_step(term1, q, coeff, term2), 3, 1),
+            cuda_ms(lambda: kernels.tiled_step(term1, q, coeff, term2), 10, 2),
             cuda_ms(lambda: kernels.tiled_step_plain(term1, q, coeff, term2), 2, 1),
             b * 2 * n ** 3, b * 3 * nn * size, PEAK_BF16, _max_abs(q1, q1p),
             cuda_ms(lambda: torch.bmm(term1, q), 5)),
@@ -569,6 +591,8 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     }
     for name, row in rows.items():
         _log_row(name, shape, row, b * 2 * n ** 3, tc_lines)
+    require_tensor_cores("tiled_step", log_kernel_split(
+        "tiled_step", lambda: kernels.tiled_step(term1, q, coeff, term2)))
     return rows
 
 

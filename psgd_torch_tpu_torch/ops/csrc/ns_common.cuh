@@ -7,13 +7,14 @@
 // each translation unit its own instances.
 //
 // Which GEMM runs where.  The bf16 products of psgd_ns_step (its step
-// product and the four thin products of its spd bound) and of
-// psgd_scaled_matmul_trace run on the tensor-core GEMM of
-// ns_gemm_sm90.cuh (TMA + wgmma).  Every other product runs on
-// gemm_kernel below: the single route (psgd_ns_update), psgd_procrustes,
-// psgd_norm_bound, psgd_tiled_step and every f32 entry (f32 products, never
-// TF32).  norm_bound and ns_step_chain take the GEMM as a policy type
-// (FfmaGemm here, TcGemm there).
+// product and the four thin products of its spd bound), psgd_procrustes
+// (its two full products and the four thin products of its skew bound),
+// psgd_tiled_step and psgd_scaled_matmul_trace run on the tensor-core GEMM
+// of ns_gemm_sm90.cuh (TMA + wgmma).  Every other product runs on
+// gemm_kernel below: the single route (psgd_ns_update), psgd_norm_bound and
+// every f32 entry (f32 products, never TF32).  norm_bound, ns_step_chain
+// and procrustes_chain take the GEMM as a policy type (FfmaGemm here,
+// TcGemm there).
 //
 // Bound on the H100 of every GEMM here: operations.  gemm_kernel is simple
 // and right first: a 64 x 64 output tile per block, 16-deep k slices
@@ -300,10 +301,11 @@ __global__ void bound_scalars_kernel(const float* __restrict__ norms, int k,
 }
 
 // R = Q1^T - Q1 through a 32 x 33 shared tile: one f32 subtraction
-// (__fsub_rn), one rounding to TO.  grid (tiles, tiles, B), block (32, 8).
+// (__fsub_rn), one rounding to TO, and (if R16 is given) one to bf16 for a
+// bf16 copy.  grid (tiles, tiles, B), block (32, 8).
 template <typename TI, typename TO>
 __global__ void transpose_sub_kernel(const TI* __restrict__ Q1, int n,
-                                     TO* __restrict__ R) {
+                                     TO* __restrict__ R, bf16* __restrict__ R16) {
   __shared__ float tile[32][33];
   const int b = blockIdx.z, bx = blockIdx.x * 32, by = blockIdx.y * 32;
   const long long off = (long long)b * n * n;
@@ -317,7 +319,9 @@ __global__ void transpose_sub_kernel(const TI* __restrict__ Q1, int n,
     const int r = by + i, c = bx + tx;
     if (r < n && c < n) {
       const long long idx = off + (long long)r * n + c;
-      st(R, idx, __fsub_rn(tile[tx][i], ld(Q1, idx)));
+      const float v = __fsub_rn(tile[tx][i], ld(Q1, idx));
+      st(R, idx, v);
+      if (R16) st(R16, idx, v);
     }
   }
 }
@@ -334,9 +338,9 @@ void gemm(const TA* A, const TB* Bm, TC* C, int M, int N, int K, int batch,
 }
 
 template <typename TI, typename TO>
-void transpose_sub(const TI* Q1, TO* R, int B, int n, cudaStream_t s) {
+void transpose_sub(const TI* Q1, TO* R, bf16* R16, int B, int n, cudaStream_t s) {
   transpose_sub_kernel<TI, TO><<<dim3(cdiv(n, 32), cdiv(n, 32), B), dim3(32, 8), 0, s>>>(
-      Q1, n, R);
+      Q1, n, R, R16);
 }
 
 // Scratch is carved from one float buffer, each piece 64-aligned; with a
@@ -377,11 +381,17 @@ inline BoundWs carve_bound(Carver& c, int B, int n, int k, bool half = false) {
   return ws;
 }
 
-// The FFMA products of the bound and the step (the policy norm_bound and
-// ns_step_chain take; TcGemm in ns_gemm_sm90.cuh is the other).  kRound
-// rounds the operands to bf16 as they are loaded.
+// The FFMA products of the bound, the step and procrustes (the policy
+// norm_bound, ns_step_chain and procrustes_chain take; TcGemm in
+// ns_gemm_sm90.cuh is the other).  kRound rounds the operands to bf16 as
+// they are loaded.
 template <bool kRound>
 struct FfmaGemm {
+  // the diagonal tile of the trace partials
+  static constexpr int kTraceTile = kTile;
+  // the copy of an operand that the products read: the operand itself
+  template <typename T>
+  static const T* operand(const T* p, const bf16*) { return p; }
   // w (k x n, f32) = v (k x n, f32) a / s; the bf16 copies are not used
   template <typename TA>
   static void thin(const float* v, const bf16*, const TA* a, float* w, bf16*, int k, int n,
@@ -394,19 +404,26 @@ struct FfmaGemm {
                    const float* coeff, const float* term2, cudaStream_t st) {
     gemm<T, T, TQ1, false>(term1, q, q1, n, n, n, batch, kStep, coeff, term2, nullptr, st);
   }
+  // c (n x n, f32) = a b / den, the diagonal partials to trace; no bf16 copy
+  template <typename TA, typename TB>
+  static void div_trace(const TA* a, const TB* b, float* c, bf16*, int n, int batch,
+                        const float* den, float* trace, cudaStream_t st) {
+    gemm<TA, TB, float, kRound>(a, b, c, n, n, n, batch, kDivTrace, den, nullptr, trace, st);
+  }
 };
 
 // Subspace-iteration norm bound of A (B, n, n) held in its storage type TA,
-// its thin products on the GEMM policy Gemm: leaves the normalizer s in
-// ws.s and the final row norms in ws.norms, so bound = s * max(norms).  The
+// its thin products on the GEMM policy Gemm, which reads A as P: A itself,
+// or its bf16 copy for the tensor cores.  Leaves the normalizer s in ws.s
+// and the final row norms in ws.norms, so bound = s * max(norms).  The
 // normalizer divides each thin product (not the matrix, which is never
 // copied): each row normalization is scale-invariant, so this is the same
 // bound.  A policy that reads bf16 iterates gets their copies (ws.vh,
 // ws.wh) from the start, the row normalizations and the thin products
 // themselves: each copy is the f32 iterate rounded to bf16 once, the value
 // FfmaGemm<true> rounds it to at load.
-template <typename TA, typename Gemm, bool kStoredEnergy>
-void norm_bound(const TA* A, int B, int n, int k, int mode,
+template <typename TA, typename Gemm, bool kStoredEnergy, typename TP>
+void norm_bound(const TA* A, const TP* P, int B, int n, int k, int mode,
                 const uint32_t* seeds, uint32_t tag, const BoundWs& ws,
                 cudaStream_t st) {
   row_stats_kernel<TA, kStoredEnergy><<<dim3(n, B), 128, 0, st>>>(A, n, mode, ws.energy,
@@ -414,12 +431,12 @@ void norm_bound(const TA* A, int B, int n, int k, int mode,
   select_kernel<<<B, 256, 0, st>>>(ws.energy, ws.rowval, n, ws.s, ws.j);
   start_kernel<TA><<<dim3(k, B), 256, 0, st>>>(A, ws.s, ws.j, seeds, tag, n, ws.v, ws.vh);
   // two half-iterations: v = v A/s; v /= |v|; v = v A/s   (twice)
-  Gemm::thin(ws.v, ws.vh, A, ws.w, ws.wh, k, n, B, ws.s, st);
+  Gemm::thin(ws.v, ws.vh, P, ws.w, ws.wh, k, n, B, ws.s, st);
   row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, ws.wh, n, 1, ws.norms);
-  Gemm::thin(ws.w, ws.wh, A, ws.v, ws.vh, k, n, B, ws.s, st);
-  Gemm::thin(ws.v, ws.vh, A, ws.w, ws.wh, k, n, B, ws.s, st);
+  Gemm::thin(ws.w, ws.wh, P, ws.v, ws.vh, k, n, B, ws.s, st);
+  Gemm::thin(ws.v, ws.vh, P, ws.w, ws.wh, k, n, B, ws.s, st);
   row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.w, ws.wh, n, 1, ws.norms);
-  Gemm::thin(ws.w, ws.wh, A, ws.v, nullptr, k, n, B, ws.s, st);
+  Gemm::thin(ws.w, ws.wh, P, ws.v, nullptr, k, n, B, ws.s, st);
   row_norm_kernel<<<dim3(k, B), 256, 0, st>>>(ws.v, nullptr, n, 0, ws.norms);
 }
 

@@ -4,9 +4,11 @@
 //
 //   C[b] = epilogue(A[b] (M x K) @ B[b] (K x N)), bf16 operands, row-major
 //
-// Used by psgd_ns_step (the step product and the four thin products of its
-// spd bound, ns_update.cu) and psgd_scaled_matmul_trace (ns_tiled.cu) in
-// bf16.  Every other product keeps the FFMA gemm_kernel of ns_common.cuh.
+// Used in bf16 by psgd_ns_step (the step product and the four thin products
+// of its spd bound) and psgd_procrustes (its two full products and the four
+// thin products of its skew bound), both in ns_update.cu, and by
+// psgd_tiled_step and psgd_scaled_matmul_trace (ns_tiled.cu).  Every other
+// product keeps the FFMA gemm_kernel of ns_common.cuh.
 //
 // Bound on the H100: operations (2 M N K at 989 TFLOP/s in bf16); the
 // FFMA GEMM it replaces ran at ~20 TFLOP/s without tensor cores.  Design:
@@ -153,8 +155,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 //              (the next thin product's operand);
 //   kStep:     C = Q - den[b] (acc - term2[b] Q), Q = B read at the output
 //              position, stored bf16;
-//   kMulTrace: C = acc * den[b] stored bf16; a diagonal tile writes the sum
-//              of its f32 diagonal to trace[b, tile row].
+//   kDivTrace: as kDiv, and a diagonal tile writes the sum of its f32
+//              diagonal to trace[b, tile row];
+//   kMulTrace: C = acc * den[b] stored bf16, the diagonal sums as kDivTrace.
 template <int kEpi, typename TC>
 __global__ void __launch_bounds__(kTcThreads, 1)
 tc_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -224,7 +227,7 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
   const float d = den[b];
   const float t2 = (kEpi == kStep) ? term2[b] : 0.f;
-  const bool has_diag = (kEpi == kMulTrace) && (m0 == n0);
+  const bool has_diag = (kEpi == kDivTrace || kEpi == kMulTrace) && (m0 == n0);
   const long long c_off = (long long)b * M * N, q_off = (long long)b * K * N;
 #pragma unroll
   for (int j = 0; j < kTcN / 8; ++j) {
@@ -240,14 +243,11 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Bm + q_off + idx));
         v0 = q.x - d * (v0 - t2 * q.x);
         v1 = q.y - d * (v1 - t2 * q.y);
-      } else if (kEpi == kMulTrace) {
-        v0 = v0 * d;
-        v1 = v1 * d;
+      } else {
+        v0 = (kEpi == kMulTrace) ? v0 * d : v0 / d;
+        v1 = (kEpi == kMulTrace) ? v1 * d : v1 / d;
         if (has_diag && gm == gn) diag[gm - m0] = v0;
         if (has_diag && gm == gn + 1) diag[gm - m0] = v1;
-      } else {
-        v0 = v0 / d;
-        v1 = v1 / d;
       }
       if constexpr (sizeof(TC) == 4) {
         *reinterpret_cast<float2*>(C + c_off + idx) = make_float2(v0, v1);
@@ -332,7 +332,7 @@ inline bool encode_stack(CUtensorMap* map, const __nv_bfloat16* ptr, int batch, 
 }
 
 // C[b] = epilogue(A[b] (M x K) @ Bm[b] (K x N)) for bf16 stacks with K and N
-// multiples of 8 (the callers check); C16 only with kDiv.
+// multiples of 8 (the callers check); C16 only with kDiv and kDivTrace.
 template <int kEpi, typename TC>
 void tc_gemm(const __nv_bfloat16* A, const __nv_bfloat16* Bm, TC* C, __nv_bfloat16* C16,
              int M, int N, int K, int batch, const float* den, const float* term2,
@@ -348,16 +348,29 @@ void tc_gemm(const __nv_bfloat16* A, const __nv_bfloat16* Bm, TC* C, __nv_bfloat
                                                  term2, trace);
 }
 
-// The tensor-core products of psgd_ns_step in bf16 (the policy norm_bound
-// and ns_step_chain take; FfmaGemm in ns_common.cuh is the other).  The
-// bound's thin products read the bf16 copies of the iterates.  Templates,
-// as FfmaGemm's, so a unit that does not call them builds no kernel.
+// The tensor-core products of psgd_ns_step and psgd_procrustes in bf16 (the
+// policy norm_bound, ns_step_chain and procrustes_chain take; FfmaGemm in
+// ns_common.cuh is the other).  Each product reads the bf16 copies of its
+// operands: of the bound's iterates, of R and of Rq1.  Templates, as
+// FfmaGemm's, so a unit that does not call them builds no kernel.
 struct TcGemm {
+  // the diagonal tile of the trace partials
+  static constexpr int kTraceTile = kTcM;
+  // the copy of an f32 operand that the products read: its bf16 copy
+  template <typename T>
+  static const bf16* operand(const T*, const bf16* p16) { return p16; }
   // w (k x n, f32, and its bf16 copy w16 if given) = v16 (k x n) a / s
   template <typename TA>
   static void thin(const float*, const bf16* v16, const TA* a, float* w, bf16* w16, int k,
                    int n, int batch, const float* s, cudaStream_t st) {
     tc_gemm<kDiv, float>(v16, a, w, w16, k, n, n, batch, s, nullptr, nullptr, st);
+  }
+  // c (n x n, f32, and its bf16 copy c16 if given) = a b / den, the
+  // diagonal partials to trace; a and b are bf16
+  template <typename TA, typename TB>
+  static void div_trace(const TA* a, const TB* b, float* c, bf16* c16, int n, int batch,
+                        const float* den, float* trace, cudaStream_t st) {
+    tc_gemm<kDivTrace, float>(a, b, c, c16, n, n, n, batch, den, nullptr, trace, st);
   }
   // q1 = q - coeff (term1 q - term2 q), stored bf16
   template <typename T, typename TQ1>

@@ -16,13 +16,15 @@
 // bound by operations (2 k n^2 per thin product, 2 n^3 per full product);
 // the transpose-subtract and the combine by bytes (each reads and writes
 // n^2 elements per matrix).  Which GEMM:
-//   * psgd_scaled_matmul_trace in bf16: the tensor-core GEMM of
-//     ns_gemm_sm90.cuh (TMA + wgmma, f32 accumulation, up to 989 TFLOP/s),
-//     its epilogue scaling by inv[b], storing bf16 and writing each
-//     diagonal 128 x 128 tile's f32 diagonal sum; n % 8 == 0 (16-byte rows
-//     for TMA), else cudaErrorInvalidValue (the wrapper raises first).
-//   * psgd_norm_bound, psgd_tiled_step and every f32 entry: the FFMA
-//     gemm_kernel of ns_common.cuh (~20 TFLOP/s at n = 2560).
+//   * psgd_tiled_step and psgd_scaled_matmul_trace in bf16: the
+//     tensor-core GEMM of ns_gemm_sm90.cuh (TMA + wgmma, f32 accumulation,
+//     up to 989 TFLOP/s).  The step's epilogue reads Q at the output
+//     position and stores q - coeff (acc - term2 q) in bf16; the scaled
+//     product's scales by inv[b], stores bf16 and writes each diagonal
+//     128 x 128 tile's f32 diagonal sum.  n % 8 == 0 (16-byte rows for
+//     TMA), else cudaErrorInvalidValue (the wrappers raise first).
+//   * psgd_norm_bound and every f32 entry: the FFMA gemm_kernel of
+//     ns_common.cuh (~20 TFLOP/s at n = 2560).
 //
 // Storage points follow the TPU route: q1, R, Rq and RRq are stored in Q's
 // dtype; the bound reads its matrix in that dtype, takes the start row from
@@ -75,7 +77,7 @@ void bound(const T* mat, const uint32_t* seeds, float* out, float* base, int B, 
            int k, int mode, uint32_t tag, cudaStream_t st) {
   BoundWs ws;
   carve_bound_only(base, B, n, k, &ws);
-  norm_bound<T, FfmaGemm<sizeof(T) == 2>, true>(mat, B, n, k, mode, seeds, tag, ws, st);
+  norm_bound<T, FfmaGemm<sizeof(T) == 2>, true>(mat, mat, B, n, k, mode, seeds, tag, ws, st);
   bound_scalars(ws, B, k, kOutBound, nullptr, nullptr, 0.f, 0.f, 0.f, nullptr, out, st);
 }
 
@@ -91,7 +93,8 @@ void combine(const T* q1, const T* rq, const T* rrq, const float* a, T* out, int
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every (B, n, n) matrix argument;
-// scalars per batch element are (B,) f32.  Each returns cudaGetLastError().
+// scalars per batch element are (B,) f32.  Each returns cudaGetLastError(),
+// an entry on the tensor cores a failed tensor-map encoding first.
 
 // Bytes of device scratch of psgd_norm_bound.
 extern "C" long long psgd_bound_workspace_bytes(int B, int n, int k) {
@@ -118,13 +121,15 @@ extern "C" int psgd_norm_bound(const void* mat, const void* seeds, void* out,
   return (int)cudaGetLastError();
 }
 
-// out = q - coeff (step q - term2 q), stored in Q's dtype.
+// out = q - coeff (step q - term2 q), stored in Q's dtype; in bf16 (tensor
+// cores) n % 8 == 0.
 extern "C" int psgd_tiled_step(const void* step, const void* q, const void* coeff,
                                const void* term2, void* out, int B, int n, int dtype,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coeff);
   const float* t2 = static_cast<const float*>(term2);
+  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
       gemm<float, float, float, false>(static_cast<const float*>(step),
@@ -132,11 +137,10 @@ extern "C" int psgd_tiled_step(const void* step, const void* q, const void* coef
                                        static_cast<float*>(out), n, n, n, B, kStep, c, t2,
                                        nullptr, st);
     else
-      gemm<bf16, bf16, bf16, false>(static_cast<const bf16*>(step),
-                                    static_cast<const bf16*>(q), static_cast<bf16*>(out),
-                                    n, n, n, B, kStep, c, t2, nullptr, st);
+      tc_gemm<kStep, bf16>(static_cast<const bf16*>(step), static_cast<const bf16*>(q),
+                           static_cast<bf16*>(out), nullptr, n, n, n, B, c, t2, nullptr, st);
   }
-  return (int)cudaGetLastError();
+  return tc_status();
 }
 
 // out = x^T - x, in x's dtype.
@@ -146,10 +150,10 @@ extern "C" int psgd_tsub(const void* x, void* out, int B, int n, int dtype,
   if (B > 0 && n > 0) {
     if (dtype == 0)
       transpose_sub<float, float>(static_cast<const float*>(x), static_cast<float*>(out),
-                                  B, n, st);
+                                  nullptr, B, n, st);
     else
-      transpose_sub<bf16, bf16>(static_cast<const bf16*>(x), static_cast<bf16*>(out), B,
-                                n, st);
+      transpose_sub<bf16, bf16>(static_cast<const bf16*>(x), static_cast<bf16*>(out),
+                                nullptr, B, n, st);
   }
   return (int)cudaGetLastError();
 }

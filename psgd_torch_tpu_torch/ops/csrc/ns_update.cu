@@ -22,15 +22,19 @@
 // traffic that must move.  One n = 768 f32 matrix (2.4 MB) is ten times an
 // SM's shared memory, so the TPU monolith cannot carry over: every product
 // is a GEMM over shared-memory tiles.  Which GEMM:
-//   * psgd_ns_step in bf16: the tensor-core GEMM of ns_gemm_sm90.cuh (TMA
-//     + wgmma, f32 accumulation) for the step product and the four thin
-//     products of its spd bound, whose iterates also get bf16 copies for
-//     TMA to load; 2 n^3 + 8 k n^2 flops at up to 989 TFLOP/s.  It needs
-//     n % 8 == 0 (16-byte rows for TMA) and returns cudaErrorInvalidValue
-//     otherwise (the wrapper raises first).
-//   * everything else here (psgd_ns_update, psgd_procrustes, and
-//     psgd_ns_step in f32): the FFMA gemm_kernel of ns_common.cuh, ~20
-//     TFLOP/s at n = 2048.
+//   * psgd_ns_step and psgd_procrustes in bf16: the tensor-core GEMM of
+//     ns_gemm_sm90.cuh (TMA + wgmma, f32 accumulation, up to 989 TFLOP/s)
+//     for every product: ns_step's step product and the four thin products
+//     of its spd bound; procrustes's two full products and the four thin
+//     products of its skew bound.  TMA loads only what is in memory, so
+//     every f32 operand that the FFMA GEMM rounded to bf16 at load gets a
+//     bf16 copy written beside it, rounded once to the same value: the
+//     bounds' iterates, R (by the transpose-subtract) and Rq1 (by the
+//     first product's epilogue).  Both need n % 8 == 0 (16-byte rows for
+//     TMA) and return cudaErrorInvalidValue otherwise (the wrappers raise
+//     first).
+//   * everything else here (psgd_ns_update, and both entries in f32): the
+//     FFMA gemm_kernel of ns_common.cuh, ~20 TFLOP/s at n = 2048.
 //
 // Precision follows the TPU kernels' _dot: with a bf16 Q the product
 // operands are rounded to bf16 and accumulated in f32; with an f32 Q the
@@ -70,13 +74,14 @@ __global__ void combine_kernel(const TQ1* __restrict__ q1,
     st(out, off + i, ld(q1, off + i) + a * (rq[off + i] + half_a * rrq[off + i]));
 }
 
-// Parts of the scratch a chain needs (kPartHalf: the bound's bf16 iterate
-// copies, for the tensor-core GEMM).
+// Parts of the scratch a chain needs (kPartHalf: the bf16 copies that the
+// tensor-core GEMM reads, of the bound's iterates and of R and Rq1).
 enum Part { kPartStep = 1, kPartQ1 = 2, kPartProc = 4, kPartHalf = 8 };
 
 struct NsWs {
   BoundWs bound;
   float *coeff, *q1, *den, *r, *rq, *rrq, *tr1, *tr2;
+  bf16 *r16 = nullptr, *rq16 = nullptr;
 };
 
 long long carve(float* base, int B, int n, int k, int parts, NsWs* ws) {
@@ -91,8 +96,13 @@ long long carve(float* base, int B, int n, int k, int parts, NsWs* ws) {
     ws->r = c.take(B * nn);
     ws->rq = c.take(B * nn);
     ws->rrq = c.take(B * nn);
+    // the FFMA GEMM's 64-row diagonal tiles outnumber the tensor cores' 128
     ws->tr1 = c.take((long long)B * tiles);
     ws->tr2 = c.take((long long)B * tiles);
+    if (parts & kPartHalf) {
+      ws->r16 = reinterpret_cast<bf16*>(c.take((B * nn + 1) / 2));
+      ws->rq16 = reinterpret_cast<bf16*>(c.take((B * nn + 1) / 2));
+    }
   }
   return c.off;
 }
@@ -105,32 +115,33 @@ void ns_step_chain(const T* term1, const T* q, const float* lips, const float* t
                    const uint32_t* seeds, TQ1* q1, float* lips_out, const NsWs& ws,
                    int B, int n, int k, float lr, float beta, float one_minus_beta,
                    cudaStream_t st) {
-  norm_bound<T, Gemm, false>(term1, B, n, k, kSpd, seeds, 0u, ws.bound, st);
+  norm_bound<T, Gemm, false>(term1, term1, B, n, k, kSpd, seeds, 0u, ws.bound, st);
   bound_scalars(ws.bound, B, k, kOutLips, term2, lips, lr, beta, one_minus_beta,
                 lips_out, ws.coeff, st);
   Gemm::step(term1, q, q1, n, B, ws.coeff, term2, st);
 }
 
-// Stage 2: procrustes_step2 of q1 (TQ1) with R, Rq1 and RRq1 in f32.
-template <typename T, typename TQ1, bool kRound>
+// Stage 2: procrustes_step2 of q1 (TQ1) with R, Rq1 and RRq1 in f32; the
+// bound's thin products and the two full products on the GEMM policy Gemm,
+// which reads R and Rq1 as it takes them (f32, or their bf16 copies).
+template <typename T, typename TQ1, typename Gemm>
 void procrustes_chain(const TQ1* q1, const uint32_t* seeds, T* q_out, const NsWs& ws,
                       int B, int n, int k, float max_step, cudaStream_t st) {
   const long long nn = (long long)n * n;
   // R = q1^T - q1 and its skew bound (den = bound + tiny)
-  transpose_sub<TQ1, float>(q1, ws.r, B, n, st);
-  norm_bound<float, FfmaGemm<kRound>, false>(ws.r, B, n, k, kSkh, seeds, kSkhTag, ws.bound,
-                                             st);
+  transpose_sub<TQ1, float>(q1, ws.r, ws.r16, B, n, st);
+  const auto* r = Gemm::operand(ws.r, ws.r16);
+  norm_bound<float, Gemm, false>(ws.r, r, B, n, k, kSkh, seeds, kSkhTag, ws.bound, st);
   bound_scalars(ws.bound, B, k, kOutDen, nullptr, nullptr, 0.f, 0.f, 0.f, nullptr,
                 ws.den, st);
   // Rq1 = (R / den) q1 and RRq1 = (R / den) Rq1, with diagonal partial sums
-  gemm<float, TQ1, float, kRound>(ws.r, q1, ws.rq, n, n, n, B, kDivTrace, ws.den,
-                                  nullptr, ws.tr1, st);
-  gemm<float, float, float, kRound>(ws.r, ws.rq, ws.rrq, n, n, n, B, kDivTrace, ws.den,
-                                    nullptr, ws.tr2, st);
+  Gemm::div_trace(r, q1, ws.rq, ws.rq16, n, B, ws.den, ws.tr1, st);
+  Gemm::div_trace(r, Gemm::operand(ws.rq, ws.rq16), ws.rrq, nullptr, n, B, ws.den, ws.tr2,
+                  st);
   int cblocks = cdiv(nn, 256);
   if (cblocks > 1024) cblocks = 1024;
   combine_kernel<TQ1, T><<<dim3(cblocks, B), 256, 0, st>>>(
-      q1, ws.rq, ws.rrq, ws.tr1, ws.tr2, cdiv(n, kTile), max_step, nn, q_out);
+      q1, ws.rq, ws.rrq, ws.tr1, ws.tr2, cdiv(n, Gemm::kTraceTile), max_step, nn, q_out);
 }
 
 template <typename T, bool kRound>
@@ -142,14 +153,16 @@ void ns_update(const T* term1, const T* q, const float* lips, const float* term2
   carve(base, B, n, k, kPartStep | kPartQ1 | kPartProc, &ws);
   ns_step_chain<T, float, FfmaGemm<kRound>>(term1, q, lips, term2, seeds, ws.q1, lips_out,
                                             ws, B, n, k, lr, beta, one_minus_beta, st);
-  procrustes_chain<T, float, kRound>(ws.q1, seeds, q_out, ws, B, n, k, max_step, st);
+  procrustes_chain<T, float, FfmaGemm<kRound>>(ws.q1, seeds, q_out, ws, B, n, k, max_step,
+                                               st);
 }
 
 }  // namespace
 
 // Bytes of device scratch for B factors of width n and subspace dimension
 // k: the single route (psgd_ns_update), stage 1 (psgd_ns_step) and stage 2
-// (psgd_procrustes) of the split route.
+// (psgd_procrustes) of the split route; a stage's size is its bf16 chain's,
+// which holds the f32 chain's too.
 extern "C" long long psgd_ns_workspace_bytes(int B, int n, int k) {
   NsWs ws;
   return carve(nullptr, B, n, k, kPartStep | kPartQ1 | kPartProc, &ws) * 4LL;
@@ -160,7 +173,7 @@ extern "C" long long psgd_ns_step_workspace_bytes(int B, int n, int k) {
 }
 extern "C" long long psgd_procrustes_workspace_bytes(int B, int n, int k) {
   NsWs ws;
-  return carve(nullptr, B, n, k, kPartProc, &ws) * 4LL;
+  return carve(nullptr, B, n, k, kPartProc | kPartHalf, &ws) * 4LL;
 }
 
 // The single route.  dtype: 0 = float32 (f32 products), 1 = bfloat16 (bf16
@@ -194,7 +207,8 @@ extern "C" int psgd_ns_update(const void* term1, const void* q, const void* lips
 
 // Split stage 1 (_ns_step_kernel): the spd bound of term1, L' into
 // lips_out and q1 into q1_out, both in Q's dtype.  Arguments as
-// psgd_ns_update; in bf16 (tensor cores) n % 8 == 0.
+// psgd_ns_update; in bf16 (tensor cores) n % 8 == 0.  The f32 chain carves
+// no bf16 copies.
 extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
                             const void* term2, const void* seeds, void* q1_out,
                             void* lips_out, void* workspace, int B, int n, int k,
@@ -206,7 +220,8 @@ extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   float* lo = static_cast<float*>(lips_out);
   NsWs ws;
-  carve(static_cast<float*>(workspace), B, n, k, kPartStep | kPartHalf, &ws);
+  const int parts = dtype == 0 ? kPartStep : kPartStep | kPartHalf;
+  carve(static_cast<float*>(workspace), B, n, k, parts, &ws);
   if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
@@ -222,23 +237,26 @@ extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
 }
 
 // Split stage 2 (_procrustes_kernel): procrustes_step2 of q1 (B, n, n) in
-// Q's dtype into q_out, its skew bound keyed by seed word 1 ^ 0x5BD1E995.
+// Q's dtype into q_out, its skew bound keyed by seed word 1 ^ 0x5BD1E995;
+// in bf16 (tensor cores) n % 8 == 0.  The f32 chain carves no bf16 copies.
 extern "C" int psgd_procrustes(const void* q1, const void* seeds, void* q_out,
                                void* workspace, int B, int n, int k, int dtype,
                                float max_step, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   NsWs ws;
-  carve(static_cast<float*>(workspace), B, n, k, kPartProc, &ws);
+  const int parts = dtype == 0 ? kPartProc : kPartProc | kPartHalf;
+  carve(static_cast<float*>(workspace), B, n, k, parts, &ws);
+  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
-      procrustes_chain<float, float, false>(static_cast<const float*>(q1), sd,
-                                            static_cast<float*>(q_out), ws, B, n, k,
-                                            max_step, st);
+      procrustes_chain<float, float, FfmaGemm<false>>(static_cast<const float*>(q1), sd,
+                                                      static_cast<float*>(q_out), ws, B, n,
+                                                      k, max_step, st);
     else
-      procrustes_chain<bf16, bf16, true>(static_cast<const bf16*>(q1), sd,
-                                         static_cast<bf16*>(q_out), ws, B, n, k,
-                                         max_step, st);
+      procrustes_chain<bf16, bf16, TcGemm>(static_cast<const bf16*>(q1), sd,
+                                           static_cast<bf16*>(q_out), ws, B, n, k, max_step,
+                                           st);
   }
-  return (int)cudaGetLastError();
+  return tc_status();
 }

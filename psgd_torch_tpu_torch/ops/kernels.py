@@ -25,10 +25,12 @@ kernels:
   ``unit_noise``/``_noise_kernel`` and the damping around it.
 
 Products: in bf16, ``ns_step`` (its step product and the four thin products
-of its bound) and ``scaled_matmul_trace`` run on the Hopper tensor cores
-(csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32 accumulation), which
-need n % 8 == 0; every other product, and every f32 one, runs on the FFMA
-GEMM of csrc/ns_common.cuh.
+of its bound), ``procrustes`` (its two full products and the four thin
+products of its bound), ``tiled_step`` and ``scaled_matmul_trace`` run on
+the Hopper tensor cores (csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32
+accumulation), which need n % 8 == 0; every other product (the single
+route, ``norm_bound``), and every f32 one, runs on the FFMA GEMM of
+csrc/ns_common.cuh.
 
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
@@ -459,11 +461,14 @@ def procrustes_plain(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
 def procrustes(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
     """Split stage 2 (replaces ``_procrustes_kernel``): procrustes_step2 of
     q1 (B, n, n), its skew bound keyed by seed word 1 ^ 0x5BD1E995; R, RQ
-    and RRQ in f32, q' in q1's dtype.  CUDA: one chain of launches."""
+    and RRQ in f32, q' in q1's dtype.  CUDA: one chain of launches; in bf16
+    its products read bf16 copies of R and RQ on the tensor cores and n must
+    be a multiple of 8."""
     if q1.device.type == "cpu":
         return procrustes_plain(q1, seeds, max_step, k, start)
     _no_start(start)
     dev, b, n = _require_stack(q1, "q1")
+    _require_tc_width(q1, "procrustes")
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
@@ -536,12 +541,14 @@ def tiled_step_plain(step, q, coeff, term2):
 def tiled_step(step, q, coeff, term2):
     """q1 = q - coeff (step q - term2 q) for stacks step, q (B, n, n) and
     per-batch coeff, term2 (B,) float32, stored in Q's dtype (replaces
-    ``_tiled_step_kernel``).  CUDA: one GEMM launch."""
+    ``_tiled_step_kernel``).  CUDA: one GEMM launch (tensor cores in bf16, n
+    a multiple of 8)."""
     if q.device.type == "cpu":
         return tiled_step_plain(step, q, coeff, term2)
     dev, b, n = _require_stack(q, "q")
     _require(step, "step", dev, (q.dtype,), (b, n, n))
     _require_scalars(dev, b, coeff=coeff, term2=term2)
+    _require_tc_width(q, "tiled_step")
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = library().psgd_tiled_step(

@@ -212,17 +212,67 @@ def test_scaled_matmul_trace_on_tensor_cores(dev, n, b):
     assert torch.equal(rq, rq2) and torch.equal(tr, tr2)
 
 
+# q' of the FFMA procrustes chain against its plain version, Frobenius-
+# relative, on the split route at (22, 2048) in bf16 on an H100 (PERF.md,
+# Findings): the tensor-core chain reads the same bf16 operands, so it may
+# not be more than twice as far.
+_FFMA_PROCRUSTES_REL = 3.23e-4
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 384, 2048])
+def test_procrustes_on_tensor_cores(dev, n, b):
+    """procrustes in bf16 runs its skew bound's thin products and its two
+    full products on the tensor-core GEMM, which read bf16 copies of R and
+    RQ: q' within the route tolerance of the plain version and within twice
+    the FFMA chain's error (n = 200 exercises TMA's zero-filled edges, the
+    masked stores and a ragged 128-row trace tile), the step taking both
+    branches, and two runs give the same bits.  B = 1 runs the two
+    alternate-noise matrices as two stacks of one."""
+    args = _ns_inputs(max(b, 2), n, dev, torch.bfloat16)
+    q1, seeds = kernels.ns_step_plain(*args, k=128)[0], args[4]
+    assert _both_branches(q1, seeds)
+    stacks = [(q1, seeds)] if b > 1 else [(q1[i:i + 1], seeds[i:i + 1]) for i in range(2)]
+    tol = min(_ROUTE_TOL[torch.bfloat16][0], 2 * _FFMA_PROCRUSTES_REL)
+    for q1s, s in stacks:
+        qk = kernels.procrustes(q1s, s, k=128)
+        rel = _rel(qk, kernels.procrustes_plain(q1s, s, k=128))
+        assert qk.dtype == torch.bfloat16 and rel < tol, rel
+        assert torch.equal(qk, kernels.procrustes(q1s, s, k=128))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 384, 2048])
+def test_tiled_step_on_tensor_cores(dev, n, b):
+    """tiled_step in bf16 on the tensor-core GEMM with the step epilogue:
+    q1 to f32 accumulation order against the plain version (n = 200
+    exercises TMA's zero-filled edges and the masked stores), and two runs
+    give the same bits."""
+    term1, q, _, term2, _, _, _ = _ns_inputs(b, n, dev, torch.bfloat16)
+    coeff = torch.linspace(0.01, 0.03, b, device=dev)
+    q1 = kernels.tiled_step(term1, q, coeff, term2)
+    q1p = kernels.tiled_step_plain(term1, q, coeff, term2)
+    assert q1.dtype == torch.bfloat16 and _one_ulp_or_order(q1, q1p)
+    assert torch.equal(q1, kernels.tiled_step(term1, q, coeff, term2))
+
+
 def test_tensor_core_widths_refused(dev):
     """TMA needs 16-byte rows: a bf16 width that is not a multiple of 8 is
-    refused by both tensor-core wrappers; f32 at that width runs (FFMA)."""
-    args = _ns_inputs(1, 204, dev, torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        kernels.ns_step(*args, k=32)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        kernels.scaled_matmul_trace(args[1], args[1], args[2] + 1.0)
-    f32 = _ns_inputs(1, 204, dev, torch.float32)
-    assert torch.isfinite(kernels.ns_step(*f32, k=32)[0]).all()
-    assert torch.isfinite(kernels.scaled_matmul_trace(f32[1], f32[1], f32[2] + 1.0)[0]).all()
+    refused by the four tensor-core wrappers; f32 at that width runs
+    (FFMA)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _ns_inputs(1, 204, dev, dtype)
+        term1, q, lips, term2, seeds = args[:5]
+        calls = (lambda: kernels.ns_step(*args, k=32)[0],
+                 lambda: kernels.scaled_matmul_trace(q, q, lips + 1.0)[0],
+                 lambda: kernels.procrustes(q, seeds, k=32),
+                 lambda: kernels.tiled_step(term1, q, lips + 0.02, term2))
+        for call in calls:
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match="multiples of 8"):
+                    call()
+            else:
+                assert torch.isfinite(call()).all()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

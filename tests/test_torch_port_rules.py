@@ -130,15 +130,49 @@ def test_build_compiles_every_source_for_sm90a(monkeypatch, tmp_path):
     assert kernels.build() == (lib, report) and not calls   # built: kept report
 
 
-def test_tensor_core_gemm_feeds_its_two_entries():
-    """The wgmma + TMA GEMM is in ns_gemm_sm90.cuh and is what psgd_ns_step
-    (bf16) and psgd_scaled_matmul_trace (bf16) launch."""
+def _c_entry(source: str, name: str) -> str:
+    """The body of the C entry point ``name`` in ``source``: from its
+    definition to the next one."""
+    text = (CSRC / source).read_text()
+    start = text.index(f'extern "C" int {name}(')
+    end = text.find('extern "C"', start + 1)
+    return text[start:] if end < 0 else text[start:end]
+
+
+def _function(source: str, signature: str) -> str:
+    """The body of the function whose definition starts with ``signature``:
+    from there to the first closing brace at the start of a line."""
+    text = (CSRC / source).read_text()
+    start = text.index(signature)
+    return text[start:text.index("\n}", start)]
+
+
+# each bf16 entry on the tensor cores: the call in its body that takes the
+# GEMM, and the wiring that call leads to
+_TC_ENTRIES = {
+    "psgd_ns_step": ("ns_update.cu", "ns_step_chain<bf16, bf16, TcGemm>", ()),
+    "psgd_scaled_matmul_trace": ("ns_tiled.cu", "tc_gemm<kMulTrace, bf16>", ()),
+    "psgd_tiled_step": ("ns_tiled.cu", "tc_gemm<kStep, bf16>", ()),
+    "psgd_procrustes": ("ns_update.cu", "procrustes_chain<bf16, bf16, TcGemm>", (
+        ("ns_update.cu", "void procrustes_chain(", "Gemm::div_trace("),
+        ("ns_update.cu", "void procrustes_chain(", "norm_bound<float, Gemm, false>"),
+        ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kDivTrace, float>"))),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_TC_ENTRIES))
+def test_tensor_core_gemm_feeds_its_two_entries(entry):
+    """The wgmma + TMA GEMM is in ns_gemm_sm90.cuh and is what each bf16
+    entry on the tensor cores launches: psgd_ns_step, psgd_procrustes (its
+    two full products through the kDivTrace epilogue, its bound's thin
+    products), psgd_tiled_step and psgd_scaled_matmul_trace."""
     gemm = (CSRC / "ns_gemm_sm90.cuh").read_text()
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                   "cuTensorMapEncodeTiled"):
         assert instr in gemm, instr
-    update, tiled = (CSRC / "ns_update.cu").read_text(), (CSRC / "ns_tiled.cu").read_text()
-    for text in (update, tiled):
-        assert '#include "ns_gemm_sm90.cuh"' in text
-    assert "ns_step_chain<bf16, bf16, TcGemm>" in update
-    assert "tc_gemm<kMulTrace, bf16>" in tiled
+    source, call, wiring = _TC_ENTRIES[entry]
+    assert '#include "ns_gemm_sm90.cuh"' in (CSRC / source).read_text()
+    body = _c_entry(source, entry)
+    assert call in body and "tc_status()" in body and "n % 8 != 0" in body, entry
+    for src, signature, snippet in wiring:
+        assert snippet in _function(src, signature), (signature, snippet)
