@@ -6,15 +6,15 @@
 // ns_gemm_sm90.cuh; each includes it once, so the anonymous namespace gives
 // each translation unit its own instances.
 //
-// Which GEMM runs where.  The bf16 products of psgd_ns_step (its step
-// product and the four thin products of its spd bound), psgd_procrustes
-// (its two full products and the four thin products of its skew bound),
-// psgd_tiled_step and psgd_scaled_matmul_trace run on the tensor-core GEMM
-// of ns_gemm_sm90.cuh (TMA + wgmma).  Every other product runs on
-// gemm_kernel below: the single route (psgd_ns_update), psgd_norm_bound and
-// every f32 entry (f32 products, never TF32).  norm_bound, ns_step_chain
-// and procrustes_chain take the GEMM as a policy type (FfmaGemm here,
-// TcGemm there).
+// Which GEMM runs where.  Every bf16 product with n % 8 == 0 runs on the
+// tensor-core GEMM of ns_gemm_sm90.cuh (TMA + wgmma): those of the single
+// route (psgd_ns_update), psgd_ns_step, psgd_procrustes, psgd_norm_bound,
+// psgd_tiled_step and psgd_scaled_matmul_trace.  gemm_kernel below runs
+// the rest: every f32 product (f32 operands, never TF32), and the bf16
+// products of the single route at a width n % 8 != 0, which TMA cannot
+// load (a rule on shape; the other bf16 entries refuse such widths).
+// norm_bound, ns_step_chain and procrustes_chain take the GEMM as a policy
+// type (FfmaGemm here, TcGemm there).
 //
 // Bound on the H100 of every GEMM here: operations.  gemm_kernel is simple
 // and right first: a 64 x 64 output tile per block, 16-deep k slices
@@ -398,9 +398,9 @@ struct FfmaGemm {
                    int batch, const float* s, cudaStream_t st) {
     gemm<float, TA, float, kRound>(v, a, w, k, n, n, batch, kDiv, s, nullptr, nullptr, st);
   }
-  // q1 = q - coeff (term1 q - term2 q), stored as TQ1
+  // q1 = q - coeff (term1 q - term2 q), stored as TQ1; no bf16 copy
   template <typename T, typename TQ1>
-  static void step(const T* term1, const T* q, TQ1* q1, int n, int batch,
+  static void step(const T* term1, const T* q, TQ1* q1, bf16*, int n, int batch,
                    const float* coeff, const float* term2, cudaStream_t st) {
     gemm<T, T, TQ1, false>(term1, q, q1, n, n, n, batch, kStep, coeff, term2, nullptr, st);
   }

@@ -4,11 +4,13 @@
 //
 //   C[b] = epilogue(A[b] (M x K) @ B[b] (K x N)), bf16 operands, row-major
 //
-// Used in bf16 by psgd_ns_step (the step product and the four thin products
-// of its spd bound) and psgd_procrustes (its two full products and the four
-// thin products of its skew bound), both in ns_update.cu, and by
-// psgd_tiled_step and psgd_scaled_matmul_trace (ns_tiled.cu).  Every other
-// product keeps the FFMA gemm_kernel of ns_common.cuh.
+// Used for every bf16 product at n % 8 == 0: by the single route
+// (psgd_ns_update: its step product, its two full procrustes products and
+// the thin products of its two bounds), psgd_ns_step and psgd_procrustes
+// (ns_update.cu), and by psgd_norm_bound, psgd_tiled_step and
+// psgd_scaled_matmul_trace (ns_tiled.cu).  The f32 products, and the single
+// route's bf16 products at n % 8 != 0, keep the FFMA gemm_kernel of
+// ns_common.cuh.
 //
 // Bound on the H100: operations (2 M N K at 989 TFLOP/s in bf16); the
 // FFMA GEMM it replaces ran at ~20 TFLOP/s without tensor cores.  Design:
@@ -27,7 +29,8 @@
 //     the epilogue masks its stores.  Rows need 16-byte strides: n % 8 == 0.
 // The tensor maps are encoded on the host per call, cuTensorMapEncodeTiled
 // looked up through the CUDA runtime (nothing links -lcuda), and passed as
-// __grid_constant__ kernel parameters.
+// __grid_constant__ kernel parameters; the dynamic shared-memory attribute
+// is set once per kernel instantiation and device.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums only
 #include <cuda_bf16.h>
@@ -45,6 +48,8 @@ constexpr int kTcBBytes = kTcK * kTcN * 2;  // 16 KB, two 64 x 64 boxes
 constexpr int kTcStageBytes = kTcABytes + kTcBBytes;
 // the ring, plus slack to align it to the 1024 bytes of the swizzle pattern
 constexpr int kTcSmemBytes = kTcStages * kTcStageBytes + 1024;
+// devices whose shared-memory attribute tc_gemm remembers having set
+constexpr int kTcMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -154,7 +159,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 //   kDiv:      C = acc / den[b] stored f32, and as bf16 into C16 if given
 //              (the next thin product's operand);
 //   kStep:     C = Q - den[b] (acc - term2[b] Q), Q = B read at the output
-//              position, stored bf16;
+//              position, stored as TC (bf16; or f32, and as bf16 into C16
+//              if given);
 //   kDivTrace: as kDiv, and a diagonal tile writes the sum of its f32
 //              diagonal to trace[b, tile row];
 //   kMulTrace: C = acc * den[b] stored bf16, the diagonal sums as kDivTrace.
@@ -332,7 +338,7 @@ inline bool encode_stack(CUtensorMap* map, const __nv_bfloat16* ptr, int batch, 
 }
 
 // C[b] = epilogue(A[b] (M x K) @ Bm[b] (K x N)) for bf16 stacks with K and N
-// multiples of 8 (the callers check); C16 only with kDiv and kDivTrace.
+// multiples of 8 (the callers check); C16 only with an f32 C.
 template <int kEpi, typename TC>
 void tc_gemm(const __nv_bfloat16* A, const __nv_bfloat16* Bm, TC* C, __nv_bfloat16* C16,
              int M, int N, int K, int batch, const float* den, const float* term2,
@@ -342,17 +348,24 @@ void tc_gemm(const __nv_bfloat16* A, const __nv_bfloat16* Bm, TC* C, __nv_bfloat
       !encode_stack(&map_b, Bm, batch, K, N, kTcK))
     return;
   const auto kernel = tc_gemm_kernel<kEpi, TC>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  // the dynamic shared-memory limit, raised once per instantiation and device
+  static bool sized[kTcMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kTcMaxDevices || !sized[dev]) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+    if (dev < kTcMaxDevices) sized[dev] = true;
+  }
   const dim3 grid(cdiv(N, kTcN), cdiv(M, kTcM), batch);
   kernel<<<grid, kTcThreads, kTcSmemBytes, st>>>(map_a, map_b, M, N, K, C, C16, Bm, den,
                                                  term2, trace);
 }
 
-// The tensor-core products of psgd_ns_step and psgd_procrustes in bf16 (the
-// policy norm_bound, ns_step_chain and procrustes_chain take; FfmaGemm in
-// ns_common.cuh is the other).  Each product reads the bf16 copies of its
-// operands: of the bound's iterates, of R and of Rq1.  Templates, as
-// FfmaGemm's, so a unit that does not call them builds no kernel.
+// The tensor-core products of the bf16 chains (the policy norm_bound,
+// ns_step_chain and procrustes_chain take; FfmaGemm in ns_common.cuh is the
+// other).  Each product reads the bf16 copies of its f32 operands: of the
+// bound's iterates, of q1 (the single route), of R and of Rq1.  Templates,
+// as FfmaGemm's, so a unit that does not call them builds no kernel.
 struct TcGemm {
   // the diagonal tile of the trace partials
   static constexpr int kTraceTile = kTcM;
@@ -372,11 +385,12 @@ struct TcGemm {
                         const float* den, float* trace, cudaStream_t st) {
     tc_gemm<kDivTrace, float>(a, b, c, c16, n, n, n, batch, den, nullptr, trace, st);
   }
-  // q1 = q - coeff (term1 q - term2 q), stored bf16
+  // q1 = q - coeff (term1 q - term2 q), stored as TQ1 (bf16, or f32 and its
+  // bf16 copy q1_16 in the same epilogue)
   template <typename T, typename TQ1>
-  static void step(const T* term1, const T* q, TQ1* q1, int n, int batch, const float* coeff,
-                   const float* term2, cudaStream_t st) {
-    tc_gemm<kStep, TQ1>(term1, q, q1, nullptr, n, n, n, batch, coeff, term2, nullptr, st);
+  static void step(const T* term1, const T* q, TQ1* q1, bf16* q1_16, int n, int batch,
+                   const float* coeff, const float* term2, cudaStream_t st) {
+    tc_gemm<kStep, TQ1>(term1, q, q1, q1_16, n, n, n, batch, coeff, term2, nullptr, st);
   }
 };
 

@@ -16,15 +16,18 @@
 // bound by operations (2 k n^2 per thin product, 2 n^3 per full product);
 // the transpose-subtract and the combine by bytes (each reads and writes
 // n^2 elements per matrix).  Which GEMM:
-//   * psgd_tiled_step and psgd_scaled_matmul_trace in bf16: the
-//     tensor-core GEMM of ns_gemm_sm90.cuh (TMA + wgmma, f32 accumulation,
-//     up to 989 TFLOP/s).  The step's epilogue reads Q at the output
+//   * psgd_norm_bound, psgd_tiled_step and psgd_scaled_matmul_trace in
+//     bf16: the tensor-core GEMM of ns_gemm_sm90.cuh (TMA + wgmma, f32
+//     accumulation, up to 989 TFLOP/s).  The bound's four thin products
+//     read the stored bf16 matrix itself and bf16 copies of its f32
+//     iterates (written by the start, the row normalizations and the thin
+//     products' epilogues); the step's epilogue reads Q at the output
 //     position and stores q - coeff (acc - term2 q) in bf16; the scaled
 //     product's scales by inv[b], stores bf16 and writes each diagonal
 //     128 x 128 tile's f32 diagonal sum.  n % 8 == 0 (16-byte rows for
 //     TMA), else cudaErrorInvalidValue (the wrappers raise first).
-//   * psgd_norm_bound and every f32 entry: the FFMA gemm_kernel of
-//     ns_common.cuh (~20 TFLOP/s at n = 2560).
+//   * every f32 entry: the FFMA gemm_kernel of ns_common.cuh with f32
+//     products (~20 TFLOP/s at n = 2560).
 //
 // Storage points follow the TPU route: q1, R, Rq and RRq are stored in Q's
 // dtype; the bound reads its matrix in that dtype, takes the start row from
@@ -66,18 +69,20 @@ __global__ void trace_sum_kernel(const float* __restrict__ part, int tiles, int 
   trace[b] = t;
 }
 
-long long carve_bound_only(float* base, int B, int n, int k, BoundWs* ws) {
+// The bound's scratch; in bf16 also the iterates' bf16 copies, which the
+// tensor cores read.
+long long carve_bound_only(float* base, int B, int n, int k, int dtype, BoundWs* ws) {
   Carver c(base);
-  *ws = carve_bound(c, B, n, k);
+  *ws = carve_bound(c, B, n, k, dtype != 0);
   return c.off;
 }
 
-template <typename T>
-void bound(const T* mat, const uint32_t* seeds, float* out, float* base, int B, int n,
+// The bound of a stack stored as T; in bf16 the stored matrix is its own
+// product operand on the tensor cores.
+template <typename T, typename Gemm>
+void bound(const T* mat, const uint32_t* seeds, float* out, const BoundWs& ws, int B, int n,
            int k, int mode, uint32_t tag, cudaStream_t st) {
-  BoundWs ws;
-  carve_bound_only(base, B, n, k, &ws);
-  norm_bound<T, FfmaGemm<sizeof(T) == 2>, true>(mat, mat, B, n, k, mode, seeds, tag, ws, st);
+  norm_bound<T, Gemm, true>(mat, mat, B, n, k, mode, seeds, tag, ws, st);
   bound_scalars(ws, B, k, kOutBound, nullptr, nullptr, 0.f, 0.f, 0.f, nullptr, out, st);
 }
 
@@ -97,28 +102,31 @@ void combine(const T* q1, const T* rq, const T* rrq, const float* a, T* out, int
 // an entry on the tensor cores a failed tensor-map encoding first.
 
 // Bytes of device scratch of psgd_norm_bound.
-extern "C" long long psgd_bound_workspace_bytes(int B, int n, int k) {
+extern "C" long long psgd_bound_workspace_bytes(int B, int n, int k, int dtype) {
   BoundWs ws;
-  return carve_bound_only(nullptr, B, n, k, &ws) * 4LL;
+  return carve_bound_only(nullptr, B, n, k, dtype, &ws) * 4LL;
 }
 
 // out[b] = spectral-norm lower bound of mat[b] (mode 0 spd: normalizer max
 // diag; 1 skh: max |a|), start drawn from Philox keyed by seeds[b] with
-// word 1 ^ tag.
+// word 1 ^ tag; in bf16 (tensor cores) n % 8 == 0.
 extern "C" int psgd_norm_bound(const void* mat, const void* seeds, void* out,
                                void* workspace, int B, int n, int k, int dtype,
                                int mode, unsigned int tag, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* sd = static_cast<const uint32_t*>(seeds);
   float* o = static_cast<float*>(out);
-  float* ws = static_cast<float*>(workspace);
+  BoundWs ws;
+  carve_bound_only(static_cast<float*>(workspace), B, n, k, dtype, &ws);
+  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
-      bound<float>(static_cast<const float*>(mat), sd, o, ws, B, n, k, mode, tag, st);
+      bound<float, FfmaGemm<false>>(static_cast<const float*>(mat), sd, o, ws, B, n, k, mode,
+                                    tag, st);
     else
-      bound<bf16>(static_cast<const bf16*>(mat), sd, o, ws, B, n, k, mode, tag, st);
+      bound<bf16, TcGemm>(static_cast<const bf16*>(mat), sd, o, ws, B, n, k, mode, tag, st);
   }
-  return (int)cudaGetLastError();
+  return tc_status();
 }
 
 // out = q - coeff (step q - term2 q), stored in Q's dtype; in bf16 (tensor

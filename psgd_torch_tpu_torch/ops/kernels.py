@@ -24,13 +24,14 @@ kernels:
   whitening damping g + (damping + eps|g|) v.  Replaces
   ``unit_noise``/``_noise_kernel`` and the damping around it.
 
-Products: in bf16, ``ns_step`` (its step product and the four thin products
-of its bound), ``procrustes`` (its two full products and the four thin
-products of its bound), ``tiled_step`` and ``scaled_matmul_trace`` run on
-the Hopper tensor cores (csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32
-accumulation), which need n % 8 == 0; every other product (the single
-route, ``norm_bound``), and every f32 one, runs on the FFMA GEMM of
-csrc/ns_common.cuh.
+Products: every bf16 product at a width n % 8 == 0 runs on the Hopper
+tensor cores (csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32
+accumulation): those of the single route, ``ns_step``, ``procrustes``,
+``norm_bound``, ``tiled_step`` and ``scaled_matmul_trace``.  TMA needs
+16-byte rows, so a bf16 width n % 8 != 0 is refused by every wrapper but
+the single route's, which takes it on the FFMA GEMM of csrc/ns_common.cuh
+(a rule on shape: the route for "anything else" may be sent such a
+width).  Every f32 product runs on the FFMA GEMM (f32 operands, no TF32).
 
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
@@ -42,7 +43,8 @@ process per source, all started together) and links them into one shared
 library with a plain C interface under ``build/kernels/`` at the repository
 root, named by a hash of the sources; ctypes binds it.  Every C entry point
 launches on PyTorch's current stream, allocates nothing, does not
-synchronize, and returns ``cudaGetLastError()``.
+synchronize, and returns a failed tensor-map encoding of the tensor-core
+GEMM if there was one, else ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -142,14 +144,14 @@ def library() -> ctypes.CDLL:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     signatures = {
         "psgd_noise": ([vp, vp, vp, i32, i64, i32, i32, f32, f32, f32, vp], i32),
-        "psgd_ns_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_ns_workspace_bytes": ([i32] * 4, i64),
         "psgd_ns_update": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, f32, vp],
                            i32),
-        "psgd_ns_step_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_ns_step_workspace_bytes": ([i32] * 4, i64),
         "psgd_ns_step": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, vp], i32),
-        "psgd_procrustes_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_procrustes_workspace_bytes": ([i32] * 4, i64),
         "psgd_procrustes": ([vp] * 4 + [i32, i32, i32, i32, f32, vp], i32),
-        "psgd_bound_workspace_bytes": ([i32, i32, i32], i64),
+        "psgd_bound_workspace_bytes": ([i32] * 4, i64),
         "psgd_norm_bound": ([vp] * 4 + [i32, i32, i32, i32, i32, ctypes.c_uint,
                                         vp], i32),
         "psgd_tiled_step": ([vp] * 5 + [i32, i32, i32, vp], i32),
@@ -381,7 +383,8 @@ def _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
 def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
             starts=None):
     """The single route on CUDA: one chain of launches (counted as
-    ``fused_ns_update.launches``)."""
+    ``fused_ns_update.launches``).  In bf16 its products run on the tensor
+    cores at n % 8 == 0 and on the FFMA GEMM at other widths, by shape."""
     if q.device.type == "cpu":
         return _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step,
                              k, starts)
@@ -392,7 +395,7 @@ def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
-    ws = _workspace(lib.psgd_ns_workspace_bytes(b, n, kk), dev)
+    ws = _workspace(lib.psgd_ns_workspace_bytes(b, n, kk, _DTYPE_CODE[q.dtype]), dev)
     q_out = torch.empty_like(q)
     lips_out = torch.empty_like(lips)
     with torch.cuda.device(dev):
@@ -437,7 +440,8 @@ def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None):
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
-    ws = _workspace(lib.psgd_ns_step_workspace_bytes(b, n, kk), dev)
+    ws = _workspace(lib.psgd_ns_step_workspace_bytes(b, n, kk, _DTYPE_CODE[q.dtype]),
+                    dev)
     q1 = torch.empty_like(q)
     lips_out = torch.empty_like(lips)
     with torch.cuda.device(dev):
@@ -472,7 +476,8 @@ def procrustes(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
-    ws = _workspace(lib.psgd_procrustes_workspace_bytes(b, n, kk), dev)
+    ws = _workspace(lib.psgd_procrustes_workspace_bytes(b, n, kk, _DTYPE_CODE[q1.dtype]),
+                    dev)
     out = torch.empty_like(q1)
     with torch.cuda.device(dev):
         err = lib.psgd_procrustes(
@@ -508,15 +513,18 @@ def norm_bound(mat, seeds, mode="spd", tag=0, k=NORM_K, start=None):
     its storage dtype (replaces ``_tiled_bound_kernel``): normalizer max
     diagonal (``mode="spd"``) or max |a| (``"skh"``), the subspace start
     keyed by ``seeds`` (B, 2) with word 1 ^ ``tag``.  Returns (B,) float32.
-    CUDA: one chain of launches."""
+    CUDA: one chain of launches; in bf16 its thin products run on the tensor
+    cores and n must be a multiple of 8."""
     if mat.device.type == "cpu":
         return norm_bound_plain(mat, seeds, mode, tag, k, start)
     _no_start(start)
     dev, b, n = _require_stack(mat, "mat")
+    _require_tc_width(mat, "norm_bound")
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()
-    ws = _workspace(lib.psgd_bound_workspace_bytes(b, n, kk), dev)
+    ws = _workspace(lib.psgd_bound_workspace_bytes(b, n, kk, _DTYPE_CODE[mat.dtype]),
+                    dev)
     out = torch.empty(b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.psgd_norm_bound(
@@ -727,6 +735,43 @@ def fused_ns_update(term1, q, lips, term2, seeds, lr, beta_l,
     the other routes count in their pieces' counters."""
     return _dispatch(_KERNELS, _single, term1, q, lips, term2, seeds, lr,
                      beta_l, max_step, k, starts, route)
+
+
+# ---------------------------------------------------------------------------
+# how far a kernel may be from its plain version (chip_smoke.py and the
+# card's tests read these)
+# ---------------------------------------------------------------------------
+
+# A route or a split stage, (q' Frobenius-relative, L' relative).  f32: the
+# same arithmetic in another order.  bf16: the kernels round the bounds'
+# thin operands to bf16 where the plain chains keep f32.
+ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+# q' of the FFMA single route in bf16 against its plain version (Frobenius-
+# relative) by (B, n), on chip_smoke.py's problems on an H100 80GB HBM3 at
+# 700 W (PERF.md, Findings).  The tensor-core chain reads the same bf16
+# operands, so at these shapes it may be at most twice as far.
+FFMA_SINGLE_REL = {(12, 768): 3.02e-4, (1, 1024): 3.58e-4}
+
+# norm_bound against its plain version summed in the kernel's own order
+BOUND_RTOL = 1e-5
+
+
+def norm_bound_rtol(mat, seeds, mode="spd", tag=0, k=NORM_K) -> float:
+    """How far ``norm_bound`` may be from ``norm_bound_plain`` on these
+    inputs, relative: ``BOUND_RTOL``, plus in bf16 (n % 8 == 0, the tensor
+    cores) how far the plain version itself moves when its products are
+    summed as the tensor cores sum them (``linalg.tensor_core_matmul``).
+    The bound rounds its f32 iterate to bf16 before each product, so
+    another summation order flips a few of those roundings, and one on the
+    row of the largest norm moves the bound; the f32 bound and the FFMA
+    GEMM sum in the plain version's order."""
+    if mat.dtype != torch.bfloat16 or mat.shape[-1] % _TC_WIDTH_MULTIPLE:
+        return BOUND_RTOL
+    plain = norm_bound_plain(mat, seeds, mode, tag, k)
+    ordered = norm_bound_stored(mat, mode, seeds=_tagged(seeds, tag), k=k,
+                                tensor_core_sums=True)
+    return BOUND_RTOL + ((ordered - plain).abs() / plain).max().item()
 
 
 SPLIT_KERNELS = (ns_step, procrustes)

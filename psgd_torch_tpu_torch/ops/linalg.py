@@ -126,8 +126,37 @@ def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _toward_zero_f32(t: torch.Tensor) -> torch.Tensor:
+    """f64 values rounded toward zero to f32 (returned in f64)."""
+    r = t.float()
+    r = torch.where(r.double().abs() > t.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+    return r.double()
+
+
+def tensor_core_matmul(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """x @ a in f32 for bf16 x (..., m, K) and a (..., K, n), summed as the
+    Hopper tensor cores sum a bf16 ``wgmma`` into an f32 accumulator.  A
+    model, fitted on an H100 against the port's tensor-core GEMM: K in
+    groups of 16; in each group the 16 exact products and the accumulator
+    are aligned to the largest exponent among them and truncated 2 bits
+    below that exponent's f32 unit in the last place, summed, and the sum
+    is rounded toward zero to f32 (tools/tc_sum_model.py measures how
+    often it meets the GEMM's sums to the bit and their bf16 roundings)."""
+    xd, ad = x.double(), a.double()
+    acc = torch.zeros(xd.shape[:-1] + ad.shape[-1:], dtype=torch.float64,
+                      device=x.device)
+    for j in range(0, a.shape[-2], 16):
+        terms = torch.cat([acc.unsqueeze(-2),
+                           xd[..., j:j + 16, None] * ad[..., None, j:j + 16, :]], dim=-2)
+        _, e = torch.frexp(terms.abs().amax(dim=-2, keepdim=True))
+        quantum = torch.ldexp(torch.ones_like(terms[..., :1, :]), e - 26)
+        acc = _toward_zero_f32(torch.sum(torch.trunc(terms / quantum) * quantum, dim=-2))
+    return acc.float()
+
+
 def norm_bound_stored(a: torch.Tensor, mode: str, seeds=None, k: int = 32,
-                      half_iters: int = 2, v0=None) -> torch.Tensor:
+                      half_iters: int = 2, v0=None,
+                      tensor_core_sums: bool = False) -> torch.Tensor:
     """The norm lower bound of ``a`` (..., n, n) read in its storage dtype,
     as the tiled NS route takes it (pallas_kernels._tiled_bound_kernel):
 
@@ -138,7 +167,9 @@ def norm_bound_stored(a: torch.Tensor, mode: str, seeds=None, k: int = 32,
     * the start row j has the largest row energy computed in a's dtype
       (each square rounded, the f32 sum rounded), first index on ties;
     * the thin iterate is rounded to a's dtype before each product (the
-      TPU ``_dot``), products accumulate in f32 (f64 for f64 a).
+      TPU ``_dot``), products accumulate in f32 (f64 for f64 a); with
+      ``tensor_core_sums`` (bf16 a) each product is summed in the order and
+      rounding of the Hopper tensor cores (``tensor_core_matmul``).
 
     Returns the bound in f32 (f64 for f64 a)."""
     cd = compute_dtype_of(a.dtype)
@@ -159,6 +190,8 @@ def norm_bound_stored(a: torch.Tensor, mode: str, seeds=None, k: int = 32,
     v = aj + sgn(torch.sum(aj * v, dim=-1, keepdim=True)) * v
 
     def thin(x):
+        if tensor_core_sums:
+            return tensor_core_matmul(x.to(a.dtype), a) / s
         return (x.to(a.dtype).to(cd) @ am) / s
 
     for _ in range(half_iters):

@@ -75,11 +75,6 @@ def test_ns_kernel_matches_plain_bf16(dev):
     assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
 
 
-# f32: the same arithmetic in another order; bf16: the kernels round the
-# bounds' thin operands to bf16 where the plain chains keep f32
-_ROUTE_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
-
-
 def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -107,7 +102,7 @@ def test_routes_match_plain(dev, route, n, dtype):
     assert _both_branches(kernels.ns_step_plain(*args, k=128)[0], args[4])
     qk, lk = kernels.fused_ns_update(*args, k=128, route=route)
     qp, lp = kernels.fused_ns_update_plain(*args, k=128, route=route)
-    tol_q, tol_l = _ROUTE_TOL[dtype]
+    tol_q, tol_l = kernels.ROUTE_TOL[dtype]
     assert qk.dtype == dtype and _rel(qk, qp) < tol_q
     torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
     qk2, lk2 = kernels.fused_ns_update(*args, k=128, route=route)
@@ -133,7 +128,7 @@ def test_split_stages_match_plain(dev, n, dtype):
     term1, q, lips, term2, seeds, lr, beta = _ns_inputs(3, n, dev, dtype)
     q1k, lk = kernels.ns_step(term1, q, lips, term2, seeds, lr, beta, k=128)
     q1p, lp = kernels.ns_step_plain(term1, q, lips, term2, seeds, lr, beta, k=128)
-    tol_q, tol_l = _ROUTE_TOL[dtype]
+    tol_q, tol_l = kernels.ROUTE_TOL[dtype]
     assert q1k.dtype == dtype and _one_ulp_or_order(q1k, q1p)
     torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
     qk = kernels.procrustes(q1k, seeds, k=128)
@@ -147,15 +142,17 @@ def test_tiled_pieces_match_plain(dev, n, dtype):
     """Each tiled piece on the same inputs as its plain version: tsub and
     combine bit for bit; tiled_step and scaled_matmul_trace to f32
     accumulation order, traces within 1e-4 of the sum of |diagonal|;
-    norm_bound within 1e-5 of the plain bound (the same start) and at most
-    1.001 x the true norm; combine on a step that takes both branches and on
-    a fixed one."""
+    norm_bound within ``kernels.norm_bound_rtol`` of the plain bound (the
+    same start; 1e-5, or twice as far as the plain version moves with its
+    sums rounded exactly) and at most 1.001 x the true norm; combine on a
+    step that takes both branches and on a fixed one."""
     term1, q, lips, term2, seeds, _, _ = _ns_inputs(3, n, dev, dtype)
     for mat, mode, tag in ((term1, "spd", 0), (q.mT - q, "skh", kernels.SKH_TAG)):
         mat = mat.contiguous()
         bk = kernels.norm_bound(mat, seeds, mode, tag, k=128)
         bp = kernels.norm_bound_plain(mat, seeds, mode, tag, k=128)
-        torch.testing.assert_close(bk, bp, rtol=1e-5, atol=0)
+        rtol = kernels.norm_bound_rtol(mat, seeds, mode, tag, k=128)
+        torch.testing.assert_close(bk, bp, rtol=rtol, atol=0)
         true = torch.linalg.matrix_norm(mat.double(), ord=2)
         assert (bk.double() <= 1.001 * true).all(), (bk, true)
     coeff = torch.full((3,), 0.02, device=dev)
@@ -188,7 +185,7 @@ def test_ns_step_on_tensor_cores(dev, n, b):
     q1, lk = kernels.ns_step(*args, k=128)
     q1p, lp = kernels.ns_step_plain(*args, k=128)
     assert q1.dtype == torch.bfloat16 and _one_ulp_or_order(q1, q1p)
-    torch.testing.assert_close(lk, lp, rtol=_ROUTE_TOL[torch.bfloat16][1], atol=0)
+    torch.testing.assert_close(lk, lp, rtol=kernels.ROUTE_TOL[torch.bfloat16][1], atol=0)
     q1b, lkb = kernels.ns_step(*args, k=128)
     assert torch.equal(q1, q1b) and torch.equal(lk, lkb)
 
@@ -233,7 +230,7 @@ def test_procrustes_on_tensor_cores(dev, n, b):
     q1, seeds = kernels.ns_step_plain(*args, k=128)[0], args[4]
     assert _both_branches(q1, seeds)
     stacks = [(q1, seeds)] if b > 1 else [(q1[i:i + 1], seeds[i:i + 1]) for i in range(2)]
-    tol = min(_ROUTE_TOL[torch.bfloat16][0], 2 * _FFMA_PROCRUSTES_REL)
+    tol = min(kernels.ROUTE_TOL[torch.bfloat16][0], 2 * _FFMA_PROCRUSTES_REL)
     for q1s, s in stacks:
         qk = kernels.procrustes(q1s, s, k=128)
         rel = _rel(qk, kernels.procrustes_plain(q1s, s, k=128))
@@ -256,17 +253,81 @@ def test_tiled_step_on_tensor_cores(dev, n, b):
     assert torch.equal(q1, kernels.tiled_step(term1, q, coeff, term2))
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 768, 1024])
+def test_single_route_on_tensor_cores(dev, n, b):
+    """The single route in bf16 at n % 8 == 0 runs every product on the
+    tensor-core GEMM (q1 kept in f32 with a bf16 copy): q' within the route
+    tolerance of the plain version, and within twice the FFMA chain's error
+    at the shapes where it was logged (``kernels.FFMA_SINGLE_REL``; n = 200
+    exercises TMA's zero-filled edges, the masked stores and a
+    ragged 128-row trace tile), L' at the route tolerance, the bound at most
+    1.001 x the true norm, the step taking both branches, and two runs give
+    the same bits.  B = 1 runs the two alternate-noise matrices as two
+    stacks of one."""
+    args = _ns_inputs(max(b, 2), n, dev, torch.bfloat16)
+    assert kernels.ns_route(n, torch.bfloat16) == "single"
+    assert _both_branches(kernels.ns_step_plain(*args, k=128)[0], args[4])
+    rest = args[5:]
+    stacks = [args[:5]] if b > 1 else [tuple(t[i:i + 1] for t in args[:5]) for i in range(2)]
+    for stack in stacks:
+        tol_q = kernels.ROUTE_TOL[torch.bfloat16][0]
+        if (len(stack[0]), n) in kernels.FFMA_SINGLE_REL:
+            tol_q = min(tol_q, 2 * kernels.FFMA_SINGLE_REL[len(stack[0]), n])
+        qk, lk = kernels.fused_ns_update(*stack, *rest, k=128)
+        qp, lp = kernels.fused_ns_update_plain(*stack, *rest, k=128)
+        rel = _rel(qk, qp)
+        assert qk.dtype == torch.bfloat16 and rel < tol_q, rel
+        torch.testing.assert_close(lk, lp, rtol=kernels.ROUTE_TOL[torch.bfloat16][1], atol=0)
+        # lips = 0, so L' = ell = bound + term2
+        true = torch.linalg.matrix_norm(stack[0].double(), ord=2)
+        assert ((lk - stack[3]).double() <= 1.001 * true).all(), (lk, true)
+        qk2, lk2 = kernels.fused_ns_update(*stack, *rest, k=128)
+        assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
+
+
+def test_single_route_odd_width_on_ffma(dev):
+    """A bf16 width n % 8 != 0 that the single route is sent (the route for
+    "anything else") takes the FFMA chain by the shape rule: q' and L' at
+    the route tolerances against the plain version."""
+    args = _ns_inputs(3, 100, dev, torch.bfloat16)
+    qk, lk = kernels.fused_ns_update(*args, k=128)
+    qp, lp = kernels.fused_ns_update_plain(*args, k=128)
+    tol_q, tol_l = kernels.ROUTE_TOL[torch.bfloat16]
+    assert qk.dtype == torch.bfloat16 and _rel(qk, qp) < tol_q
+    torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["spd", "skh"])
+@pytest.mark.parametrize("n", [200, 2560])
+def test_norm_bound_on_tensor_cores(dev, n, mode):
+    """norm_bound in bf16 runs its four thin products on the tensor-core
+    GEMM, the stored matrix its own operand: within
+    ``kernels.norm_bound_rtol`` of the plain bound (the same start, the same
+    storage-dtype energies) and at most 1.001 x the true norm; n = 200
+    exercises the zero-filled edges."""
+    term1, q, _, _, seeds, _, _ = _ns_inputs(2, n, dev, torch.bfloat16)
+    mat, tag = (term1, 0) if mode == "spd" else ((q.mT - q).contiguous(), kernels.SKH_TAG)
+    bk = kernels.norm_bound(mat, seeds, mode, tag, k=128)
+    bp = kernels.norm_bound_plain(mat, seeds, mode, tag, k=128)
+    rtol = kernels.norm_bound_rtol(mat, seeds, mode, tag, k=128)
+    torch.testing.assert_close(bk, bp, rtol=rtol, atol=0)
+    true = torch.linalg.matrix_norm(mat.double(), ord=2)
+    assert (bk.double() <= 1.001 * true).all(), (bk, true)
+
+
 def test_tensor_core_widths_refused(dev):
     """TMA needs 16-byte rows: a bf16 width that is not a multiple of 8 is
-    refused by the four tensor-core wrappers; f32 at that width runs
-    (FFMA)."""
+    refused by the five tensor-core wrappers that have no FFMA chain for it;
+    f32 at that width runs (FFMA)."""
     for dtype in (torch.bfloat16, torch.float32):
         args = _ns_inputs(1, 204, dev, dtype)
         term1, q, lips, term2, seeds = args[:5]
         calls = (lambda: kernels.ns_step(*args, k=32)[0],
                  lambda: kernels.scaled_matmul_trace(q, q, lips + 1.0)[0],
                  lambda: kernels.procrustes(q, seeds, k=32),
-                 lambda: kernels.tiled_step(term1, q, lips + 0.02, term2))
+                 lambda: kernels.tiled_step(term1, q, lips + 0.02, term2),
+                 lambda: kernels.norm_bound(term1, seeds, k=32))
         for call in calls:
             if dtype == torch.bfloat16:
                 with pytest.raises(ValueError, match="multiples of 8"):

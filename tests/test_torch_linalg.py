@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from psgd_torch_tpu.ops import linalg as jl
-from psgd_torch_tpu_torch.ops import linalg as tl
+from psgd_torch_tpu_torch.ops import kernels, linalg as tl
 from psgd_torch_tpu_torch.ops.kernels import key_seed_words
 
 
@@ -99,3 +99,41 @@ def test_norm_k_rules_match_jax():
     x = torch.ones(3, dtype=torch.bfloat16)
     assert tl.lift2single(x).dtype == torch.float32
     assert tl.lift2single(x.double()).dtype == torch.float64
+
+
+
+def test_tensor_core_matmul_model():
+    """The model of the tensor cores' sums: exact where every partial sum
+    is an integer f32 holds; the group's sum rounded toward zero where a
+    round-to-nearest f32 GEMM rounds up (1 + 0.75 ulp); batched like @."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-8, 9, (2, 3, 40))).to(torch.bfloat16)
+    a = torch.from_numpy(rng.integers(-8, 9, (2, 40, 5))).to(torch.bfloat16)
+    got = tl.tensor_core_matmul(x, a)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 5)
+    assert torch.equal(got, (x.double() @ a.double()).float())
+    x = torch.tensor([[1.0, 3 * 2.0 ** -25]], dtype=torch.bfloat16)
+    a = torch.ones((2, 1), dtype=torch.bfloat16)
+    assert (x.float() @ a.float()).item() == 1 + 2.0 ** -23
+    assert tl.tensor_core_matmul(x, a).item() == 1.0
+    assert tl.tensor_core_matmul(-x, a).item() == -1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_norm_bound_rtol_reads_the_tensor_core_order(dtype):
+    """``kernels.norm_bound_rtol``: BOUND_RTOL where the kernel sums in the
+    plain version's order (f32 on the FFMA GEMM; f64 has no kernel), and
+    in bf16 BOUND_RTOL plus how far the plain bound moves when summed in
+    the tensor cores' order, which stays a bound of the stored matrix."""
+    a = torch.from_numpy(_spd(np.random.default_rng(6), 96, b=3)).to(dtype)
+    seeds = key_seed_words(np.array([[1, 2], [3, 4], [5, 6]], np.uint32), "cpu")
+    rtol = kernels.norm_bound_rtol(a, seeds, "spd", 0, k=16)
+    if dtype != torch.bfloat16:
+        assert rtol == kernels.BOUND_RTOL
+        return
+    plain = tl.norm_bound_stored(a, "spd", seeds=seeds, k=16)
+    ordered = tl.norm_bound_stored(a, "spd", seeds=seeds, k=16, tensor_core_sums=True)
+    assert ordered.dtype == torch.float32
+    spread = ((ordered - plain).abs() / plain).max().item()
+    assert spread < 1e-3 and rtol == kernels.BOUND_RTOL + spread
+    assert (ordered.double() <= 1.001 * torch.linalg.eigvalsh(a.double())[:, -1]).all()

@@ -148,31 +148,49 @@ def _function(source: str, signature: str) -> str:
 
 
 # each bf16 entry on the tensor cores: the call in its body that takes the
-# GEMM, and the wiring that call leads to
+# GEMM, the width rule in its body (a refusal of n % 8 != 0, or a choice of
+# GEMM by shape), and the wiring that call leads to
+_REFUSES = "n % 8 != 0"
 _TC_ENTRIES = {
-    "psgd_ns_step": ("ns_update.cu", "ns_step_chain<bf16, bf16, TcGemm>", ()),
-    "psgd_scaled_matmul_trace": ("ns_tiled.cu", "tc_gemm<kMulTrace, bf16>", ()),
-    "psgd_tiled_step": ("ns_tiled.cu", "tc_gemm<kStep, bf16>", ()),
-    "psgd_procrustes": ("ns_update.cu", "procrustes_chain<bf16, bf16, TcGemm>", (
+    "psgd_ns_step": ("ns_update.cu", "ns_step_chain<bf16, bf16, TcGemm>", _REFUSES, ()),
+    "psgd_scaled_matmul_trace": ("ns_tiled.cu", "tc_gemm<kMulTrace, bf16>", _REFUSES, ()),
+    "psgd_tiled_step": ("ns_tiled.cu", "tc_gemm<kStep, bf16>", _REFUSES, ()),
+    "psgd_procrustes": ("ns_update.cu", "procrustes_chain<bf16, bf16, TcGemm>", _REFUSES, (
         ("ns_update.cu", "void procrustes_chain(", "Gemm::div_trace("),
         ("ns_update.cu", "void procrustes_chain(", "norm_bound<float, Gemm, false>"),
         ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kDivTrace, float>"))),
+    # the single route: odd bf16 widths take the FFMA chain, by shape
+    "psgd_ns_update": ("ns_update.cu", "ns_update<bf16, TcGemm>",
+                       "on_tensor_cores(n, dtype)", (
+        ("ns_update.cu", "bool on_tensor_cores(", "n % 8 == 0"),
+        ("ns_update.cu", "int psgd_ns_update(", "ns_update<bf16, FfmaGemm<true>>"),
+        ("ns_update.cu", "void ns_update(", "ns_step_chain<T, float, Gemm>"),
+        ("ns_update.cu", "void ns_update(", "procrustes_chain<T, float, Gemm>"),
+        ("ns_update.cu", "void procrustes_chain(", "Gemm::operand(q1, q1_16)"),
+        ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kStep, TQ1>(term1, q, q1, q1_16"))),
+    # the tiled bound: the stored bf16 matrix is its own product operand
+    "psgd_norm_bound": ("ns_tiled.cu", "bound<bf16, TcGemm>", _REFUSES, (
+        ("ns_tiled.cu", "void bound(", "norm_bound<T, Gemm, true>(mat, mat,"),
+        ("ns_tiled.cu", "long long carve_bound_only(", "carve_bound(c, B, n, k, dtype != 0)"))),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(_TC_ENTRIES))
 def test_tensor_core_gemm_feeds_its_two_entries(entry):
     """The wgmma + TMA GEMM is in ns_gemm_sm90.cuh and is what each bf16
-    entry on the tensor cores launches: psgd_ns_step, psgd_procrustes (its
-    two full products through the kDivTrace epilogue, its bound's thin
-    products), psgd_tiled_step and psgd_scaled_matmul_trace."""
+    entry on the tensor cores launches: the single route (its step product
+    writing q1's bf16 copy, which procrustes reads; the FFMA chain only at
+    bf16 widths n % 8 != 0), psgd_ns_step, psgd_procrustes (its two full
+    products through the kDivTrace epilogue, its bound's thin products),
+    psgd_norm_bound (on the stored bf16 matrix), psgd_tiled_step and
+    psgd_scaled_matmul_trace."""
     gemm = (CSRC / "ns_gemm_sm90.cuh").read_text()
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                   "cuTensorMapEncodeTiled"):
         assert instr in gemm, instr
-    source, call, wiring = _TC_ENTRIES[entry]
+    source, call, width_rule, wiring = _TC_ENTRIES[entry]
     assert '#include "ns_gemm_sm90.cuh"' in (CSRC / source).read_text()
     body = _c_entry(source, entry)
-    assert call in body and "tc_status()" in body and "n % 8 != 0" in body, entry
+    assert call in body and "tc_status()" in body and width_rule in body, entry
     for src, signature, snippet in wiring:
         assert snippet in _function(src, signature), (signature, snippet)
