@@ -33,7 +33,16 @@
      ``procrustes``, ``norm_bound`` and ``tiled_step`` log their kernels
      one by one (torch.profiler), and all but ``ns_step`` fail if an FFMA
      ``gemm_kernel`` ran or no ``tc_gemm_kernel`` did.
-4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path.
+   - the step-matrix variant (the TPU kernels' has_step_mat, which the
+     Newton fit launches: S = A - B beside the bound's matrix A + B) of the
+     single route at the GPT-2 Newton path's f32 stacks (12, 768), (1, 768)
+     and (1, 1024), at (2, 768) f32 and (12, 768) bf16, the split route at
+     (22, 2048) bf16 and the tiled route at (22, 2560) bf16, within
+     ``kernels.ROUTE_TOL`` of the plain route given the same S
+     (``check_step_mat``), each timed with its piece (the single route,
+     ``ns_step``, ``tiled_step``) beside the rows above.
+4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path,
+   by KronWhiten and by KronNewton.
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
    on one fixed batch; one fit and one no-fit step profiled.
@@ -41,14 +50,31 @@
    compute, f32 parameters, trained by KronWhiten in the configuration of
    tools/bench_llama.py for 3 steps at p = 1.0 and 3 at 0.1; one fit step
    profiled.  The GPT-2 state is freed first.
+7. GPT-2 124M, batch 2 x 1024, bf16 compute, f32 Q, trained by KronNewton
+   (exact Hvp) in the Newton arm of tools/measure_cache_p_tpu.py:134-140
+   for 3 steps at p = 1.0 and 3 at 0.1; one fit and one no-fit step
+   profiled; the Hvp pass timed alone.
+8. LLaMA-1.1B as in 6, trained by KronNewton in that Newton arm with bf16
+   Q (the split and tiled routes), 3 steps at p = 1.0 and 3 at 0.1; one
+   fit step profiled; the Hvp pass timed alone.  The exact Hvp's double
+   backward runs attention on PyTorch's math backend
+   (``optim.hvp.HVP_ATTENTION``), which the log names.
    Each path fails on a non-finite loss, a last loss not below the first,
-   or other launch counts per fit step than ``GPT2_PER_FIT`` and
-   ``LLAMA_PER_FIT``.  Counts are reset just before each path and read
-   just after it; the launches made by the checks of step 3 count nowhere.
-   The profiled fit steps fail if they launched any FFMA ``gemm_kernel``:
-   both paths are bf16, so every product belongs on the tensor cores.
-7. Prints the kernels' JSON line (``launches`` is the sum over the two
-   paths), the card's name and power limit, then the fixed last line.
+   or other launch counts per fit step than ``GPT2_PER_FIT``,
+   ``LLAMA_PER_FIT`` and their Newton counterparts (the same NS plans,
+   plus one probe draw per leaf); a Newton path also fails unless every
+   NS launch of its route took the step matrix.  Counts are reset just
+   before each path and read just after it; the launches made by the
+   checks of step 3 count nowhere.  The profiled fit steps of the bf16
+   paths fail if they launched any FFMA ``gemm_kernel``: every product
+   there belongs on the tensor cores (the f32 Newton GPT-2 path's products
+   stay on the FFMA GEMM by the precision rule).
+9. Prints the kernels' JSON line (``launches`` is the sum over the four
+   paths; rows 1, 3 and 6 also carry ``step_mat_launches`` and the step
+   matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
+   ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
+   and (22, 2560) bf16; the run fails
+   if a row's count is 0), the card's name and power limit, then the fixed last line.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 """
@@ -69,7 +95,7 @@ import torch
 from psgd_torch_tpu_torch.models import gpt2, llama
 from psgd_torch_tpu_torch.ops import kernels
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
-from psgd_torch_tpu_torch.optim import KronWhiten
+from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, hvp
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
 # tensor cores, HBM3 bandwidth
@@ -81,6 +107,10 @@ GPT2_PER_FIT = {"fused_ns_update": 8, "damped_noise": 16}
 LLAMA_PER_FIT = {"ns_step": 7, "procrustes": 7, "norm_bound": 2,
                  "tiled_step": 1, "tsub": 1, "scaled_matmul_trace": 2,
                  "combine": 1, "fused_ns_update": 0, "damped_noise": 9}
+# the Newton fit: the same NS plans and damping (on h), plus the probe v,
+# one unit-noise draw per leaf (GPT-2 16 leaves, LLaMA 9)
+GPT2_NEWTON_PER_FIT = dict(GPT2_PER_FIT, unit_noise=16)
+LLAMA_NEWTON_PER_FIT = dict(LLAMA_PER_FIT, unit_noise=9)
 # the JSON line's rows: wrapper, source, the TPU kernel it replaces
 SRC = "psgd_torch_tpu_torch/ops/csrc/"
 TPU = "psgd_torch_tpu/ops/pallas_kernels.py:"
@@ -93,6 +123,8 @@ ROWS = (("fused_ns_update", "ns_update.cu", 142),
         ("tsub", "ns_tiled.cu", 436),
         ("scaled_matmul_trace", "ns_tiled.cu", 441),
         ("combine", "ns_tiled.cu", 457))
+# the rows that take the step matrix (kernels.STEP_MAT_KERNELS)
+STEP_MAT_ROWS = ("fused_ns_update", "ns_step", "tiled_step")
 # the rows whose bf16 products run on the tensor-core GEMM (ns_gemm_sm90.cuh)
 TC_ROWS = ("fused_ns_update", "ns_step", "procrustes", "norm_bound", "tiled_step",
            "scaled_matmul_trace")
@@ -414,6 +446,91 @@ def check_routes(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _newton_problem(b, n, dtype, seed, dev):
+    """The Newton fit's NS call: ``_ns_problem``'s term1 as A, a Wishart B
+    of the same scale, the bound's matrix A + B and the step matrix
+    S = A - B, both stored in Q's dtype, term2 = 0."""
+    term1, q, lips, _, seeds = _ns_problem(b, n, torch.float32, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((b, n, 3 * n), generator=gen, device=dev)
+    bb = x @ x.mT / (3 * n)
+    del x
+    return ((term1 + bb).to(dtype), q.to(dtype), lips, torch.zeros(b, device=dev),
+            seeds), (term1 - bb).to(dtype)
+
+
+def check_step_mat(dev) -> dict:
+    """The step-matrix variant of each route at the Newton paths' shapes,
+    chosen by the width rule, against the plain route given the same S:
+    q' and L' within kernels.ROUTE_TOL, the bound at most 1.001 x the true
+    norm of A + B, and S moving q' (it is not term1).  Times the route and
+    the piece that takes S (the single route itself, ``ns_step``,
+    ``tiled_step``) with CUDA events, against the piece without S on the
+    same inputs.  The single route is held at the GPT-2 Newton path's f32
+    stacks (12, 768), (1, 768), (1, 1024), at (2, 768) f32 and at
+    (12, 768) bf16 (tensor cores, which no Newton path launches with S).
+    Returns {row: the JSON row's step-matrix fields}: its piece's time and
+    bound (S read in place of term1, or beside it for the bound's matrix)
+    at the row's first shape, the shape and dtype its Newton path gives it
+    with S."""
+    fields = {}
+    for row, b, n, dtype in (("fused_ns_update", 12, 768, torch.float32),
+                             ("fused_ns_update", 1, 768, torch.float32),
+                             ("fused_ns_update", 1, 1024, torch.float32),
+                             ("fused_ns_update", 2, 768, torch.float32),
+                             ("fused_ns_update", 12, 768, torch.bfloat16),
+                             ("ns_step", 22, 2048, torch.bfloat16),
+                             ("tiled_step", 22, 2560, torch.bfloat16)):
+        route = kernels.ns_route(n, dtype)
+        args, s = _newton_problem(b, n, dtype, 7 * n, dev)
+        args = args + (0.1, 0.9)
+        run = lambda: kernels.fused_ns_update(*args, k=128, step_mat=s)
+        run_p = lambda: kernels.fused_ns_update_plain(*args, k=128, step_mat=s)
+        (qk, lk), (qp, lp) = run(), run_p()
+        q_wo = kernels.fused_ns_update_plain(*args, k=128)[0]
+        torch.cuda.synchronize()
+        if not (torch.isfinite(qk.float()).all() and torch.isfinite(lk).all()):
+            raise AssertionError(f"step_mat {route} {b}x{n} {dtype}: non-finite output")
+        q_err, l_err = _rel(qk, qp), ((lk - lp).abs() / lp.abs()).max().item()
+        ratio = (lk / _true_norm(args[0], "spd")).max().item()
+        moved = _rel(q_wo, qp)
+        tol_q, tol_l = kernels.ROUTE_TOL[dtype]
+        log(f"step_mat {route} {b}x{n}x{n} {dtype}: q rel err {q_err:.2e} (tol "
+            f"{tol_q}), L rel err {l_err:.2e} (tol {tol_l}), bound/true max "
+            f"{ratio:.5f}, max abs err {_max_abs(qk, qp):.3e}; S moves q' by "
+            f"{moved:.3f}")
+        if q_err > tol_q or l_err > tol_l or ratio > 1.001 or moved < 2 * tol_q:
+            raise AssertionError(f"step_mat {route} {b}x{n} {dtype} disagrees "
+                                 "with the plain version")
+        coeff = torch.full((b,), 0.01, device=dev)
+        piece = {
+            "fused_ns_update": lambda sm: kernels.fused_ns_update(
+                *args, k=128, step_mat=sm),
+            "ns_step": lambda sm: kernels.ns_step(*args, k=128, step_mat=sm),
+            "tiled_step": lambda sm: kernels.tiled_step(
+                args[0] if sm is None else sm, args[1], coeff, args[3],
+                sm is not None),
+        }[row]
+        ms_s, ms_t1 = (cuda_ms(lambda: piece(sm), 10, 2) for sm in (s, None))
+        ms_route = cuda_ms(run, 3, 1)
+        ms_plain = cuda_ms(run_p, 2, 1)
+        k, size, nn = width_norm_k(128, n), torch.finfo(dtype).bits // 8, n * n
+        flops, nbytes = {
+            "fused_ns_update": (b * (6 * n ** 3 + 16 * k * nn), b * (4 * nn * size + 12)),
+            "ns_step": (b * (2 * n ** 3 + 8 * k * nn), b * 4 * nn * size),
+            "tiled_step": (b * 2 * n ** 3, b * 3 * nn * size)}[row]
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16
+                             else PEAK_F32)
+        log(f"  {row} {(b, n, n)}: with S {ms_s:.3f} ms, without {ms_t1:.3f} ms, "
+            f"bound with S {bound:.4f} ms ({by}); route with S {ms_route:.3f} ms, "
+            f"plain {ms_plain:.3f} ms")
+        fields.setdefault(row, dict(step_mat_ms=ms_s, step_mat_bound_ms=bound,
+                                    step_mat_shape=f"{(b, n, n)} {dtype}"))
+        del args, s, qk, qp, q_wo
+        torch.cuda.empty_cache()
+    return fields
+
+
 def _within_order(got, ref) -> bool:
     """Products accumulated in f32 in another order: within 1e-5 of the
     largest entry, plus one unit in the last place of each bf16 entry (a
@@ -457,19 +574,41 @@ def _short(key: str) -> str:
     return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
 
 
+# windows profiled before a phase that saw no device events fails
+PROFILE_TRIES = 3
+
+
+def _profiled(fn, cpu: bool = False):
+    """(CUDA kernel events with device time, wall ms) of one profiled call
+    of fn.  torch.profiler now and then hands back a window without device
+    events (one of four runs of the same smoke); such a window measured
+    nothing, so it is profiled again, and after PROFILE_TRIES empty
+    windows the phase fails rather than pass a gate on no data."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and _device_us(e) > 0]
+        if kern:
+            return kern, wall_ms
+        log("    the profiler saw no device time; profiling again")
+    raise RuntimeError(f"torch.profiler saw no device time in {PROFILE_TRIES} "
+                       "windows")
+
+
 def log_kernel_split(name, fn, calls: int = 3) -> list[str]:
     """Where one call of fn spends its device time: each kernel's ms per
     call and launches per call, from torch.profiler's CUDA events.  Returns
     the kernels' short names."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    kern, _ = _profiled(lambda: [fn() for _ in range(calls)])
     total = sum(_device_us(e) for e in kern) / 1e3 / calls
     log(f"    {name} per call: {total:.3f} ms of kernels")
     names = []
@@ -646,24 +785,29 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     return rows
 
 
-def _train_tiny(device, steps: int = 3):
-    """A tiny GPT-2 trained by KronWhiten (f32 Q, p = 1) on ``device``; the
-    same seeds on every device, so the Philox draws are the same."""
+def _train_tiny(device, newton: bool = False, steps: int = 3):
+    """A tiny GPT-2 trained by KronWhiten or KronNewton (f32 Q, p = 1) on
+    ``device``; the same seeds on every device, so the Philox draws are the
+    same."""
     cfg = gpt2.tiny_config(n_layer=2, n_head=4, n_embd=128, block_size=64,
                            vocab_size=512, compute_dtype=torch.float32)
     model = gpt2.GPT2(cfg, device="cpu").to(device)   # same weights everywhere
     x, y = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(2), 2, 64,
                                    512, device=device)
     p0 = [p.detach().clone() for p in model.parameters()]
-    opt = KronWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
-                     whiten_grad=False, preconditioner_max_skew=2.0,
-                     preconditioner_init_scale=1.0, norm_k=32,
-                     weight_decay=0.01, device=device,
-                     scanned_layers=gpt2.scanned_layers_mask(model))
+    mask = gpt2.scanned_layers_mask(model)
+    if newton:
+        opt = KronNewton(model.named_parameters(), lr=1e-2,
+                         preconditioner_max_skew=2.0, preconditioner_init_scale=1.0,
+                         norm_k=32, grad_clip_max_norm=10.0, device=device,
+                         scanned_layers=mask)
+    else:
+        opt = KronWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
+                         whiten_grad=False, preconditioner_max_skew=2.0,
+                         preconditioner_init_scale=1.0, norm_k=32,
+                         weight_decay=0.01, device=device, scanned_layers=mask)
     for _ in range(steps):
-        opt.zero_grad()
-        gpt2.loss_gpt2(model, x, y).backward()
-        opt.step()
+        _one_step(model, gpt2.loss_gpt2, opt, x, y)
     return torch.cat([(p.detach() - q).flatten().cpu()
                       for p, q in zip(model.parameters(), p0)])
 
@@ -671,28 +815,52 @@ def _train_tiny(device, steps: int = 3):
 def check_small_path(dev) -> None:
     """The whole optimizer on the card (kernels) against the CPU (plain
     versions, which the CPU tests hold against the JAX package): 3 steps of
-    a tiny GPT-2 with f32 Q.  Same seeds and draws on both sides; the total
-    parameter change agrees within 1e-3 (Frobenius-relative: f32 sums in
-    another order, in the model and in the kernels)."""
-    on_card = _train_tiny(dev)
-    on_cpu = _train_tiny(torch.device("cpu"))
-    rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
-    log(f"small path (tiny GPT-2, 3 steps, f32 Q): card vs CPU plain, "
-        f"parameter change rel err {rel:.2e} (tol 1e-3)")
-    if not rel < 1e-3:
-        raise AssertionError("the card's optimizer disagrees with the plain "
-                             "path on a small input")
+    a tiny GPT-2 with f32 Q, by KronWhiten and by KronNewton (exact Hvp).
+    Same seeds and draws on both sides; the total parameter change agrees
+    within 1e-3 (Frobenius-relative: f32 sums in another order, in the
+    model, the Hvp and the kernels)."""
+    for name, newton in (("KronWhiten", False), ("KronNewton", True)):
+        on_card = _train_tiny(dev, newton)
+        on_cpu = _train_tiny(torch.device("cpu"), newton)
+        rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
+        log(f"small path (tiny GPT-2, 3 steps, f32 Q, {name}): card vs CPU "
+            f"plain, parameter change rel err {rel:.2e} (tol 1e-3)")
+        if not rel < 1e-3:
+            raise AssertionError(f"the card's {name} disagrees with the plain "
+                                 "path on a small input")
 
 
 def _median(xs):
     return round(sorted(xs)[len(xs) // 2], 2) if xs else None
 
 
+def _one_step(model, loss_fn, opt, tokens, targets, before_step=None):
+    """One training step: KronNewton takes the closure (its step runs the
+    forward and the backward or the Hvp pass); KronWhiten the usual
+    zero_grad, backward, step, with ``before_step()`` called between the
+    backward and the optimizer step."""
+    if isinstance(opt, KronNewton):
+        return opt.step(lambda: loss_fn(model, tokens, targets))
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens, targets)
+    loss.backward()
+    if before_step is not None:
+        before_step()
+    opt.step()
+    return loss
+
+
 def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
           per_fit, card) -> dict:
     """Train on one fixed batch, with the launch counts reset just before
     and read just after; check finite, falling loss and the launch counts
-    per fit step.  Returns the counts."""
+    per fit step (and for KronNewton that every NS launch took the step
+    matrix).  Times the optimizer step apart for KronWhiten; KronNewton's
+    step holds the forward and backward, so its step is the train step.
+    Returns the counts (with ``<name>.step_mat`` for the step-matrix
+    counts) and the median fit step's time (optimizer step, or KronNewton's
+    whole step)."""
+    newton = isinstance(opt, KronNewton)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -700,13 +868,14 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     for step in range(steps_p1 + steps_p01):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, targets)
-        loss.backward()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         fits0 = opt.fit_steps
-        opt.step()
+        marks = [t0]      # KronWhiten's optimizer step starts after backward
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        loss = _one_step(model, loss_fn, opt, tokens, targets, mark)
+        t1 = marks[-1]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         losses.append(loss.item())
@@ -719,8 +888,9 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fits = sum(fitted)
     launches = {name: getattr(kernels, name).launches for name in per_fit}
-    log(f"  {label}: fit steps {fits}; launches {launches}; peak memory "
-        f"{peak_gb:.2f} GB")
+    step_mat = {f.__name__: f.step_mat_launches for f in kernels.STEP_MAT_KERNELS}
+    log(f"  {label}: fit steps {fits}; launches {launches}; step-matrix "
+        f"launches {step_mat}; peak memory {peak_gb:.2f} GB")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -729,14 +899,21 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     if fits == 0 or any(launches[k] != n * fits for k, n in per_fit.items()):
         raise AssertionError(f"{label}: launch counts {launches} for {fits} "
                              f"fit steps, expected {per_fit} per fit step")
+    expected = {f.__name__: f.launches if newton else 0
+                for f in kernels.STEP_MAT_KERNELS}
+    if step_mat != expected:
+        raise AssertionError(f"{label}: step-matrix launches {step_mat}, "
+                             f"expected {expected}")
     fit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if f]
     nofit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if not f]
-    log(f"  [{card}] {label} optimizer step (median, first step excluded): "
+    what = "train step, KronNewton" if newton else "optimizer step"
+    log(f"  [{card}] {label} {what} (median, first step excluded): "
         f"fit {_median(fit_opt)} ms, no fit {_median(nofit_opt)} ms")
     log(f"  [{card}] {label} train step (median): p=1.0 "
         f"{_median(step_ms[1:steps_p1])} ms, p=0.1 "
         f"{_median(step_ms[steps_p1:])} ms; peak memory {peak_gb:.2f} GB")
-    return launches
+    launches.update({f"{k}.step_mat": v for k, v in step_mat.items()})
+    return launches, _median(fit_opt)
 
 
 def _bench_opt(model, mask, steps_p1, dev):
@@ -761,8 +938,8 @@ def gpt2_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"GPT-2 124M ({n_params / 1e6:.1f}M params), batch 4 x "
         f"{cfg.block_size}, bf16 compute, KronWhiten bench configuration")
-    launches = train("GPT-2 124M", model, gpt2.loss_gpt2, opt, tokens,
-                     targets, steps_p1, steps_p01, GPT2_PER_FIT, card)
+    launches, _ = train("GPT-2 124M", model, gpt2.loss_gpt2, opt, tokens,
+                        targets, steps_p1, steps_p01, GPT2_PER_FIT, card)
     return launches, (model, gpt2.loss_gpt2, opt, tokens, targets)
 
 
@@ -778,9 +955,88 @@ def llama_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
         f"SwiGLU {cfg.hidden_dim}, vocab {cfg.vocab_size}), batch 1 x "
         f"{cfg.block_size}, bf16 compute, f32 params, KronWhiten "
         f"bench_llama configuration")
-    launches = train("LLaMA-1.1B", model, llama.loss_llama, opt, tokens,
-                     targets, steps_p1, steps_p01, LLAMA_PER_FIT, card)
+    launches, _ = train("LLaMA-1.1B", model, llama.loss_llama, opt, tokens,
+                        targets, steps_p1, steps_p01, LLAMA_PER_FIT, card)
     return launches, (model, llama.loss_llama, opt, tokens, targets)
+
+
+def _newton_opt(model, mask, steps_p1, dev, qdtype=None):
+    """KronNewton in the Newton arm of tools/measure_cache_p_tpu.py:134-140
+    (lr 1e-3, max_skew 2, init scale 1, norm_k 128, global-norm clip 10,
+    one preconditioner per layer), p = 1 for the first steps_p1 steps and
+    0.1 after; Q in ``qdtype`` (None: the parameters' f32)."""
+    return KronNewton(
+        model.named_parameters(), lr=1e-3, preconditioner_max_skew=2.0,
+        preconditioner_init_scale=1.0,
+        preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
+        norm_k=128, grad_clip_max_norm=10.0, preconditioner_dtype=qdtype,
+        scanned_layers=mask, device=dev)
+
+
+def time_hvp(label, state, card: str, fit_ms) -> None:
+    """The exact Hvp pass alone (gradient and H v, math attention) and one
+    plain gradient pass, host clock around synchronized calls, best of 2;
+    the Hvp's share of the median fit step."""
+    model, loss_fn, opt, tokens, targets = state
+    params = opt.param_groups[0]["params"]
+    vs = hvp.rand_like(opt.key, params)
+    closure = lambda: loss_fn(model, tokens, targets)
+
+    def best(fn):
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return min(out)
+
+    hvp_ms = best(lambda: hvp.hvp_exact(closure, params, vs))
+    with torch.enable_grad():
+        grad_ms = best(lambda: hvp.gradients(closure(), params))
+    share = f"{hvp_ms / fit_ms:.3f}" if fit_ms else "not measured"
+    log(f"  [{card}] {label} Hvp pass (gradient + H v, {hvp.HVP_ATTENTION.name} "
+        f"attention) {hvp_ms:.1f} ms, plain gradient pass {grad_ms:.1f} ms; "
+        f"Hvp share of the fit step {share}")
+    del vs
+
+
+def newton_path(name, dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
+    """Newton path B (GPT-2 124M, f32 Q, batch 2 x 1024, the single route)
+    or A (LLaMA-1.1B, bf16 Q, batch 1 x 1024, the split and tiled routes)."""
+    if name == "gpt2":
+        cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+        model = gpt2.GPT2(cfg, device=dev, seed=0)
+        batch, loss_fn, mask = 2, gpt2.loss_gpt2, gpt2.scanned_layers_mask(model)
+        label, per_fit, qdtype = "GPT-2 124M Newton", GPT2_NEWTON_PER_FIT, None
+        make_batch = gpt2.synthetic_lm_batch
+    else:
+        cfg = llama.llama_1b(compute_dtype=torch.bfloat16)
+        model = llama.Llama(cfg, device=dev, seed=0)
+        batch, loss_fn, mask = 1, llama.loss_llama, llama.scanned_layers_mask(model)
+        label, per_fit, qdtype = ("LLaMA-1.1B Newton", LLAMA_NEWTON_PER_FIT,
+                                  torch.bfloat16)
+        make_batch = llama.synthetic_lm_batch
+    tokens, targets = make_batch(torch.Generator().manual_seed(1), batch,
+                                 cfg.block_size, cfg.vocab_size, device=dev)
+    opt = _newton_opt(model, mask, steps_p1, dev, qdtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{label} ({n_params / 1e6:.1f}M params), batch {batch} x "
+        f"{cfg.block_size}, bf16 compute, {qdtype or torch.float32} Q, KronNewton "
+        f"(Newton arm of tools/measure_cache_p_tpu.py), exact Hvp by double "
+        f"backward with attention on the {hvp.HVP_ATTENTION.name} backend for "
+        f"that pass")
+    # one plain gradient pass first, untimed: the fit steps run the math
+    # attention, so the first no-fit step would otherwise build the default
+    # attention's plans for this shape inside its timing
+    with torch.enable_grad():
+        hvp.gradients(loss_fn(model, tokens, targets), list(model.parameters()))
+    launches, fit_ms = train(label, model, loss_fn, opt, tokens, targets,
+                             steps_p1, steps_p01, per_fit, card)
+    state = (model, loss_fn, opt, tokens, targets)
+    time_hvp(label, state, card, fit_ms)
+    return launches, state
 
 
 _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
@@ -793,6 +1049,10 @@ def _category(kernel: str) -> str:
         return "NS update kernels (ours)"
     if "noise_kernel" in kernel:
         return "noise (ours)"
+    # cuBLAS's f32 GEMMs without tensor cores (TF32 is off here): the f32
+    # P apply of an f32 Q, and f32 products of the Hvp pass's math attention
+    if "f32f32_f32f32" in kernel or "simt_sgemm" in kernel:
+        return "cuBLAS f32 matmuls (FFMA units)"
     if "nvjet" in kernel or "gemm" in kernel.lower() or "cutlass" in kernel:
         return "cuBLAS matmuls (model, P apply, term1)"
     if "sdpa" in kernel or "flash" in kernel or "fmha" in kernel:
@@ -802,38 +1062,25 @@ def _category(kernel: str) -> str:
     return "PyTorch elementwise and copies"
 
 
-def profile_steps(label, state, card: str, probs) -> None:
+def profile_steps(label, state, card: str, probs, tensor_cores: bool = True):
     """Where one training step's device time goes, for each update
     probability in ``probs`` (1: a fit step, 0: none), from
     torch.profiler's CUDA kernel events.  The full tables go to the
-    git-ignored OUT_DIR.  A fit step fails if it launched an FFMA
-    ``gemm_kernel``: both paths are bf16 at widths n % 8 == 0, so every NS
-    product runs on the tensor cores."""
-    from torch.profiler import ProfilerActivity, profile
+    git-ignored OUT_DIR.  With ``tensor_cores`` (the bf16 paths, widths
+    n % 8 == 0, where every NS product runs on the tensor cores) a fit step
+    fails if it launched an FFMA ``gemm_kernel``."""
     model, loss_fn, opt, tokens, targets = state
     OUT_DIR.mkdir(exist_ok=True)
     group = opt.param_groups[0]
     for prob in probs:
         what = "fit step (p=1)" if prob else "no-fit step (p=0)"
         group["preconditioner_update_probability"] = prob
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            loss_fn(model, tokens, targets).backward()
-            opt.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern, wall_ms = _profiled(
+            lambda: _one_step(model, loss_fn, opt, tokens, targets), cpu=True)
         # kernels only: user ranges such as Optimizer.step#... span kernels
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "#" not in e.key and not e.key.startswith("Optimizer.")]
-        dev_us = {e.key: (_device_us(e), e.count) for e in kern}
+        dev_us = {e.key: (_device_us(e), e.count) for e in kern
+                  if "#" not in e.key and not e.key.startswith("Optimizer.")}
         total_ms = sum(t for t, _ in dev_us.values()) / 1e3
-        if total_ms == 0.0:
-            log(f"  profile {label} {what}: the profiler saw no device time")
-            continue
         cats = {}
         for k, (t, c) in dev_us.items():
             tt, cc = cats.get(_category(k), (0.0, 0))
@@ -845,7 +1092,7 @@ def profile_steps(label, state, card: str, probs) -> None:
             f"{ns_ms / total_ms:.3f}")
         for cat, (t, c) in sorted(cats.items(), key=lambda x: -x[1][0]):
             log(f"    {t / 1e3:8.2f} ms  {c:5d} launches  {cat}")
-        tag = label.split()[0].lower().replace("-", "")
+        tag = re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_")
         fname = OUT_DIR / f"chip_smoke_profile_{tag}_{'fit' if prob else 'nofit'}.txt"
         with open(fname, "w") as fh:
             fh.write(f"{card}\n{label} {what}\n")
@@ -854,7 +1101,7 @@ def profile_steps(label, state, card: str, probs) -> None:
         ffma = sorted({_short(k) for k in dev_us
                        if _short(k).startswith("gemm_kernel<")})
         log(f"    FFMA gemm_kernel launches: {ffma or 'none'}")
-        if prob and ffma:
+        if prob and ffma and tensor_cores:
             raise AssertionError(f"{label} {what} ran the FFMA GEMM: {ffma}")
 
 
@@ -871,6 +1118,7 @@ def main() -> int:
     rows = {"damped_noise": check_noise(dev),
             "fused_ns_update": check_ns(dev, tc_lines)}
     check_routes(dev)
+    step_mat_rows = check_step_mat(dev)
     rows.update(check_split(dev, 22, 2048, torch.bfloat16, timed=True,
                             tc_lines=tc_lines))
     check_split(dev, 2, 1536, torch.float32, timed=False)
@@ -880,29 +1128,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
-    phase("GPT-2 124M path")
-    launches = {k: 0 for k in rows}
-    counted, state = gpt2_path(dev, smi)
-    for k, v in counted.items():
-        launches[k] += v
-    profile_steps("GPT-2 124M", state, smi, (1.0, 0.0))
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase("LLaMA-1.1B path")
-    counted, state = llama_path(dev, smi)
-    for k, v in counted.items():
-        launches[k] += v
-    profile_steps("LLaMA-1.1B", state, smi, (1.0,))
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
+    launches = {}
+    paths = (("GPT-2 124M path", lambda: gpt2_path(dev, smi), (1.0, 0.0), True),
+             ("LLaMA-1.1B path", lambda: llama_path(dev, smi), (1.0,), True),
+             ("GPT-2 124M Newton path", lambda: newton_path("gpt2", dev, smi),
+              (1.0, 0.0), False),
+             ("LLaMA-1.1B Newton path", lambda: newton_path("llama", dev, smi),
+              (1.0,), True))
+    for label, drive, probs, tensor_cores in paths:
+        phase(label)
+        counted, state = drive()
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+        profile_steps(label.removesuffix(" path"), state, smi, probs, tensor_cores)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
     phase("done")
     out = [dict(name=k, route="cuda", source=SRC + src, replaces=f"{TPU}{line}",
-                launches=launches[k], **rows[k]) for k, src, line in ROWS]
+                launches=launches.get(k, 0), **rows[k]) for k, src, line in ROWS]
     for row in out:
-        if row["launches"] == 0:
-            raise AssertionError(f"{row['name']} was launched on no path")
+        if row["name"] in STEP_MAT_ROWS:
+            row["step_mat_launches"] = launches[f"{row['name']}.step_mat"]
+            row.update(step_mat_rows[row["name"]])
+        if row["launches"] == 0 or row.get("step_mat_launches", 1) == 0:
+            raise AssertionError(f"{row['name']} was launched on no path "
+                                 "(or never with the step matrix)")
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -398,11 +398,12 @@ struct FfmaGemm {
                    int batch, const float* s, cudaStream_t st) {
     gemm<float, TA, float, kRound>(v, a, w, k, n, n, batch, kDiv, s, nullptr, nullptr, st);
   }
-  // q1 = q - coeff (term1 q - term2 q), stored as TQ1; no bf16 copy
+  // q1 = q - coeff (s q - term2 q) for the step matrix s (term1, or the
+  // Newton fit's separate S), stored as TQ1; no bf16 copy
   template <typename T, typename TQ1>
-  static void step(const T* term1, const T* q, TQ1* q1, bf16*, int n, int batch,
+  static void step(const T* s, const T* q, TQ1* q1, bf16*, int n, int batch,
                    const float* coeff, const float* term2, cudaStream_t st) {
-    gemm<T, T, TQ1, false>(term1, q, q1, n, n, n, batch, kStep, coeff, term2, nullptr, st);
+    gemm<T, T, TQ1, false>(s, q, q1, n, n, n, batch, kStep, coeff, term2, nullptr, st);
   }
   // c (n x n, f32) = a b / den, the diagonal partials to trace; no bf16 copy
   template <typename TA, typename TB>

@@ -385,12 +385,13 @@ struct TcGemm {
                         const float* den, float* trace, cudaStream_t st) {
     tc_gemm<kDivTrace, float>(a, b, c, c16, n, n, n, batch, den, nullptr, trace, st);
   }
-  // q1 = q - coeff (term1 q - term2 q), stored as TQ1 (bf16, or f32 and its
-  // bf16 copy q1_16 in the same epilogue)
+  // q1 = q - coeff (s q - term2 q) for the step matrix s (term1, or the
+  // Newton fit's separate S; a TMA map is encoded over whichever it is),
+  // stored as TQ1 (bf16, or f32 and its bf16 copy q1_16 in the same epilogue)
   template <typename T, typename TQ1>
-  static void step(const T* term1, const T* q, TQ1* q1, bf16* q1_16, int n, int batch,
+  static void step(const T* s, const T* q, TQ1* q1, bf16* q1_16, int n, int batch,
                    const float* coeff, const float* term2, cudaStream_t st) {
-    tc_gemm<kStep, TQ1>(term1, q, q1, q1_16, n, n, n, batch, coeff, term2, nullptr, st);
+    tc_gemm<kStep, TQ1>(s, q, q1, q1_16, n, n, n, batch, coeff, term2, nullptr, st);
   }
 };
 

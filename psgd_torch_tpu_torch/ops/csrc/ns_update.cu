@@ -11,13 +11,15 @@
 // The function:
 //   ell = norm_lower_bound_spd(term1) + term2
 //   L'  = max(betaL L + (1 - betaL) ell, ell),   coeff = lr / L'
-//   q1  = q - coeff (term1 q - term2 q)
+//   q1  = q - coeff (S q - term2 q),  S = step_mat if given, else term1
+//         (the TPU kernels' has_step_mat: the Newton fit passes
+//         term1 = A + B and S = A - B; the bound still reads term1)
 //   q'  = procrustes_step2(q1): R = q1^T - q1, R /= norm_lower_bound_skh(R),
 //         a = min(-tr(Rq1)/tr(RRq1), 1/8) if tr(RRq1) < 0 else 1/8,
 //         q' = q1 + a Rq1 + a^2/2 RRq1
 //
 // Bound on the H100: operations.  Per factor 6 n^3 flops in the three full
-// products (term1 q, R q1, R Rq1) plus 8 thin k x n by n x n products
+// products (S q, R q1, R Rq1) plus 8 thin k x n by n x n products
 // (2 k n^2 each) in the two norm bounds, against ~3 n^2 elements of HBM
 // traffic that must move.  One n = 768 f32 matrix (2.4 MB) is ten times an
 // SM's shared memory, so the TPU monolith cannot carry over: every product
@@ -118,19 +120,20 @@ long long carve(float* base, int B, int n, int k, int parts, NsWs* ws) {
   return c.off;
 }
 
-// Stage 1: ell, L' and coeff = lr / L', then q1 = q - coeff (term1 q -
-// term2 q) stored as TQ1 (the operands are exact in Q's dtype), and as bf16
-// into q1_16 if given; the bound's thin products and the step product on
-// the GEMM policy Gemm.
+// Stage 1: ell (from term1), L' and coeff = lr / L', then q1 = q - coeff
+// (s q - term2 q) stored as TQ1 (the operands are exact in Q's dtype), and
+// as bf16 into q1_16 if given; s is the step matrix, term1 itself unless the
+// caller passed another.  The bound's thin products and the step product
+// on the GEMM policy Gemm.
 template <typename T, typename TQ1, typename Gemm>
-void ns_step_chain(const T* term1, const T* q, const float* lips, const float* term2,
-                   const uint32_t* seeds, TQ1* q1, bf16* q1_16, float* lips_out,
-                   const NsWs& ws, int B, int n, int k, float lr, float beta,
-                   float one_minus_beta, cudaStream_t st) {
+void ns_step_chain(const T* term1, const T* s, const T* q, const float* lips,
+                   const float* term2, const uint32_t* seeds, TQ1* q1, bf16* q1_16,
+                   float* lips_out, const NsWs& ws, int B, int n, int k, float lr,
+                   float beta, float one_minus_beta, cudaStream_t st) {
   norm_bound<T, Gemm, false>(term1, term1, B, n, k, kSpd, seeds, 0u, ws.bound, st);
   bound_scalars(ws.bound, B, k, kOutLips, term2, lips, lr, beta, one_minus_beta,
                 lips_out, ws.coeff, st);
-  Gemm::step(term1, q, q1, q1_16, n, B, ws.coeff, term2, st);
+  Gemm::step(s, q, q1, q1_16, n, B, ws.coeff, term2, st);
 }
 
 // Stage 2: procrustes_step2 of q1 (TQ1) with R, Rq1 and RRq1 in f32; the
@@ -161,12 +164,12 @@ void procrustes_chain(const TQ1* q1, const bf16* q1_16, const uint32_t* seeds, T
 // The single route: both stages with q1 kept in f32 (and, for the tensor
 // cores, its bf16 copy).
 template <typename T, typename Gemm>
-void ns_update(const T* term1, const T* q, const float* lips, const float* term2,
-               const uint32_t* seeds, T* q_out, float* lips_out, const NsWs& ws,
-               int B, int n, int k, float lr, float beta, float one_minus_beta,
-               float max_step, cudaStream_t st) {
-  ns_step_chain<T, float, Gemm>(term1, q, lips, term2, seeds, ws.q1, ws.q1_16, lips_out, ws,
-                                B, n, k, lr, beta, one_minus_beta, st);
+void ns_update(const T* term1, const T* s, const T* q, const float* lips,
+               const float* term2, const uint32_t* seeds, T* q_out, float* lips_out,
+               const NsWs& ws, int B, int n, int k, float lr, float beta,
+               float one_minus_beta, float max_step, cudaStream_t st) {
+  ns_step_chain<T, float, Gemm>(term1, s, q, lips, term2, seeds, ws.q1, ws.q1_16, lips_out,
+                                ws, B, n, k, lr, beta, one_minus_beta, st);
   procrustes_chain<T, float, Gemm>(ws.q1, ws.q1_16, seeds, q_out, ws, B, n, k, max_step, st);
 }
 
@@ -199,13 +202,14 @@ extern "C" long long psgd_procrustes_workspace_bytes(int B, int n, int k, int dt
 
 // The single route.  dtype: 0 = float32 (f32 products), 1 = bfloat16 (bf16
 // operands, f32 accumulation: on the tensor cores at n % 8 == 0, else on
-// the FFMA GEMM).  term1, q, q_out: (B, n, n); lips, term2, lips_out: (B,)
-// f32; seeds: (B, 2) 32-bit words.  Returns a failed tensor-map encoding,
-// else cudaGetLastError().
-extern "C" int psgd_ns_update(const void* term1, const void* q, const void* lips,
-                              const void* term2, const void* seeds, void* q_out,
-                              void* lips_out, void* workspace, int B, int n, int k,
-                              int dtype, float lr, float beta, float one_minus_beta,
+// the FFMA GEMM).  term1, q, q_out: (B, n, n); step_mat: (B, n, n) or null
+// (the step reads term1); lips, term2, lips_out: (B,) f32; seeds: (B, 2)
+// 32-bit words.  Returns a failed tensor-map encoding, else
+// cudaGetLastError().
+extern "C" int psgd_ns_update(const void* term1, const void* step_mat, const void* q,
+                              const void* lips, const void* term2, const void* seeds,
+                              void* q_out, void* lips_out, void* workspace, int B, int n,
+                              int k, int dtype, float lr, float beta, float one_minus_beta,
                               float max_step, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lips);
@@ -214,20 +218,23 @@ extern "C" int psgd_ns_update(const void* term1, const void* q, const void* lips
   float* lo = static_cast<float*>(lips_out);
   NsWs ws;
   carve(static_cast<float*>(workspace), B, n, k, parts_of(kSingle, n, dtype), &ws);
+  const void* s = step_mat ? step_mat : term1;
   if (B > 0 && n > 0) {
     const bf16* t1h = static_cast<const bf16*>(term1);
+    const bf16* sh = static_cast<const bf16*>(s);
     const bf16* qh = static_cast<const bf16*>(q);
     bf16* oh = static_cast<bf16*>(q_out);
     if (dtype == 0)
       ns_update<float, FfmaGemm<false>>(static_cast<const float*>(term1),
+                                        static_cast<const float*>(s),
                                         static_cast<const float*>(q), l, t2, sd,
                                         static_cast<float*>(q_out), lo, ws, B, n, k, lr,
                                         beta, one_minus_beta, max_step, st);
     else if (on_tensor_cores(n, dtype))
-      ns_update<bf16, TcGemm>(t1h, qh, l, t2, sd, oh, lo, ws, B, n, k, lr, beta,
+      ns_update<bf16, TcGemm>(t1h, sh, qh, l, t2, sd, oh, lo, ws, B, n, k, lr, beta,
                               one_minus_beta, max_step, st);
     else
-      ns_update<bf16, FfmaGemm<true>>(t1h, qh, l, t2, sd, oh, lo, ws, B, n, k, lr, beta,
+      ns_update<bf16, FfmaGemm<true>>(t1h, sh, qh, l, t2, sd, oh, lo, ws, B, n, k, lr, beta,
                                       one_minus_beta, max_step, st);
   }
   return tc_status();
@@ -235,11 +242,12 @@ extern "C" int psgd_ns_update(const void* term1, const void* q, const void* lips
 
 // Split stage 1 (_ns_step_kernel): the spd bound of term1, L' into
 // lips_out and q1 into q1_out, both in Q's dtype.  Arguments as
-// psgd_ns_update; in bf16 (tensor cores) n % 8 == 0.
-extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
-                            const void* term2, const void* seeds, void* q1_out,
-                            void* lips_out, void* workspace, int B, int n, int k,
-                            int dtype, float lr, float beta, float one_minus_beta,
+// psgd_ns_update (step_mat null: the step reads term1); in bf16 (tensor
+// cores) n % 8 == 0.
+extern "C" int psgd_ns_step(const void* term1, const void* step_mat, const void* q,
+                            const void* lips, const void* term2, const void* seeds,
+                            void* q1_out, void* lips_out, void* workspace, int B, int n,
+                            int k, int dtype, float lr, float beta, float one_minus_beta,
                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lips);
@@ -249,17 +257,18 @@ extern "C" int psgd_ns_step(const void* term1, const void* q, const void* lips,
   NsWs ws;
   carve(static_cast<float*>(workspace), B, n, k, parts_of(kPartStep, n, dtype), &ws);
   if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
+  const void* s = step_mat ? step_mat : term1;
   if (B > 0 && n > 0) {
     if (dtype == 0)
       ns_step_chain<float, float, FfmaGemm<false>>(
-          static_cast<const float*>(term1), static_cast<const float*>(q), l, t2, sd,
-          static_cast<float*>(q1_out), nullptr, lo, ws, B, n, k, lr, beta, one_minus_beta,
-          st);
+          static_cast<const float*>(term1), static_cast<const float*>(s),
+          static_cast<const float*>(q), l, t2, sd, static_cast<float*>(q1_out), nullptr,
+          lo, ws, B, n, k, lr, beta, one_minus_beta, st);
     else
       ns_step_chain<bf16, bf16, TcGemm>(
-          static_cast<const bf16*>(term1), static_cast<const bf16*>(q), l, t2, sd,
-          static_cast<bf16*>(q1_out), nullptr, lo, ws, B, n, k, lr, beta, one_minus_beta,
-          st);
+          static_cast<const bf16*>(term1), static_cast<const bf16*>(s),
+          static_cast<const bf16*>(q), l, t2, sd, static_cast<bf16*>(q1_out), nullptr,
+          lo, ws, B, n, k, lr, beta, one_minus_beta, st);
   }
   return tc_status();
 }

@@ -93,7 +93,7 @@ def unit_noise_stacked(keys, shape, dtype, device) -> torch.Tensor:
     from .kernels import key_seed_words, unit_noise
     if dtype.is_complex:
         raise NotImplementedError(
-            "complex noise is not ported yet (ROADMAP A2)")
+            "complex noise is not ported yet (ROADMAP A3)")
     return unit_noise(key_seed_words(keys, device), tuple(shape), dtype)
 
 

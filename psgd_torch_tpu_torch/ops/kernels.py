@@ -6,7 +6,9 @@ kernels:
 
 * ``fused_ns_update`` -- the Q0.5EQ1.5 dense-factor update (spd norm bound,
   L and lr/L, the q1 step, the Procrustes rotation), batched over a layer
-  stack.  It routes by factor width and dtype as the JAX package does
+  stack.  The step's matrix is term1 (the whitening fit) or a separate
+  ``step_mat`` S (the Newton fit: term1 = A + B, S = A - B), on every
+  route, as the TPU kernels' ``has_step_mat`` variant.  It routes by factor width and dtype as the JAX package does
   (``ns_route``), because the routes store their intermediates
   differently in bf16:
 
@@ -36,7 +38,9 @@ width).  Every f32 product runs on the FFMA GEMM (f32 operands, no TF32).
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
 Each wrapper counts its launches in a plain integer attribute
-(``ns_step.launches`` and so on); a route counts nothing itself.
+(``ns_step.launches`` and so on), and the three that take a step matrix
+(``fused_ns_update``, ``ns_step``, ``tiled_step``) also count the launches
+given one (``.step_mat_launches``); a route counts nothing itself.
 
 Build: at first use, nvcc compiles every ``csrc/*.cu`` for sm_90a (one
 process per source, all started together) and links them into one shared
@@ -145,10 +149,10 @@ def library() -> ctypes.CDLL:
     signatures = {
         "psgd_noise": ([vp, vp, vp, i32, i64, i32, i32, f32, f32, f32, vp], i32),
         "psgd_ns_workspace_bytes": ([i32] * 4, i64),
-        "psgd_ns_update": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, f32, vp],
+        "psgd_ns_update": ([vp] * 9 + [i32, i32, i32, i32, f32, f32, f32, f32, vp],
                            i32),
         "psgd_ns_step_workspace_bytes": ([i32] * 4, i64),
-        "psgd_ns_step": ([vp] * 8 + [i32, i32, i32, i32, f32, f32, f32, vp], i32),
+        "psgd_ns_step": ([vp] * 9 + [i32, i32, i32, i32, f32, f32, f32, vp], i32),
         "psgd_procrustes_workspace_bytes": ([i32] * 4, i64),
         "psgd_procrustes": ([vp] * 4 + [i32, i32, i32, i32, f32, vp], i32),
         "psgd_bound_workspace_bytes": ([i32] * 4, i64),
@@ -230,6 +234,24 @@ def _counted(fn):
     """Give a wrapper its launch counter."""
     fn.launches = 0
     return fn
+
+
+def _counted_step_mat(fn):
+    """Give a wrapper that takes a step matrix its launch counter and the
+    count of its launches given one."""
+    fn.step_mat_launches = 0
+    return _counted(fn)
+
+
+def _require_step_mat(step_mat, q, dev, b, n) -> None:
+    """A step matrix S is a (B, n, n) stack in Q's dtype on Q's device."""
+    if step_mat is not None:
+        _require(step_mat, "step_mat", dev, (q.dtype,), (b, n, n))
+
+
+def _ptr(t) -> int | None:
+    """A tensor's device pointer, or null for None."""
+    return None if t is None else t.data_ptr()
 
 
 def key_seed_words(keys, device) -> torch.Tensor:
@@ -349,15 +371,18 @@ def _lips_update(bound, lips, term2, lr, beta_l):
     return lip, lr / lip
 
 
-def _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start):
-    """ell, L' and q1 = q - lr/L' (term1 q - term2 q), computed in f32 (f64
-    for f64 Q) and not yet stored."""
+def _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start,
+                step_mat=None):
+    """ell, L' and q1 = q - lr/L' (S q - term2 q), S = step_mat or term1
+    (ell from term1 either way), computed in f32 (f64 for f64 Q) and not
+    yet stored."""
     cd = compute_dtype_of(q.dtype)
     n = q.shape[-1]
     t1, f, t2 = term1.to(cd), q.to(cd), term2.to(cd)
+    s = t1 if step_mat is None else step_mat.to(cd)
     bound = norm_lower_bound_spd(t1, seeds, k=width_norm_k(k, n), v0=start)
     lip, coeff = _lips_update(bound, lips, t2, lr, beta_l)
-    q1 = f - coeff.to(cd)[:, None, None] * (t1 @ f - t2[:, None, None] * f)
+    q1 = f - coeff.to(cd)[:, None, None] * (s @ f - t2[:, None, None] * f)
     return q1, lip
 
 
@@ -372,25 +397,28 @@ def _procrustes_plain(q1, seeds, max_step, k, start):
 
 
 def _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
-                  k=NORM_K, starts=None):
+                  k=NORM_K, starts=None, step_mat=None):
     """The ``_ns_tail_stacked_xla`` math (psgd_torch_tpu/precond/kron.py),
     batched, in float64 for f64 Q and float32 otherwise, q1 kept unrounded."""
     v_spd, v_skh = starts if starts is not None else (None, None)
-    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd)
+    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd,
+                          step_mat)
     return _procrustes_plain(q1, seeds, max_step, k, v_skh).to(q.dtype), lip
 
 
 def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
-            starts=None):
+            starts=None, step_mat=None):
     """The single route on CUDA: one chain of launches (counted as
-    ``fused_ns_update.launches``).  In bf16 its products run on the tensor
-    cores at n % 8 == 0 and on the FFMA GEMM at other widths, by shape."""
+    ``fused_ns_update.launches``, and ``.step_mat_launches`` given a step
+    matrix).  In bf16 its products run on the tensor cores at n % 8 == 0
+    and on the FFMA GEMM at other widths, by shape."""
     if q.device.type == "cpu":
         return _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step,
-                             k, starts)
+                             k, starts, step_mat)
     _no_start(starts)
     dev, b, n = _require_stack(q, "q")
     _require(term1, "term1", dev, (q.dtype,), (b, n, n))
+    _require_step_mat(step_mat, q, dev, b, n)
     _require_scalars(dev, b, lips=lips, term2=term2)
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
@@ -400,12 +428,14 @@ def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
     lips_out = torch.empty_like(lips)
     with torch.cuda.device(dev):
         err = lib.psgd_ns_update(
-            term1.data_ptr(), q.data_ptr(), lips.data_ptr(), term2.data_ptr(),
+            term1.data_ptr(), _ptr(step_mat), q.data_ptr(), lips.data_ptr(),
+            term2.data_ptr(),
             seeds.data_ptr(), q_out.data_ptr(), lips_out.data_ptr(),
             ws.data_ptr(), b, n, kk, _DTYPE_CODE[q.dtype], float(lr),
             float(beta_l), 1.0 - float(beta_l), float(max_step), _stream(dev))
     _check(err, "psgd_ns_update")
     fused_ns_update.launches += 1
+    fused_ns_update.step_mat_launches += step_mat is not None
     return q_out, lips_out
 
 
@@ -415,27 +445,33 @@ def _single(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8, k=NORM_K,
 
 
 def ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K,
-                  start=None):
+                  start=None, step_mat=None):
     """Split stage 1: (q1 stored in Q's dtype, L')."""
-    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start)
+    q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start,
+                          step_mat)
     return q1.to(q.dtype), lip
 
 
-@_counted
-def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None):
+@_counted_step_mat
+def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None,
+            step_mat=None):
     """Split stage 1 (replaces ``_ns_step_kernel``): the spd bound of term1,
     L' = max(betaL L + (1 - betaL) ell, ell) with ell = bound + term2, and
-    q1 = q - lr/L' (term1 q - term2 q) stored in Q's dtype.
+    q1 = q - lr/L' (S q - term2 q) stored in Q's dtype, S = ``step_mat``
+    when given, else term1.
 
-    term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32.
-    Returns (q1 (B, n, n), L' (B,)).  CUDA: one chain of launches; in bf16
-    its products run on the tensor cores and n must be a multiple of 8."""
+    term1, q, step_mat: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2)
+    int32.  Returns (q1 (B, n, n), L' (B,)).  CUDA: one chain of launches;
+    in bf16 its products run on the tensor cores and n must be a multiple
+    of 8."""
     if q.device.type == "cpu":
-        return ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start)
+        return ns_step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start,
+                             step_mat)
     _no_start(start)
     dev, b, n = _require_stack(q, "q")
     _require_tc_width(q, "ns_step")
     _require(term1, "term1", dev, (q.dtype,), (b, n, n))
+    _require_step_mat(step_mat, q, dev, b, n)
     _require_scalars(dev, b, lips=lips, term2=term2)
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
@@ -446,12 +482,14 @@ def ns_step(term1, q, lips, term2, seeds, lr, beta_l, k=NORM_K, start=None):
     lips_out = torch.empty_like(lips)
     with torch.cuda.device(dev):
         err = lib.psgd_ns_step(
-            term1.data_ptr(), q.data_ptr(), lips.data_ptr(), term2.data_ptr(),
+            term1.data_ptr(), _ptr(step_mat), q.data_ptr(), lips.data_ptr(),
+            term2.data_ptr(),
             seeds.data_ptr(), q1.data_ptr(), lips_out.data_ptr(), ws.data_ptr(),
             b, n, kk, _DTYPE_CODE[q.dtype], float(lr), float(beta_l),
             1.0 - float(beta_l), _stream(dev))
     _check(err, "psgd_ns_step")
     ns_step.launches += 1
+    ns_step.step_mat_launches += step_mat is not None
     return q1, lips_out
 
 
@@ -489,9 +527,10 @@ def procrustes(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
 
 
 def _split_route(ops, term1, q, lips, term2, seeds, lr, beta_l, max_step, k,
-                 starts):
+                 starts, step_mat):
     v_spd, v_skh = starts if starts is not None else (None, None)
-    q1, lip = ops.ns_step(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd)
+    q1, lip = ops.ns_step(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd,
+                          step_mat)
     return ops.procrustes(q1, seeds, max_step, k, v_skh), lip
 
 
@@ -535,9 +574,9 @@ def norm_bound(mat, seeds, mode="spd", tag=0, k=NORM_K, start=None):
     return out
 
 
-def tiled_step_plain(step, q, coeff, term2):
-    """q - coeff (step q - term2 q), products of the stored operands
-    accumulated in f32 (f64), stored in Q's dtype."""
+def tiled_step_plain(step, q, coeff, term2, is_step_mat=False):
+    """q - coeff (S q - term2 q), S = ``step``, products of the stored
+    operands accumulated in f32 (f64), stored in Q's dtype."""
     cd = compute_dtype_of(q.dtype)
     f = q.to(cd)
     prod = step.to(cd) @ f
@@ -545,14 +584,16 @@ def tiled_step_plain(step, q, coeff, term2):
     return (f - c * (prod - t2 * f)).to(q.dtype)
 
 
-@_counted
-def tiled_step(step, q, coeff, term2):
-    """q1 = q - coeff (step q - term2 q) for stacks step, q (B, n, n) and
-    per-batch coeff, term2 (B,) float32, stored in Q's dtype (replaces
-    ``_tiled_step_kernel``).  CUDA: one GEMM launch (tensor cores in bf16, n
-    a multiple of 8)."""
+@_counted_step_mat
+def tiled_step(step, q, coeff, term2, is_step_mat=False):
+    """q1 = q - coeff (S q - term2 q) for stacks q, S = ``step`` (B, n, n)
+    and per-batch coeff, term2 (B,) float32, stored in Q's dtype (replaces
+    ``_tiled_step_kernel``; S is its ``step_in``).  S is term1, the matrix
+    whose bound gave coeff, or a step matrix (``is_step_mat``, which only
+    picks the counter).  CUDA: one GEMM launch (tensor cores in bf16, n a
+    multiple of 8)."""
     if q.device.type == "cpu":
-        return tiled_step_plain(step, q, coeff, term2)
+        return tiled_step_plain(step, q, coeff, term2, is_step_mat)
     dev, b, n = _require_stack(q, "q")
     _require(step, "step", dev, (q.dtype,), (b, n, n))
     _require_scalars(dev, b, coeff=coeff, term2=term2)
@@ -564,6 +605,7 @@ def tiled_step(step, q, coeff, term2):
             out.data_ptr(), b, n, _DTYPE_CODE[q.dtype], _stream(dev))
     _check(err, "psgd_tiled_step")
     tiled_step.launches += 1
+    tiled_step.step_mat_launches += is_step_mat
     return out
 
 
@@ -656,13 +698,14 @@ def combine(q1, rq, rrq, a):
 
 
 def _tiled_route(ops, term1, q, lips, term2, seeds, lr, beta_l, max_step, k,
-                 starts):
+                 starts, step_mat):
     """The six steps of ``_tiled_ns_update``; the scalar glue between them
     is PyTorch on (B,) tensors on q's device (no host sync)."""
     v_spd, v_skh = starts if starts is not None else (None, None)
     bound = ops.norm_bound(term1, seeds, "spd", 0, k, v_spd)
     lip, coeff = _lips_update(bound, lips, term2, lr, beta_l)
-    q1 = ops.tiled_step(term1, q, coeff, term2)
+    q1 = ops.tiled_step(term1 if step_mat is None else step_mat, q, coeff, term2,
+                        step_mat is not None)
     r = ops.tsub(q1)
     rnorm = ops.norm_bound(r, seeds, "skh", SKH_TAG, k, v_skh)
     inv = 1.0 / (rnorm + torch.finfo(rnorm.dtype).tiny)
@@ -696,9 +739,10 @@ _PLAIN = SimpleNamespace(ns_step=ns_step_plain, procrustes=procrustes_plain,
 
 
 def _dispatch(ops, single, term1, q, lips, term2, seeds, lr, beta_l, max_step,
-              k, starts, route):
+              k, starts, route, step_mat):
     route = ns_route(q.shape[-1], q.dtype) if route is None else route
-    args = (term1, q, lips, term2, seeds, lr, beta_l, max_step, k, starts)
+    args = (term1, q, lips, term2, seeds, lr, beta_l, max_step, k, starts,
+            step_mat)
     if route == "single":
         return single(*args)
     if route == "split":
@@ -709,7 +753,8 @@ def _dispatch(ops, single, term1, q, lips, term2, seeds, lr, beta_l, max_step,
 
 
 def fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
-                          max_step=1 / 8, k=NORM_K, starts=None, route=None):
+                          max_step=1 / 8, k=NORM_K, starts=None, route=None,
+                          step_mat=None):
     """The NS update's plain version: each route composed of its pieces'
     plain versions.
 
@@ -718,23 +763,28 @@ def fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
     from Philox keyed by ``seeds`` (and ``seeds`` ^ tag for the skew bound),
     the kernels' bits.  Returns (q' in q's dtype, L' in lips' dtype)."""
     return _dispatch(_PLAIN, _single_plain, term1, q, lips, term2, seeds, lr,
-                     beta_l, max_step, k, starts, route)
+                     beta_l, max_step, k, starts, route, step_mat)
 
 
-@_counted
+@_counted_step_mat
 def fused_ns_update(term1, q, lips, term2, seeds, lr, beta_l,
-                    max_step=1 / 8, k=NORM_K, starts=None, route=None):
+                    max_step=1 / 8, k=NORM_K, starts=None, route=None,
+                    step_mat=None):
     """Batched Q0.5EQ1.5 dense-factor update.
 
     term1, q: (B, n, n); lips, term2: (B,) float32; seeds: (B, 2) int32
-    Philox seed words.  Returns (new q (B, n, n) in q's dtype, new L (B,)).
+    Philox seed words.  ``step_mat`` (B, n, n) in Q's dtype, when given, is
+    the step's matrix S in q1 = q - lr/L' (S q - term2 q), while the bound
+    and L' still read term1 (the Newton fit: term1 = A + B, S = A - B).
+    Returns (new q (B, n, n) in q's dtype, new L (B,)).
     ``route`` picks "single", "split" or "tiled" explicitly; by default
     ``ns_route(n, q.dtype)``.  On CUDA every route is kernel launches with
     no host sync; ``starts`` (the plain versions' replay hook) is refused
-    there.  ``fused_ns_update.launches`` counts the single route's chains;
-    the other routes count in their pieces' counters."""
+    there.  ``fused_ns_update.launches`` counts the single route's chains
+    (``.step_mat_launches`` those given a step matrix); the other routes
+    count in their pieces' counters."""
     return _dispatch(_KERNELS, _single, term1, q, lips, term2, seeds, lr,
-                     beta_l, max_step, k, starts, route)
+                     beta_l, max_step, k, starts, route, step_mat)
 
 
 # ---------------------------------------------------------------------------
@@ -776,9 +826,13 @@ def norm_bound_rtol(mat, seeds, mode="spd", tag=0, k=NORM_K) -> float:
 
 SPLIT_KERNELS = (ns_step, procrustes)
 TILED_KERNELS = (norm_bound, tiled_step, tsub, scaled_matmul_trace, combine)
+# the wrappers that take a step matrix (the TPU kernels' has_step_mat)
+STEP_MAT_KERNELS = (fused_ns_update, ns_step, tiled_step)
 
 
 def reset_launch_counts() -> None:
     for fn in (fused_ns_update, damped_noise, unit_noise, *SPLIT_KERNELS,
                *TILED_KERNELS):
         fn.launches = 0
+    for fn in STEP_MAT_KERNELS:
+        fn.step_mat_launches = 0

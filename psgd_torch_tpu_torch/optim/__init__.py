@@ -1,5 +1,5 @@
 """The port's optimizers."""
 
-from .transforms import KronWhiten, kron_whiten
+from .transforms import KronNewton, KronWhiten, kron_newton, kron_whiten
 
-__all__ = ["KronWhiten", "kron_whiten"]
+__all__ = ["KronNewton", "KronWhiten", "kron_newton", "kron_whiten"]

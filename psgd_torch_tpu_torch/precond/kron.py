@@ -1,10 +1,12 @@
-"""Kronecker-factored PSGD preconditioner: the Q0.5EQ1.5 whitening main path.
+"""Kronecker-factored PSGD preconditioner: the Q0.5EQ1.5 fits.
 
-Counterpart of psgd_torch_tpu/precond/kron.py for what ``kron_whiten``
-runs by default: plans and state, balancing, the L-constants, the apply
-P g = Q^T Q g, the damping, and the whitening fit per tensor and for a
-layer stack.  The other geometries and the Newton family raise
-``NotImplementedError`` (ROADMAP A7).
+Counterpart of psgd_torch_tpu/precond/kron.py for what ``kron_whiten`` and
+``kron_newton`` run by default: plans and state, balancing, the
+L-constants, the apply P g = Q^T Q g, the damping, and the Q0.5EQ1.5
+whitening fit (from a gradient g) and Newton fit (from a probe v and its
+Hessian-vector product h), per tensor and for a layer stack.  The other
+geometries raise ``NotImplementedError`` (ROADMAP A4), and so do complex
+tensors (ROADMAP A3).
 
 Contractions are explicit per-dimension products (one ``matmul`` along one
 axis at a time, Q^T after Q), never a multi-operand einsum: the card's
@@ -53,8 +55,17 @@ def canonical_dq(dq: str) -> str:
 def _require_main_path_dq(dq: str) -> None:
     if dq != DQ_Q05EQ15:
         raise NotImplementedError(
-            f"dQ {dq!r} is not ported yet (ROADMAP A7); the port fits "
+            f"dQ {dq!r} is not ported yet (ROADMAP A4); the port fits "
             f"{DQ_Q05EQ15!r} only")
+
+
+def require_real(*dtypes: torch.dtype) -> None:
+    """Refuse complex dtypes: the port's noise, damping and clipping are
+    real-only until ROADMAP A3 lands."""
+    for dt in dtypes:
+        if dt.is_complex:
+            raise NotImplementedError(
+                f"complex dtype {dt} is not ported yet (ROADMAP A3)")
 
 
 class KronPlan(NamedTuple):
@@ -259,7 +270,8 @@ def _damped_stacked(g: torch.Tensor, keys, damping: float,
                     v: Optional[torch.Tensor] = None) -> torch.Tensor:
     """g + (damping + eps(dtype)|g|) v per layer, v keyed per layer by keys
     (reference psgd.py:334-336).  Without a pre-drawn v, one fused noise
-    launch (the noise never reaches memory on CUDA)."""
+    launch (the noise never reaches memory on CUDA).  Real dtypes only."""
+    require_real(g.dtype)
     if v is not None:
         eps = torch.finfo(real_dtype_of(g.dtype)).eps
         return g + (damping + eps * torch.abs(g)) * v
@@ -272,6 +284,76 @@ def _damped(g: torch.Tensor, key, damping: float,
     """Single-tensor ``_damped_stacked``."""
     return _damped_stacked(g[None], fastrand.as_keys(key)[None], damping,
                            None if v is None else v[None])[0]
+
+
+def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
+                 lr: float, beta_l: float, damping: float, norm_k: int, draw,
+                 terms) -> KronState:
+    """The Q0.5EQ1.5 fit of a layer stack, shared by the whitening and the
+    Newton fit: pg = P damped(src) with the key tree kd, krest = split(key)
+    per layer, then each factor i from ``terms(pg, i, diag)`` ->
+    (bound_mat, t2, step): ell = bound(bound_mat) + t2 (the spd bound, or
+    the largest diagonal entry), L' from ell, and the step q1 = q - lr/L'
+    (S q - t2 q) with S = ``step`` (term1 itself where it is None), then
+    Procrustes for a dense factor; a diagonal factor steps
+    f (1 - lr/L' step).  Then the balance gate."""
+    _require_main_path_dq(plan.dq)
+    require_real(src.dtype, *(f.dtype for f in state.q))
+    b = src.shape[0]
+    keys = fastrand.as_keys(keys).reshape(b, 2)
+    ks = fastrand.split(keys)
+    kd, krest = ks[:, 0], ks[:, 1]
+    wshape = plan.shape or (1,)
+    q = (state.q[0].reshape(b, 1),) if plan.order == 0 else state.q
+    v = None if draw is None else draw("normal", kd, wshape, src.dtype)
+    pg = _precond_batched(q, plan, _damped_stacked(_work_view(plan, src), kd,
+                                                   damping, v))
+    new_q, new_l = [], []
+    for i, f in enumerate(q):
+        keys_i = fastrand.fold_in(krest, i)
+        bound_mat, t2, step = terms(pg, i, plan.is_diag[i])
+        if plan.is_diag[i]:
+            ell = torch.amax(torch.real(bound_mat), dim=1) + t2
+            lip = _update_lips(state.lips[i], ell, beta_l)
+            coeff = _coeff(lr, lip, f.dtype)[:, None]
+            fq = f * (1.0 - coeff * step)
+        else:
+            n = f.shape[-1]
+            starts = None
+            if draw is not None:
+                kk = width_norm_k(norm_k, n)
+                starts = (draw("normal", keys_i, (kk, n), bound_mat.dtype),
+                          draw("normal", fastrand.fold_in(krest, i + 200),
+                               (kk, n), bound_mat.dtype))
+            t2v = torch.full((b,), t2, dtype=state.lips[i].dtype,
+                             device=f.device)
+            fq, lip = kernels.fused_ns_update(
+                bound_mat.contiguous(), f.contiguous(), state.lips[i], t2v,
+                kernels.key_seed_words(keys_i, f.device), lr, beta_l,
+                k=norm_k, starts=starts,
+                step_mat=None if step is None else step.contiguous())
+        new_q.append(fq)
+        new_l.append(lip)
+    if len(new_q) > 1:
+        kb = fastrand.fold_in(krest, 101)
+        u = (fastrand.uniform01(kb) if draw is None
+             else draw("uniform", kb, (), torch.float64).tolist())
+        new_q = _maybe_balance(tuple(new_q), u)
+    if plan.order == 0:
+        new_q = [new_q[0].reshape(b)]
+    return KronState(q=tuple(new_q), lips=tuple(new_l))
+
+
+def _single_layer(fit_stacked, state: KronState, plan: KronPlan, tensors,
+                  key, **kw) -> KronState:
+    """A per-tensor fit as the stacked fit of one layer keyed by ``key``
+    itself (the JAX per-tensor update's key tree)."""
+    st = KronState(q=tuple(f[None] for f in state.q),
+                   lips=tuple(l[None] for l in state.lips))
+    out = fit_stacked(st, plan, *(t[None] for t in tensors),
+                      fastrand.as_keys(key)[None], **kw)
+    return KronState(q=tuple(f[0] for f in out.q),
+                     lips=tuple(l[0] for l in out.lips))
 
 
 def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
@@ -287,52 +369,15 @@ def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
     one NS update (one kernel chain on CUDA); the damping is one launch.
     ``draw(kind, keys, shape, dtype)`` -> (B,)+shape tensor replaces the
     draws ("normal" for the probe and the bound starts, "uniform" for the
-    balance gate)."""
-    _require_main_path_dq(plan.dq)
-    b = g.shape[0]
-    keys = fastrand.as_keys(keys).reshape(b, 2)
-    ks = fastrand.split(keys)
-    kd, krest = ks[:, 0], ks[:, 1]
+    balance gate).  term1 = exprGs(Pg, Pg) and term2 = numel / n."""
     wshape = plan.shape or (1,)
-    gw = _work_view(plan, g)
-    q = (state.q[0].reshape(b, 1),) if plan.order == 0 else state.q
-    v = None if draw is None else draw("normal", kd, wshape, g.dtype)
-    pg = _precond_batched(q, plan, _damped_stacked(gw, kd, damping, v))
-    new_q, new_l = [], []
-    for i, f in enumerate(q):
-        term2 = plan.numel / wshape[i]
-        keys_i = fastrand.fold_in(krest, i)
-        if plan.is_diag[i]:
-            term1 = _gram(pg, i, diag=True)
-            ell = torch.amax(torch.real(term1), dim=1) + term2
-            lip = _update_lips(state.lips[i], ell, beta_l)
-            coeff = _coeff(lr, lip, f.dtype)[:, None]
-            fq = f * (1.0 - coeff * (term1 - term2))
-        else:
-            term1 = _gram(pg, i, diag=False)
-            n = f.shape[-1]
-            starts = None
-            if draw is not None:
-                kk = width_norm_k(norm_k, n)
-                starts = (draw("normal", keys_i, (kk, n), term1.dtype),
-                          draw("normal", fastrand.fold_in(krest, i + 200),
-                               (kk, n), term1.dtype))
-            t2v = torch.full((b,), term2, dtype=state.lips[i].dtype,
-                             device=f.device)
-            fq, lip = kernels.fused_ns_update(
-                term1.contiguous(), f.contiguous(), state.lips[i], t2v,
-                kernels.key_seed_words(keys_i, f.device), lr, beta_l,
-                k=norm_k, starts=starts)
-        new_q.append(fq)
-        new_l.append(lip)
-    if len(new_q) > 1:
-        kb = fastrand.fold_in(krest, 101)
-        u = (fastrand.uniform01(kb) if draw is None
-             else draw("uniform", kb, (), torch.float64).tolist())
-        new_q = _maybe_balance(tuple(new_q), u)
-    if plan.order == 0:
-        new_q = [new_q[0].reshape(b)]
-    return KronState(q=tuple(new_q), lips=tuple(new_l))
+
+    def terms(pg, i, diag):
+        term1, term2 = _gram(pg, i, diag), plan.numel / wshape[i]
+        return term1, term2, (term1 - term2) if diag else None
+
+    return _fit_stacked(state, plan, g, keys, lr, beta_l, damping, norm_k,
+                        draw, terms)
 
 
 def update_kron_whiten(state: KronState, plan: KronPlan, g: torch.Tensor,
@@ -341,10 +386,45 @@ def update_kron_whiten(state: KronState, plan: KronPlan, g: torch.Tensor,
                        draw=None) -> KronState:
     """Q0.5EQ1.5 whitening fit of one tensor: the stacked fit with one layer
     keyed by ``key`` itself (the JAX per-tensor update's key tree)."""
-    st = KronState(q=tuple(f[None] for f in state.q),
-                   lips=tuple(l[None] for l in state.lips))
-    out = update_kron_whiten_stacked(
-        st, plan, g[None], fastrand.as_keys(key)[None], lr, beta_l, damping,
-        norm_k, draw)
-    return KronState(q=tuple(f[0] for f in out.q),
-                     lips=tuple(l[0] for l in out.lips))
+    return _single_layer(update_kron_whiten_stacked, state, plan, (g,), key,
+                         lr=lr, beta_l=beta_l, damping=damping, norm_k=norm_k,
+                         draw=draw)
+
+
+def update_kron_newton_stacked(state: KronState, plan: KronPlan,
+                               v: torch.Tensor, h: torch.Tensor, keys,
+                               lr: float = 0.1, beta_l: float = 0.9,
+                               damping: float = 1e-9, norm_k: int = 32,
+                               draw=None) -> KronState:
+    """Q0.5EQ1.5 Newton fit of a layer stack from a probe v and its
+    Hessian-vector product h (reference psgd.py:777-829, JAX
+    update_kron_newton_stacked).
+
+    As the whitening fit, with the damping on h and both terms from the
+    pair: term1 = exprGs(P damped(h), same), term2 = exprGs(v, v), formed
+    in their dtype (Q's, in the optimizer).  A diagonal factor takes
+    ell = max(term1 + term2) and steps f (1 - lr/L' (term1 - term2)); a
+    dense factor is one NS update with term1 + term2 as its bound's matrix,
+    no scalar term2 and the step matrix term1 - term2.  Keys and ``draw``
+    as ``update_kron_whiten_stacked``."""
+    require_real(v.dtype)
+    vw = _work_view(plan, v)
+
+    def terms(ph, i, diag):
+        term1, term2 = _gram(ph, i, diag), _gram(vw, i, diag)
+        return term1 + term2, 0.0, term1 - term2
+
+    return _fit_stacked(state, plan, h, keys, lr, beta_l, damping, norm_k,
+                        draw, terms)
+
+
+def update_kron_newton(state: KronState, plan: KronPlan, v: torch.Tensor,
+                       h: torch.Tensor, key, lr: float = 0.1,
+                       beta_l: float = 0.9, damping: float = 1e-9,
+                       norm_k: int = 32, draw=None) -> KronState:
+    """Q0.5EQ1.5 Newton fit of one tensor from (v, h): the stacked fit with
+    one layer keyed by ``key`` itself (the JAX per-tensor update's key
+    tree)."""
+    return _single_layer(update_kron_newton_stacked, state, plan, (v, h), key,
+                         lr=lr, beta_l=beta_l, damping=damping, norm_k=norm_k,
+                         draw=draw)

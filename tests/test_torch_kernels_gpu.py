@@ -369,3 +369,62 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kernels.combine(q, q, q[:, :32], lips)
     assert np.isfinite(kernels.fused_ns_update(
         term1, q, lips, term2, seeds, lr, beta)[1].cpu().numpy()).all()
+
+
+def _newton_inputs(b, n, dev, dtype):
+    """The Newton fit's call: the bound's matrix A + B and the step matrix
+    S = A - B (A from ``_ns_inputs``, B a Wishart matrix), both stored in
+    Q's dtype, term2 = 0."""
+    term1, q, lips, _, seeds, lr, beta = _ns_inputs(b, n, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(n + 1)
+    w = torch.randn((b, n, n), generator=gen, device=dev)
+    bb = w @ w.mT / n
+    return ((term1 + bb).to(dtype), q.to(dtype), lips, torch.zeros(b, device=dev),
+            seeds, lr, beta), (term1 - bb).to(dtype)
+
+
+_STEP_MAT_COUNTER = {"single": kernels.fused_ns_update, "split": kernels.ns_step,
+                     "tiled": kernels.tiled_step}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [200, 384, 2048])
+@pytest.mark.parametrize("route", ["single", "split", "tiled"])
+def test_step_mat_matches_plain(dev, route, n, b, dtype):
+    """The step-matrix variant of each route (the TPU kernels'
+    has_step_mat; S differs from term1): q' and L' at the route tolerances
+    of the plain version given the same S, the launch counted in the
+    route's ``step_mat_launches``, two runs give the same bits, and
+    ``step_mat=None`` gives the bits of the call without it."""
+    args, s = _newton_inputs(b, n, dev, dtype)
+    counter = _STEP_MAT_COUNTER[route]
+    before = counter.step_mat_launches
+    qk, lk = kernels.fused_ns_update(*args, k=128, route=route, step_mat=s)
+    assert counter.step_mat_launches == before + 1
+    qp, lp = kernels.fused_ns_update_plain(*args, k=128, route=route, step_mat=s)
+    tol_q, tol_l = kernels.ROUTE_TOL[dtype]
+    assert qk.dtype == dtype and _rel(qk, qp) < tol_q, _rel(qk, qp)
+    torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
+    without = kernels.fused_ns_update_plain(*args, k=128, route=route)[0]
+    assert _rel(without, qp) > 2 * tol_q       # S moves q' by ~5%
+    qk2, lk2 = kernels.fused_ns_update(*args, k=128, route=route, step_mat=s)
+    assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
+    q0, l0 = kernels.fused_ns_update(*args, k=128, route=route)
+    qn, ln = kernels.fused_ns_update(*args, k=128, route=route, step_mat=None)
+    assert torch.equal(q0, qn) and torch.equal(l0, ln)
+    assert counter.step_mat_launches == before + 2
+
+
+def test_step_mat_is_checked(dev):
+    """A step matrix in another dtype, shape or device is refused before a
+    launch, on each of the three wrappers that take one."""
+    args, s = _newton_inputs(2, 64, dev, torch.float32)
+    term1, q, lips, term2 = args[:4]
+    for bad, err in ((s.double(), TypeError), (s[:1], ValueError),
+                     (s.cpu(), ValueError)):
+        for call in (lambda: kernels.fused_ns_update(*args, route="single", step_mat=bad),
+                     lambda: kernels.ns_step(*args, step_mat=bad),
+                     lambda: kernels.tiled_step(bad, q, lips + 0.02, term2, True)):
+            with pytest.raises(err):
+                call()

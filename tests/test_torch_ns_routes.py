@@ -86,6 +86,48 @@ def test_plain_route_matches_xla_tail_on_replayed_draws(route, n):
     np.testing.assert_allclose(out_l.numpy(), np.asarray(ref_l), rtol=1e-10)
 
 
+def _step_matrix(term1, seed):
+    """A step matrix S that differs from term1, as the Newton fit's
+    S = (A + B) - 2 B next to its bound's matrix A + B: term1 minus twice
+    a Wishart matrix."""
+    b, n, _ = term1.shape
+    rng = np.random.default_rng(seed + 1000)
+    w = rng.standard_normal((b, n, n)) / n ** 0.5
+    return (term1 - 2.0 * (w @ np.swapaxes(w, 1, 2))).astype(term1.dtype)
+
+
+@pytest.mark.parametrize("route", ["single", "split", "tiled"])
+def test_plain_route_with_step_mat_matches_xla_tail(route):
+    """The Newton call: the bound and L' from term1, the step through a
+    separate S (``step_mat``), against ``_ns_tail_stacked_xla(...,
+    step_mat=S)``; f64 with the JAX draws replayed, term2 0 on two layers
+    and 3 on the third, rtol 1e-10.  S moves q' away from the call without
+    it."""
+    b, k, n = 3, 32, 128
+    term1, q = _inputs(b, n, 7 * n)
+    step = _step_matrix(term1, n)
+    lips = np.array([0.0, 2.0, 40.0])
+    term2 = np.array([0.0, 0.0, 3.0])
+    root = jax.random.split(jax.random.PRNGKey(n + 5), 2 * b)
+    kb, kp = root[:b], root[b:]
+    ref_q, ref_l = _ns_tail_stacked_xla(
+        jnp.asarray(q), jnp.asarray(term1), jnp.asarray(lips),
+        jnp.asarray(term2), kb, kp, 0.1, 0.9, k, step_mat=jnp.asarray(step))
+    starts = tuple(torch.from_numpy(np.array(jax.vmap(
+        lambda kk: jax.random.normal(kk, (k, n), jnp.float64))(keys)))
+        for keys in (kb, kp))
+    args = (torch.from_numpy(term1), torch.from_numpy(q), torch.from_numpy(lips),
+            torch.from_numpy(term2), kernels.key_seed_words(np.asarray(kb), "cpu"),
+            0.1, 0.9)
+    out_q, out_l = kernels.fused_ns_update(*args, k=k, starts=starts, route=route,
+                                           step_mat=torch.from_numpy(step))
+    np.testing.assert_allclose(out_q.numpy(), np.asarray(ref_q), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(out_l.numpy(), np.asarray(ref_l), rtol=1e-10)
+    without = kernels.fused_ns_update(*args, k=k, starts=starts, route=route)[0]
+    assert (without - out_q).abs().max() > 1e-3
+
+
 def _torch_args(term1, q, seed):
     b = q.shape[0]
     seeds = kernels.key_seed_words(fastrand.split(fastrand.prng_key(seed), b),
@@ -167,24 +209,29 @@ def _jax_inputs(b, n, jdt, seed):
     return jnp.asarray(term1, jdt), jnp.asarray(q, jdt), seed_words
 
 
-@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("n", [256, 384])
-@pytest.mark.parametrize("route", ["split", "tiled"])
-def test_route_matches_pallas_interpret(interpret, route, n, jdt):
-    """Own Philox draws against the Pallas route's own PRNG (term1 from
-    ``_spiked``), held as the Pallas tests hold the kernels against XLA
-    (tests/test_pallas_kernels.py):
-    q' within 5e-3 max-abs-relative in f32 and 1e-2 Frobenius-relative in
-    bf16; L within rtol 0.06 (the stochastic bound's spread)."""
+def _hold_against_pallas(route, n, jdt, with_step_mat):
+    """The port's route (own Philox draws) against the Pallas route (its own
+    PRNG) on ``_spiked`` term1, with or without a separate step matrix."""
     b = 2
     term1, q, seed_words = _jax_inputs(b, n, jdt, n)
-    fn = pk._split_ns_update if route == "split" else pk._tiled_ns_update
-    ref_q, ref_l = fn(term1, q, jnp.zeros(b, jnp.float32),
-                      jnp.full(b, 3.0, jnp.float32), seed_words, 0.1, 0.9,
-                      1 / 8, 128, None)
+    step = None
+    if with_step_mat:
+        step = jnp.asarray(_step_matrix(np.asarray(term1.astype(jnp.float32)), n),
+                           jdt)
+    lips, term2 = jnp.zeros(b, jnp.float32), jnp.full(b, 3.0, jnp.float32)
+    if route == "single":
+        assert _jax_route(n, jdt) == "single"
+        ref_q, ref_l = pk.fused_ns_update(term1, q, lips, term2, seed_words,
+                                          0.1, 0.9, k=128, step_mat=step)
+    else:
+        fn = pk._split_ns_update if route == "split" else pk._tiled_ns_update
+        ref_q, ref_l = fn(term1, q, lips, term2, seed_words, 0.1, 0.9, 1 / 8,
+                          128, step)
     tq = torch.from_numpy(np.array(q.astype(jnp.float32))).to(_TDT[jdt])
     args = _torch_args(np.asarray(term1.astype(jnp.float32)), tq, n)
-    out_q, out_l = kernels.fused_ns_update(*args, k=128, route=route)
+    ts = None if step is None else _t(step, _TDT[jdt])
+    out_q, out_l = kernels.fused_ns_update(*args, k=128, route=route,
+                                           step_mat=ts)
     assert out_q.dtype == _TDT[jdt] and out_l.dtype == torch.float32
     ref = np.asarray(ref_q.astype(jnp.float32))
     got = out_q.float().numpy()
@@ -195,6 +242,29 @@ def test_route_matches_pallas_interpret(interpret, route, n, jdt):
         rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
         assert rel < 1e-2, rel
     np.testing.assert_allclose(out_l.numpy(), np.asarray(ref_l), rtol=0.06)
+
+
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("route", ["split", "tiled"])
+def test_route_matches_pallas_interpret(interpret, route, n, jdt):
+    """Own Philox draws against the Pallas route's own PRNG (term1 from
+    ``_spiked``), held as the Pallas tests hold the kernels against XLA
+    (tests/test_pallas_kernels.py):
+    q' within 5e-3 max-abs-relative in f32 and 1e-2 Frobenius-relative in
+    bf16; L within rtol 0.06 (the stochastic bound's spread)."""
+    _hold_against_pallas(route, n, jdt, with_step_mat=False)
+
+
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("route", ["single", "split", "tiled"])
+def test_route_with_step_mat_matches_pallas_interpret(interpret, route, jdt):
+    """The has_step_mat variant of each Pallas route (the single route's
+    monolith ``_ns_kernel``, ``_ns_step_kernel``, the tiled ``step_in``)
+    against the port's route given the same S (``_step_matrix``, not term1)
+    at n = 256, at the tolerances of ``test_route_matches_pallas_interpret``:
+    the bound still reads term1, whose spectrum has a gap."""
+    _hold_against_pallas(route, 256, jdt, with_step_mat=True)
 
 
 @pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])

@@ -34,6 +34,7 @@ _CHECK = textwrap.dedent("""
            ("jax", "jaxlib", "optax", "opt_einsum", "psgd_torch_tpu")]
     print("BAD", bad)
     print("N", len([m for m in new if m.startswith("psgd_torch_tpu_torch")]))
+    print("HVP", "psgd_torch_tpu_torch.optim.hvp" in new)
 """)
 
 
@@ -46,7 +47,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
     assert lines["BAD"] == "[]", lines["BAD"]
-    assert int(lines["N"]) >= 10
+    assert int(lines["N"]) >= 11
+    assert lines["HVP"] == "True"
 
 
 def test_sources_name_no_forbidden_import():
@@ -70,7 +72,7 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
         pytest.skip("a card is present: the default device is usable")
     from psgd_torch_tpu_torch import resolve_device
     from psgd_torch_tpu_torch.models import gpt2
-    from psgd_torch_tpu_torch.optim import KronWhiten
+    from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten
     cfg = gpt2.tiny_config(n_layer=1, n_head=2, n_embd=32, block_size=8,
                            vocab_size=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -78,10 +80,11 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gpt2.synthetic_lm_batch(torch.Generator(), 1, 8, 64)
     model = gpt2.GPT2(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        KronWhiten(model.named_parameters())
+    for opt in (KronWhiten, KronNewton):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            opt(model.named_parameters())
+        opt(model.named_parameters(), device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
-    KronWhiten(model.named_parameters(), device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()))
@@ -167,7 +170,7 @@ _TC_ENTRIES = {
         ("ns_update.cu", "void ns_update(", "ns_step_chain<T, float, Gemm>"),
         ("ns_update.cu", "void ns_update(", "procrustes_chain<T, float, Gemm>"),
         ("ns_update.cu", "void procrustes_chain(", "Gemm::operand(q1, q1_16)"),
-        ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kStep, TQ1>(term1, q, q1, q1_16"))),
+        ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kStep, TQ1>(s, q, q1, q1_16"))),
     # the tiled bound: the stored bf16 matrix is its own product operand
     "psgd_norm_bound": ("ns_tiled.cu", "bound<bf16, TcGemm>", _REFUSES, (
         ("ns_tiled.cu", "void bound(", "norm_bound<T, Gemm, true>(mat, mat,"),
@@ -194,3 +197,21 @@ def test_tensor_core_gemm_feeds_its_two_entries(entry):
     assert call in body and "tc_status()" in body and width_rule in body, entry
     for src, signature, snippet in wiring:
         assert snippet in _function(src, signature), (signature, snippet)
+
+
+@pytest.mark.parametrize("entry", ["psgd_ns_update", "psgd_ns_step"])
+def test_step_matrix_feeds_the_step_product(entry):
+    """The TPU kernels' has_step_mat variant: each NS entry takes a nullable
+    step matrix S that the step product reads (null: term1), while the spd
+    bound, and so L', still reads term1; both GEMM policies take S as the
+    step's A operand.  The tiled route's step already takes its matrix as
+    an operand."""
+    body = _c_entry("ns_update.cu", entry)
+    assert f'int {entry}(const void* term1, const void* step_mat,' in body
+    assert "const void* s = step_mat ? step_mat : term1;" in body
+    chain = _function("ns_update.cu", "void ns_step_chain(")
+    assert "norm_bound<T, Gemm, false>(term1, term1," in chain
+    assert "Gemm::step(s, q," in chain
+    for src, policy in (("ns_gemm_sm90.cuh", "struct TcGemm {"),
+                        ("ns_common.cuh", "struct FfmaGemm {")):
+        assert "static void step(const T* s, const T* q," in _function(src, policy)
