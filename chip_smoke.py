@@ -12,7 +12,14 @@
    the main paths' shapes, and time kernel, plain version and (where one
    PyTorch call computes the same function or its dominant product) that
    call with CUDA events:
-   - the noise kernel bit for bit (GPT-2's and LLaMA's largest stacks);
+   - the noise kernel bit for bit (GPT-2's and LLaMA's largest stacks on
+     the vector kernel, (3, 97, 33) on the scalar one), its bound the
+     larger of its bytes and its instructions (the loop's SASS counted by
+     ``ops/sass.py``, the SM clock read under load), both terms
+     logged for unit and fused mode, ``torch.rand`` as the library call;
+   - each instantiation of the transpose-subtract bit for bit, R and R16,
+     at (12, 768) f32, (22, 2048) and (22, 2560) bf16 (``check_transpose_sub``),
+     timed against its bytes bound; ``procrustes`` also logs its share;
    - the single NS route at GPT-2's widths and batches (12 x 768, 1 x 768
      and 1 x 1024 in bf16, on the tensor cores; 2 x 768 in f32), within
      ``kernels.ROUTE_TOL`` and, in bf16, within twice the FFMA chain's
@@ -93,7 +100,7 @@ from pathlib import Path
 import torch
 
 from psgd_torch_tpu_torch.models import gpt2, llama
-from psgd_torch_tpu_torch.ops import kernels
+from psgd_torch_tpu_torch.ops import kernels, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, hvp
 
@@ -198,19 +205,40 @@ def ptxas_entries(report: str) -> dict:
     return entries
 
 
-def build() -> list[str]:
+# the redesigned bytes-bound kernels' template arguments in mangled names:
+# noise_kernel<T, kFused, kOct> and transpose_sub_kernel<TI, TO, V>
+_MANGLED_T = r"(f|13__nv_bfloat16)"
+_REDESIGNED = (
+    (rf"noise_kernelI{_MANGLED_T}Lb([01])ELb([01])E",
+     lambda m: f"noise_kernel<{_ctype(m[1])}, {'fused' if m[2] == '1' else 'unit'}, "
+               f"{'vector' if m[3] == '1' else 'scalar'}>"),
+    (rf"transpose_sub_kernelI{_MANGLED_T}{_MANGLED_T}Li(\d+)E",
+     lambda m: f"transpose_sub_kernel<{_ctype(m[1])}, {_ctype(m[2])}, V = {m[3]}>"))
+
+
+def _ctype(mangled: str) -> str:
+    return "float" if mangled == "f" else "bf16"
+
+
+def build() -> tuple[Path, list[str]]:
     """Build and bind the kernels; summarize nvcc's -Xptxas -v report
-    (the whole report goes to OUT_DIR/chip_smoke_ptxas.txt).  Returns the
-    tensor-core GEMM's lines (registers, shared memory, spills), which its
-    rows log again."""
+    (the whole report goes to OUT_DIR/chip_smoke_ptxas.txt) and log the
+    noise and transpose-subtract kernels' registers, shared memory and
+    spills.  Returns the library's path and the tensor-core GEMM's lines
+    (registers, shared memory, spills), which its rows log again."""
     t0 = time.perf_counter()
     path, report = kernels.build()
     lib = kernels.library()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
     if not report:
-        return []
-    dyn, tc_lines = lib.psgd_tc_gemm_smem_bytes(), []
+        return path, []
+    dyn, tc_lines, seen = lib.psgd_tc_gemm_smem_bytes(), [], set()
     for name, e in ptxas_entries(report).items():
+        for pattern, show in _REDESIGNED:
+            if (m := re.search(pattern, name)) and show(m) not in seen:
+                seen.add(show(m))
+                log(f"  ptxas: {show(m)}: {e['registers']} registers, {e['smem']} "
+                    f"bytes static shared memory, {e['spill']} bytes spill stores")
         if "tc_gemm_kernel" not in name:
             continue
         # tc_gemm_kernel<epilogue, C type>: ILi<epilogue>E then f or bf16
@@ -234,7 +262,7 @@ def build() -> list[str]:
     for line in report.splitlines():
         if "error" in line.lower() or "warning" in line.lower():
             log(f"  {line.strip()}")
-    return tc_lines
+    return path, tc_lines
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -246,12 +274,52 @@ def _seeds(b, gen, dev):
                          dtype=torch.int64).to(torch.int32)
 
 
-def check_noise(dev) -> dict:
+def sm_clock_hz(fn, launches: int = 300) -> float:
+    """The SM clock nvidia-smi reports while the card runs ``launches``
+    calls of fn (queued before the query, waited for after it)."""
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(mhz.split()[0]) * 1e6
+
+
+def instruction_ms(numel: int, counts: dict, clock_hz: float) -> float:
+    """The least time to issue a kernel's loop over numel elements: its
+    instructions per element (``ops/sass.py``), one warp-instruction
+    per 32 elements, 4 issued per SM per clock; IMAD.WIDE and IMAD.HI run on
+    the half-rate pipe, so they alone take two issue slots each."""
+    slots = max(counts["per_element"], 2 * counts["imad_per_element"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return numel * slots / 32 / (4 * sms * clock_hz) * 1e3
+
+
+def check_noise(dev, lib_path) -> dict:
     """Noise kernel, unit and fused mode, bit-exact against plain, at GPT-2
-    124M's and LLaMA-1.1B's largest stacks; the row is LLaMA's."""
+    124M's and LLaMA-1.1B's largest stacks and at (3, 97, 33), whose length
+    (not a multiple of 8) takes the scalar kernel; the row is LLaMA's.  The
+    bound is max(bytes / HBM rate, instructions / issue rate), the loop's
+    SASS counted by ``ops/sass.py`` and the SM clock read under
+    load; both terms are logged for both modes."""
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke_noise_sass.txt", "w") as fh:
+        for name, lines in sass.functions(str(lib_path)).items():
+            if "noise_kernel" in name:
+                fh.write(f"Function : {name}\n" + "\n".join(lines) + "\n")
+    loops = sass.noise_loops(str(lib_path))
+    for (dtype, fused, vec), c in sorted(loops.items(), key=str):
+        log(f"noise_kernel<{dtype}, {'fused' if fused else 'unit'}, "
+            f"{'vector' if vec else 'scalar'}> main loop: {c['instructions']} "
+            f"instructions, {c['imad_wide_hi']} IMAD.WIDE/HI per {c['elements']:g} "
+            f"elements: {c['per_element']:.2f} and {c['imad_per_element']:.2f} per element")
     row = None
     gen = torch.Generator(device=dev).manual_seed(7)
-    for shape, dtype in (((12, 768, 2304), torch.bfloat16),
+    for shape, dtype in (((3, 97, 33), torch.float32),
+                         ((3, 97, 33), torch.bfloat16),
+                         ((12, 768, 2304), torch.bfloat16),
                          ((1, 1024, 768), torch.float32),
                          ((22, 2048, 11264), torch.bfloat16)):
         b = shape[0]
@@ -268,26 +336,44 @@ def check_noise(dev) -> dict:
                 raise AssertionError(f"noise {what} {shape} {dtype}: {bad} "
                                      "elements differ from the plain version")
         u = unit_k.float()
-        log(f"noise {shape} {dtype}: unit and fused bit-exact; unit mean "
-            f"{u.mean().item():.2e} var {u.var().item():.4f} "
-            f"range [{u.min().item():.4f}, {u.max().item():.4f}]")
-        del unit_k, unit_p, damp_k, damp_p, u
         numel, size = math.prod(shape), torch.finfo(dtype).bits // 8
-        ms_unit = cuda_ms(lambda: kernels.unit_noise(seeds, shape[1:], dtype), 20)
-        ms_fused = cuda_ms(lambda: kernels.damped_noise(g, seeds, 1e-9), 20)
+        vec = numel // b % 8 == 0
+        log(f"noise {shape} {dtype} ({'vector' if vec else 'scalar'} kernel): unit "
+            f"and fused bit-exact; unit mean {u.mean().item():.2e} var "
+            f"{u.var().item():.4f} range [{u.min().item():.4f}, {u.max().item():.4f}]")
+        del unit_k, unit_p, damp_k, damp_p, u
+        if not vec:
+            continue
+        unit = lambda: kernels.unit_noise(seeds, shape[1:], dtype)
+        fused = lambda: kernels.damped_noise(g, seeds, 1e-9)
+        ms_unit = cuda_ms(unit, 20)
+        ms_fused = cuda_ms(fused, 20)
         ms_rand = cuda_ms(lambda: torch.rand(shape, dtype=dtype, device=dev), 20)
         ms_plain_unit = cuda_ms(
             lambda: kernels.unit_noise_plain(seeds, shape[1:], dtype), 2, 1)
         ms_plain_fused = cuda_ms(
             lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)
-        bound_unit = numel * size / PEAK_BYTES * 1e3
-        bound_fused = 2 * numel * size / PEAK_BYTES * 1e3
-        log(f"  unit  kernel {ms_unit:.4f} ms  plain {ms_plain_unit:.3f} ms  "
-            f"torch.rand {ms_rand:.4f} ms  bound {bound_unit:.4f} ms (bytes)")
-        log(f"  fused kernel {ms_fused:.4f} ms  plain {ms_plain_fused:.3f} ms  "
-            f"bound {bound_fused:.4f} ms (bytes)")
-        row = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=bound_fused,
-                   bound_by="bytes", max_abs_err=0.0, library_ms=None)
+        clock = sm_clock_hz(fused, max(300, int(500 / ms_fused)))   # ~0.5 s busy
+        terms = {}
+        for mode, nbytes in (("unit", numel * size), ("fused", 2 * numel * size)):
+            counts = loops[(str(dtype).removeprefix("torch."), mode == "fused", vec)]
+            terms[mode] = (nbytes / PEAK_BYTES * 1e3,
+                           instruction_ms(numel, counts, clock))
+        for mode, ms, extra in (("unit", ms_unit, f"  torch.rand {ms_rand:.4f} ms"),
+                                ("fused", ms_fused, "")):
+            t_bytes, t_instr = terms[mode]
+            log(f"  {mode:5s} kernel {ms:.4f} ms  plain "
+                f"{ms_plain_unit if mode == 'unit' else ms_plain_fused:.3f} ms{extra}  "
+                f"bound {max(t_bytes, t_instr):.4f} ms: bytes {t_bytes:.4f} ms, "
+                f"instructions {t_instr:.4f} ms (SM clock under load "
+                f"{clock / 1e6:.0f} MHz); {max(t_bytes, t_instr) / ms:.3f} of the bound")
+        t_bytes, t_instr = terms["fused"]
+        row = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=max(t_bytes, t_instr),
+                   bound_by="bytes" if t_bytes >= t_instr else "operations",
+                   max_abs_err=0.0, library_ms=ms_rand,
+                   bound_terms_ms={"bytes": t_bytes, "instructions": t_instr},
+                   unit_ms=ms_unit, unit_bound_terms_ms=dict(zip(
+                       ("bytes", "instructions"), terms["unit"])))
         del g
         torch.cuda.empty_cache()
     return row
@@ -603,19 +689,20 @@ def _profiled(fn, cpu: bool = False):
                        "windows")
 
 
-def log_kernel_split(name, fn, calls: int = 3) -> list[str]:
+def log_kernel_split(name, fn, calls: int = 3) -> dict[str, float]:
     """Where one call of fn spends its device time: each kernel's ms per
     call and launches per call, from torch.profiler's CUDA events.  Returns
-    the kernels' short names."""
+    {kernel short name: ms per call}."""
     fn()
     kern, _ = _profiled(lambda: [fn() for _ in range(calls)])
     total = sum(_device_us(e) for e in kern) / 1e3 / calls
     log(f"    {name} per call: {total:.3f} ms of kernels")
-    names = []
+    split = {}
     for e in sorted(kern, key=lambda e: -_device_us(e)):
-        names.append(_short(e.key))
-        log(f"      {_device_us(e) / 1e3 / calls:8.3f} ms  {e.count // calls:2d}x  {names[-1]}")
-    return names
+        short, ms = _short(e.key), _device_us(e) / 1e3 / calls
+        split[short] = split.get(short, 0.0) + ms
+        log(f"      {ms:8.3f} ms  {e.count // calls:2d}x  {short}")
+    return split
 
 
 def require_tensor_cores(name, kernel_names) -> None:
@@ -674,7 +761,12 @@ def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
         _log_row(name, shape, row, flops[name], tc_lines,
                  bmm if name == "procrustes" else None)
     log_kernel_split("ns_step", step)
-    require_tensor_cores("procrustes", log_kernel_split("procrustes", proc))
+    split = log_kernel_split("procrustes", proc)
+    require_tensor_cores("procrustes", split)
+    tsub_ms = sum(ms for k, ms in split.items() if k.startswith("transpose_sub_kernel"))
+    tsub_bound = b * n * n * (size + 4 + 2) / PEAK_BYTES * 1e3
+    log(f"    procrustes: its transpose-subtract (bf16 q1 -> f32 R + bf16 R16) "
+        f"{tsub_ms:.4f} ms of {sum(split.values()):.3f}, bound {tsub_bound:.4f} ms (bytes)")
     return rows
 
 
@@ -783,6 +875,40 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     require_tensor_cores("tiled_step", log_kernel_split(
         "tiled_step", lambda: kernels.tiled_step(term1, q, coeff, term2)))
     return rows
+
+
+def check_transpose_sub(dev) -> None:
+    """Each instantiation of the transpose-subtract at the main paths'
+    shapes, R and R16 bit for bit against ``kernels.transpose_sub_plain``,
+    timed against its bytes bound (Q1 read once, R and R16 written once):
+    (12, 768) f32 -> f32 (the f32 single route) and f32 -> f32 + R16 (the
+    bf16 single route's f32 q1), (22, 2048) bf16 -> f32 + R16 (the split
+    ``procrustes``), (22, 2560) bf16 -> bf16 (``tsub``)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for b, n, in_dtype, out_dtype, copy16 in (
+            (12, 768, torch.float32, torch.float32, False),
+            (12, 768, torch.float32, torch.float32, True),
+            (22, 2048, torch.bfloat16, torch.float32, True),
+            (22, 2560, torch.bfloat16, torch.bfloat16, False)):
+        x = torch.randn((b, n, n), generator=gen, device=dev).to(in_dtype)
+        run = lambda: kernels.transpose_sub(x, out_dtype, copy16)
+        (r, r16), (rp, r16p) = run(), kernels.transpose_sub_plain(x, out_dtype, copy16)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(r), _bits(rp)) and (
+            r16 is None or torch.equal(_bits(r16), _bits(r16p)))
+        nbytes = b * n * n * (x.element_size() + r.element_size() + 2 * copy16)
+        ms = cuda_ms(run, 20)
+        bound = nbytes / PEAK_BYTES * 1e3
+        what = (f"{str(in_dtype)[6:]} -> {str(out_dtype)[6:]}"
+                f"{' + R16' if copy16 else ''}")
+        log(f"transpose_sub {(b, n, n)} {what}: bit-exact {same}; kernel {ms:.4f} ms  "
+            f"bound {bound:.4f} ms (bytes, {nbytes / 1e9:.3f} GB), "
+            f"{bound / ms:.3f} of the bound")
+        if not same:
+            raise AssertionError(f"transpose_sub {(b, n, n)} {what} differs from "
+                                 "its plain version")
+        del x, r, r16, rp, r16p
+        torch.cuda.empty_cache()
 
 
 def _train_tiny(device, newton: bool = False, steps: int = 3):
@@ -1113,10 +1239,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase("build")
-    tc_lines = build()
+    lib_path, tc_lines = build()
     phase("kernels against their plain versions")
-    rows = {"damped_noise": check_noise(dev),
+    rows = {"damped_noise": check_noise(dev, lib_path),
             "fused_ns_update": check_ns(dev, tc_lines)}
+    check_transpose_sub(dev)
     check_routes(dev)
     step_mat_rows = check_step_mat(dev)
     rows.update(check_split(dev, 22, 2048, torch.bfloat16, timed=True,

@@ -300,28 +300,64 @@ __global__ void bound_scalars_kernel(const float* __restrict__ norms, int k,
   }
 }
 
-// R = Q1^T - Q1 through a 32 x 33 shared tile: one f32 subtraction
-// (__fsub_rn), one rounding to TO, and (if R16 is given) one to bf16 for a
-// bf16 copy.  grid (tiles, tiles, B), block (32, 8).
-template <typename TI, typename TO>
-__global__ void transpose_sub_kernel(const TI* __restrict__ Q1, int n,
-                                     TO* __restrict__ R, bf16* __restrict__ R16) {
-  __shared__ float tile[32][33];
-  const int b = blockIdx.z, bx = blockIdx.x * 32, by = blockIdx.y * 32;
-  const long long off = (long long)b * n * n;
-  const int tx = threadIdx.x;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int r = bx + i, c = by + tx;
-    if (r < n && c < n) tile[i][tx] = ld(Q1, off + (long long)r * n + c);
+// R = Q1^T - Q1: one f32 subtraction (__fsub_rn), one rounding to TO, and
+// (if R16 is given) one to bf16 for a bf16 copy.
+//
+// Bound on the H100: bytes, each element of Q1 read once and each of R
+// (and R16) written once.  R[I, J] and R[J, I] read the same two tiles,
+// Q1[I, J] and Q1[J, I], so one block takes one unordered pair of 64 x 64
+// tiles (I <= J; a diagonal tile is one tile), loads both into shared
+// memory once and writes both tiles of R, every element of R computed by
+// its own subtraction (R[J, I] is not -R[I, J]^T: x - x is +0, -(x - x)
+// is -0).  Global accesses are V consecutive elements of a row: 16-byte
+// vectors of Q1 (V = 8 in bf16, 4 in f32) where n % V == 0 and the arrays
+// are 16-byte aligned, else V = 1, by shape.  The tiles sit in shared
+// memory as f32 with rows padded to 65 words, so the transposed reads are
+// at most two-way bank conflicts.  grid (tile pairs, B), 256 threads.
+constexpr int kTsubTile = 64, kTsubThreads = 256;
+
+template <typename TI, typename TO, int V>
+__global__ void __launch_bounds__(kTsubThreads)
+transpose_sub_kernel(const TI* __restrict__ Q1, int n, TO* __restrict__ R,
+                     bf16* __restrict__ R16) {
+  __shared__ float sh[2][kTsubTile][kTsubTile + 1];
+  // the pair (I, J), I <= J, of triangular index p = J (J + 1) / 2 + I
+  const int p = blockIdx.x;
+  int J = (int)((sqrtf(8.f * (float)p + 1.f) - 1.f) * 0.5f);
+  while ((J + 1) * (J + 2) / 2 <= p) ++J;
+  while (J * (J + 1) / 2 > p) --J;
+  const int I = p - J * (J + 1) / 2;
+  const int tiles = I == J ? 1 : 2;
+  const long long off = (long long)blockIdx.y * n * n;
+  constexpr int kPerRow = kTsubTile / V, kRows = kTsubThreads / kPerRow;
+  const int tr = threadIdx.x / kPerRow, tc = (threadIdx.x % kPerRow) * V;
+  // sh[0] = Q1[I, J] and sh[1] = Q1[J, I]
+  for (int s = 0; s < tiles; ++s) {
+    const int r0 = (s ? J : I) * kTsubTile, c = (s ? I : J) * kTsubTile + tc;
+    for (int i = tr; i < kTsubTile; i += kRows) {
+      if (r0 + i < n && c < n) {
+        float v[V];
+        psgd::ldv<V>(Q1 + off + (long long)(r0 + i) * n + c, v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) sh[s][i][tc + k] = v[k];
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int r = by + i, c = bx + tx;
-    if (r < n && c < n) {
-      const long long idx = off + (long long)r * n + c;
-      const float v = __fsub_rn(tile[tx][i], ld(Q1, idx));
-      st(R, idx, v);
-      if (R16) st(R16, idx, v);
+  // R[I, J][i][j] = sh[1][j][i] - sh[0][i][j] and R[J, I][i][j] = sh[0][j][i] - sh[1][i][j]
+  for (int s = 0; s < tiles; ++s) {
+    const float(*x)[kTsubTile + 1] = sh[s];
+    const float(*y)[kTsubTile + 1] = sh[tiles - 1 - s];
+    const int r0 = (s ? J : I) * kTsubTile, c = (s ? I : J) * kTsubTile + tc;
+    for (int i = tr; i < kTsubTile; i += kRows) {
+      if (r0 + i < n && c < n) {
+        float v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = __fsub_rn(y[tc + k][i], x[i][tc + k]);
+        const long long idx = off + (long long)(r0 + i) * n + c;
+        psgd::stv<V>(R + idx, v);
+        if (R16) psgd::stv<V>(R16 + idx, v);
+      }
     }
   }
 }
@@ -337,10 +373,17 @@ void gemm(const TA* A, const TB* Bm, TC* C, int M, int N, int K, int batch,
                                                             den, term2, trace);
 }
 
+// The transpose-subtract of a (B, n, n) stack: 16-byte vectors where the
+// rows and arrays allow them, else scalar accesses (a rule on shape).
 template <typename TI, typename TO>
 void transpose_sub(const TI* Q1, TO* R, bf16* R16, int B, int n, cudaStream_t s) {
-  transpose_sub_kernel<TI, TO><<<dim3(cdiv(n, 32), cdiv(n, 32), B), dim3(32, 8), 0, s>>>(
-      Q1, n, R, R16);
+  constexpr int kV = 16 / sizeof(TI);
+  const int tiles = cdiv(n, kTsubTile);
+  const dim3 grid(tiles * (tiles + 1) / 2, B);
+  if (n % kV == 0 && psgd::aligned16(Q1, R, R16))
+    transpose_sub_kernel<TI, TO, kV><<<grid, kTsubThreads, 0, s>>>(Q1, n, R, R16);
+  else
+    transpose_sub_kernel<TI, TO, 1><<<grid, kTsubThreads, 0, s>>>(Q1, n, R, R16);
 }
 
 // Scratch is carved from one float buffer, each piece 64-aligned; with a

@@ -151,17 +151,26 @@ extern "C" int psgd_tiled_step(const void* step, const void* q, const void* coef
   return tc_status();
 }
 
-// out = x^T - x, in x's dtype.
-extern "C" int psgd_tsub(const void* x, void* out, int B, int n, int dtype,
-                         void* stream) {
+// r = x^T - x stored as out_dtype, and its bf16 copy into r16 unless null:
+// the transpose-subtract as the NS chains instantiate it.  (in, out)
+// dtypes: (f32, f32) the tiled route's tsub and the f32 chains, with r16 the
+// bf16 single route's f32 q1; (bf16, f32) with r16 the split procrustes;
+// (bf16, bf16) tsub.  Another pair: cudaErrorInvalidValue.
+extern "C" int psgd_tsub(const void* x, void* r, void* r16, int B, int n, int in_dtype,
+                         int out_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* r16h = static_cast<bf16*>(r16);
+  if (in_dtype == 0 && out_dtype != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
-    if (dtype == 0)
-      transpose_sub<float, float>(static_cast<const float*>(x), static_cast<float*>(out),
-                                  nullptr, B, n, st);
+    if (in_dtype == 0)
+      transpose_sub<float, float>(static_cast<const float*>(x), static_cast<float*>(r), r16h,
+                                  B, n, st);
+    else if (out_dtype == 0)
+      transpose_sub<bf16, float>(static_cast<const bf16*>(x), static_cast<float*>(r), r16h, B,
+                                 n, st);
     else
-      transpose_sub<bf16, bf16>(static_cast<const bf16*>(x), static_cast<bf16*>(out),
-                                nullptr, B, n, st);
+      transpose_sub<bf16, bf16>(static_cast<const bf16*>(x), static_cast<bf16*>(r), r16h, B,
+                                n, st);
   }
   return (int)cudaGetLastError();
 }

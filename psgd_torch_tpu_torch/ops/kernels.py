@@ -159,7 +159,7 @@ def library() -> ctypes.CDLL:
         "psgd_norm_bound": ([vp] * 4 + [i32, i32, i32, i32, i32, ctypes.c_uint,
                                         vp], i32),
         "psgd_tiled_step": ([vp] * 5 + [i32, i32, i32, vp], i32),
-        "psgd_tsub": ([vp, vp, i32, i32, i32, vp], i32),
+        "psgd_tsub": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "psgd_smm_workspace_bytes": ([i32, i32, i32], i64),
         "psgd_tc_gemm_smem_bytes": ([], i32),
         "psgd_scaled_matmul_trace": ([vp] * 6 + [i32, i32, i32, vp], i32),
@@ -291,10 +291,17 @@ def damped_noise_plain(g: torch.Tensor, seeds: torch.Tensor,
     return (g32 + d * v).to(g.dtype)
 
 
+# the noise kernel indexes a batch element with 32-bit integers
+MAX_NOISE_PER_BATCH = 2 ** 31 - 1
+
+
 def _noise_launch(g, out, seeds, fused, damping, eps):
     dev = out.device
     b = out.shape[0]
     per_batch = out.numel() // b if b else 0
+    if per_batch > MAX_NOISE_PER_BATCH:
+        raise ValueError(f"the noise kernel takes at most {MAX_NOISE_PER_BATCH} "
+                         f"elements per batch element, not {per_batch}")
     with torch.cuda.device(dev):
         err = library().psgd_noise(
             g.data_ptr() if g is not None else None, out.data_ptr(),
@@ -611,8 +618,7 @@ def tiled_step(step, q, coeff, term2, is_step_mat=False):
 
 def tsub_plain(x):
     """x^T - x: one subtraction in f32 (f64), one rounding to x's dtype."""
-    cd = compute_dtype_of(x.dtype)
-    return (x.mT.to(cd) - x.to(cd)).to(x.dtype)
+    return transpose_sub_plain(x, x.dtype)[0]
 
 
 @_counted
@@ -624,11 +630,49 @@ def tsub(x):
     dev, b, n = _require_stack(x, "x")
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
-        err = library().psgd_tsub(x.data_ptr(), out.data_ptr(), b, n,
-                                  _DTYPE_CODE[x.dtype], _stream(dev))
+        err = library().psgd_tsub(x.data_ptr(), out.data_ptr(), None, b, n,
+                                  _DTYPE_CODE[x.dtype], _DTYPE_CODE[x.dtype],
+                                  _stream(dev))
     _check(err, "psgd_tsub")
     tsub.launches += 1
     return out
+
+
+# the transpose-subtract's (input, output) dtypes as the NS chains use it
+TRANSPOSE_SUB_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                        (torch.bfloat16, torch.bfloat16))
+
+
+def transpose_sub_plain(x, out_dtype, copy16=False):
+    """(x^T - x in f32 (f64) rounded once to ``out_dtype``, and with
+    ``copy16`` the same difference rounded once to bf16, else None)."""
+    d = x.mT.to(compute_dtype_of(x.dtype)) - x.to(compute_dtype_of(x.dtype))
+    return d.to(out_dtype), d.to(torch.bfloat16) if copy16 else None
+
+
+@_counted
+def transpose_sub(x, out_dtype, copy16=False):
+    """The transpose-subtract of the NS chains with its own output dtype and
+    optional bf16 copy R16, as ``procrustes`` and the single route run it
+    inside their chains (``psgd_tsub``); ``tsub`` is its (x's
+    dtype, no copy) case.  Used by chip_smoke.py and the card's tests to
+    hold every instantiation (``TRANSPOSE_SUB_DTYPES``) against
+    ``transpose_sub_plain``.  Returns (R, R16 or None)."""
+    if x.device.type == "cpu":
+        return transpose_sub_plain(x, out_dtype, copy16)
+    dev, b, n = _require_stack(x, "x")
+    if (x.dtype, out_dtype) not in TRANSPOSE_SUB_DTYPES:
+        raise TypeError(f"the transpose-subtract takes (input, output) dtypes "
+                        f"{TRANSPOSE_SUB_DTYPES}, not {(x.dtype, out_dtype)}")
+    r = torch.empty(x.shape, dtype=out_dtype, device=dev)
+    r16 = torch.empty(x.shape, dtype=torch.bfloat16, device=dev) if copy16 else None
+    with torch.cuda.device(dev):
+        err = library().psgd_tsub(
+            x.data_ptr(), r.data_ptr(), _ptr(r16), b, n, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[out_dtype], _stream(dev))
+    _check(err, "psgd_tsub")
+    transpose_sub.launches += 1
+    return r, r16
 
 
 def scaled_matmul_trace_plain(a, b, inv):
@@ -831,8 +875,8 @@ STEP_MAT_KERNELS = (fused_ns_update, ns_step, tiled_step)
 
 
 def reset_launch_counts() -> None:
-    for fn in (fused_ns_update, damped_noise, unit_noise, *SPLIT_KERNELS,
-               *TILED_KERNELS):
+    for fn in (fused_ns_update, damped_noise, unit_noise, transpose_sub,
+               *SPLIT_KERNELS, *TILED_KERNELS):
         fn.launches = 0
     for fn in STEP_MAT_KERNELS:
         fn.step_mat_launches = 0

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..ops import fastrand, kernels
 from ..ops.linalg import lifted_real_dtype, real_dtype_of, width_norm_k
 
@@ -118,7 +119,10 @@ def make_kron_plan(shape, max_size: float = float("inf"),
 
 def init_kron_from_plan(plan: KronPlan, scale: float = 1.0,
                         dtype=torch.float32, device=None) -> KronState:
-    """Q = scale * I (factored, scale**(1/order) per factor) and L = 0."""
+    """Q = scale * I (factored, scale**(1/order) per factor) and L = 0, on
+    the card unless ``device`` names another device (``resolve_device``:
+    without a card and without ``device="cpu"`` it raises)."""
+    device = resolve_device(device)
     rd = real_dtype_of(dtype)
     scale = torch.tensor(scale, dtype=rd)
     if plan.fits_p:

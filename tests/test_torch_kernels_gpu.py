@@ -26,16 +26,73 @@ def _seeds(b, dev):
     return torch.arange(2 * b, dtype=torch.int32, device=dev).reshape(b, 2) * 7919
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_noise_kernel_bit_exact(dev, dtype):
-    """Both modes against the plain Philox version, bit for bit, including
-    a length that is not a multiple of four."""
-    seeds = _seeds(12, dev)
-    g = torch.randn((12, 97, 33), device=dev).to(dtype)
-    assert torch.equal(kernels.unit_noise(seeds, (97, 33), dtype),
-                       kernels.unit_noise_plain(seeds, (97, 33), dtype))
-    assert torch.equal(kernels.damped_noise(g, seeds, 1e-9),
-                       kernels.damped_noise_plain(g, seeds, 1e-9))
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("per_batch", [1, 7, 8, 4096 + 4, 97 * 33, 768 * 2304])
+def test_noise_kernel_bit_exact(dev, per_batch, b, dtype):
+    """Both modes against the plain Philox version, bit for bit: lengths
+    that are multiples of 8 take the vector kernel (two counters, 16-byte
+    accesses per thread), the others (1, 7, 4100, 97 x 33) the scalar one;
+    with B = 3 a scalar length starts its batch elements off the vector
+    alignment."""
+    seeds = _seeds(b, dev)
+    g = torch.randn((b, per_batch), device=dev).to(dtype)
+    assert _same_bits(kernels.unit_noise(seeds, (per_batch,), dtype),
+                      kernels.unit_noise_plain(seeds, (per_batch,), dtype))
+    assert _same_bits(kernels.damped_noise(g, seeds, 1e-9),
+                      kernels.damped_noise_plain(g, seeds, 1e-9))
+
+
+def test_noise_unaligned_g_takes_the_scalar_kernel(dev):
+    """g one element past a 16-byte boundary (a contiguous view) cannot be
+    read as vectors: the scalar kernel runs, with the same bits."""
+    seeds = _seeds(3, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(3 * 4096 + 1, device=dev).to(dtype)[1:].view(3, 4096)
+        assert g.data_ptr() % 16 != 0
+        assert _same_bits(kernels.damped_noise(g, seeds, 1e-3),
+                          kernels.damped_noise_plain(g, seeds, 1e-3))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [1, 7, 63, 64, 200, 2048])
+@pytest.mark.parametrize("dtypes", kernels.TRANSPOSE_SUB_DTYPES + ((torch.float32, "copy"),),
+                         ids=["f32", "bf16-f32+r16", "bf16", "f32+r16"])
+def test_transpose_sub_bit_exact(dev, dtypes, n, b):
+    """Every instantiation of the transpose-subtract against
+    ``transpose_sub_plain``, R and R16 bit for bit (signed zeros included):
+    f32 -> f32 (tsub and the f32 chains), bf16 -> f32 + R16 (the split
+    procrustes), bf16 -> bf16 (tsub), f32 -> f32 + R16 (the bf16 single
+    route's f32 q1).  n = 63 and 200 leave ragged tile pairs, n = 1, 7, 63
+    take the scalar accesses, the rest 16-byte vectors; tsub gives the bits
+    of its instantiation."""
+    in_dtype, out_dtype = dtypes
+    copy16 = out_dtype == "copy" or in_dtype != out_dtype
+    out_dtype = torch.float32 if out_dtype == "copy" else out_dtype
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((b, n, n), generator=gen, device=dev).to(in_dtype)
+    h = n // 2
+    x[:, :h, :h] = x[:, :h, :h].mT.clone()    # a symmetric block: zeros in R
+    r, r16 = kernels.transpose_sub(x, out_dtype, copy16)
+    rp, r16p = kernels.transpose_sub_plain(x, out_dtype, copy16)
+    assert _same_bits(r, rp)
+    assert (r16 is None and r16p is None) or _same_bits(r16, r16p)
+    if out_dtype == in_dtype and not copy16:
+        assert _same_bits(kernels.tsub(x), rp)
+
+
+def test_transpose_sub_refuses_other_dtypes(dev):
+    x = torch.zeros((1, 8, 8), device=dev)
+    with pytest.raises(TypeError):
+        kernels.transpose_sub(x, torch.bfloat16)
 
 
 def _ns_inputs(b, n, dev, dtype):

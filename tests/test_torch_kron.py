@@ -65,6 +65,24 @@ def test_plan_rules_and_limits():
                                  fastrand.prng_key(0))
 
 
+def test_init_kron_defaults_to_the_card(monkeypatch):
+    """init_kron and init_kron_from_plan resolve their device as every entry
+    point does: without a card and without a device they raise; with
+    device="cpu" they build the JAX package's state (max_skew 2 makes both
+    factors of (4, 5) dense; scale 4 gives 2 I per factor)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkron.init_kron((4, 5))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkron.init_kron_from_plan(tkron.make_kron_plan((4, 5)))
+    st, plan = tkron.init_kron((4, 5), scale=4.0, max_skew=2.0, device="cpu")
+    jst, jplan = jkron.init_kron((4, 5), scale=4.0, max_skew=2.0)
+    assert plan.is_diag == jplan.is_diag == (False, False)
+    for t, j in zip(st.q + st.lips, jst.q + jst.lips):
+        assert t.device.type == "cpu" and t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
 def _random_state(shape, max_skew, seed, batch=None):
     """Random (not identity) Q factors so the apply is a real test."""
     rng = np.random.default_rng(seed)

@@ -89,6 +89,28 @@ def test_fused_damping_equals_g_plus_d_unit(dtype):
     assert torch.equal(kernels.damped_noise(g, seeds, 1e-3), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unit_noise_is_two_counters_per_eight_elements(dtype):
+    """The vector kernel's layout: for a length that is a multiple of 8,
+    elements 8m ... 8m + 7 of a batch element are the four words of counter
+    2m followed by those of counter 2m + 1 (low counter word only, the high
+    one 0), each through the mantissa trick and the scale, in order.  So
+    one thread's two Philox calls give its eight elements."""
+    seeds = _seeds(3, seed=6)
+    n_oct = 40
+    want = kernels.unit_noise_plain(seeds, (8 * n_oct,), dtype)
+    s = philox.seed_words_u32(seeds)
+    m = torch.arange(n_oct, dtype=torch.int64)[None]
+    z = torch.zeros_like(m)
+    octs = []
+    for ctr in (2 * m, 2 * m + 1):
+        octs += philox.philox4x32_10(ctr, z, z, z, s[:, :1], s[:, 1:])
+    words = torch.stack(octs, dim=-1).reshape(3, 8 * n_oct)
+    got = ((philox._float_in_1_2(words) - 1.5) * philox.UNIT_SCALE).to(dtype)
+    assert torch.equal(got, want)
+    assert kernels.MAX_NOISE_PER_BATCH == 2 ** 31 - 1   # 8m + 7 in 32 bits
+
+
 def test_fastrand_noise_routes_to_the_plain_version_on_cpu():
     keys = fastrand.split(fastrand.prng_key(5), 2)
     out = fastrand.unit_noise_stacked(keys, (4, 8), torch.float32, "cpu")
@@ -100,3 +122,45 @@ def test_fastrand_noise_routes_to_the_plain_version_on_cpu():
     with pytest.raises(NotImplementedError):
         fastrand.unit_noise(keys[0], (4,), torch.complex64, "cpu")
 
+
+
+_SASS = """
+        Function : _ZN12_GLOBAL__N_112noise_kernelI13__nv_bfloat16Lb0ELb1EEEvPKT_PS2_PKjxfff
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                      /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 EXIT ;                                      /* 0x000000000000894d */
+.L_x_1:
+        /*0020*/                   IMAD.WIDE.U32 R4, R2, -0x2daee0ad, RZ ;     /* 0x0 */
+        /*0030*/                   IMAD.HI.U32 R6, R3, -0x32617299, RZ ;       /* 0x0 */
+        /*0040*/                   LOP3.LUT R7, R5, R8, R9, 0x96, !PT ;        /* 0x0 */
+        /*0050*/               @P1 BRA `(.L_x_0) ;                             /* 0x0 */
+        /*0060*/                   STG.E.128 desc[UR4][R10.64], R12 ;          /* 0x0 */
+.L_x_0:
+        /*0070*/                   ISETP.GE.U32.AND P0, PT, R2, UR6, PT ;      /* 0x0 */
+        /*0080*/              @!P0 BRA `(.L_x_1) ;                             /* 0x0 */
+        /*0090*/                   EXIT ;                                      /* 0x0 */
+        Function : _ZN12_GLOBAL__N_112noise_kernelIfLb1EEEvPKT_PS1_PKjxfff
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;     /* 0x0 */
+        /*0010*/                   STG.E desc[UR4][R2.64], R5 ;                /* 0x0 */
+        /*0020*/                   IMAD.HI.U32 R6, R3, -0x32617299, RZ ;       /* 0x0 */
+        /*0030*/                   STG.E desc[UR4][R2.64+0x4], R6 ;            /* 0x0 */
+        /*0040*/               @P0 BRA.U !UP0, 0x10 ;                          /* 0x0 */
+        /*0050*/                   BRA 0x50;                                   /* 0x0 */
+"""
+
+
+def test_sass_loop_counts_per_element():
+    """The noise bound's instruction term reads the longest backward branch
+    of each noise_kernel in a cuobjdump listing (labels or addresses, with
+    or without predicates), counting its instructions, IMAD.WIDE/HI and
+    stored bytes: 7 instructions and 16 bytes (8 bf16) in the first, 4
+    instructions and 8 bytes (2 f32) in the second, whose self-loop at 0x50
+    is shorter."""
+    from psgd_torch_tpu_torch.ops import sass
+    loops = sass.noise_loops_of(sass.split_functions(_SASS))
+    vec = loops[("bfloat16", False, True)]
+    assert (vec["instructions"], vec["imad_wide_hi"], vec["elements"]) == (7, 2, 8)
+    assert vec["per_element"] == 7 / 8 and vec["imad_per_element"] == 2 / 8
+    old = loops[("float32", True, None)]
+    assert (old["instructions"], old["imad_wide_hi"], old["elements"]) == (4, 1, 2)
+    with pytest.raises(ValueError, match="no loop"):
+        sass.main_loop(["        /*0000*/  EXIT ;"])
