@@ -48,11 +48,30 @@
      ``kernels.ROUTE_TOL`` of the plain route given the same S
      (``check_step_mat``), each timed with its piece (the single route,
      ``ns_step``, ``tiled_step``) beside the rows above.
+   The tiled route and its pieces are also held (and the pieces timed) at
+   B = 1 and the widths 2304 and 3072 in bf16, the shapes the shared GPT-2
+   stacks of 5b give it.
 4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path,
-   by KronWhiten and by KronNewton.
+   by KronWhiten and by KronNewton, plainly and with each option the port
+   takes (share_fit_apply, cache_p, pipelined_fit, shared_layers; Newton
+   cache_p, shared_layers).
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
    on one fixed batch; one fit and one no-fit step profiled.
+5b. The options path: GPT-2 124M as in 5, three arms, each a fresh model
+   and optimizer (``ARM_OPTIONS``): B, pipelined_fit at a literal p = 1.0
+   for 6 steps (step 0 fits nothing and launches nothing); C,
+   shared_layers (every NS update at B = 1, the tiled route for the 2304
+   and 3072 wide factors; ``GPT2_SHARED_PER_FIT``); A, the production
+   recipe share_fit_apply with update_preconditioner_first=False and
+   cache_p; C and A 3 steps at p = 1.0 and 3 at 0.1.  C's fit step is
+   profiled (no FFMA GEMM in it).  A is held against
+   its twins from one state (``check_twins``: the unshared fit step
+   within a bound derived from the bf16 damping noise carried through P,
+   the uncached no-fit step within bf16 rounding, the cache equal to
+   Q^T Q in f32); its fit and no-fit steps are profiled and their cuBLAS
+   launches logged beside the plain path's.  Each arm logs its Q and
+   cache sizes.
 6. LLaMA-1.1B (TinyLlama widths, all 22 layers), batch 1 x 1024, bf16
    compute, f32 parameters, trained by KronWhiten in the configuration of
    tools/bench_llama.py for 3 steps at p = 1.0 and 3 at 0.1; one fit step
@@ -76,7 +95,7 @@
    paths fail if they launched any FFMA ``gemm_kernel``: every product
    there belongs on the tensor cores (the f32 Newton GPT-2 path's products
    stay on the FFMA GEMM by the precision rule).
-9. Prints the kernels' JSON line (``launches`` is the sum over the four
+9. Prints the kernels' JSON line (``launches`` is the sum over the five
    paths; rows 1, 3 and 6 also carry ``step_mat_launches`` and the step
    matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
    ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
@@ -103,6 +122,7 @@ from psgd_torch_tpu_torch.models import gpt2, llama
 from psgd_torch_tpu_torch.ops import kernels, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, hvp
+from psgd_torch_tpu_torch.precond import kron as kron_p
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
 # tensor cores, HBM3 bandwidth
@@ -118,6 +138,28 @@ LLAMA_PER_FIT = {"ns_step": 7, "procrustes": 7, "norm_bound": 2,
 # one unit-noise draw per leaf (GPT-2 16 leaves, LLaMA 9)
 GPT2_NEWTON_PER_FIT = dict(GPT2_PER_FIT, unit_noise=16)
 LLAMA_NEWTON_PER_FIT = dict(LLAMA_PER_FIT, unit_noise=9)
+# GPT-2 124M with shared_layers (max_skew 2): every stack is one tensor, so
+# every NS update runs at B = 1; the eight dense factors 768 and 1024 wide
+# take the single route, the three 2304 and 3072 wide (qkv, fc, proj) the
+# tiled one (two bounds and two scaled products each)
+SHARED_TILED_WIDTHS = (2304, 3072)
+GPT2_SHARED_PER_FIT = {"fused_ns_update": 8, "damped_noise": 16, "norm_bound": 6,
+                       "tiled_step": 3, "tsub": 3, "scaled_matmul_trace": 6,
+                       "combine": 3, "ns_step": 0, "procrustes": 0}
+# the options path's arms: options over the bench configuration
+ARM_OPTIONS = {
+    # the production recipe (__graft_entry__.py:69-79) with the cache
+    "A": dict(share_fit_apply=True, update_preconditioner_first=False,
+              cache_p=True),
+    "B": dict(pipelined_fit=True, preconditioner_update_probability=1.0),
+    "C": dict(shared_layers=True),
+}
+# bf16: the damping's eps(dtype) and the unit roundoff
+EPS_BF16 = 2.0 ** -7
+U_BF16 = 2.0 ** -8
+# the largest relative difference a twin gate allows (the bound of the JAX
+# package's test_shared_noise_bounded_in_bf16)
+TWIN_CAP = 0.05
 # the JSON line's rows: wrapper, source, the TPU kernel it replaces
 SRC = "psgd_torch_tpu_torch/ops/csrc/"
 TPU = "psgd_torch_tpu/ops/pallas_kernels.py:"
@@ -495,12 +537,17 @@ def check_routes(dev) -> None:
     """The split and tiled routes, chosen by the width rule, against their
     plain versions at LLaMA-1.1B's widths in bf16 and at the routes' f32
     widths, with kernels.ROUTE_TOL; each spd bound at most 1.001 x the true
-    norm.  Each problem takes both branches of the procrustes step
-    (``_ns_problem``), read from the plain pieces on the plain q1."""
+    norm.  Each problem with B > 1 takes both branches of the procrustes
+    step (``_ns_problem``), read from the plain pieces on the plain q1; the
+    tiled route at B = 1 (2304 and 3072, the shared GPT-2 stacks of the
+    options path) takes the clamped one."""
     for route, b, n, dtype in (("split", 22, 2048, torch.bfloat16),
                                ("tiled", 22, 2560, torch.bfloat16),
                                ("split", 2, 1536, torch.float32),
-                               ("tiled", 2, 2048, torch.float32)):
+                               ("tiled", 2, 2048, torch.float32),
+                               # the shared GPT-2 stacks' 2304 and 3072
+                               ("tiled", 1, 2304, torch.bfloat16),
+                               ("tiled", 1, 3072, torch.bfloat16)):
         if kernels.ns_route(n, dtype) != route:
             raise AssertionError(f"{n} {dtype} routes to "
                                  f"{kernels.ns_route(n, dtype)}, not {route}")
@@ -525,7 +572,7 @@ def check_routes(dev) -> None:
             f"{q_err:.2e} (tol {tol_q}), L rel err {l_err:.2e} (tol {tol_l}), "
             f"bound/true max {ratio:.5f}, max abs err {_max_abs(qk, qp):.3e}, "
             f"{shown}; route {ms:.2f} ms, plain {ms_plain:.2f} ms")
-        if q_err > tol_q or l_err > tol_l or ratio > 1.001 or not both:
+        if q_err > tol_q or l_err > tol_l or ratio > 1.001 or (b > 1 and not both):
             raise AssertionError(f"{route} route {b}x{n} {dtype} disagrees "
                                  "with the plain version")
         del args, qk, qp
@@ -779,7 +826,7 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     tiled_step and scaled_matmul_trace to f32 accumulation order
     (``_within_order``), traces within 1e-4 of the sum of |diagonal| (they
     cancel); tsub and combine bit for bit, with a step that takes both
-    branches."""
+    branches where B > 1."""
     term1, q, lips, term2, seeds = _ns_problem(b, n, dtype, 5 * n, dev)
     bad = []
 
@@ -818,7 +865,9 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     tr_err = ((tr - trp).abs() / scale).max().item()
     checks = {"tiled_step": _within_order(q1, q1p), "tsub": torch.equal(r, rp),
               "scaled_matmul_trace": _within_order(rq, rqp) and tr_err <= 1e-4,
-              "combine": torch.equal(out, outp), "both step branches": both}
+              "combine": torch.equal(out, outp)}
+    if b > 1:   # one matrix takes one branch
+        checks["both step branches"] = both
     log(f"tiled pieces {b}x{n}x{n} {dtype}: {checks}; trace err / sum|diag| "
         f"{tr_err:.2e}; {shown}")
     bad += [k for k, ok in checks.items() if not ok]
@@ -911,10 +960,10 @@ def check_transpose_sub(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _train_tiny(device, newton: bool = False, steps: int = 3):
-    """A tiny GPT-2 trained by KronWhiten or KronNewton (f32 Q, p = 1) on
-    ``device``; the same seeds on every device, so the Philox draws are the
-    same."""
+def _train_tiny(device, newton: bool = False, steps: int = 3, **options):
+    """A tiny GPT-2 trained by KronWhiten or KronNewton (f32 Q, p = 1, with
+    ``options``) on ``device``; the same seeds on every device, so the
+    Philox draws are the same."""
     cfg = gpt2.tiny_config(n_layer=2, n_head=4, n_embd=128, block_size=64,
                            vocab_size=512, compute_dtype=torch.float32)
     model = gpt2.GPT2(cfg, device="cpu").to(device)   # same weights everywhere
@@ -926,34 +975,50 @@ def _train_tiny(device, newton: bool = False, steps: int = 3):
         opt = KronNewton(model.named_parameters(), lr=1e-2,
                          preconditioner_max_skew=2.0, preconditioner_init_scale=1.0,
                          norm_k=32, grad_clip_max_norm=10.0, device=device,
-                         scanned_layers=mask)
+                         scanned_layers=mask, **options)
     else:
         opt = KronWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
                          whiten_grad=False, preconditioner_max_skew=2.0,
                          preconditioner_init_scale=1.0, norm_k=32,
-                         weight_decay=0.01, device=device, scanned_layers=mask)
+                         weight_decay=0.01, device=device, scanned_layers=mask,
+                         **options)
     for _ in range(steps):
         _one_step(model, gpt2.loss_gpt2, opt, x, y)
     return torch.cat([(p.detach() - q).flatten().cpu()
                       for p, q in zip(model.parameters(), p0)])
 
 
+# the options held on the small path: (optimizer, options)
+SMALL_OPTIONS = (
+    ("KronWhiten", {}),
+    ("KronWhiten", dict(share_fit_apply=True, update_preconditioner_first=False)),
+    ("KronWhiten", dict(cache_p=True)),
+    ("KronWhiten", dict(pipelined_fit=True)),
+    ("KronWhiten", dict(shared_layers=True)),
+    ("KronNewton", {}),
+    ("KronNewton", dict(cache_p=True)),
+    ("KronNewton", dict(shared_layers=True)),
+)
+
+
 def check_small_path(dev) -> None:
     """The whole optimizer on the card (kernels) against the CPU (plain
     versions, which the CPU tests hold against the JAX package): 3 steps of
-    a tiny GPT-2 with f32 Q, by KronWhiten and by KronNewton (exact Hvp).
+    a tiny GPT-2 with f32 Q, by KronWhiten and by KronNewton (exact Hvp),
+    plainly and with each option the port takes (``SMALL_OPTIONS``).
     Same seeds and draws on both sides; the total parameter change agrees
     within 1e-3 (Frobenius-relative: f32 sums in another order, in the
     model, the Hvp and the kernels)."""
-    for name, newton in (("KronWhiten", False), ("KronNewton", True)):
-        on_card = _train_tiny(dev, newton)
-        on_cpu = _train_tiny(torch.device("cpu"), newton)
+    for name, options in SMALL_OPTIONS:
+        newton = name == "KronNewton"
+        on_card = _train_tiny(dev, newton, **options)
+        on_cpu = _train_tiny(torch.device("cpu"), newton, **options)
         rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
-        log(f"small path (tiny GPT-2, 3 steps, f32 Q, {name}): card vs CPU "
-            f"plain, parameter change rel err {rel:.2e} (tol 1e-3)")
+        log(f"small path (tiny GPT-2, 3 steps, f32 Q, {name} {options or 'plain'}): "
+            f"card vs CPU plain, parameter change rel err {rel:.2e} (tol 1e-3)")
         if not rel < 1e-3:
-            raise AssertionError(f"the card's {name} disagrees with the plain "
-                                 "path on a small input")
+            raise AssertionError(f"the card's {name} {options} disagrees with "
+                                 "the plain path on a small input")
 
 
 def _median(xs):
@@ -976,22 +1041,30 @@ def _one_step(model, loss_fn, opt, tokens, targets, before_step=None):
     return loss
 
 
+def _launched(names) -> int:
+    return sum(getattr(kernels, name).launches for name in names)
+
+
 def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
-          per_fit, card) -> dict:
+          per_fit, card, idle_first: bool = False) -> dict:
     """Train on one fixed batch, with the launch counts reset just before
     and read just after; check finite, falling loss and the launch counts
     per fit step (and for KronNewton that every NS launch took the step
-    matrix).  Times the optimizer step apart for KronWhiten; KronNewton's
-    step holds the forward and backward, so its step is the train step.
-    Returns the counts (with ``<name>.step_mat`` for the step-matrix
-    counts) and the median fit step's time (optimizer step, or KronNewton's
-    whole step)."""
+    matrix); with ``idle_first`` (pipelined_fit) also that the first step
+    fitted nothing and launched none of these kernels.  Times the
+    optimizer step apart for KronWhiten; KronNewton's step holds the
+    forward and backward, so its step is the train step.  Returns the
+    counts (with ``<name>.step_mat`` for the step-matrix counts) and the
+    median fit step's time (optimizer step, or KronNewton's whole step)."""
     newton = isinstance(opt, KronNewton)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     losses, step_ms, opt_ms, fitted = [], [], [], []
     for step in range(steps_p1 + steps_p01):
+        if idle_first and step == 1 and (fitted[0] or _launched(per_fit)):
+            raise AssertionError(f"{label}: step 0 fitted {fitted[0]} times "
+                                 f"and launched {_launched(per_fit)} kernels")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fits0 = opt.fit_steps
@@ -1042,16 +1115,18 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     return launches, _median(fit_opt)
 
 
-def _bench_opt(model, mask, steps_p1, dev):
+def _bench_opt(model, mask, steps_p1, dev, **options):
     """KronWhiten in the bench configuration (bench.py:170-177,
-    tools/bench_llama.py:108-114)."""
-    return KronWhiten(
-        model.named_parameters(), lr=1e-3 / 4, weight_decay=0.01,
+    tools/bench_llama.py:108-114), with ``options`` over it."""
+    kw = dict(
+        lr=1e-3 / 4, weight_decay=0.01,
         momentum=0.9, whiten_grad=False, preconditioner_max_skew=2.0,
         preconditioner_init_scale=1.0,
         preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
         preconditioner_dtype=torch.bfloat16, momentum_dtype=torch.bfloat16,
         norm_k=128, scanned_layers=mask, device=dev)
+    kw.update(options)
+    return KronWhiten(model.named_parameters(), **kw)
 
 
 def gpt2_path(dev, card: str, steps_p1: int = 5, steps_p01: int = 5):
@@ -1084,6 +1159,195 @@ def llama_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
     launches, _ = train("LLaMA-1.1B", model, llama.loss_llama, opt, tokens,
                         targets, steps_p1, steps_p01, LLAMA_PER_FIT, card)
     return launches, (model, llama.loss_llama, opt, tokens, targets)
+
+
+def _state_size(opt, key: str) -> tuple[int, int]:
+    """(entries, bytes) of the optimizer state's ``key`` tensors."""
+    ts = [t for p in opt.param_groups[0]["params"] for t in opt.state[p].get(key, ())]
+    return sum(t.numel() for t in ts), sum(t.numel() * t.element_size() for t in ts)
+
+
+def _snapshot(opt) -> dict:
+    """Copies of the parameters, the optimizer state and its key chain."""
+    params = opt.param_groups[0]["params"]
+    copy = lambda v: tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone()
+    return dict(params=[p.detach().clone() for p in params],
+                state=[{k: copy(v) for k, v in opt.state[p].items()} for p in params],
+                key=opt.key.copy(), count=opt.count)
+
+
+@torch.no_grad()
+def _restore(opt, snap) -> None:
+    """The parameters, the state entries ``opt`` holds and its key chain
+    as in the snapshot (copied again: a step replaces or updates them)."""
+    params = opt.param_groups[0]["params"]
+    for p, p0, st in zip(params, snap["params"], snap["state"]):
+        p.copy_(p0)
+        for k in opt.state[p]:
+            v = st[k]
+            opt.state[p][k] = (tuple(t.clone() for t in v) if isinstance(v, tuple)
+                               else v.clone())
+    opt.key, opt.count = snap["key"].copy(), snap["count"]
+
+
+def _update_from(opt, snap, grads, prob) -> list:
+    """One step of ``opt`` from the snapshot on ``grads`` at update
+    probability ``prob``, with lr 1 and no weight decay: each parameter
+    then moves by minus its preconditioned, clipped update, which is
+    returned."""
+    _restore(opt, snap)
+    params = opt.param_groups[0]["params"]
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    opt.param_groups[0].update(lr=1.0, weight_decay=0.0,
+                               preconditioner_update_probability=prob)
+    opt.step()
+    return [p0 - p.detach() for p, p0 in zip(params, snap["params"])]
+
+
+def _amplification(opt, i, pc, m) -> tuple[float, float]:
+    """How the shared update's damping noise n = (damping + eps|m|) v (v
+    unit normal, bf16 eps) passes through P = the pre-update cached P_i
+    of leaf i: E||P n||^2 = sum_j (damping + eps|m_j|)^2 c_j exactly, c_j
+    the product over dims of the squared column norms of P_i at j's index
+    (squared entries for a diagonal P_i).  Returns (r_n, a): the expected
+    noise over ||P m||, and how much P lifts the noise's relative size over
+    its size at the input (at least 1), the larger over the layers of a
+    stack (whose layers are clipped apart)."""
+    plan, stacked = opt.plans[i], opt.scanned[i]
+    lead = (m.shape[0],) if stacked else ()
+    mf = m.float().reshape(lead + plan.shape)
+    pcf = tuple(f.float() for f in pc)
+    apply = (kron_p.precond_grad_cached_stacked if stacked
+             else kron_p.precond_grad_cached)
+    cols = tuple(f * f if diag else (f * f).sum(-2)
+                 for f, diag in zip(pcf, plan.is_diag))
+    s = (1e-9 + EPS_BF16 * mf.abs()) ** 2
+    dims = tuple(range(len(lead), mf.ndim))
+    noise = apply(cols, plan, s).sum(dims)       # diagonal factors: products
+    signal = (apply(pcf, plan, mf) ** 2).sum(dims)
+    r_n = (noise / signal).sqrt()
+    r_in = (s.sum(dims) / (mf ** 2).sum(dims)).sqrt()
+    return r_n.max().item(), max(1.0, (r_n / r_in).max().item())
+
+
+def check_twins(model, loss_fn, opt, tokens, targets, mask, dev) -> None:
+    """Arm A against its twins from one state (its own after training), on
+    one gradient, with lr 1 and no decay so the step's update is read off
+    the parameters.
+
+    Fit step (p = 1): A's update is the fit's P (m + (damping + eps|m|) v)
+    where the unshared twin (no share_fit_apply) applies P m through the
+    cache; the fit itself is the same on both (same Q', bit for bit).  Per
+    leaf the difference is the noise carried through P, expected r_n =
+    sqrt(E||P n||^2) / ||P m|| (``_amplification``; eps = 2^-7 makes r_n
+    about 0.8 % where P treats the noise as it treats m), plus bf16
+    rounding: k = 4 order + 1 roundings to bf16 on the two chains (the
+    damped input; 2 order products on A's Q then Q^T chain; order P_i and
+    order products on the twin's), each a relative error of RMS u / sqrt(3)
+    (u = 2^-8), lifted by P at most as the noise is (a).  The gate is 3
+    sigma of their sum, 3 sqrt(r_n^2 + k (a u)^2 / 3), and never above
+    TWIN_CAP (the JAX package's test_shared_noise_bounded_in_bf16 bound).
+
+    No-fit step (p = 0): A applies through the cached P_i where the
+    uncached twin (no cache_p) takes Q then Q^T: 4 order roundings, no
+    noise, gate sqrt(3 * 4 order) a u (at most TWIN_CAP).
+
+    After A's fit its cache equals Q^T Q recomputed in f32 to bf16
+    rounding (``_within_order``)."""
+    params = opt.param_groups[0]["params"]
+    group = dict(opt.param_groups[0])
+    opt.zero_grad(set_to_none=True)
+    loss_fn(model, tokens, targets).backward()
+    grads = [p.grad.detach().clone() for p in params]
+    snap = _snapshot(opt)
+    unshared = _bench_opt(model, mask, 0, dev, **dict(ARM_OPTIONS["A"],
+                                                      share_fit_apply=False))
+    uncached = _bench_opt(model, mask, 0, dev, **dict(ARM_OPTIONS["A"],
+                                                      cache_p=False))
+    fit_a = _update_from(opt, snap, grads, 1.0)
+    moms = [opt.state[p]["mu"].clone() for p in params]
+    after = {k: [opt.state[p][k] for p in params] for k in ("q", "pcache")}
+    bad_cache = [i for i, (qs, pcs) in enumerate(zip(after["q"], after["pcache"]))
+                 if not all(_within_order(pc, q.float() ** 2 if diag else
+                                          q.float().mT @ q.float())
+                            for q, pc, diag in zip(qs, pcs, opt.plans[i].is_diag))]
+    fit_u = _update_from(unshared, snap, grads, 1.0)
+    same_fit = all(torch.equal(a, b) for p, qa in zip(params, after["q"])
+                   for a, b in zip(qa, unshared.state[p]["q"]))
+    nofit_a = _update_from(opt, snap, grads, 0.0)
+    nofit_n = _update_from(uncached, snap, grads, 0.0)
+    worst, bad = {}, []
+    for i, (p, st) in enumerate(zip(params, snap["state"])):
+        r_n, amp = _amplification(opt, i, st["pcache"], moms[i])
+        order = opt.plans[i].order
+        bounds = {"fit": min(TWIN_CAP, 3 * math.sqrt(
+                      r_n ** 2 + (4 * order + 1) * (amp * U_BF16) ** 2 / 3)),
+                  "no fit": min(TWIN_CAP, math.sqrt(12 * order) * amp * U_BF16)}
+        for what, (a, b) in (("fit", (fit_a[i], fit_u[i])),
+                             ("no fit", (nofit_a[i], nofit_n[i]))):
+            rel = _rel(a, b)
+            if rel > bounds[what]:
+                bad.append((what, i, rel, bounds[what]))
+            if rel / bounds[what] > worst.get(what, (0,))[0]:
+                worst[what] = (rel / bounds[what], i, rel, bounds[what], r_n, amp)
+    for what, (share, i, rel, bound, r_n, amp) in worst.items():
+        log(f"  arm A {what} step vs its {'unshared' if what == 'fit' else 'uncached'} "
+            f"twin: largest share of the gate {share:.3f} at leaf {i} "
+            f"(plan {opt.plans[i].shape}): rel diff {rel:.3e}, gate {bound:.3e} "
+            f"(r_n {r_n:.3e}, a {amp:.2f})")
+    log(f"  arm A after its fit: cache = Q^T Q (f32) to bf16 rounding on every "
+        f"leaf {not bad_cache}; the unshared twin fitted the same Q' bit for bit "
+        f"{same_fit}")
+    if bad or bad_cache or not same_fit:
+        raise AssertionError(f"arm A against its twins: {bad}, cache off on leaves "
+                             f"{bad_cache}, same fit {same_fit}")
+    _restore(opt, snap)      # arm A as it was, for the profile
+    opt.param_groups[0].update(group)
+
+
+def options_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
+    """GPT-2 124M at full width and depth, batch 4 x 1024, bf16 compute,
+    the bench configuration with the production recipe's options
+    (``ARM_OPTIONS``), a fresh model and optimizer each: C (shared_layers)
+    and A (share_fit_apply, apply first, cache_p) at p = 1 for steps_p1
+    steps and 0.1 for steps_p01, B (pipelined_fit) at a literal p = 1.0 for
+    as many steps in all.  B, C, then A, whose state the profile reads.
+    Returns the three arms' launch counts summed and A's state."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), 4, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    total, sizes = {}, {}
+    for arm, per_fit in (("B", GPT2_PER_FIT), ("C", GPT2_SHARED_PER_FIT),
+                         ("A", GPT2_PER_FIT)):
+        model = gpt2.GPT2(cfg, device=dev, seed=0)
+        mask = gpt2.scanned_layers_mask(model)
+        opt = _bench_opt(model, mask, steps_p1, dev, **ARM_OPTIONS[arm])
+        label = f"GPT-2 124M options arm {arm}"
+        log(f"{label}: bench configuration with {ARM_OPTIONS[arm]}")
+        literal = arm == "B"
+        launches, _ = train(label, model, gpt2.loss_gpt2, opt, tokens, targets,
+                            steps_p1 + steps_p01 if literal else steps_p1,
+                            0 if literal else steps_p01, per_fit, card,
+                            idle_first=literal)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        sizes[arm] = {key: _state_size(opt, key) for key in ("q", "pcache")}
+        log(f"  [{card}] {label} state: Q {sizes[arm]['q'][0] / 1e6:.2f}M entries, "
+            f"{sizes[arm]['q'][1] / 1e6:.1f} MB; cache {sizes[arm]['pcache'][0] / 1e6:.2f}M "
+            f"entries, {sizes[arm]['pcache'][1] / 1e6:.1f} MB")
+        if arm == "C":
+            if any(opt.scanned):
+                raise AssertionError("arm C: a stack was fitted per layer")
+            profile_steps(label, (model, gpt2.loss_gpt2, opt, tokens, targets),
+                          card, (1.0,))
+        if arm == "A":
+            check_twins(model, gpt2.loss_gpt2, opt, tokens, targets, mask, dev)
+            return total, (model, gpt2.loss_gpt2, opt, tokens, targets)
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _newton_opt(model, mask, steps_p1, dev, qdtype=None):
@@ -1194,10 +1458,12 @@ def profile_steps(label, state, card: str, probs, tensor_cores: bool = True):
     torch.profiler's CUDA kernel events.  The full tables go to the
     git-ignored OUT_DIR.  With ``tensor_cores`` (the bf16 paths, widths
     n % 8 == 0, where every NS product runs on the tensor cores) a fit step
-    fails if it launched an FFMA ``gemm_kernel``."""
+    fails if it launched an FFMA ``gemm_kernel``.  Returns {prob: {category:
+    (device us, launches)}}."""
     model, loss_fn, opt, tokens, targets = state
     OUT_DIR.mkdir(exist_ok=True)
     group = opt.param_groups[0]
+    out = {}
     for prob in probs:
         what = "fit step (p=1)" if prob else "no-fit step (p=0)"
         group["preconditioner_update_probability"] = prob
@@ -1229,6 +1495,21 @@ def profile_steps(label, state, card: str, probs, tensor_cores: bool = True):
         log(f"    FFMA gemm_kernel launches: {ffma or 'none'}")
         if prob and ffma and tensor_cores:
             raise AssertionError(f"{label} {what} ran the FFMA GEMM: {ffma}")
+        out[prob] = cats
+    return out
+
+
+def log_apply_launches(profiles, card: str) -> None:
+    """The cuBLAS launches (and ms) of a profiled fit and no-fit step of
+    arm A against the plain GPT-2 path's: what the shared fit skips (the
+    apply chain) and what the cache skips (Q^T after Q)."""
+    cat = _category("nvjet")
+    for prob, what in ((1.0, "fit"), (0.0, "no-fit")):
+        (plain_us, plain_n), (arm_us, arm_n) = (
+            profiles[tag][prob].get(cat, (0.0, 0))
+            for tag in ("GPT-2 124M", "GPT-2 124M options arm A"))
+        log(f"  [{card}] {what} step, {cat}: plain path {plain_n} launches "
+            f"{plain_us / 1e3:.2f} ms, arm A {arm_n} launches {arm_us / 1e3:.2f} ms")
 
 
 def main() -> int:
@@ -1252,25 +1533,35 @@ def main() -> int:
     rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True,
                             tc_lines=tc_lines))
     check_tiled(dev, 2, 2048, torch.float32, timed=False)
+    for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
+        check_tiled(dev, 1, n, torch.bfloat16, timed=True)
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
     launches = {}
-    paths = (("GPT-2 124M path", lambda: gpt2_path(dev, smi), (1.0, 0.0), True),
-             ("LLaMA-1.1B path", lambda: llama_path(dev, smi), (1.0,), True),
+    # (phase, drive, profiled probabilities, tensor-core gate, profile label)
+    paths = (("GPT-2 124M path", lambda: gpt2_path(dev, smi), (1.0, 0.0), True,
+              "GPT-2 124M"),
+             ("GPT-2 124M options path", lambda: options_path(dev, smi), (1.0, 0.0),
+              True, "GPT-2 124M options arm A"),
+             ("LLaMA-1.1B path", lambda: llama_path(dev, smi), (1.0,), True,
+              "LLaMA-1.1B"),
              ("GPT-2 124M Newton path", lambda: newton_path("gpt2", dev, smi),
-              (1.0, 0.0), False),
+              (1.0, 0.0), False, "GPT-2 124M Newton"),
              ("LLaMA-1.1B Newton path", lambda: newton_path("llama", dev, smi),
-              (1.0,), True))
-    for label, drive, probs, tensor_cores in paths:
+              (1.0,), True, "LLaMA-1.1B Newton"))
+    profiles = {}
+    for label, drive, probs, tensor_cores, tag in paths:
         phase(label)
         counted, state = drive()
         for k, v in counted.items():
             launches[k] = launches.get(k, 0) + v
-        profile_steps(label.removesuffix(" path"), state, smi, probs, tensor_cores)
+        profiles[tag] = profile_steps(tag, state, smi, probs, tensor_cores)
         del state
         gc.collect()
         torch.cuda.empty_cache()
+        if tag == "GPT-2 124M options arm A":
+            log_apply_launches(profiles, smi)
     phase("done")
     out = [dict(name=k, route="cuda", source=SRC + src, replaces=f"{TPU}{line}",
                 launches=launches.get(k, 0), **rows[k]) for k, src, line in ROWS]

@@ -26,9 +26,16 @@ closure that returns the loss without calling backward.
 
 ``scanned_layers`` marks parameters whose leading axis is a layer stack:
 each layer gets its own preconditioner and the whole stack one batched
-update.  Parameter order (which fixes each leaf's key) is the JAX pytree
-order: named parameters are sorted by their dotted path.  Complex
-parameters are refused (ROADMAP A3).
+update.  ``shared_layers`` (True, or a subset of the scanned parameters)
+instead pools a stack into one preconditioner over the whole tensor, its
+layer axis a diagonal factor.  ``cache_p`` keeps P_i = Q_i^T Q_i per
+factor after every fit, so the apply is one product per dim.  KronWhiten
+also takes ``share_fit_apply`` (a fit step's update is the fit's own
+P damped(src)) and ``pipelined_fit`` (the fit reads the momentum as it
+was before this step's EMA).  Parameter order (which fixes each leaf's
+key) is the JAX pytree order: named parameters are sorted by their dotted
+path.  Complex parameters are refused (ROADMAP A3); ``stack_sharding`` and
+``factor_sharding`` raise (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -91,21 +98,68 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
-_UNPORTED = {
-    "shared_layers": "A2", "pipelined_fit": "A2", "share_fit_apply": "A2",
-    "cache_p": "A2", "stack_sharding": "A8", "factor_sharding": "A8",
-}
-_NEWTON_OPTIONS = ("shared_layers", "cache_p", "stack_sharding",
-                   "factor_sharding")
+_UNPORTED = {"stack_sharding": "A8", "factor_sharding": "A8"}
 
 
-def _refuse_unported(unported: dict, allowed) -> None:
+def _refuse_unported(unported: dict) -> None:
     for name, value in unported.items():
-        if name not in allowed:
+        if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
         if value:
             raise NotImplementedError(
                 f"{name} is not ported yet (ROADMAP {_UNPORTED[name]})")
+
+
+def _leaf_flags(option: str, value, names, n: int) -> list:
+    """A per-leaf option as bools in the given parameter order: a dict
+    name -> bool (named parameters; a name that is no parameter raises),
+    or a sequence of n bools."""
+    if isinstance(value, dict):
+        if names is None:
+            raise ValueError(f"a {option} dict needs named parameters")
+        unknown = sorted(set(value) - set(names))
+        if unknown:
+            raise ValueError(f"{option} names {unknown}, which are not "
+                             "parameters")
+        return [bool(value.get(k, False)) for k in names]
+    flags = [bool(f) for f in value]
+    if len(flags) != n:
+        raise ValueError(f"{option} has {len(flags)} entries, params have {n}")
+    return flags
+
+
+def _shared_flags(shared_layers, scan: list, names) -> list:
+    """``shared_layers`` per leaf (JAX ``_shared_flags``): True pools every
+    scanned stack; otherwise a dict or sequence whose marked leaves must be
+    scanned (the pooled axis is the layer stack)."""
+    if shared_layers is None:
+        return [False] * len(scan)
+    if shared_layers is True:
+        if not any(scan):
+            raise ValueError(
+                "shared_layers=True pools each scanned layer stack, but no "
+                "leaf is marked in scanned_layers — pass scanned_layers "
+                "(otherwise the stack would get a dense cross-layer factor, "
+                "not pooled per-layer whitening)")
+        return list(scan)
+    shared = _leaf_flags("shared_layers", shared_layers, names, len(scan))
+    bad = [i for i, (s, f) in enumerate(zip(shared, scan)) if s and not f]
+    if bad:
+        raise ValueError(
+            f"shared_layers marks leaves {bad} that are not in scanned_layers "
+            "— factor sharing pools over the leading layer-stack axis")
+    return shared
+
+
+def _kron_plan(t: torch.Tensor, scanned: bool, shared: bool, max_size: float,
+               max_skew: float, dq: str) -> kron_p.KronPlan:
+    """A leaf's plan (JAX ``_kron_plans``): per layer for a scanned stack;
+    over the whole tensor for a shared one, its layer axis forced diagonal
+    (a stack of one layer has no layer axis left to force)."""
+    shape = _squeezed_shape(t.shape[1:] if scanned else t.shape)
+    fd = ((True,) + (False,) * (len(shape) - 1)
+          if shared and t.shape[0] > 1 else None)
+    return kron_p.make_kron_plan(shape, max_size, max_skew, dq, force_diag=fd)
 
 
 def _newton_scale_from_vh(vs, hs, damping: float) -> torch.Tensor:
@@ -139,11 +193,15 @@ class _Kron(torch.optim.Optimizer):
     def __init__(self, params, defaults: dict, *, max_size: float,
                  max_skew: float, init_scale, momentum: float, momentum_dtype,
                  dq: str, preconditioner_dtype, norm_k, seed: int,
-                 scanned_layers, device, draw):
+                 scanned_layers, shared_layers, cache_p: bool, device, draw):
         if defaults["weight_decay_mode"] not in ("decoupled", "classic"):
             raise ValueError(
                 f"unknown weight_decay_mode {defaults['weight_decay_mode']!r}")
         dq = kron_p.canonical_dq(dq)
+        if cache_p and dq in kron_p._FIT_P:
+            raise ValueError(
+                "cache_p is a no-op for the fit-P geometries (QUAD4P/PRO4P): "
+                "their apply is already a single factor pass — drop cache_p")
         kron_p._require_main_path_dq(dq)
         self.device = resolve_device(device)
 
@@ -151,21 +209,22 @@ class _Kron(torch.optim.Optimizer):
         named = bool(items) and isinstance(items[0], tuple)
         names = [n for n, _ in items] if named else None
         tensors = [t for _, t in items] if named else items
-        if isinstance(scanned_layers, dict):
-            if names is None:
-                raise ValueError("a scanned_layers dict needs named parameters")
-            flags = [bool(scanned_layers.get(n, False)) for n in names]
-        elif scanned_layers is None:
-            flags = [False] * len(tensors)
-        else:
-            flags = [bool(f) for f in scanned_layers]
-            if len(flags) != len(tensors):
-                raise ValueError(f"scanned_layers has {len(flags)} entries, "
-                                 f"params have {len(tensors)}")
+        scan = ([False] * len(tensors) if scanned_layers is None else
+                _leaf_flags("scanned_layers", scanned_layers, names,
+                            len(tensors)))
         order = list(range(len(tensors)))
         if names is not None:   # JAX pytree order: sorted dotted paths
             order.sort(key=lambda i: tuple(names[i].split(".")))
-        self.scanned = [flags[i] for i in order]
+            names = [names[i] for i in order]
+        scan = [scan[i] for i in order]
+        if not (shared_layers is None or shared_layers is True
+                or isinstance(shared_layers, dict)):   # a sequence, reordered
+            given = _leaf_flags("shared_layers", shared_layers, None, len(order))
+            shared_layers = [given[i] for i in order]
+        shared = _shared_flags(shared_layers, scan, names)
+        # a shared stack is one tensor to the fit and the apply, not a stack
+        self.scanned = [f and not s for f, s in zip(scan, shared)]
+        self.shared = shared
         tensors = [tensors[i] for i in order]
         for t in tensors:
             if t.device != self.device:
@@ -179,15 +238,13 @@ class _Kron(torch.optim.Optimizer):
         self.momentum = momentum
         self.init_scale = init_scale
         self.norm_k = norm_k
+        self.cache_p = cache_p
         self.draw = draw
         self.count = 0
         self.key = fastrand.prng_key(seed)
         self.fit_steps = 0   # steps on which Q was fitted
-        self.plans = []
-        for t, f in zip(tensors, self.scanned):
-            shape = _squeezed_shape(t.shape[1:] if f else t.shape)
-            self.plans.append(kron_p.make_kron_plan(shape, max_size, max_skew,
-                                                    dq))
+        self.plans = [_kron_plan(t, f, s, max_size, max_skew, dq)
+                      for t, f, s in zip(tensors, self.scanned, self.shared)]
         scale0 = 1.0 if init_scale is None else init_scale
         for t, f, plan in zip(tensors, self.scanned, self.plans):
             qdt = preconditioner_dtype or t.dtype
@@ -199,6 +256,8 @@ class _Kron(torch.optim.Optimizer):
                     lips=tuple(x.expand(t.shape[0]).clone() for x in st.lips))
             state = self.state[t]
             state["q"], state["lips"] = st.q, st.lips
+            if cache_p:
+                state["pcache"] = kron_p.compute_p_factors(st, plan)
             if momentum > 0:
                 state["mu"] = torch.zeros_like(t, dtype=momentum_dtype or t.dtype)
 
@@ -221,13 +280,16 @@ class _Kron(torch.optim.Optimizer):
 
     def _rescale(self, params, scale) -> None:
         """Multiply Q by the on-the-fly init scale (squared for the fit-P
-        geometries), spread over the factors."""
+        geometries), spread over the factors; refresh the cache."""
         for p, plan in zip(params, self.plans):
             st = self.state[p]
             eff = scale * scale if plan.fits_p else scale
             mult = eff ** (1.0 / max(plan.order, 1))
             st["q"] = tuple(q * mult.to(real_dtype_of(q.dtype))
                             for q in st["q"])
+            if self.cache_p:
+                st["pcache"] = kron_p.compute_p_factors(
+                    kron_p.KronState(q=st["q"], lips=st["lips"]), plan)
 
     def _momentum(self, params, grads, count: int):
         """The bias-warmed EMA of the gradients; the buffers."""
@@ -238,16 +300,22 @@ class _Kron(torch.optim.Optimizer):
             mu.mul_(b).add_(g.to(mu.dtype) * _rounded(1.0 - b, mu.dtype))
         return [self.state[p]["mu"] for p in params]
 
-    def _fit(self, params, sources, k_fit, lr_q, beta_l, damping):
+    def _fit(self, params, sources, k_fit, lr_q, beta_l, damping,
+             return_pg: bool = False):
         """Fit each leaf's Q from its sources (g, or (v, h)) cast to Q's
-        dtype, keyed by fold_in(k_fit, leaf), split per layer of a stack."""
+        dtype, keyed by fold_in(k_fit, leaf), split per layer of a scanned
+        stack; refresh the leaf's cache (cache_p).  ``return_pg``
+        (whitening): the fits' P damped(src) per leaf, in Q's dtype."""
         fit_one, fit_stacked = self._FITS
+        pgs = []
         for i, (p, src) in enumerate(zip(params, sources)):
             st = self.state[p]
             qdt = st["q"][0].dtype
             key = fastrand.fold_in(k_fit, i)
             kw = dict(lr=lr_q, beta_l=beta_l, damping=damping,
                       norm_k=resolve_norm_k(self.norm_k, qdt), draw=self.draw)
+            if return_pg:
+                kw["return_pg"] = True
             state = kron_p.KronState(q=st["q"], lips=st["lips"])
             views = [self._view(x, i).to(qdt) for x in src]
             if self.scanned[i]:
@@ -255,19 +323,31 @@ class _Kron(torch.optim.Optimizer):
                                   fastrand.split(key, views[0].shape[0]), **kw)
             else:
                 out = fit_one(state, self.plans[i], *views, key, **kw)
+            if return_pg:
+                out, pg = out
+                pgs.append(pg)
             st["q"], st["lips"] = out.q, out.lips
+            if self.cache_p:
+                st["pcache"] = kron_p.compute_p_factors(out, self.plans[i])
+        return pgs
 
-    def _precond(self, i, p, src):
+    def _apply_factors(self, params) -> list:
+        """What each leaf's apply reads: its cached P_i (cache_p), or Q."""
+        return [self.state[p]["pcache" if self.cache_p else "q"]
+                for p in params]
+
+    def _precond(self, i, p, src, factors):
         """P src for leaf i (parameter p), in p's dtype and the plan's
-        shape."""
-        st = self.state[p]
-        state = kron_p.KronState(q=st["q"], lips=st["lips"])
-        g = self._view(src, i).to(st["q"][0].dtype)
-        if self.scanned[i]:
-            pg = kron_p.precond_grad_stacked(state, self.plans[i], g)
-        else:
-            pg = kron_p.precond_grad(state, self.plans[i], g)
-        return pg.to(p.dtype)
+        shape, through ``factors``: the leaf's Q, or its cached P_i."""
+        plan, stacked = self.plans[i], self.scanned[i]
+        g = self._view(src, i).to(factors[0].dtype)
+        if self.cache_p:
+            fn = (kron_p.precond_grad_cached_stacked if stacked
+                  else kron_p.precond_grad_cached)
+            return fn(factors, plan, g).to(p.dtype)
+        state = kron_p.KronState(q=factors, lips=())
+        fn = kron_p.precond_grad_stacked if stacked else kron_p.precond_grad
+        return fn(state, plan, g).to(p.dtype)
 
     def _descend(self, params, updates, count: int) -> None:
         """Decoupled weight decay, then -lr."""
@@ -284,12 +364,18 @@ class KronWhiten(_Kron):
     KronWhiten, psgd.py:516-654; JAX ``kron_whiten``).
 
     ``params``: tensors, or (name, tensor) pairs such as
-    ``model.named_parameters()``; one parameter group.  ``scanned_layers``:
-    a dict name -> bool, or a sequence of bools in the given order.
+    ``model.named_parameters()``; one parameter group.  ``scanned_layers``
+    and ``shared_layers``: a dict name -> bool, or a sequence of bools in
+    the given order (``shared_layers=True``: every scanned leaf).
     ``device``: where the optimizer runs (default CUDA; the parameters must
     live there).  ``draw``: optional replay hook ``draw(kind, keys, shape,
     dtype)`` that supplies the fit's random draws (see precond.kron) and
-    the gate uniforms.
+    the gate uniforms.  The options and their rules are the JAX
+    transform's (psgd_torch_tpu/optim/transforms.py:644-780):
+    ``share_fit_apply`` needs ``update_preconditioner_first=False``, fit
+    and apply sources that coincide and no ``pipelined_fit``;
+    ``pipelined_fit`` needs momentum whitening and an explicit
+    ``preconditioner_init_scale``, and fits from step 1 on.
     """
 
     _FITS = (kron_p.update_kron_whiten, kron_p.update_kron_whiten_stacked)
@@ -314,13 +400,50 @@ class KronWhiten(_Kron):
                  norm_k: Optional[int] = None,
                  seed: int = 0,
                  scanned_layers: Any = None,
+                 shared_layers: Any = None,
+                 pipelined_fit: bool = False,
+                 share_fit_apply: bool = False,
+                 cache_p: bool = False,
                  device=None,
                  draw=None,
                  **unported):
-        _refuse_unported(unported, _UNPORTED)
+        _refuse_unported(unported)
+        dq = kron_p.canonical_dq(dq)
         momentum = momentum if 0.0 < momentum < 1.0 else 0.0
         if not whiten_grad and momentum == 0.0:
             raise ValueError("Cannot whiten momentum with momentum == 0")
+        if pipelined_fit:
+            if whiten_grad:
+                raise ValueError(
+                    "pipelined_fit requires momentum whitening "
+                    "(whiten_grad=False, momentum > 0): the previous step's "
+                    "fit source must already live in the optimizer state")
+            if preconditioner_init_scale is None:
+                raise ValueError(
+                    "pipelined_fit requires an explicit "
+                    "preconditioner_init_scale (the on-the-fly scale reads "
+                    "the current gradients, which would re-couple the fit "
+                    "to the backward pass)")
+        if share_fit_apply:
+            if update_preconditioner_first:
+                raise ValueError(
+                    "share_fit_apply requires update_preconditioner_first="
+                    "False: the shared product is computed with the "
+                    "pre-update Q")
+            if pipelined_fit:
+                raise ValueError(
+                    "share_fit_apply is incompatible with pipelined_fit (the "
+                    "pipelined fit source is the previous step's momentum, "
+                    "not this step's apply source)")
+            if momentum > 0 and whiten_grad:
+                raise ValueError(
+                    "share_fit_apply requires the fit and apply sources to "
+                    "coincide: use whiten_grad=False (momentum whitening) or "
+                    "momentum=0")
+            if dq == kron_p.DQ_EQ:
+                raise ValueError(
+                    "share_fit_apply is unsupported for dq='EQ' (the EQ fit "
+                    "never forms the full Pg product)")
         defaults = dict(
             lr=lr, weight_decay=weight_decay,
             weight_decay_mode=weight_decay_mode,
@@ -333,16 +456,26 @@ class KronWhiten(_Kron):
             init_scale=preconditioner_init_scale, momentum=momentum,
             momentum_dtype=momentum_dtype, dq=dq,
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
-            seed=seed, scanned_layers=scanned_layers, device=device, draw=draw)
+            seed=seed, scanned_layers=scanned_layers,
+            shared_layers=shared_layers, cache_p=cache_p, device=device,
+            draw=draw)
         self.update_preconditioner_first = update_preconditioner_first
         self.whiten_grad = whiten_grad
+        self.pipelined_fit = pipelined_fit
+        self.share_fit_apply = share_fit_apply
 
-    def _apply(self, params, sources, clip_amps):
+    def _finish(self, i, p, pg, clip_amps):
+        """P src in p's dtype, clipped per tensor (per layer of a scanned
+        stack), in p's shape."""
+        return _amp_clip(pg.to(p.dtype), *clip_amps,
+                         stacked=self.scanned[i]).reshape(p.shape)
+
+    def _apply(self, params, sources, clip_amps, factors=None):
         """P src clipped per leaf (the unclipped product freed leaf by
-        leaf)."""
-        return [_amp_clip(self._precond(i, p, src), *clip_amps,
-                          stacked=self.scanned[i]).reshape(p.shape)
-                for i, (p, src) in enumerate(zip(params, sources))]
+        leaf), through ``factors`` (default: what the state holds now)."""
+        factors = factors or self._apply_factors(params)
+        return [self._finish(i, p, self._precond(i, p, src, f), clip_amps)
+                for i, (p, src, f) in enumerate(zip(params, sources, factors))]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -364,26 +497,45 @@ class KronWhiten(_Kron):
             self._rescale(params,
                           _whiten_scale_from_grads(grads, self.scanned, damping))
 
-        mus = self._momentum(params, grads, count) if self.momentum > 0 else None
-        fit_src = grads if self.whiten_grad else mus
-        apply_src = mus if self.momentum > 0 else grads
-
         keys = fastrand.split(self.key, 3)
         self.key, k_gate, k_fit = keys[0], keys[1], keys[2]
         do_fit = self._gate(k_gate, count)
         fit_args = (_sched(group["lr_preconditioner"], count),
                     _sched(group["betaL"], count), damping)
         clip = tuple(_sched(a, count) for a in group["grad_clip_max_amps"])
-        fit_src = [(g,) for g in fit_src]
 
-        if self.update_preconditioner_first:
+        if self.pipelined_fit:
+            # the fit reads the momentum as it was before this step's EMA,
+            # so it runs before the in-place EMA (step 0's buffer is zeros:
+            # the first fit is at step 1); applying first means applying
+            # with the factors from before the fit
+            do_fit = do_fit and count > 0
+            before = (None if self.update_preconditioner_first
+                      else self._apply_factors(params))
             if do_fit:
-                self._fit(params, fit_src, k_fit, *fit_args)
-            updates = self._apply(params, apply_src, clip)
+                self._fit(params, [(self.state[p]["mu"],) for p in params],
+                          k_fit, *fit_args)
+            mus = self._momentum(params, grads, count)
+            updates = self._apply(params, mus, clip, before)
         else:
-            updates = self._apply(params, apply_src, clip)
-            if do_fit:
-                self._fit(params, fit_src, k_fit, *fit_args)
+            mus = (self._momentum(params, grads, count) if self.momentum > 0
+                   else None)
+            fit_src = [(g,) for g in (grads if self.whiten_grad else mus)]
+            apply_src = mus if self.momentum > 0 else grads
+            if self.share_fit_apply and do_fit:
+                # the fit's P damped(src), pre-update Q, is the update
+                pgs = self._fit(params, fit_src, k_fit, *fit_args,
+                                return_pg=True)
+                updates = [self._finish(i, p, pgs[i], clip)
+                           for i, p in enumerate(params)]
+            elif self.update_preconditioner_first:
+                if do_fit:
+                    self._fit(params, fit_src, k_fit, *fit_args)
+                updates = self._apply(params, apply_src, clip)
+            else:
+                updates = self._apply(params, apply_src, clip)
+                if do_fit:
+                    self._fit(params, fit_src, k_fit, *fit_args)
         self.fit_steps += int(do_fit)
         self._descend(params, updates, count)
         self.count += 1
@@ -403,9 +555,10 @@ class KronNewton(_Kron):
     ``exact_hessian_vector_product=False``), and fits Q from (v, H v) cast
     to Q's dtype; otherwise it takes the gradient with one plain backward.
     Then the momentum EMA of the gradient, P applied to it (or to the
-    gradient), the global-norm trust-region clip ``grad_clip_max_norm``,
-    weight decay and -lr.  ``.grad`` is neither read nor written.
-    Arguments otherwise as ``KronWhiten``.
+    gradient; through the cache refreshed by every fit with ``cache_p``),
+    the global-norm trust-region clip ``grad_clip_max_norm``, weight decay
+    and -lr.  ``.grad`` is neither read nor written.  Arguments otherwise
+    as ``KronWhiten`` (``shared_layers`` and ``cache_p`` included).
     """
 
     _FITS = (kron_p.update_kron_newton, kron_p.update_kron_newton_stacked)
@@ -429,10 +582,12 @@ class KronNewton(_Kron):
                  norm_k: Optional[int] = None,
                  seed: int = 0,
                  scanned_layers: Any = None,
+                 shared_layers: Any = None,
+                 cache_p: bool = False,
                  device=None,
                  draw=None,
                  **unported):
-        _refuse_unported(unported, _NEWTON_OPTIONS)
+        _refuse_unported(unported)
         defaults = dict(
             lr=lr, weight_decay=weight_decay,
             weight_decay_mode=weight_decay_mode,
@@ -446,7 +601,9 @@ class KronNewton(_Kron):
             momentum=momentum if 0.0 < momentum < 1.0 else 0.0,
             momentum_dtype=momentum_dtype, dq=dq,
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
-            seed=seed, scanned_layers=scanned_layers, device=device, draw=draw)
+            seed=seed, scanned_layers=scanned_layers,
+            shared_layers=shared_layers, cache_p=cache_p, device=device,
+            draw=draw)
         self.exact_hvp = exact_hessian_vector_product
 
     @torch.no_grad()
@@ -488,8 +645,8 @@ class KronNewton(_Kron):
 
         src = self._momentum(params, grads, count) if self.momentum > 0 \
             else grads
-        pre = [self._precond(i, p, x).reshape(p.shape)
-               for i, (p, x) in enumerate(zip(params, src))]
+        pre = [self._precond(i, p, x, f).reshape(p.shape) for i, (p, x, f)
+               in enumerate(zip(params, src, self._apply_factors(params)))]
         scale = _global_norm_scale(pre, _sched(group["grad_clip_max_norm"],
                                                count))
         self._descend(params, [u * scale for u in pre], count)

@@ -2,9 +2,11 @@
 
 Counterpart of psgd_torch_tpu/precond/kron.py for what ``kron_whiten`` and
 ``kron_newton`` run by default: plans and state, balancing, the
-L-constants, the apply P g = Q^T Q g, the damping, and the Q0.5EQ1.5
-whitening fit (from a gradient g) and Newton fit (from a probe v and its
-Hessian-vector product h), per tensor and for a layer stack.  The other
+L-constants, the apply P g = Q^T Q g and its cached form (P_i = Q_i^T Q_i
+per factor, then one product per dim), the damping, and the Q0.5EQ1.5
+whitening fit (from a gradient g, optionally returning its P damped(g))
+and Newton fit (from a probe v and its Hessian-vector product h), per
+tensor and for a layer stack.  The other
 geometries raise ``NotImplementedError`` (ROADMAP A4), and so do complex
 tensors (ROADMAP A3).
 
@@ -229,16 +231,34 @@ def _work_view(plan: KronPlan, x: torch.Tensor) -> torch.Tensor:
     return x.reshape((x.shape[0],) + (plan.shape or (1,)))
 
 
+def _batched_factors(q):
+    """Factors with a leading batch axis; a scalar factor (B,) works as a
+    (B, 1) diagonal."""
+    return [f.reshape(f.shape[0], 1) if f.ndim == 1 else f for f in q]
+
+
+def _factor_pass(qs, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """Every factor applied once along its dim (f^T with ``transpose``)."""
+    for i, f in enumerate(qs):
+        x = _apply_factor(f, x, i, transpose)
+    return x
+
+
 def _precond_batched(q, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
     """P g per batch element: Q applied along every dim, then Q^T (for the
     fit-P geometries, Q alone).  q factors and g carry the batch axis."""
-    qs = [f.reshape(f.shape[0], 1) if f.ndim == 1 else f for f in q]
-    x = _work_view(plan, g)
-    for i, f in enumerate(qs):
-        x = _apply_factor(f, x, i, transpose=False)
+    qs = _batched_factors(q)
+    x = _factor_pass(qs, _work_view(plan, g), transpose=False)
     if not plan.fits_p:
-        for i, f in enumerate(qs):
-            x = _apply_factor(f, x, i, transpose=True)
+        x = _factor_pass(qs, x, transpose=True)
+    return x.reshape(g.shape)
+
+
+def _single_pass(factors, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
+    """Each factor applied once along its dim; factors and g carry the
+    batch axis."""
+    x = _factor_pass(_batched_factors(factors), _work_view(plan, g),
+                     transpose=False)
     return x.reshape(g.shape)
 
 
@@ -253,6 +273,47 @@ def precond_grad_stacked(state: KronState, plan: KronPlan,
                          g: torch.Tensor) -> torch.Tensor:
     """P g for a layer stack (leading layer axis on state and g)."""
     return _precond_batched(state.q, plan, g)
+
+
+def apply_all_factors(state: KronState, plan: KronPlan,
+                      g: torch.Tensor) -> torch.Tensor:
+    """A = Q g: every factor applied once (JAX ``apply_all_factors``)."""
+    return _single_pass(tuple(f[None] for f in state.q), plan, g[None])[0]
+
+
+def apply_all_factors_stacked(state: KronState, plan: KronPlan,
+                              g: torch.Tensor) -> torch.Tensor:
+    """``apply_all_factors`` per layer of a stack."""
+    return _single_pass(state.q, plan, g)
+
+
+def compute_p_factors(state: KronState,
+                      plan: KronPlan) -> Tuple[torch.Tensor, ...]:
+    """The cached form of P = Q^T Q: P_i = Q_i^T Q_i for a dense factor (one
+    ``matmul``, batched over a stack's layer axis), q_i^2 for a diagonal
+    or scalar one, in Q's dtype (JAX ``compute_p_factors``).  Takes a
+    per-tensor state or a stack's.  The fit-P geometries have no such
+    form: Q already is P."""
+    if plan.fits_p:
+        raise ValueError("compute_p_factors: the *4P geometries fit P "
+                         "directly; their apply is already a single pass")
+    require_real(*(f.dtype for f in state.q))
+    return tuple(f * f if diag else f.mT @ f
+                 for f, diag in zip(state.q, plan.is_diag))
+
+
+def precond_grad_cached(p_factors: Tuple[torch.Tensor, ...], plan: KronPlan,
+                        g: torch.Tensor) -> torch.Tensor:
+    """P g from the cached P_i (``compute_p_factors``): one product per
+    dim, where ``precond_grad`` takes two (JAX ``precond_grad_cached``)."""
+    return _single_pass(tuple(f[None] for f in p_factors), plan, g[None])[0]
+
+
+def precond_grad_cached_stacked(p_factors: Tuple[torch.Tensor, ...],
+                                plan: KronPlan,
+                                g: torch.Tensor) -> torch.Tensor:
+    """``precond_grad_cached`` per layer of a stack."""
+    return _single_pass(p_factors, plan, g)
 
 
 def _gram(pg: torch.Tensor, i: int, diag: bool) -> torch.Tensor:
@@ -292,7 +353,7 @@ def _damped(g: torch.Tensor, key, damping: float,
 
 def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
                  lr: float, beta_l: float, damping: float, norm_k: int, draw,
-                 terms) -> KronState:
+                 terms) -> Tuple[KronState, torch.Tensor]:
     """The Q0.5EQ1.5 fit of a layer stack, shared by the whitening and the
     Newton fit: pg = P damped(src) with the key tree kd, krest = split(key)
     per layer, then each factor i from ``terms(pg, i, diag)`` ->
@@ -300,7 +361,8 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
     the largest diagonal entry), L' from ell, and the step q1 = q - lr/L'
     (S q - t2 q) with S = ``step`` (term1 itself where it is None), then
     Procrustes for a dense factor; a diagonal factor steps
-    f (1 - lr/L' step).  Then the balance gate."""
+    f (1 - lr/L' step).  Then the balance gate.  Returns the new state and
+    pg (pre-update Q, src's shape)."""
     _require_main_path_dq(plan.dq)
     require_real(src.dtype, *(f.dtype for f in state.q))
     b = src.shape[0]
@@ -345,25 +407,49 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
         new_q = _maybe_balance(tuple(new_q), u)
     if plan.order == 0:
         new_q = [new_q[0].reshape(b)]
-    return KronState(q=tuple(new_q), lips=tuple(new_l))
+    return KronState(q=tuple(new_q), lips=tuple(new_l)), pg.reshape(src.shape)
 
 
-def _single_layer(fit_stacked, state: KronState, plan: KronPlan, tensors,
-                  key, **kw) -> KronState:
+def _single_layer(state: KronState, plan: KronPlan, src: torch.Tensor, key,
+                  **kw) -> Tuple[KronState, torch.Tensor]:
     """A per-tensor fit as the stacked fit of one layer keyed by ``key``
     itself (the JAX per-tensor update's key tree)."""
     st = KronState(q=tuple(f[None] for f in state.q),
                    lips=tuple(l[None] for l in state.lips))
-    out = fit_stacked(st, plan, *(t[None] for t in tensors),
-                      fastrand.as_keys(key)[None], **kw)
+    out, pg = _fit_stacked(st, plan, src[None], fastrand.as_keys(key)[None],
+                           **kw)
     return KronState(q=tuple(f[0] for f in out.q),
-                     lips=tuple(l[0] for l in out.lips))
+                     lips=tuple(l[0] for l in out.lips)), pg[0]
+
+
+def _whiten_terms(plan: KronPlan):
+    """The whitening fit's terms: term1 = exprGs(Pg, Pg), term2 = numel / n."""
+    wshape = plan.shape or (1,)
+
+    def terms(pg, i, diag):
+        term1, term2 = _gram(pg, i, diag), plan.numel / wshape[i]
+        return term1, term2, (term1 - term2) if diag else None
+    return terms
+
+
+def _newton_terms(plan: KronPlan, v: torch.Tensor):
+    """The Newton fit's terms from the stacked probe v: term1 =
+    exprGs(P damped(h), same), term2 = exprGs(v, v); the bound's matrix
+    term1 + term2, no scalar term2, the step matrix term1 - term2."""
+    require_real(v.dtype)
+    vw = _work_view(plan, v)
+
+    def terms(ph, i, diag):
+        term1, term2 = _gram(ph, i, diag), _gram(vw, i, diag)
+        return term1 + term2, 0.0, term1 - term2
+    return terms
 
 
 def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
                                g: torch.Tensor, keys, lr: float = 0.1,
                                beta_l: float = 0.9, damping: float = 1e-9,
-                               norm_k: int = 32, draw=None) -> KronState:
+                               norm_k: int = 32, draw=None,
+                               return_pg: bool = False):
     """Q0.5EQ1.5 whitening fit of a layer stack (reference psgd.py:394-419,
     JAX update_kron_whiten_stacked).
 
@@ -373,26 +459,25 @@ def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
     one NS update (one kernel chain on CUDA); the damping is one launch.
     ``draw(kind, keys, shape, dtype)`` -> (B,)+shape tensor replaces the
     draws ("normal" for the probe and the bound starts, "uniform" for the
-    balance gate).  term1 = exprGs(Pg, Pg) and term2 = numel / n."""
-    wshape = plan.shape or (1,)
-
-    def terms(pg, i, diag):
-        term1, term2 = _gram(pg, i, diag), plan.numel / wshape[i]
-        return term1, term2, (term1 - term2) if diag else None
-
-    return _fit_stacked(state, plan, g, keys, lr, beta_l, damping, norm_k,
-                        draw, terms)
+    balance gate).  term1 = exprGs(Pg, Pg) and term2 = numel / n.
+    ``return_pg``: also return the fit's P damped(g), formed with the
+    pre-update Q (the apply that ``share_fit_apply`` reuses)."""
+    st, pg = _fit_stacked(state, plan, g, keys, lr, beta_l, damping, norm_k,
+                          draw, _whiten_terms(plan))
+    return (st, pg) if return_pg else st
 
 
 def update_kron_whiten(state: KronState, plan: KronPlan, g: torch.Tensor,
                        key, lr: float = 0.1, beta_l: float = 0.9,
                        damping: float = 1e-9, norm_k: int = 32,
-                       draw=None) -> KronState:
+                       draw=None, return_pg: bool = False):
     """Q0.5EQ1.5 whitening fit of one tensor: the stacked fit with one layer
-    keyed by ``key`` itself (the JAX per-tensor update's key tree)."""
-    return _single_layer(update_kron_whiten_stacked, state, plan, (g,), key,
-                         lr=lr, beta_l=beta_l, damping=damping, norm_k=norm_k,
-                         draw=draw)
+    keyed by ``key`` itself (the JAX per-tensor update's key tree).
+    ``return_pg`` as ``update_kron_whiten_stacked``."""
+    st, pg = _single_layer(state, plan, g, key, lr=lr, beta_l=beta_l,
+                           damping=damping, norm_k=norm_k, draw=draw,
+                           terms=_whiten_terms(plan))
+    return (st, pg) if return_pg else st
 
 
 def update_kron_newton_stacked(state: KronState, plan: KronPlan,
@@ -411,15 +496,8 @@ def update_kron_newton_stacked(state: KronState, plan: KronPlan,
     dense factor is one NS update with term1 + term2 as its bound's matrix,
     no scalar term2 and the step matrix term1 - term2.  Keys and ``draw``
     as ``update_kron_whiten_stacked``."""
-    require_real(v.dtype)
-    vw = _work_view(plan, v)
-
-    def terms(ph, i, diag):
-        term1, term2 = _gram(ph, i, diag), _gram(vw, i, diag)
-        return term1 + term2, 0.0, term1 - term2
-
     return _fit_stacked(state, plan, h, keys, lr, beta_l, damping, norm_k,
-                        draw, terms)
+                        draw, _newton_terms(plan, v))[0]
 
 
 def update_kron_newton(state: KronState, plan: KronPlan, v: torch.Tensor,
@@ -429,6 +507,6 @@ def update_kron_newton(state: KronState, plan: KronPlan, v: torch.Tensor,
     """Q0.5EQ1.5 Newton fit of one tensor from (v, h): the stacked fit with
     one layer keyed by ``key`` itself (the JAX per-tensor update's key
     tree)."""
-    return _single_layer(update_kron_newton_stacked, state, plan, (v, h), key,
-                         lr=lr, beta_l=beta_l, damping=damping, norm_k=norm_k,
-                         draw=draw)
+    return _single_layer(state, plan, h, key, lr=lr, beta_l=beta_l,
+                         damping=damping, norm_k=norm_k, draw=draw,
+                         terms=_newton_terms(plan, v[None]))[0]

@@ -485,3 +485,56 @@ def test_step_mat_is_checked(dev):
                      lambda: kernels.tiled_step(bad, q, lips + 0.02, term2, True)):
             with pytest.raises(err):
                 call()
+
+
+@pytest.mark.parametrize("n", [2304, 3072])
+def test_tiled_route_one_layer_wide(dev, n):
+    """The tiled route at B = 1 and the widths of GPT-2 124M's shared stacks
+    (2304 = 18 x 128, 3072 = 24 x 128, bf16): q' and L' within the route
+    tolerances of the plain route, the same bits twice, the spd bound at
+    most 1.001 x the true norm."""
+    assert kernels.ns_route(n, torch.bfloat16) == "tiled"
+    args = _ns_inputs(1, n, dev, torch.bfloat16)
+    qk, lk = kernels.fused_ns_update(*args, k=128)
+    qp, lp = kernels.fused_ns_update_plain(*args, k=128)
+    tol_q, tol_l = kernels.ROUTE_TOL[torch.bfloat16]
+    assert qk.dtype == torch.bfloat16 and _rel(qk, qp) < tol_q
+    torch.testing.assert_close(lk, lp, rtol=tol_l, atol=0)
+    qk2, lk2 = kernels.fused_ns_update(*args, k=128)
+    assert torch.equal(qk, qk2) and torch.equal(lk, lk2)
+    bound = kernels.norm_bound(args[0], args[4], "spd", 0, k=128)
+    true = torch.linalg.matrix_norm(args[0].double(), ord=2)
+    assert (bound.double() <= 1.001 * true).all(), (bound, true)
+
+
+@pytest.mark.parametrize("shape,stack", [((768, 2304), None), ((64, 96), 3),
+                                         ((4, 48, 40), None)])
+def test_precond_grad_cached_on_cuda(dev, shape, stack):
+    """The cached apply on the card in bf16 (max_skew 2: (768, 2304) is
+    dense x diagonal, the others all dense, a stack of 3): the cache is
+    Q^T Q in f32 to bf16 rounding, and P g through it agrees with the
+    uncached Q then Q^T chain within sqrt(3 * 4 order) bf16 unit roundoffs
+    (4 order roundings to bf16 on the two chains, each of RMS u / sqrt(3),
+    at 3 sigma), Frobenius-relative."""
+    from psgd_torch_tpu_torch.precond import kron as kron_p
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+    plan = kron_p.make_kron_plan(shape, max_skew=2.0)
+    lead = () if stack is None else (stack,)
+    qs = tuple((1.0 + 0.1 * torch.randn(lead + (n,), generator=gen, device=dev))
+               if diag else (torch.eye(n, device=dev) + 0.1 * torch.randn(
+                   lead + (n, n), generator=gen, device=dev) / n ** 0.5)
+               for n, diag in zip(plan.shape, plan.is_diag))
+    st = kron_p.KronState(q=tuple(q.to(torch.bfloat16) for q in qs), lips=())
+    g = torch.randn(lead + shape, generator=gen, device=dev).to(torch.bfloat16)
+    pc = kron_p.compute_p_factors(st, plan)
+    for q, p, diag in zip(st.q, pc, plan.is_diag):
+        ref = q.float() ** 2 if diag else q.float().mT @ q.float()
+        assert p.dtype == torch.bfloat16 and _one_ulp_or_order(p, ref)
+    if stack is None:
+        cached = kron_p.precond_grad_cached(pc, plan, g)
+        chain = kron_p.precond_grad(st, plan, g)
+    else:
+        cached = kron_p.precond_grad_cached_stacked(pc, plan, g)
+        chain = kron_p.precond_grad_stacked(st, plan, g)
+    assert cached.dtype == torch.bfloat16 and cached.shape == g.shape
+    assert _rel(cached, chain) < (12 * plan.order) ** 0.5 * 2.0 ** -8

@@ -6,6 +6,8 @@ it makes the JAX package's own draws (threefry normal / uniform) from the
 key data the port derives, so both sides see the same random numbers.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,16 +22,22 @@ _JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32,
         torch.bfloat16: jnp.bfloat16}
 
 
+@functools.lru_cache(maxsize=None)
+def _drawer(kind, shape, dtype):
+    """The batched draw of one kind, shape and dtype, traced once."""
+    if kind == "normal":
+        return jax.jit(jax.vmap(lambda k: jax.random.normal(k, shape,
+                                                            _JDT[dtype])))
+    return jax.jit(jax.vmap(lambda k: jax.random.uniform(k, shape)))
+
+
 def jax_draw(kind, keys, shape, dtype):
     """Replay hook: the JAX package's draws for the port's (B, 2) keys.
     "normal" as jax.random.normal(key, shape, dtype) (the damping probe and
     the bound starts); "uniform" as jax.random.uniform(key) in JAX's
     default float type (the fit and balance gates)."""
     ks = jnp.asarray(np.asarray(keys, np.uint32))
-    if kind == "normal":
-        out = jax.vmap(lambda k: jax.random.normal(k, shape, _JDT[dtype]))(ks)
-    else:
-        out = jax.vmap(lambda k: jax.random.uniform(k, shape))(ks)
+    out = _drawer(kind, tuple(shape), dtype)(ks)
     return torch.from_numpy(np.array(out.astype(jnp.float64))).to(dtype)
 
 

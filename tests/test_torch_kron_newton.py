@@ -197,9 +197,7 @@ def test_finite_diff_steps_track_the_exact_ones():
 
 def test_newton_unported_options_raise():
     _, _, model = MODELS["gpt2"][0]()
-    for kw, where in ((dict(cache_p=True), "A2"),
-                      (dict(shared_layers=True), "A2"),
-                      (dict(stack_sharding=("mesh", "fsdp")), "A8"),
+    for kw, where in ((dict(stack_sharding=("mesh", "fsdp")), "A8"),
                       (dict(factor_sharding=("mesh", {})), "A8"),
                       (dict(dq="QEQ"), "A4")):
         with pytest.raises(NotImplementedError, match=where):

@@ -157,11 +157,7 @@ def test_decoupled_weight_decay_on_every_leaf():
 
 def test_unported_options_raise():
     _, _, model = carried_pair()
-    for kw, where in ((dict(share_fit_apply=True), "A2"),
-                      (dict(cache_p=True), "A2"),
-                      (dict(pipelined_fit=True), "A2"),
-                      (dict(shared_layers=True), "A2"),
-                      (dict(stack_sharding=("mesh", "fsdp")), "A8"),
+    for kw, where in ((dict(stack_sharding=("mesh", "fsdp")), "A8"),
                       (dict(factor_sharding=("mesh", {})), "A8"),
                       (dict(dq="QUAD"), "A4")):
         with pytest.raises(NotImplementedError, match=where):
