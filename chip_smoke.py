@@ -50,11 +50,16 @@
      ``ns_step``, ``tiled_step``) beside the rows above.
    The tiled route and its pieces are also held (and the pieces timed) at
    B = 1 and the widths 2304 and 3072 in bf16, the shapes the shared GPT-2
-   stacks of 5b give it.
+   stacks of 5b give it; ``norm_bound`` at the shapes the geometries of 9
+   give it ((12, 768), (1, 768), (1, 1024) in bf16 and f32) and at
+   (3, 100) bf16, a width it takes on the FFMA GEMM
+   (``check_norm_bound_shapes``); PRO4P's Procrustes loop on the card
+   against the CPU's (``check_procrustes_loop``).
 4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path,
-   by KronWhiten and by KronNewton, plainly and with each option the port
+   by KronWhiten and by KronNewton, plainly, with each option the port
    takes (share_fit_apply, cache_p, pipelined_fit, shared_layers; Newton
-   cache_p, shared_layers).
+   cache_p, shared_layers) and in each of the six other geometries
+   (``dq``; PRO4P's Procrustes loop taking the same steps on both).
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
    on one fixed batch; one fit and one no-fit step profiled.
@@ -85,18 +90,27 @@
    fit step profiled; the Hvp pass timed alone.  The exact Hvp's double
    backward runs attention on PyTorch's math backend
    (``optim.hvp.HVP_ATTENTION``), which the log names.
+9. The geometries path: GPT-2 124M as in 5, one arm per geometry besides
+   Q0.5EQ1.5 (``GEOMETRIES``, a fresh model and optimizer each), KronWhiten
+   in the bench configuration with ``dq`` (bf16 Q, f32 for QUAD4P and
+   PRO4P), 3 steps at p = 1.0 and 2 at 0.1; each arm's fit step profiled.
+10. The Newton geometries path: GPT-2 124M as in 7 (f32 Q, batch 2 x
+   1024), one arm per geometry, 2 steps at p = 1.0 and 3 at 0.1.
    Each path fails on a non-finite loss, a last loss not below the first,
    or other launch counts per fit step than ``GPT2_PER_FIT``,
-   ``LLAMA_PER_FIT`` and their Newton counterparts (the same NS plans,
-   plus one probe draw per leaf); a Newton path also fails unless every
-   NS launch of its route took the step matrix.  Counts are reset just
+   ``LLAMA_PER_FIT``, their Newton counterparts (the same NS plans, plus
+   one probe draw per leaf) and ``GPT2_GEOMETRY_PER_FIT`` and its Newton
+   counterpart (no NS kernel; 8 spd bounds; PRO4P 80 skew bounds and 80
+   ``tsub``, its loop's masked steps); a Newton path also fails unless
+   every NS launch of its route took the step matrix.  Counts are reset just
    before each path and read just after it; the launches made by the
    checks of step 3 count nowhere.  The profiled fit steps of the bf16
    paths fail if they launched any FFMA ``gemm_kernel``: every product
    there belongs on the tensor cores (the f32 Newton GPT-2 path's products
    stay on the FFMA GEMM by the precision rule).
-9. Prints the kernels' JSON line (``launches`` is the sum over the five
-   paths; rows 1, 3 and 6 also carry ``step_mat_launches`` and the step
+11. Prints the kernels' JSON line (``launches`` is the sum over the seven
+   paths; row 5 also carries ``geometry_shapes``, its times at 3's
+   geometry shapes; rows 1, 3 and 6 also carry ``step_mat_launches`` and the step
    matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
    ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
    and (22, 2560) bf16; the run fails
@@ -119,7 +133,7 @@ from pathlib import Path
 import torch
 
 from psgd_torch_tpu_torch.models import gpt2, llama
-from psgd_torch_tpu_torch.ops import kernels, sass
+from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, hvp
 from psgd_torch_tpu_torch.precond import kron as kron_p
@@ -146,6 +160,33 @@ SHARED_TILED_WIDTHS = (2304, 3072)
 GPT2_SHARED_PER_FIT = {"fused_ns_update": 8, "damped_noise": 16, "norm_bound": 6,
                        "tiled_step": 3, "tsub": 3, "scaled_matmul_trace": 6,
                        "combine": 3, "ns_step": 0, "procrustes": 0}
+# the six geometries besides Q0.5EQ1.5 on GPT-2 124M (max_skew 2): per fit
+# step each of the 8 dense factors is bounded once by norm_bound (spd) and
+# every leaf damped by damped_noise (16), but EQ whitening, which draws its
+# probe by unit_noise instead; the Newton fit adds the probe v (unit_noise,
+# 16) and damps h (EQ too).  PRO4P's Procrustes loop runs LOOP3_STEPS masked
+# steps per dense factor, a tsub and a skew norm_bound each.  No NS kernel.
+GEOMETRIES = ("EQ", "QEP", "QEQ", "QUAD", "QUAD4P", "PRO4P")
+LOOP3_STEPS = 10
+GPT2_DENSE = 8
+
+
+def _geometry_per_fit(dq: str, newton: bool) -> dict:
+    loop = GPT2_DENSE * LOOP3_STEPS if dq == "PRO4P" else 0
+    probe = newton or dq == "EQ"
+    return {"fused_ns_update": 0, "ns_step": 0, "procrustes": 0, "tiled_step": 0,
+            "scaled_matmul_trace": 0, "combine": 0, "tsub": loop,
+            "norm_bound": GPT2_DENSE + loop,
+            "damped_noise": 16 if newton or dq != "EQ" else 0,
+            "unit_noise": 16 if probe else 0}
+
+
+GPT2_GEOMETRY_PER_FIT = {dq: _geometry_per_fit(dq, False) for dq in GEOMETRIES}
+GPT2_NEWTON_GEOMETRY_PER_FIT = {dq: _geometry_per_fit(dq, True) for dq in GEOMETRIES}
+# Q's dtype per whitening arm: the fit-P geometries in f32, as the JAX
+# package's advisory recommends
+GEOMETRY_QDTYPE = {dq: torch.float32 if dq in ("QUAD4P", "PRO4P") else torch.bfloat16
+                   for dq in GEOMETRIES}
 # the options path's arms: options over the bench configuration
 ARM_OPTIONS = {
     # the production recipe (__graft_entry__.py:69-79) with the cache
@@ -926,6 +967,101 @@ def check_tiled(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     return rows
 
 
+# the shapes the geometries' fits give norm_bound (GPT-2 124M's dense
+# factors: the five (12, 768) stacks, wte's 768, wpe's 1024 and 768), in the
+# whitening arms' bf16 and the fit-P and Newton arms' f32, and a bf16 width
+# TMA cannot load, which the bound takes on the FFMA GEMM
+GEOMETRY_BOUND_SHAPES = tuple((b, n, dt) for b, n in ((12, 768), (1, 768), (1, 1024))
+                              for dt in (torch.bfloat16, torch.float32)) + (
+    (3, 100, torch.bfloat16),)
+
+
+def check_norm_bound_shapes(dev) -> list:
+    """Row 5 at ``GEOMETRY_BOUND_SHAPES`` (k = 128, the paths' norm_k): the
+    bound of a Wishart stack within ``kernels.norm_bound_rtol`` of its plain
+    version (in bf16 at n % 8 == 0 plus the tensor cores' summation; on the
+    FFMA GEMM, in f32 and at (3, 100) bf16, ``BOUND_RTOL``) and at most
+    1.001 x the true norm; timed (CUDA events) against its bound (four
+    thin k x n x n products at the dtype's peak; the matrix read once) and
+    its plain version.  The bf16 (12, 768) call's kernel split fails on an
+    FFMA ``gemm_kernel``, the (3, 100) one's on a tensor-core one.
+    Returns the timings for the JSON row."""
+    out = []
+    for b, n, dtype in GEOMETRY_BOUND_SHAPES:
+        term1, _, _, _, seeds = _ns_problem(b, n, dtype, 17 * n + b, dev)
+        run = lambda: kernels.norm_bound(term1, seeds, "spd", 0, k=128)
+        run_p = lambda: kernels.norm_bound_plain(term1, seeds, "spd", 0, k=128)
+        bk, bp = run(), run_p()
+        rel = ((bk - bp).abs() / bp).max().item()
+        tol = kernels.norm_bound_rtol(term1, seeds, "spd", 0, k=128)
+        ratio = (bk / _true_norm(term1, "spd")).max().item()
+        k, size = width_norm_k(128, n), torch.finfo(dtype).bits // 8
+        bf16 = dtype == torch.bfloat16
+        bound, by = bound_ms(b * 8 * k * n * n, b * (n * n * size + 4),
+                             PEAK_BF16 if bf16 else PEAK_F32)
+        ms, ms_plain = cuda_ms(run, 20, 3), cuda_ms(run_p, 3, 1)
+        gemm = "tensor cores" if bf16 and n % 8 == 0 else "FFMA GEMM"
+        log(f"norm_bound ({b}, {n}, {n}) {dtype} ({gemm}): rel err vs plain "
+            f"{rel:.2e} (tol {tol:.2e}), bound/true max {ratio:.5f}; kernel "
+            f"{ms:.4f} ms  plain {ms_plain:.3f} ms  bound {bound:.4f} ms ({by}), "
+            f"{bound / ms:.3f} of the bound")
+        if rel > tol or ratio > 1.001:
+            raise AssertionError(f"norm_bound ({b}, {n}) {dtype} disagrees with "
+                                 "its plain version")
+        if bf16 and (b, n) in ((12, 768), (3, 100)):
+            split = log_kernel_split("norm_bound", run)
+            tc = any(k.startswith("tc_gemm_kernel") for k in split)
+            ffma = any(k.startswith("gemm_kernel<") for k in split)
+            if (n % 8 == 0) != (tc and not ffma):
+                raise AssertionError(f"norm_bound ({b}, {n}) bf16 ran {sorted(split)}")
+        out.append(dict(shape=f"{(b, n, n)} {str(dtype)[6:]}", ms=ms,
+                        plain_ms=ms_plain, bound_ms=bound, bound_by=by,
+                        max_abs_err=_max_abs(bk, bp)))
+        del term1
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_procrustes_loop(dev) -> None:
+    """PRO4P's Procrustes loop (``linalg.procrustes_loop3``: per masked
+    step a ``tsub`` and a skew ``norm_bound``, 10 steps) on the card
+    against the CPU's plain loop from the same stack and keys: (3, 768,
+    768) f32, I plus a symmetric part plus a skew part scaled 0, 0.05 and
+    0.5, so the first layer leaves before any step and the others after
+    one or more, each on its own test.  The steps taken agree, q' within
+    1e-4 (Frobenius-relative: f32 sums in another order), the first layer
+    untouched and the others nearer symmetric.  The GPT-2 paths' loops
+    take no step (their Q stays symmetric to 1e-3, PERF.md), so this is
+    where the loop's steps run on the card."""
+    n = 768
+    gen = torch.Generator().manual_seed(23)
+    a = torch.randn((3, n, n), generator=gen) / n ** 0.5
+    skew = torch.tensor([0.0, 0.05, 0.5])[:, None, None]
+    q = torch.eye(n) + 0.05 * (a + a.mT) + skew * (a - a.mT)
+    keys = fastrand.split(fastrand.prng_key(5), 3)
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        linalg.procrustes_loop3.layer_steps = 0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = linalg.procrustes_loop3(q.to(device), keys, norm_k=128)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[device.type] = (out.cpu(), int(linalg.procrustes_loop3.layer_steps), ms,
+                             kernels.norm_bound.launches, kernels.tsub.launches)
+    (qk, steps_k, ms_k, nb, ts), (qp, steps_p, ms_p, _, _) = runs["cuda"], runs["cpu"]
+    asym = lambda m: (m.mT - m).abs().amax(dim=(-2, -1))
+    rel = _rel(qk, qp)
+    log(f"procrustes_loop3 (3, {n}, {n}) f32: steps taken card {steps_k}, CPU {steps_p}; "
+        f"q' rel err {rel:.2e} (tol 1e-4); max|Q^T - Q| {asym(q).tolist()} -> "
+        f"{asym(qk).tolist()}; card {ms_k:.1f} ms ({nb} norm_bound, {ts} tsub "
+        f"launches), CPU plain {ms_p:.0f} ms")
+    if (steps_k != steps_p or not steps_k or rel > 1e-4 or not torch.equal(qk[0], q[0])
+            or not (asym(qk)[1:] < asym(q)[1:]).all() or (nb, ts) != (10, 10)):
+        raise AssertionError("procrustes_loop3 on the card disagrees with the plain loop")
+
+
 def check_transpose_sub(dev) -> None:
     """Each instantiation of the transpose-subtract at the main paths'
     shapes, R and R16 bit for bit against ``kernels.transpose_sub_plain``,
@@ -998,7 +1134,8 @@ SMALL_OPTIONS = (
     ("KronNewton", {}),
     ("KronNewton", dict(cache_p=True)),
     ("KronNewton", dict(shared_layers=True)),
-)
+) + tuple((name, dict(dq=dq)) for dq in GEOMETRIES
+          for name in ("KronWhiten", "KronNewton"))
 
 
 def check_small_path(dev) -> None:
@@ -1011,12 +1148,18 @@ def check_small_path(dev) -> None:
     model, the Hvp and the kernels)."""
     for name, options in SMALL_OPTIONS:
         newton = name == "KronNewton"
-        on_card = _train_tiny(dev, newton, **options)
-        on_cpu = _train_tiny(torch.device("cpu"), newton, **options)
+        steps = []
+        for device in (dev, torch.device("cpu")):
+            linalg.procrustes_loop3.layer_steps = 0
+            steps.append(_train_tiny(device, newton, **options))
+            steps[-1] = (steps[-1], int(linalg.procrustes_loop3.layer_steps))
+        (on_card, card_steps), (on_cpu, cpu_steps) = steps
         rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
+        loop = (f"; Procrustes loop steps taken card {card_steps}, CPU {cpu_steps}"
+                if options.get("dq") == "PRO4P" else "")
         log(f"small path (tiny GPT-2, 3 steps, f32 Q, {name} {options or 'plain'}): "
-            f"card vs CPU plain, parameter change rel err {rel:.2e} (tol 1e-3)")
-        if not rel < 1e-3:
+            f"card vs CPU plain, parameter change rel err {rel:.2e} (tol 1e-3){loop}")
+        if not rel < 1e-3 or card_steps != cpu_steps:
             raise AssertionError(f"the card's {name} {options} disagrees with "
                                  "the plain path on a small input")
 
@@ -1350,17 +1493,18 @@ def options_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
         torch.cuda.empty_cache()
 
 
-def _newton_opt(model, mask, steps_p1, dev, qdtype=None):
+def _newton_opt(model, mask, steps_p1, dev, qdtype=None, dq="Q0.5EQ1.5"):
     """KronNewton in the Newton arm of tools/measure_cache_p_tpu.py:134-140
     (lr 1e-3, max_skew 2, init scale 1, norm_k 128, global-norm clip 10,
     one preconditioner per layer), p = 1 for the first steps_p1 steps and
-    0.1 after; Q in ``qdtype`` (None: the parameters' f32)."""
+    0.1 after; Q in ``qdtype`` (None: the parameters' f32), geometry
+    ``dq``."""
     return KronNewton(
         model.named_parameters(), lr=1e-3, preconditioner_max_skew=2.0,
         preconditioner_init_scale=1.0,
         preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
         norm_k=128, grad_clip_max_norm=10.0, preconditioner_dtype=qdtype,
-        scanned_layers=mask, device=dev)
+        scanned_layers=mask, device=dev, dq=dq)
 
 
 def time_hvp(label, state, card: str, fit_ms) -> None:
@@ -1429,6 +1573,67 @@ def newton_path(name, dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
     return launches, state
 
 
+def geometry_path(dev, card: str, newton: bool) -> dict:
+    """The six geometries besides Q0.5EQ1.5 on GPT-2 124M at full width and
+    depth, one arm each (a fresh model and optimizer): KronWhiten in the
+    bench configuration (``_bench_opt``, batch 4 x 1024, bf16 Q but f32
+    for QUAD4P and PRO4P), 3 steps at p = 1 then 2 at 0.1, or KronNewton
+    in the Newton arm (``_newton_opt``, f32 Q, batch 2 x 1024, exact Hvp),
+    2 steps at p = 1 then 3 at 0.1 (seed 0's gate fits at counts 2 and 3,
+    so the fifth step is the one without a fit).  Each arm holds its launch counts per
+    fit step exactly (``GPT2_GEOMETRY_PER_FIT``,
+    ``GPT2_NEWTON_GEOMETRY_PER_FIT``) and logs its Q size and, for PRO4P,
+    the Procrustes loop's steps that changed a layer (its 10 masked steps
+    per dense factor are the tsub and skew norm_bound launches); a
+    whitening arm's fit step is profiled, the bf16 arms failing on any
+    FFMA ``gemm_kernel``.  Returns the arms' launch counts summed."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    batch = 2 if newton else 4
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), batch, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    steps_p1, steps_p01 = (2, 3) if newton else (3, 2)
+    total = {}
+    for dq in GEOMETRIES:
+        model = gpt2.GPT2(cfg, device=dev, seed=0)
+        mask = gpt2.scanned_layers_mask(model)
+        if newton:
+            qdt, per_fit = torch.float32, GPT2_NEWTON_GEOMETRY_PER_FIT[dq]
+            opt = _newton_opt(model, mask, steps_p1, dev, dq=dq)
+            label = f"GPT-2 124M Newton {dq}"
+            with torch.enable_grad():   # untimed, as newton_path's
+                hvp.gradients(gpt2.loss_gpt2(model, tokens, targets),
+                              list(model.parameters()))
+        else:
+            qdt, per_fit = GEOMETRY_QDTYPE[dq], GPT2_GEOMETRY_PER_FIT[dq]
+            opt = _bench_opt(model, mask, steps_p1, dev, dq=dq,
+                             preconditioner_dtype=qdt)
+            label = f"GPT-2 124M {dq}"
+        log(f"{label}: batch {batch} x {cfg.block_size}, bf16 compute, {qdt} Q, "
+            f"{'KronNewton Newton arm' if newton else 'KronWhiten bench configuration'}"
+            f" with dq={dq!r}")
+        linalg.procrustes_loop3.layer_steps = 0
+        launches, _ = train(label, model, gpt2.loss_gpt2, opt, tokens, targets,
+                            steps_p1, steps_p01, per_fit, card)
+        entries, nbytes = _state_size(opt, "q")
+        loop = ""
+        if dq == "PRO4P":
+            taken = int(linalg.procrustes_loop3.layer_steps)
+            loop = (f"; Procrustes loop: {launches['tsub']} masked steps run "
+                    f"(stack-wide), {taken} steps taken by a layer")
+        log(f"  [{card}] {label} state: Q {entries / 1e6:.2f}M entries, "
+            f"{nbytes / 1e6:.1f} MB{loop}")
+        if not newton:
+            profile_steps(label, (model, gpt2.loss_gpt2, opt, tokens, targets),
+                          card, (1.0,), tensor_cores=qdt == torch.bfloat16)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
                "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
@@ -1436,7 +1641,7 @@ _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kern
 
 def _category(kernel: str) -> str:
     if any(k in kernel for k in _NS_KERNELS):
-        return "NS update kernels (ours)"
+        return "NS and norm-bound kernels (ours)"
     if "noise_kernel" in kernel:
         return "noise (ours)"
     # cuBLAS's f32 GEMMs without tensor cores (TF32 is off here): the f32
@@ -1535,6 +1740,8 @@ def main() -> int:
     check_tiled(dev, 2, 2048, torch.float32, timed=False)
     for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
+    rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
+    check_procrustes_loop(dev)
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
@@ -1549,14 +1756,20 @@ def main() -> int:
              ("GPT-2 124M Newton path", lambda: newton_path("gpt2", dev, smi),
               (1.0, 0.0), False, "GPT-2 124M Newton"),
              ("LLaMA-1.1B Newton path", lambda: newton_path("llama", dev, smi),
-              (1.0,), True, "LLaMA-1.1B Newton"))
+              (1.0,), True, "LLaMA-1.1B Newton"),
+             # each arm profiles its own fit step
+             ("GPT-2 124M geometries path",
+              lambda: (geometry_path(dev, smi, newton=False), None), (), True, None),
+             ("GPT-2 124M Newton geometries path",
+              lambda: (geometry_path(dev, smi, newton=True), None), (), True, None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)
         counted, state = drive()
         for k, v in counted.items():
             launches[k] = launches.get(k, 0) + v
-        profiles[tag] = profile_steps(tag, state, smi, probs, tensor_cores)
+        if state is not None:
+            profiles[tag] = profile_steps(tag, state, smi, probs, tensor_cores)
         del state
         gc.collect()
         torch.cuda.empty_cache()

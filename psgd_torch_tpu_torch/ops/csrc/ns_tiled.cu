@@ -25,7 +25,10 @@
 //     position and stores q - coeff (acc - term2 q) in bf16; the scaled
 //     product's scales by inv[b], stores bf16 and writes each diagonal
 //     128 x 128 tile's f32 diagonal sum.  n % 8 == 0 (16-byte rows for
-//     TMA), else cudaErrorInvalidValue (the wrappers raise first).
+//     TMA), else cudaErrorInvalidValue (the wrappers raise first), but for
+//     psgd_norm_bound, which takes such a bf16 width on the FFMA GEMM (its
+//     iterates rounded to bf16 as they are loaded), as the single route
+//     does.
 //   * every f32 entry: the FFMA gemm_kernel of ns_common.cuh with f32
 //     products (~20 TFLOP/s at n = 2560).
 //
@@ -109,7 +112,8 @@ extern "C" long long psgd_bound_workspace_bytes(int B, int n, int k, int dtype) 
 
 // out[b] = spectral-norm lower bound of mat[b] (mode 0 spd: normalizer max
 // diag; 1 skh: max |a|), start drawn from Philox keyed by seeds[b] with
-// word 1 ^ tag; in bf16 (tensor cores) n % 8 == 0.
+// word 1 ^ tag; in bf16 on the tensor cores at n % 8 == 0, else on the
+// FFMA GEMM with bf16-rounded iterates.
 extern "C" int psgd_norm_bound(const void* mat, const void* seeds, void* out,
                                void* workspace, int B, int n, int k, int dtype,
                                int mode, unsigned int tag, void* stream) {
@@ -118,13 +122,15 @@ extern "C" int psgd_norm_bound(const void* mat, const void* seeds, void* out,
   float* o = static_cast<float*>(out);
   BoundWs ws;
   carve_bound_only(static_cast<float*>(workspace), B, n, k, dtype, &ws);
-  if (dtype != 0 && n % 8 != 0) return (int)cudaErrorInvalidValue;
   if (B > 0 && n > 0) {
     if (dtype == 0)
       bound<float, FfmaGemm<false>>(static_cast<const float*>(mat), sd, o, ws, B, n, k, mode,
                                     tag, st);
-    else
+    else if (n % 8 == 0)
       bound<bf16, TcGemm>(static_cast<const bf16*>(mat), sd, o, ws, B, n, k, mode, tag, st);
+    else
+      bound<bf16, FfmaGemm<true>>(static_cast<const bf16*>(mat), sd, o, ws, B, n, k, mode,
+                                  tag, st);
   }
   return tc_status();
 }

@@ -20,7 +20,9 @@ kernels:
   - ``"tiled"``: ``norm_bound``, ``tiled_step``, ``tsub``,
     ``scaled_matmul_trace`` (twice) and ``combine`` (csrc/ns_tiled.cu), q1,
     R, RQ and RRQ stored in Q's dtype.  Replaces the five kernels of
-    ``_tiled_ns_update``.
+    ``_tiled_ns_update``.  ``norm_bound`` also bounds every dense factor
+    of the six other geometries' fits (precond/kron.py), and with ``tsub``
+    runs each step of PRO4P's Procrustes loop (``linalg.procrustes_loop3``).
 * ``damped_noise`` and ``unit_noise`` (csrc/noise.cu) -- per-batch-seeded
   Philox4x32-10 uniform(-sqrt3, sqrt3) noise, alone or fused into the
   whitening damping g + (damping + eps|g|) v.  Replaces
@@ -31,9 +33,10 @@ tensor cores (csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32
 accumulation): those of the single route, ``ns_step``, ``procrustes``,
 ``norm_bound``, ``tiled_step`` and ``scaled_matmul_trace``.  TMA needs
 16-byte rows, so a bf16 width n % 8 != 0 is refused by every wrapper but
-the single route's, which takes it on the FFMA GEMM of csrc/ns_common.cuh
-(a rule on shape: the route for "anything else" may be sent such a
-width).  Every f32 product runs on the FFMA GEMM (f32 operands, no TF32).
+the single route's and ``norm_bound``'s, which take it on the FFMA GEMM of
+csrc/ns_common.cuh (a rule on shape: the route for "anything else", and
+the bound every geometry's fit calls, may be sent such a width).  Every
+f32 product runs on the FFMA GEMM (f32 operands, no TF32).
 
 Dispatch: a wrapper takes its plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
@@ -560,12 +563,13 @@ def norm_bound(mat, seeds, mode="spd", tag=0, k=NORM_K, start=None):
     diagonal (``mode="spd"``) or max |a| (``"skh"``), the subspace start
     keyed by ``seeds`` (B, 2) with word 1 ^ ``tag``.  Returns (B,) float32.
     CUDA: one chain of launches; in bf16 its thin products run on the tensor
-    cores and n must be a multiple of 8."""
+    cores at n % 8 == 0 and on the FFMA GEMM at other widths (its iterates
+    rounded to bf16 as they are loaded, the plain version's sums), by
+    shape, as the single route's."""
     if mat.device.type == "cpu":
         return norm_bound_plain(mat, seeds, mode, tag, k, start)
     _no_start(start)
     dev, b, n = _require_stack(mat, "mat")
-    _require_tc_width(mat, "norm_bound")
     _require(seeds, "seeds", dev, (torch.int32,), (b, 2))
     kk = width_norm_k(k, n)
     lib = library()

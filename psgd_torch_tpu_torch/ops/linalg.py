@@ -1,21 +1,25 @@
 """L0 numerical utilities for PSGD, in PyTorch.
 
-Counterpart of psgd_torch_tpu/ops/linalg.py for what the Kron whitening
-main path calls: the dtype policy, the subspace-iteration spectral-norm
-lower bounds and the second-order Procrustes rotation.  Every function
-works on a single matrix (..., n, n) with any number of leading batch
-dims, so a layer stack is one call.
+Counterpart of psgd_torch_tpu/ops/linalg.py for what the Kron fits call:
+the dtype policy, the subspace-iteration spectral-norm lower bounds, the
+second- and third-order Procrustes rotations (the third in the loop the
+fit-P geometry PRO4P runs) and the legacy row/column-energy bound of the
+exact EQ whitening.  Every function works on a single matrix (..., n, n)
+with any number of leading batch dims, so a layer stack is one call.
 
 Randomness is explicit.  A function that draws takes either ``v0``, the
 pre-drawn (..., k, n) subspace start (tests replay the JAX draws through
 it), or ``seeds``, (B, 2) Philox seed words, from which it draws
 uniform(-1, 1) with ``ops.philox`` -- the same bits the CUDA kernel draws.
+``procrustes_loop3`` keys its steps itself and so takes host threefry keys
+(``ops.fastrand``) and the ``draw`` replay hook of ``precond.kron``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import fastrand
 from .philox import uniform_pm1
 
 
@@ -226,3 +230,109 @@ def procrustes_step2(q: torch.Tensor, max_step_size: float = 1 / 8,
                     torch.full_like(tr_rq, max_step_size))
     a = a.to(rd)[..., None, None]
     return q + a * (rq + (0.5 * a) * rrq)
+
+
+def procrustes_step3(q: torch.Tensor, seeds: torch.Tensor,
+                     max_step_size: float = 1 / 3, norm_k: int = 32,
+                     v0=None) -> torch.Tensor:
+    """One online Procrustes rotation of each Q of a stack (B, n, n), the
+    third-order expansion Q <- (I + aR + (aR)^2/2 + (aR)^3/8) Q of exp(aR)
+    with R = Q^T - Q and a the larger root of the step-size quadratic,
+    clamped at ``max_step_size`` and 0 where tr(RQ) <= 0 or tr(RRRQ) >= 0;
+    traces in at least float32 (reference psgd.py:127-155, JAX
+    ``procrustes_step3``).  R is ``kernels.tsub`` and its norm bound
+    ``kernels.norm_bound(..., "skh")`` keyed by ``seeds`` (B, 2) (or
+    started at ``v0``): kernels on CUDA, their plain versions on the CPU.
+    The three products stay ``matmul``."""
+    from . import kernels
+    q = q.contiguous()
+    return _step3(q, kernels.tsub(q), seeds, max_step_size, norm_k, v0)
+
+
+def _step3(q, r, seeds, max_step_size, norm_k, v0):
+    """``procrustes_step3`` given R = Q^T - Q."""
+    from . import kernels
+    rd = real_dtype_of(q.dtype)
+    tiny = _tiny(q.dtype)
+    rnorm = kernels.norm_bound(r, seeds, "skh", 0, k=norm_k, start=v0)
+    r = r / (rnorm.to(rd) + tiny)[..., None, None]
+    rq = r @ q
+    rrq = r @ rq
+    rrrq = r @ rrq
+    tr_rq = _real_trace_f32(rq)
+    tr_rrq = _real_trace_f32(rrq)
+    tr_rrrq = _real_trace_f32(rrrq)
+    active = (tr_rq > 0) & (tr_rrrq < 0)
+    radicand = torch.clamp(tr_rrq * tr_rrq - 1.5 * tr_rq * tr_rrrq, min=0.0)
+    safe_den = torch.where(active, 0.75 * tr_rrrq, -torch.ones_like(tr_rrrq))
+    a = torch.clamp((-tr_rrq - torch.sqrt(radicand)) / safe_den,
+                    max=max_step_size)
+    a = torch.where(active, a, torch.zeros_like(a)).to(rd)[..., None, None]
+    return q + a * (rq + (0.5 * a) * (rrq + (0.25 * a) * rrrq))
+
+
+def procrustes_loop3(q: torch.Tensor, keys, max_iters: int = 10,
+                     rel_tol: float = 1e-3, norm_k: int = 32,
+                     draw=None) -> torch.Tensor:
+    """Up to ``max_iters`` third-order Procrustes steps on each Q of a stack
+    (B, n, n), a layer leaving once max|Q^T - Q| < rel_tol max|Q| and not
+    changed after that: what JAX's vmapped ``procrustes_loop3`` (a
+    ``while_loop``) computes per layer (reference psgd.py:446-449).
+
+    Step s of layer b is keyed by ``fold_in(keys[b], s)`` (``keys``: (B, 2)
+    host threefry keys); ``draw(kind, keys, shape, dtype)`` replaces the
+    steps' bound starts.  The loop runs all ``max_iters`` steps, each
+    masked per layer, so the card never waits on the host for the exit
+    test: 10 ``tsub`` and 10 skew ``norm_bound`` launches per call.
+    ``procrustes_loop3.layer_steps`` sums, on the device, the steps that
+    changed a layer (reset it to 0 to count afresh)."""
+    from . import kernels
+    keys = fastrand.as_keys(keys).reshape(q.shape[0], 2)
+    active = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    taken = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    q = q.contiguous()
+    for step in range(max_iters):
+        r = kernels.tsub(q)
+        asym = torch.amax(torch.abs(r), dim=(-2, -1))
+        active = active & (asym >= rel_tol * torch.amax(torch.abs(q),
+                                                        dim=(-2, -1)))
+        ks = fastrand.fold_in(keys, step)
+        v0 = None
+        if draw is not None:
+            n = q.shape[-1]
+            v0 = draw("normal", ks, (width_norm_k(norm_k, n), n), q.dtype)
+        stepped = _step3(q, r, kernels.key_seed_words(ks, q.device), 1 / 3,
+                         norm_k, v0)
+        q = torch.where(active[:, None, None], stepped, q)
+        taken += active
+    procrustes_loop3.layer_steps = procrustes_loop3.layer_steps + taken.sum()
+    return q
+
+
+procrustes_loop3.layer_steps = 0
+
+
+def norm_lower_bound(a: torch.Tensor) -> torch.Tensor:
+    """Legacy spectral-norm lower bound of each matrix (..., n, n) from its
+    largest row or column energy, ||A|| <= sqrt(2) bound; 0 for A = 0
+    (reference preconditioned...py:70-98, JAX ``norm_lower_bound``).  Real
+    matrices; the exact EQ whitening's bound."""
+    max_abs = torch.amax(torch.abs(a), dim=(-2, -1))
+    scale = torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
+    s = a / scale[..., None, None]
+    aa = s * s
+    col, row = torch.sum(aa, dim=-2), torch.sum(aa, dim=-1)
+    use_rows = torch.amax(col, dim=-1) > torch.amax(row, dim=-1)
+
+    def unit(x):
+        xn = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        return x / torch.where(xn > 0, xn, torch.ones_like(xn))
+
+    j0 = torch.argmax(col, dim=-1)[..., None, None]
+    c0 = torch.take_along_dim(s, j0, dim=-1).mT           # column j0 (..., 1, n)
+    b0 = torch.linalg.vector_norm(unit(c0 @ s) @ s.mT, dim=(-2, -1))
+    j1 = torch.argmax(row, dim=-1)[..., None, None]
+    r1 = torch.take_along_dim(s, j1, dim=-2)              # row j1 (..., 1, n)
+    b1 = torch.linalg.vector_norm(unit(r1 @ s.mT) @ s, dim=(-2, -1))
+    bound = torch.where(use_rows, b0, b1)
+    return torch.where(max_abs > 0, max_abs * bound, max_abs)

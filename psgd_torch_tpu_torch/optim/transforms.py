@@ -41,6 +41,7 @@ path.  Complex parameters are refused (ROADMAP A3); ``stack_sharding`` and
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
@@ -96,6 +97,28 @@ def _whiten_scale_from_grads(grads, flags, damping: float) -> torch.Tensor:
 def _rounded(x: float, dtype: torch.dtype) -> float:
     """x as the nearest value of ``dtype`` (host-side, no device work)."""
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def _advisories(init_scale, whiten_grad: bool, momentum: float, dq: str,
+                q_dtype) -> None:
+    """The reference classes' stdout advisories (psgd.py:557, 564, 568) as
+    Python warnings at construction (JAX ``_advisories``)."""
+    if init_scale is None:
+        warnings.warn(
+            "Preconditioner initial scale will be set on the fly from the "
+            "first step's statistics; recommend setting "
+            "preconditioner_init_scale manually.", stacklevel=3)
+    if not whiten_grad and momentum > 0:
+        factor = ((1 + momentum) / (1 - momentum)) ** 0.5
+        warnings.warn(
+            f"Momentum whitening: recommend dividing the gradient-whitening "
+            f"learning rate by {factor:.2f} for this setting.", stacklevel=3)
+    if dq in kron_p._FIT_P and q_dtype is not None and \
+            torch.finfo(real_dtype_of(q_dtype)).eps > 1e-6:
+        warnings.warn(
+            "Fitting P directly (QUAD4P/PRO4P) in half precision is risky; "
+            "prefer float32 preconditioner_dtype for the *4P geometries.",
+            stacklevel=3)
 
 
 _UNPORTED = {"stack_sharding": "A8", "factor_sharding": "A8"}
@@ -202,7 +225,6 @@ class _Kron(torch.optim.Optimizer):
             raise ValueError(
                 "cache_p is a no-op for the fit-P geometries (QUAD4P/PRO4P): "
                 "their apply is already a single factor pass — drop cache_p")
-        kron_p._require_main_path_dq(dq)
         self.device = resolve_device(device)
 
         items = list(params)
@@ -375,7 +397,21 @@ class KronWhiten(_Kron):
     ``share_fit_apply`` needs ``update_preconditioner_first=False``, fit
     and apply sources that coincide and no ``pipelined_fit``;
     ``pipelined_fit`` needs momentum whitening and an explicit
-    ``preconditioner_init_scale``, and fits from step 1 on.
+    ``preconditioner_init_scale``, and fits from step 1 on;
+    ``share_fit_apply`` refuses ``dq="EQ"``, whose fit never forms P g.
+
+    ``dq`` takes each of the seven geometries (``kron.ALL_DQ``).  On CUDA
+    tensors: Q0.5EQ1.5 steps each dense factor through the NS kernels
+    (``kernels.fused_ns_update``, or the split and tiled routes at LLaMA's
+    widths); QEP, QEQ, PRO4P, QUAD and QUAD4P take each dense factor's L
+    from ``kernels.norm_bound`` (spd) and step it with ``matmul``, PRO4P
+    then running ``linalg.procrustes_loop3`` (``kernels.tsub`` and the
+    skew ``kernels.norm_bound``, 10 masked steps); EQ's L also comes from
+    ``kernels.norm_bound``, its v Q^-1 from ``solve_triangular``.  Every
+    geometry damps with ``kernels.damped_noise`` but EQ, which draws its
+    probe with ``kernels.unit_noise``.  The constructor warns as the JAX
+    transform's ``_advisories`` do (on-the-fly init scale, momentum
+    whitening, QUAD4P and PRO4P in half precision).
     """
 
     _FITS = (kron_p.update_kron_whiten, kron_p.update_kron_whiten_stacked)
@@ -459,6 +495,8 @@ class KronWhiten(_Kron):
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
             draw=draw)
+        _advisories(preconditioner_init_scale, whiten_grad, momentum, dq,
+                    preconditioner_dtype)
         self.update_preconditioner_first = update_preconditioner_first
         self.whiten_grad = whiten_grad
         self.pipelined_fit = pipelined_fit
@@ -545,7 +583,7 @@ class KronWhiten(_Kron):
 class KronNewton(_Kron):
     """Kronecker-factored Newton-type preconditioner fitted from
     Hessian-vector products (reference class KronNewton, psgd.py:832-978;
-    JAX ``kron_newton``), Q0.5EQ1.5.
+    JAX ``kron_newton``), in each of the seven geometries (``dq``).
 
     ``step(closure)``: the closure returns the loss and does not call
     backward.  The step draws the fit gate (uniform < p, or the first
@@ -558,7 +596,10 @@ class KronNewton(_Kron):
     gradient; through the cache refreshed by every fit with ``cache_p``),
     the global-norm trust-region clip ``grad_clip_max_norm``, weight decay
     and -lr.  ``.grad`` is neither read nor written.  Arguments otherwise
-    as ``KronWhiten`` (``shared_layers`` and ``cache_p`` included).
+    as ``KronWhiten`` (``shared_layers``, ``cache_p``, ``dq`` and the
+    advisories included).  On CUDA tensors each geometry's fit runs the
+    kernels ``KronWhiten``'s does, the probe v is ``kernels.unit_noise``
+    per leaf and the damping of h (EQ too) ``kernels.damped_noise``.
     """
 
     _FITS = (kron_p.update_kron_newton, kron_p.update_kron_newton_stacked)
@@ -604,6 +645,8 @@ class KronNewton(_Kron):
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
             draw=draw)
+        _advisories(preconditioner_init_scale, True, 0.0, dq,
+                    preconditioner_dtype)
         self.exact_hvp = exact_hessian_vector_product
 
     @torch.no_grad()

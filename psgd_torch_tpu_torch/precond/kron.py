@@ -1,14 +1,24 @@
-"""Kronecker-factored PSGD preconditioner: the Q0.5EQ1.5 fits.
+"""Kronecker-factored PSGD preconditioner: the seven dQ geometries' fits.
 
-Counterpart of psgd_torch_tpu/precond/kron.py for what ``kron_whiten`` and
-``kron_newton`` run by default: plans and state, balancing, the
-L-constants, the apply P g = Q^T Q g and its cached form (P_i = Q_i^T Q_i
-per factor, then one product per dim), the damping, and the Q0.5EQ1.5
-whitening fit (from a gradient g, optionally returning its P damped(g))
-and Newton fit (from a probe v and its Hessian-vector product h), per
-tensor and for a layer stack.  The other
-geometries raise ``NotImplementedError`` (ROADMAP A4), and so do complex
-tensors (ROADMAP A3).
+Counterpart of psgd_torch_tpu/precond/kron.py: plans and state, balancing,
+the L-constants, the apply P g = Q^T Q g (P g = Q g for the fit-P
+geometries QUAD4P and PRO4P) and its cached form (P_i = Q_i^T Q_i per
+factor, then one product per dim), the damping, and the whitening fit
+(from a gradient g, optionally returning its P damped(g)) and Newton fit
+(from a probe v and its Hessian-vector product h) of every geometry, per
+tensor and for a layer stack, plus the exact EQ whitening
+(``update_kron_whiten_eq_exact``).  Complex tensors raise
+``NotImplementedError`` (ROADMAP A3).
+
+Geometries (``_GEOMETRIES``): Q0.5EQ1.5 (the default) steps each dense
+factor through the NS update, ``kernels.fused_ns_update``; QEP, QEQ,
+PRO4P, QUAD and QUAD4P form P damped(src) and step each dense factor with
+``matmul`` products, its L from ``kernels.norm_bound`` (spd), PRO4P then
+running ``linalg.procrustes_loop3`` (``kernels.tsub`` and the skew
+``kernels.norm_bound`` per step); EQ forms A = Q h and v Q^-1
+(``torch.linalg.solve_triangular``) and steps triu(term1 - term2) Q.  On
+CUDA the damping is ``kernels.damped_noise`` and EQ whitening's probe
+``kernels.unit_noise``; on the CPU their plain versions.
 
 Contractions are explicit per-dimension products (one ``matmul`` along one
 axis at a time, Q^T after Q), never a multi-operand einsum: the card's
@@ -21,8 +31,6 @@ Randomness: every function that draws takes host-side threefry keys
 a draw is a pure function of (seed, step, leaf, layer, purpose).  An
 optional ``draw(kind, keys, shape, dtype)`` hook replaces the draws with
 pre-drawn tensors (the CPU tests replay the JAX draws through it).
-On CUDA every dense factor goes through the NS kernel and the damping
-through the fused noise kernel; on the CPU through their plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from .. import resolve_device
 from ..ops import fastrand, kernels
-from ..ops.linalg import lifted_real_dtype, real_dtype_of, width_norm_k
+from ..ops.linalg import (lift2single, lifted_real_dtype, norm_lower_bound,
+                          procrustes_loop3, real_dtype_of, width_norm_k)
 
 DQ_EQ = "EQ"
 DQ_QEP = "QEP"
@@ -53,13 +62,6 @@ def canonical_dq(dq: str) -> str:
     if dq not in ALL_DQ:
         raise ValueError(f"Invalid dQ {dq!r}; valid choices: {ALL_DQ}")
     return dq
-
-
-def _require_main_path_dq(dq: str) -> None:
-    if dq != DQ_Q05EQ15:
-        raise NotImplementedError(
-            f"dQ {dq!r} is not ported yet (ROADMAP A4); the port fits "
-            f"{DQ_Q05EQ15!r} only")
 
 
 def require_real(*dtypes: torch.dtype) -> None:
@@ -351,98 +353,257 @@ def _damped(g: torch.Tensor, key, damping: float,
                            None if v is None else v[None])[0]
 
 
+class _Geometry(NamedTuple):
+    """How a geometry fits a factor (JAX ``_WHITEN_UPDATES``,
+    kron.py:568-576, and ``_NEWTON_UPDATES``, :732-740).
+
+    What it forms: P damped(src) with Q^T after Q (Q0.5EQ1.5, QEP, QEQ,
+    QUAD), or one pass of the factors (PRO4P, QUAD4P: Q already is P;
+    ``plan.fits_p``); EQ forms A = Q h and v Q^-1 instead.  Its key tree:
+    kd, krest = split(key) (EQ whitening kv, kd, krest = split(key, 3), its
+    own probe from kv); factor i's bound keyed fold_in(krest, i).  Its
+    dense step, with E = S - shift (whitening S = term1, shift = numel / n;
+    Newton and QEP whitening S = term1 - term2, no shift):
+
+    * ``"ns"``: the NS update, one ``kernels.fused_ns_update`` per stack:
+      the bound of term1 (whitening) or term1 + term2 (Newton, with S as
+      its step matrix), q - c E q and one Procrustes rotation keyed
+      fold_in(krest, i + 200) (Q0.5EQ1.5);
+    * ``"left"``: q - c E q (QEP, PRO4P; PRO4P then ``procrustes_loop3``
+      keyed fold_in(krest, i + 200));
+    * ``"right"``: q - c q E (QEQ);
+    * ``"quad"``: p = q - c E q, p = p - c p E, then (p + p^T) / 2, at
+      c = lr / (2 L) (QUAD) or lr / L (QUAD4P); a diagonal factor is
+      q (1 - c E)^2;
+    * ``"triu"``: q - c triu(E) q (EQ).
+
+    Its balance: every geometry gates at fold_in(krest, 101) after the fit
+    but QEP (``qep``), which balances before the fit, every time and with
+    no gate, and whose terms contract Q_i applied to pg (and to v)."""
+    side: str
+    loop3: bool = False
+    qep: bool = False
+    step_div: float = 1.0
+
+
+_GEOMETRIES = {
+    DQ_Q05EQ15: _Geometry("ns"),
+    DQ_EQ: _Geometry("triu"),
+    DQ_QEP: _Geometry("left", qep=True),
+    DQ_QEQ: _Geometry("right"),
+    DQ_PRO4P: _Geometry("left", loop3=True),
+    DQ_QUAD: _Geometry("quad", step_div=2.0),
+    DQ_QUAD4P: _Geometry("quad"),
+}
+
+
+def _spd_bound(mat: torch.Tensor, keys, norm_k: int, draw) -> torch.Tensor:
+    """The spd norm bound of each matrix of a stack (B, n, n), keyed per
+    layer: ``kernels.norm_bound`` (row 5 on CUDA)."""
+    n = mat.shape[-1]
+    start = (None if draw is None else
+             draw("normal", keys, (width_norm_k(norm_k, n), n), mat.dtype))
+    return kernels.norm_bound(mat.contiguous(),
+                              kernels.key_seed_words(keys, mat.device), "spd",
+                              0, k=norm_k, start=start)
+
+
+def _probe(keys, wshape, dtype, device, draw) -> torch.Tensor:
+    """EQ whitening's probe v per layer: ``kernels.unit_noise`` (uniform on
+    +-sqrt3, unit variance, where JAX draws a standard normal; the fit
+    needs only E[v v^T] = I), or the replayed draw."""
+    if draw is not None:
+        return draw("normal", keys, wshape, dtype)
+    return fastrand.unit_noise_stacked(keys, wshape, dtype, device)
+
+
+def _solve_factors(q, plan: KronPlan, v: torch.Tensor) -> torch.Tensor:
+    """v Q^-1 along every dim of a batched v: a diagonal factor divides, a
+    dense (upper triangular) factor is one right-hand triangular solve
+    along its axis, lifted to f32 for bf16 (JAX ``_update_eq_core``'s
+    conj_b; XLA's ``triangular_solve`` there)."""
+    for i, f in enumerate(_batched_factors(q)):
+        ax = i + 1
+        if f.ndim == 2:
+            view = [f.shape[0]] + [1] * (v.ndim - 1)
+            view[ax] = f.shape[1]
+            v = v / f.reshape(view)
+            continue
+        m = v.movedim(ax, -1)
+        sh = m.shape
+        sol = torch.linalg.solve_triangular(
+            lift2single(f), lift2single(m.reshape(sh[0], -1, sh[-1])),
+            upper=True, left=False)
+        v = sol.to(v.dtype).reshape(sh).movedim(-1, ax)
+    return v
+
+
+def _ns_update(f, bound_mat, s_mat, shift, lip, krest, i, lr, beta_l, norm_k,
+               draw):
+    """Q0.5EQ1.5's dense step: one NS update of the stack, term2 = shift
+    (whitening) or 0 with S = ``s_mat`` as the step matrix (Newton)."""
+    n = f.shape[-1]
+    keys_i = fastrand.fold_in(krest, i)
+    starts = None
+    if draw is not None:
+        kk = width_norm_k(norm_k, n)
+        starts = (draw("normal", keys_i, (kk, n), bound_mat.dtype),
+                  draw("normal", fastrand.fold_in(krest, i + 200), (kk, n),
+                       bound_mat.dtype))
+    t2v = torch.full((f.shape[0],), 0.0 if shift is None else shift,
+                     dtype=lip.dtype, device=f.device)
+    return kernels.fused_ns_update(
+        bound_mat.contiguous(), f.contiguous(), lip, t2v,
+        kernels.key_seed_words(keys_i, f.device), lr, beta_l, k=norm_k,
+        starts=starts, step_mat=None if shift is not None else s_mat.contiguous())
+
+
+def _dense_step(geo: _Geometry, f, s_mat, shift, c):
+    """A dense factor's step (see ``_Geometry``) at coefficient c."""
+    def left(x):
+        y = s_mat @ x
+        return y if shift is None else y - shift * x
+
+    def right(x):
+        y = x @ s_mat
+        return y if shift is None else y - x * shift
+
+    if geo.side == "left":
+        return f - c * left(f)
+    if geo.side == "right":
+        return f - c * right(f)
+    if geo.side == "quad":
+        p = f - c * left(f)
+        p = p - c * right(p)
+        return 0.5 * (p + p.mT)
+    return f - c * (torch.triu(s_mat) @ f)
+
+
+def _diag_step(geo: _Geometry, f, e, c):
+    """A diagonal factor's step: f (1 - c E), f - c E f (EQ) or
+    f (1 - c E)^2 (QUAD, QUAD4P)."""
+    if geo.side == "triu":
+        return f - c * e * f
+    if geo.side == "quad":
+        gain = 1.0 - c * e
+        return f * gain * gain
+    return f * (1.0 - c * e)
+
+
 def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
                  lr: float, beta_l: float, damping: float, norm_k: int, draw,
-                 terms) -> Tuple[KronState, torch.Tensor]:
-    """The Q0.5EQ1.5 fit of a layer stack, shared by the whitening and the
-    Newton fit: pg = P damped(src) with the key tree kd, krest = split(key)
-    per layer, then each factor i from ``terms(pg, i, diag)`` ->
-    (bound_mat, t2, step): ell = bound(bound_mat) + t2 (the spd bound, or
-    the largest diagonal entry), L' from ell, and the step q1 = q - lr/L'
-    (S q - t2 q) with S = ``step`` (term1 itself where it is None), then
-    Procrustes for a dense factor; a diagonal factor steps
-    f (1 - lr/L' step).  Then the balance gate.  Returns the new state and
-    pg (pre-update Q, src's shape)."""
-    _require_main_path_dq(plan.dq)
-    require_real(src.dtype, *(f.dtype for f in state.q))
+                 v: Optional[torch.Tensor] = None
+                 ) -> Tuple[KronState, Optional[torch.Tensor]]:
+    """The fit of a layer stack in the plan's geometry (``_GEOMETRIES``):
+    whitening from src = g (``v`` None), Newton from (v, src = h).  Layer
+    i depends on state[i], src[i] (v[i]) and keys[i] only, with the
+    per-tensor key tree (what JAX's vmap of the per-tensor update computes,
+    kron.py:874-877 and :1282-1285); each dense factor is one batched chain
+    over the stack.  Per factor i: term1 (and term2) as ``_Geometry``
+    says, ell = bound(term1) + numel / n (whitening Q0.5EQ1.5, QEQ, PRO4P,
+    QUAD, QUAD4P) or bound(term1 + term2) (QEP whitening, EQ and every
+    Newton form), the largest diagonal entry for a diagonal factor, then
+    L' and the step.  Returns the new state and P damped(src) in src's
+    shape, formed with the pre-update (QEP: balanced) Q; None for EQ,
+    which never forms it."""
+    geo = _GEOMETRIES[plan.dq]
+    require_real(src.dtype, *(f.dtype for f in state.q),
+                 *(() if v is None else (v.dtype,)))
     b = src.shape[0]
     keys = fastrand.as_keys(keys).reshape(b, 2)
-    ks = fastrand.split(keys)
-    kd, krest = ks[:, 0], ks[:, 1]
     wshape = plan.shape or (1,)
     q = (state.q[0].reshape(b, 1),) if plan.order == 0 else state.q
-    v = None if draw is None else draw("normal", kd, wshape, src.dtype)
-    pg = _precond_batched(q, plan, _damped_stacked(_work_view(plan, src), kd,
-                                                   damping, v))
+    x = _work_view(plan, src)
+    vw = None if v is None else _work_view(plan, v)
+    whiten = vw is None
+    pg = None
+    if plan.dq == DQ_EQ:
+        if whiten:
+            ks = fastrand.split(keys, 3)
+            kv, krest = ks[:, 0], ks[:, 2]
+            vw = _probe(kv, wshape, src.dtype, src.device, draw)
+            eps = torch.finfo(real_dtype_of(src.dtype)).eps
+            h = x + (damping + eps * torch.abs(x)) * vw
+        else:
+            ks = fastrand.split(keys)
+            kd, krest = ks[:, 0], ks[:, 1]
+            dv = None if draw is None else draw("normal", kd, wshape, src.dtype)
+            h = _damped_stacked(x, kd, damping, dv)
+        a = _single_pass(q, plan, h)
+        conj_b = _solve_factors(q, plan, vw)
+    else:
+        ks = fastrand.split(keys)
+        kd, krest = ks[:, 0], ks[:, 1]
+        if geo.qep:
+            q = balance_kron(q, batched=True)
+        dv = None if draw is None else draw("normal", kd, wshape, src.dtype)
+        pg = _precond_batched(q, plan, _damped_stacked(x, kd, damping, dv))
     new_q, new_l = [], []
     for i, f in enumerate(q):
-        keys_i = fastrand.fold_in(krest, i)
-        bound_mat, t2, step = terms(pg, i, plan.is_diag[i])
-        if plan.is_diag[i]:
-            ell = torch.amax(torch.real(bound_mat), dim=1) + t2
-            lip = _update_lips(state.lips[i], ell, beta_l)
-            coeff = _coeff(lr, lip, f.dtype)[:, None]
-            fq = f * (1.0 - coeff * step)
+        diag = plan.is_diag[i]
+        if plan.dq == DQ_EQ:
+            term1, term2 = _gram(a, i, diag), _gram(conj_b, i, diag)
         else:
-            n = f.shape[-1]
-            starts = None
-            if draw is not None:
-                kk = width_norm_k(norm_k, n)
-                starts = (draw("normal", keys_i, (kk, n), bound_mat.dtype),
-                          draw("normal", fastrand.fold_in(krest, i + 200),
-                               (kk, n), bound_mat.dtype))
-            t2v = torch.full((b,), t2, dtype=state.lips[i].dtype,
-                             device=f.device)
-            fq, lip = kernels.fused_ns_update(
-                bound_mat.contiguous(), f.contiguous(), state.lips[i], t2v,
-                kernels.key_seed_words(keys_i, f.device), lr, beta_l,
-                k=norm_k, starts=starts,
-                step_mat=None if step is None else step.contiguous())
+            y = _apply_factor(f, pg, i, False) if geo.qep else pg
+            term1 = _gram(y, i, diag)
+            if not whiten:
+                vy = _apply_factor(f, vw, i, False) if geo.qep else vw
+                term2 = _gram(vy, i, diag)
+            elif geo.qep:
+                term2 = (plan.numel / wshape[i]) * (f * f if diag else f @ f.mT)
+            else:
+                term2 = plan.numel / wshape[i]
+        if isinstance(term2, float):
+            bound_mat, extra, s_mat, shift = term1, term2, term1, term2
+        else:
+            bound_mat, extra, s_mat, shift = term1 + term2, 0.0, term1 - term2, None
+        if diag:
+            ell = torch.amax(torch.real(bound_mat), dim=1) + extra
+            lip = _update_lips(state.lips[i], ell, beta_l)
+            c = _coeff(lr / geo.step_div, lip, f.dtype)[:, None]
+            fq = _diag_step(geo, f, s_mat if shift is None else s_mat - shift, c)
+        elif geo.side == "ns":
+            fq, lip = _ns_update(f, bound_mat, s_mat, shift, state.lips[i],
+                                 krest, i, lr, beta_l, norm_k, draw)
+        else:
+            ell = _spd_bound(bound_mat, fastrand.fold_in(krest, i), norm_k, draw)
+            lip = _update_lips(state.lips[i], ell + extra, beta_l)
+            c = _coeff(lr / geo.step_div, lip, f.dtype)[:, None, None]
+            fq = _dense_step(geo, f, s_mat, shift, c)
+            if geo.loop3:
+                fq = procrustes_loop3(fq, fastrand.fold_in(krest, i + 200),
+                                      norm_k=norm_k, draw=draw)
         new_q.append(fq)
         new_l.append(lip)
-    if len(new_q) > 1:
+    if len(new_q) > 1 and not geo.qep:
         kb = fastrand.fold_in(krest, 101)
         u = (fastrand.uniform01(kb) if draw is None
              else draw("uniform", kb, (), torch.float64).tolist())
         new_q = _maybe_balance(tuple(new_q), u)
     if plan.order == 0:
         new_q = [new_q[0].reshape(b)]
-    return KronState(q=tuple(new_q), lips=tuple(new_l)), pg.reshape(src.shape)
+    return (KronState(q=tuple(new_q), lips=tuple(new_l)),
+            None if pg is None else pg.reshape(src.shape))
 
 
 def _single_layer(state: KronState, plan: KronPlan, src: torch.Tensor, key,
-                  **kw) -> Tuple[KronState, torch.Tensor]:
+                  v: Optional[torch.Tensor] = None,
+                  **kw) -> Tuple[KronState, Optional[torch.Tensor]]:
     """A per-tensor fit as the stacked fit of one layer keyed by ``key``
     itself (the JAX per-tensor update's key tree)."""
     st = KronState(q=tuple(f[None] for f in state.q),
                    lips=tuple(l[None] for l in state.lips))
     out, pg = _fit_stacked(st, plan, src[None], fastrand.as_keys(key)[None],
-                           **kw)
-    return KronState(q=tuple(f[0] for f in out.q),
-                     lips=tuple(l[0] for l in out.lips)), pg[0]
+                   v=None if v is None else v[None], **kw)
+    return (KronState(q=tuple(f[0] for f in out.q),
+                      lips=tuple(l[0] for l in out.lips)),
+            None if pg is None else pg[0])
 
 
-def _whiten_terms(plan: KronPlan):
-    """The whitening fit's terms: term1 = exprGs(Pg, Pg), term2 = numel / n."""
-    wshape = plan.shape or (1,)
-
-    def terms(pg, i, diag):
-        term1, term2 = _gram(pg, i, diag), plan.numel / wshape[i]
-        return term1, term2, (term1 - term2) if diag else None
-    return terms
-
-
-def _newton_terms(plan: KronPlan, v: torch.Tensor):
-    """The Newton fit's terms from the stacked probe v: term1 =
-    exprGs(P damped(h), same), term2 = exprGs(v, v); the bound's matrix
-    term1 + term2, no scalar term2, the step matrix term1 - term2."""
-    require_real(v.dtype)
-    vw = _work_view(plan, v)
-
-    def terms(ph, i, diag):
-        term1, term2 = _gram(ph, i, diag), _gram(vw, i, diag)
-        return term1 + term2, 0.0, term1 - term2
-    return terms
+def _refuse_eq_pg(plan: KronPlan, return_pg: bool) -> None:
+    if return_pg and plan.dq == DQ_EQ:
+        raise ValueError("EQ geometry does not compute Pg during the fit; "
+                         "share_fit_apply is unsupported for dq='EQ'")
 
 
 def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
@@ -450,20 +611,23 @@ def update_kron_whiten_stacked(state: KronState, plan: KronPlan,
                                beta_l: float = 0.9, damping: float = 1e-9,
                                norm_k: int = 32, draw=None,
                                return_pg: bool = False):
-    """Q0.5EQ1.5 whitening fit of a layer stack (reference psgd.py:394-419,
-    JAX update_kron_whiten_stacked).
+    """Whitening fit of a layer stack in the plan's geometry (reference
+    psgd.py:330-513, JAX update_kron_whiten_stacked).
 
     ``state`` tensors and ``g`` carry a leading layer axis B; ``keys`` is a
     (B, 2) host key array, one key per layer.  Layer i's result depends on
-    state[i], g[i] and keys[i] only.  Every dense factor of the stack is
-    one NS update (one kernel chain on CUDA); the damping is one launch.
+    state[i], g[i] and keys[i] only.  Q0.5EQ1.5: every dense factor of the
+    stack is one NS update (one kernel chain on CUDA), term1 =
+    exprGs(Pg, Pg) and term2 = numel / n; the other geometries as
+    ``_GEOMETRIES`` says.  The damping is one launch (EQ: the probe is).
     ``draw(kind, keys, shape, dtype)`` -> (B,)+shape tensor replaces the
     draws ("normal" for the probe and the bound starts, "uniform" for the
-    balance gate).  term1 = exprGs(Pg, Pg) and term2 = numel / n.
-    ``return_pg``: also return the fit's P damped(g), formed with the
-    pre-update Q (the apply that ``share_fit_apply`` reuses)."""
+    balance gate).  ``return_pg``: also return the fit's P damped(g),
+    formed with the pre-update Q (the apply that ``share_fit_apply``
+    reuses); EQ never forms it and raises ``ValueError``."""
+    _refuse_eq_pg(plan, return_pg)
     st, pg = _fit_stacked(state, plan, g, keys, lr, beta_l, damping, norm_k,
-                          draw, _whiten_terms(plan))
+                          draw)
     return (st, pg) if return_pg else st
 
 
@@ -471,12 +635,12 @@ def update_kron_whiten(state: KronState, plan: KronPlan, g: torch.Tensor,
                        key, lr: float = 0.1, beta_l: float = 0.9,
                        damping: float = 1e-9, norm_k: int = 32,
                        draw=None, return_pg: bool = False):
-    """Q0.5EQ1.5 whitening fit of one tensor: the stacked fit with one layer
-    keyed by ``key`` itself (the JAX per-tensor update's key tree).
-    ``return_pg`` as ``update_kron_whiten_stacked``."""
+    """Whitening fit of one tensor: the stacked fit with one layer keyed by
+    ``key`` itself (the JAX per-tensor update's key tree).  ``return_pg``
+    as ``update_kron_whiten_stacked``."""
+    _refuse_eq_pg(plan, return_pg)
     st, pg = _single_layer(state, plan, g, key, lr=lr, beta_l=beta_l,
-                           damping=damping, norm_k=norm_k, draw=draw,
-                           terms=_whiten_terms(plan))
+                           damping=damping, norm_k=norm_k, draw=draw)
     return (st, pg) if return_pg else st
 
 
@@ -485,28 +649,96 @@ def update_kron_newton_stacked(state: KronState, plan: KronPlan,
                                lr: float = 0.1, beta_l: float = 0.9,
                                damping: float = 1e-9, norm_k: int = 32,
                                draw=None) -> KronState:
-    """Q0.5EQ1.5 Newton fit of a layer stack from a probe v and its
-    Hessian-vector product h (reference psgd.py:777-829, JAX
+    """Newton fit of a layer stack from a probe v and its Hessian-vector
+    product h in the plan's geometry (reference psgd.py:657-829, JAX
     update_kron_newton_stacked).
 
     As the whitening fit, with the damping on h and both terms from the
-    pair: term1 = exprGs(P damped(h), same), term2 = exprGs(v, v), formed
-    in their dtype (Q's, in the optimizer).  A diagonal factor takes
-    ell = max(term1 + term2) and steps f (1 - lr/L' (term1 - term2)); a
-    dense factor is one NS update with term1 + term2 as its bound's matrix,
-    no scalar term2 and the step matrix term1 - term2.  Keys and ``draw``
-    as ``update_kron_whiten_stacked``."""
+    pair, formed in their dtype (Q's, in the optimizer).  Q0.5EQ1.5:
+    term1 = exprGs(P damped(h), same), term2 = exprGs(v, v); a diagonal
+    factor takes ell = max(term1 + term2) and steps f (1 - lr/L' (term1 -
+    term2)); a dense factor is one NS update with term1 + term2 as its
+    bound's matrix, no scalar term2 and the step matrix term1 - term2.
+    The other geometries as ``_GEOMETRIES`` says.  Keys and ``draw`` as
+    ``update_kron_whiten_stacked``."""
     return _fit_stacked(state, plan, h, keys, lr, beta_l, damping, norm_k,
-                        draw, _newton_terms(plan, v))[0]
+                        draw, v)[0]
 
 
 def update_kron_newton(state: KronState, plan: KronPlan, v: torch.Tensor,
                        h: torch.Tensor, key, lr: float = 0.1,
                        beta_l: float = 0.9, damping: float = 1e-9,
                        norm_k: int = 32, draw=None) -> KronState:
-    """Q0.5EQ1.5 Newton fit of one tensor from (v, h): the stacked fit with
-    one layer keyed by ``key`` itself (the JAX per-tensor update's key
-    tree)."""
-    return _single_layer(state, plan, h, key, lr=lr, beta_l=beta_l,
-                         damping=damping, norm_k=norm_k, draw=draw,
-                         terms=_newton_terms(plan, v[None]))[0]
+    """Newton fit of one tensor from (v, h): the stacked fit with one layer
+    keyed by ``key`` itself (the JAX per-tensor update's key tree)."""
+    return _single_layer(state, plan, h, key, v, lr=lr, beta_l=beta_l,
+                         damping=damping, norm_k=norm_k, draw=draw)[0]
+
+
+def update_kron_whiten_eq_exact(state: KronState, plan: KronPlan,
+                                g: torch.Tensor, key, lr: float = 0.1,
+                                beta_l: float = 0.9,
+                                step_normalizer: str = "2nd",
+                                draw=None) -> KronState:
+    """EQ whitening of one tensor with v integrated out through explicit
+    triangular inverses (the old Kron class's V=None path, reference
+    preconditioned...py:2040-2070; JAX update_kron_whiten_eq_exact):
+    term2_i = prod_{j != i} tr(Q_j^-T Q_j^-1) Q_i^-T Q_i^-1.  No probe: the
+    only draw is the balance gate, keyed by ``key`` itself and taken
+    before the fit.  ``step_normalizer`` "2nd" steps at lr / L' with
+    L' from the legacy bound (``linalg.norm_lower_bound``) of term1 + term2
+    (a diagonal factor: max |term1 + term2|); any other value normalizes
+    the gradient by its own bound and leaves L as it is."""
+    require_real(g.dtype, *(f.dtype for f in state.q))
+    key = fastrand.as_keys(key)[None]
+    q = ((state.q[0].reshape(1, 1),) if plan.order == 0 else
+         tuple(f[None] for f in state.q))
+    u = (fastrand.uniform01(key) if draw is None
+         else draw("uniform", key, (), torch.float64).tolist())
+    q = _maybe_balance(q, u)
+    a = _single_pass(q, plan, _work_view(plan, g[None]))
+    ihih, traces = [], []
+    for f, diag in zip(q, plan.is_diag):
+        if diag:
+            inv = 1.0 / f
+            ihih.append(inv * inv)
+            traces.append(torch.sum(ihih[-1], dim=-1))
+        else:
+            eye = torch.eye(f.shape[-1], dtype=lift2single(f).dtype,
+                            device=f.device)
+            inv = torch.linalg.solve_triangular(lift2single(f), eye,
+                                                upper=True).to(f.dtype)
+            ihih.append(inv.mT @ inv)
+            traces.append(torch.diagonal(ihih[-1], dim1=-2, dim2=-1).sum(-1))
+    new_q, new_l = [], []
+    for i, (f, diag) in enumerate(zip(q, plan.is_diag)):
+        rd = real_dtype_of(f.dtype)
+        view = (slice(None),) + (None,) * (f.ndim - 1)
+        term1 = _gram(a, i, diag)
+        term2 = ihih[i]
+        for j, tr in enumerate(traces):
+            if j != i:
+                term2 = term2 * tr[view]
+        if step_normalizer == "2nd":
+            grad = term1 - term2
+            if diag:
+                ell = torch.amax(torch.abs(term1 + term2), dim=1)
+            else:
+                ell = norm_lower_bound(term1 + term2)
+                grad = torch.triu(grad)
+            lip = _update_lips(state.lips[i][None], ell, beta_l)
+            scale = _coeff(lr, lip, f.dtype)[view]
+        else:
+            grad = term1 - term2
+            if diag:
+                den = torch.amax(torch.abs(grad), dim=1).to(rd)
+            else:
+                grad = torch.triu(grad)
+                den = norm_lower_bound(grad).to(rd)
+            lip = state.lips[i][None]
+            scale = (lr / (den + 1e-38)).to(rd)[view]
+        new_q.append(f - scale * grad * f if diag else f - scale * (grad @ f))
+        new_l.append(lip[0])
+    if plan.order == 0:
+        return KronState(q=(new_q[0].reshape(()),), lips=tuple(new_l))
+    return KronState(q=tuple(fq[0] for fq in new_q), lips=tuple(new_l))

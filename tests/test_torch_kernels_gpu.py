@@ -373,18 +373,40 @@ def test_norm_bound_on_tensor_cores(dev, n, mode):
     assert (bk.double() <= 1.001 * true).all(), (bk, true)
 
 
+@pytest.mark.parametrize("mode", ["spd", "skh"])
+@pytest.mark.parametrize("b,n", [(3, 100), (1, 204), (2, 7)])
+def test_norm_bound_bf16_odd_width_on_ffma(dev, b, n, mode):
+    """norm_bound in bf16 at a width n % 8 != 0 (which TMA cannot load)
+    runs its thin products on the FFMA GEMM, its iterates rounded to bf16
+    as they are loaded: within ``kernels.norm_bound_rtol`` (BOUND_RTOL at
+    such a width: the plain version's sums) of the plain bound, and at most
+    (1 + 2^-8) x the true norm: the last thin product reads the unit
+    iterate rounded to bf16, each entry within bf16's unit roundoff 2^-8,
+    which a width of 7 does not average away (observed 1.0021 at (2, 7)
+    spd, H100 80GB HBM3)."""
+    term1, q, _, _, seeds, _, _ = _ns_inputs(b, n, dev, torch.bfloat16)
+    mat, tag = (term1, 0) if mode == "spd" else ((q.mT - q).contiguous(), kernels.SKH_TAG)
+    bk = kernels.norm_bound(mat, seeds, mode, tag, k=128)
+    bp = kernels.norm_bound_plain(mat, seeds, mode, tag, k=128)
+    rtol = kernels.norm_bound_rtol(mat, seeds, mode, tag, k=128)
+    assert rtol == kernels.BOUND_RTOL
+    torch.testing.assert_close(bk, bp, rtol=rtol, atol=0)
+    true = torch.linalg.matrix_norm(mat.double(), ord=2)
+    assert (bk.double() <= (1 + 2 ** -8) * true).all(), (bk, true)
+
+
 def test_tensor_core_widths_refused(dev):
     """TMA needs 16-byte rows: a bf16 width that is not a multiple of 8 is
-    refused by the five tensor-core wrappers that have no FFMA chain for it;
-    f32 at that width runs (FFMA)."""
+    refused by the four tensor-core wrappers that have no FFMA chain for it
+    (the single route and norm_bound take it on the FFMA GEMM); f32 at
+    that width runs (FFMA)."""
     for dtype in (torch.bfloat16, torch.float32):
         args = _ns_inputs(1, 204, dev, dtype)
         term1, q, lips, term2, seeds = args[:5]
         calls = (lambda: kernels.ns_step(*args, k=32)[0],
                  lambda: kernels.scaled_matmul_trace(q, q, lips + 1.0)[0],
                  lambda: kernels.procrustes(q, seeds, k=32),
-                 lambda: kernels.tiled_step(term1, q, lips + 0.02, term2),
-                 lambda: kernels.norm_bound(term1, seeds, k=32))
+                 lambda: kernels.tiled_step(term1, q, lips + 0.02, term2))
         for call in calls:
             if dtype == torch.bfloat16:
                 with pytest.raises(ValueError, match="multiples of 8"):
@@ -538,3 +560,56 @@ def test_precond_grad_cached_on_cuda(dev, shape, stack):
         chain = kron_p.precond_grad_stacked(st, plan, g)
     assert cached.dtype == torch.bfloat16 and cached.shape == g.shape
     assert _rel(cached, chain) < (12 * plan.order) ** 0.5 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("newton", [False, True])
+@pytest.mark.parametrize("dq", ["EQ", "QEP", "QEQ", "QUAD", "QUAD4P", "PRO4P"])
+def test_geometry_fit_launches_the_kernels(dev, dq, newton):
+    """A stacked fit (B = 3, (16, 40): one dense and one diagonal factor,
+    f32) of each of the six other geometries on the card launches the
+    port's kernels and nothing quietly plain: one spd norm_bound for the
+    dense factor (PRO4P 10 more skew ones and 10 tsub, its masked loop),
+    the damping by damped_noise (EQ whitening: its probe by unit_noise),
+    no NS kernel; Q and L agree with the CPU's plain fit from the same
+    state and keys within 1e-4 (f32 sums in another order).  A float64
+    stack on the card raises: no kernel takes it."""
+    from psgd_torch_tpu_torch.ops import fastrand
+    from psgd_torch_tpu_torch.precond import kron
+    plan = kron.make_kron_plan((16, 40), max_skew=2.0, dq=dq)
+    rng = np.random.default_rng(7)
+    q = (torch.from_numpy(np.eye(16) + 0.05 * rng.standard_normal((3, 16, 16))),
+         torch.from_numpy(1.0 + 0.05 * rng.standard_normal((3, 40))))
+    if dq == "EQ":
+        q = (torch.triu(q[0]), q[1])
+    st = kron.KronState(q=tuple(f.float() for f in q),
+                        lips=(torch.ones(3), torch.ones(3)))
+    g, v = (torch.from_numpy(rng.standard_normal((3, 16, 40))).float()
+            for _ in range(2))
+    keys = fastrand.split(fastrand.prng_key(3), 3)
+
+    def fit(state, device):
+        on = kron.KronState(tuple(f.to(device) for f in state.q),
+                            tuple(l.to(device) for l in state.lips))
+        dt = state.q[0].dtype
+        if newton:
+            return kron.update_kron_newton_stacked(
+                on, plan, v.to(device, dt), g.to(device, dt), keys, norm_k=8)
+        return kron.update_kron_whiten_stacked(on, plan, g.to(device, dt), keys,
+                                               norm_k=8)
+
+    kernels.reset_launch_counts()
+    out = fit(st, dev)
+    loop = 10 if dq == "PRO4P" else 0
+    eq_probe = dq == "EQ" and not newton
+    assert kernels.norm_bound.launches == 1 + loop
+    assert kernels.tsub.launches == loop
+    assert kernels.damped_noise.launches == (0 if eq_probe else 1)
+    assert kernels.unit_noise.launches == (1 if eq_probe else 0)
+    assert kernels.fused_ns_update.launches == 0 and kernels.ns_step.launches == 0
+    ref = fit(st, "cpu")
+    for a, b in zip(out.q + out.lips, ref.q + ref.lips):
+        assert a.device.type == "cuda"
+        assert (a.cpu() - b).norm() <= 1e-4 * b.norm(), dq
+    with pytest.raises(TypeError):
+        fit(kron.KronState(tuple(f.double() for f in st.q),
+                           tuple(l.double() for l in st.lips)), dev)

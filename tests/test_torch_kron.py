@@ -66,11 +66,14 @@ def test_plan_rules_and_limits():
         tkron.canonical_dq("XYZ")
     with pytest.raises(ValueError):
         tkron.make_kron_plan((1,) * 27)
+    # every geometry fits (QEQ here; the others in test_torch_kron_geometries)
     st, plan = tkron.init_kron((4, 5), dq="QEQ", dtype=torch.float64,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tkron.update_kron_whiten(st, plan, torch.zeros(4, 5, dtype=torch.float64),
-                                 fastrand.prng_key(0))
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 5)))
+    out = tkron.update_kron_whiten(st, plan, g, fastrand.prng_key(0))
+    assert plan.dq == "QEQ" and out.q[0].shape == (4, 4)
+    assert all(torch.isfinite(f).all() for f in out.q + out.lips)
+    assert not torch.equal(out.q[0], st.q[0])
 
 
 def test_init_kron_defaults_to_the_card(monkeypatch):

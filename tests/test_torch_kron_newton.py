@@ -198,10 +198,16 @@ def test_finite_diff_steps_track_the_exact_ones():
 def test_newton_unported_options_raise():
     _, _, model = MODELS["gpt2"][0]()
     for kw, where in ((dict(stack_sharding=("mesh", "fsdp")), "A8"),
-                      (dict(factor_sharding=("mesh", {})), "A8"),
-                      (dict(dq="QEQ"), "A4")):
+                      (dict(factor_sharding=("mesh", {})), "A8")):
         with pytest.raises(NotImplementedError, match=where):
             KronNewton(model.named_parameters(), device="cpu", **kw)
+    # a geometry other than Q0.5EQ1.5 constructs and steps
+    x, y = (torch.from_numpy(t) for t in MODELS["gpt2"][1](1))
+    qeq = KronNewton(model.named_parameters(), device="cpu", dq="QEQ", **ARM)
+    loss = qeq.step(lambda: MODELS["gpt2"][4](model, x, y))
+    assert qeq.plans[0].dq == "QEQ" and qeq.fit_steps == 1
+    assert torch.isfinite(loss) and all(torch.isfinite(p).all()
+                                        for p in model.parameters())
     with pytest.raises(TypeError, match="share_fit_apply"):
         KronNewton(model.named_parameters(), device="cpu", share_fit_apply=True)
     opt = KronNewton(model.named_parameters(), device="cpu")

@@ -158,9 +158,15 @@ def test_decoupled_weight_decay_on_every_leaf():
 def test_unported_options_raise():
     _, _, model = carried_pair()
     for kw, where in ((dict(stack_sharding=("mesh", "fsdp")), "A8"),
-                      (dict(factor_sharding=("mesh", {})), "A8"),
-                      (dict(dq="QUAD"), "A4")):
+                      (dict(factor_sharding=("mesh", {})), "A8")):
         with pytest.raises(NotImplementedError, match=where):
             KronWhiten(model.named_parameters(), device="cpu", **kw)
+    # a geometry other than Q0.5EQ1.5 constructs and steps
+    x, y = (torch.from_numpy(t) for t in tokens(1))
+    quad = KronWhiten(model.named_parameters(), device="cpu", dq="QUAD",
+                      preconditioner_init_scale=1.0)
+    _port_step(model, quad, x, y)
+    assert quad.plans[0].dq == "QUAD" and quad.fit_steps == 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())
     with pytest.raises(ValueError):
         KronWhiten(model.named_parameters(), device="cpu", whiten_grad=False)

@@ -171,8 +171,10 @@ _TC_ENTRIES = {
         ("ns_update.cu", "void ns_update(", "procrustes_chain<T, float, Gemm>"),
         ("ns_update.cu", "void procrustes_chain(", "Gemm::operand(q1, q1_16)"),
         ("ns_gemm_sm90.cuh", "struct TcGemm {", "tc_gemm<kStep, TQ1>(s, q, q1, q1_16"))),
-    # the tiled bound: the stored bf16 matrix is its own product operand
-    "psgd_norm_bound": ("ns_tiled.cu", "bound<bf16, TcGemm>", _REFUSES, (
+    # the tiled bound: the stored bf16 matrix is its own product operand;
+    # odd bf16 widths take the FFMA GEMM, by shape
+    "psgd_norm_bound": ("ns_tiled.cu", "bound<bf16, TcGemm>", "n % 8 == 0", (
+        ("ns_tiled.cu", "int psgd_norm_bound(", "bound<bf16, FfmaGemm<true>>"),
         ("ns_tiled.cu", "void bound(", "norm_bound<T, Gemm, true>(mat, mat,"),
         ("ns_tiled.cu", "long long carve_bound_only(", "carve_bound(c, B, n, k, dtype != 0)"))),
 }
@@ -185,8 +187,8 @@ def test_tensor_core_gemm_feeds_its_two_entries(entry):
     writing q1's bf16 copy, which procrustes reads; the FFMA chain only at
     bf16 widths n % 8 != 0), psgd_ns_step, psgd_procrustes (its two full
     products through the kDivTrace epilogue, its bound's thin products),
-    psgd_norm_bound (on the stored bf16 matrix), psgd_tiled_step and
-    psgd_scaled_matmul_trace."""
+    psgd_norm_bound (on the stored bf16 matrix; the FFMA chain only at bf16
+    widths n % 8 != 0), psgd_tiled_step and psgd_scaled_matmul_trace."""
     gemm = (CSRC / "ns_gemm_sm90.cuh").read_text()
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                   "cuTensorMapEncodeTiled"):
