@@ -59,7 +59,9 @@
    by KronWhiten and by KronNewton, plainly, with each option the port
    takes (share_fit_apply, cache_p, pipelined_fit, shared_layers; Newton
    cache_p, shared_layers) and in each of the six other geometries
-   (``dq``; PRO4P's Procrustes loop taking the same steps on both).
+   (``dq``; PRO4P's Procrustes loop taking the same steps on both); by
+   LRAWhiten and LRANewton; the small tensor-rank problem (n = 24) by
+   DenseNewton in each of the seven geometries.
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
    on one fixed batch; one fit and one no-fit step profiled.
@@ -108,9 +110,33 @@
    paths fail if they launched any FFMA ``gemm_kernel``: every product
    there belongs on the tensor cores (the f32 Newton GPT-2 path's products
    stay on the FFMA GEMM by the precision rule).
-11. Prints the kernels' JSON line (``launches`` is the sum over the seven
+11. The LRA path (``lra_gpt2_path``): GPT-2 124M at its published widths
+   with one rank-10 LRA preconditioner (f32) over its whole parameter
+   vector (n = 124.5M; U and V 4.98 GB each), by LRAWhiten (the JAX class
+   defaults with __graft_entry__.py:164-167's momentum 0.9, lr 1e-3, init
+   scale 1; batch 4 x 1024, 3 steps at p = 1 then 3 at 0.1) and by
+   LRANewton (lr 1e-3, clip 10, exact Hvp; batch 2 x 1024, 2 + 3 steps),
+   each with its peak memory, a profiled fit and no-fit step, and the fit
+   step's (n, r) passes at the HBM rate beside its bytes bound.
+12. The tensor-rank path (``cp_path``): the reference showcase's rank-10
+   CP decomposition of a 20 x 50 x 100 tensor (n = 1700, f32) with the
+   example's settings, DenseNewton Q0.5EQ1.5 and LRANewton 200 steps each
+   and DenseNewton in the six other geometries 20 steps each; the loss
+   falls on every arm, by ``CP_FALL`` or more on Q0.5EQ1.5's.
+13. The Rosenbrock path (``rosenbrock_path``, examples/hello_psgd.py): the
+   ``DenseNewton`` closure class on the 100-variable coupled Rosenbrock
+   function, f32, 2000 steps; the loss falls by 1e4 or more from 50.
+   Paths 11-13 hold their counts per fit step exactly (``_flat_per_fit``:
+   the probes per leaf, one damping, Q0.5EQ1.5's procrustes, PRO4P's
+   loop), and step 3 also holds rows 2, 4, 5 and 7 at their shapes
+   (``check_lra_dense_shapes``) and step 4 the tiny GPT-2 by LRAWhiten and
+   LRANewton and the small tensor-rank problem by DenseNewton in all seven
+   geometries, card against CPU.
+14. Prints the kernels' JSON line (``launches`` is the sum over the ten
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
-   geometry shapes; rows 1, 3 and 6 also carry ``step_mat_launches`` and the step
+   geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
+   times at the LRA and dense paths' shapes; rows 1, 3 and 6 also carry
+   ``step_mat_launches`` and the step
    matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
    ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
    and (22, 2560) bf16; the run fails
@@ -135,7 +161,8 @@ import torch
 from psgd_torch_tpu_torch.models import gpt2, llama
 from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
-from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, hvp
+from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
+                                        LRANewton, LRAWhiten, classes, hvp)
 from psgd_torch_tpu_torch.precond import kron as kron_p
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
@@ -187,6 +214,52 @@ GPT2_NEWTON_GEOMETRY_PER_FIT = {dq: _geometry_per_fit(dq, True) for dq in GEOMET
 # package's advisory recommends
 GEOMETRY_QDTYPE = {dq: torch.float32 if dq in ("QUAD4P", "PRO4P") else torch.bfloat16
                    for dq in GEOMETRIES}
+# the LRA and dense paths: one preconditioner over the whole parameter
+# vector, no NS kernel.  Per fit step LRAWhiten draws its probe
+# (unit_noise) and damps the gradient (damped_noise) from one key;
+# LRANewton and DenseNewton draw one probe per parameter leaf
+# (hvp.rand_like: GPT-2's 16, the tensor-rank problem's 3, Rosenbrock's 1)
+# and damp h once; DenseNewton's Q0.5EQ1.5 adds one procrustes on the
+# (1, n, n) stack and PRO4P its Procrustes loop's LOOP3_STEPS masked steps
+# (a tsub and a skew norm_bound each)
+GPT2_LEAVES = 16
+CP_LEAVES = 3
+LRA_RANK = 10
+
+
+def _flat_per_fit(probes: int, dq: str | None = None) -> dict:
+    loop = LOOP3_STEPS if dq == "PRO4P" else 0
+    return {"fused_ns_update": 0, "ns_step": 0, "tiled_step": 0,
+            "scaled_matmul_trace": 0, "combine": 0, "unit_noise": probes,
+            "damped_noise": 1, "procrustes": int(dq == "Q0.5EQ1.5"),
+            "tsub": loop, "norm_bound": loop}
+
+
+LRA_WHITEN_PER_FIT = _flat_per_fit(1)
+GPT2_LRA_NEWTON_PER_FIT = _flat_per_fit(GPT2_LEAVES)
+# (n, r) passes of one LRA fit, counted from precond/lra.py update_lra
+# (rank > 0): the balancing 6 (the two Gram products, each rotation read
+# and written), Q h and P h 4, I + V^T U 2, the LU solves' four products
+# 4, then the U step 6 (a^T V, b^T V, V atv^T, V btv^T, U read and
+# written) or the V step 8 (four products with U, two with V, V read and
+# written); the apply (precond_grad) 4
+LRA_FIT_PASSES = (22, 24)
+LRA_APPLY_PASSES = 4
+# the tensor-rank decomposition of examples/tensor_rank_decomposition.py
+# (R, (I, J, K)): n = R (I + J + K) = 1700, its arms' steps, and the small
+# problem the card is held against the CPU on
+CP_FULL = (10, (20, 50, 100))
+CP_SMALL = (2, (3, 4, 5))
+CP_STEPS = 200
+CP_GEOMETRY_STEPS = 20
+# Q0.5EQ1.5's least fall over CP_STEPS: the JAX package's dense_newton
+# brings the example's own problem down 3.0x in its first 200 steps and
+# 8.6x in 400 on the CPU (tools/cp_fall_jax.py), so a 10x fall in 200
+# steps is not what the reference does
+CP_FALL = 2.0
+ROSENBROCK_N = 100
+ROSENBROCK_STEPS = 2000
+ROSENBROCK_FALL = 1e4
 # the options path's arms: options over the bench configuration
 ARM_OPTIONS = {
     # the production recipe (__graft_entry__.py:69-79) with the cache
@@ -1096,10 +1169,132 @@ def check_transpose_sub(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _train_tiny(device, newton: bool = False, steps: int = 3, **options):
-    """A tiny GPT-2 trained by KronWhiten or KronNewton (f32 Q, p = 1, with
+def gpt2_numel() -> int:
+    """GPT-2 124M's parameter count, the LRA paths' vector length n."""
+    model = gpt2.GPT2(gpt2.gpt2_124m(), device="cpu")
+    return sum(p.numel() for p in model.parameters())
+
+
+def check_lra_dense_shapes(dev, lib_path) -> dict:
+    """The kernels at the shapes the LRA and dense paths give them, against
+    their plain versions, timed (CUDA events) beside their bounds:
+
+    * row 2 at (1, n) f32, n = GPT-2 124M's parameter count (the LRA
+      whitening probe and damping): unit and fused mode bit for bit, and
+      the fused output g + (damping + eps|g|) v with the unit draw's v (one
+      v from one key); bound max(bytes, the loop's SASS instructions at the
+      SM clock under load), ``torch.rand`` the library call;
+    * row 4 at (1, 1700) and (1, 100) f32 (dense Q0.5EQ1.5 on the
+      tensor-rank problem and on Rosenbrock, norm_k 32): q' within
+      ROUTE_TOL f32; bound the two full products 4 n^3 and the skew
+      bound's 8 k n^2 at 67 TFLOP/s;
+    * rows 5 and 7 at (1, 1700) f32 (dense PRO4P's Procrustes loop): the
+      skew bound within ``kernels.norm_bound_rtol`` and at most 1.001 x the
+      true norm, ``tsub`` bit for bit.
+
+    Returns {row: [entries]} for the JSON line's ``lra_dense_shapes``."""
+    out = {k: [] for k in ("damped_noise", "procrustes", "norm_bound", "tsub")}
+    gen = torch.Generator(device=dev).manual_seed(29)
+    n = gpt2_numel()
+    seeds = _seeds(1, gen, dev)
+    g = torch.randn((1, n), generator=gen, device=dev)
+    v = kernels.unit_noise(seeds, (n,), torch.float32)
+    fused = kernels.damped_noise(g, seeds, 1e-9)
+    d = torch.tensor(1e-9, device=dev) + torch.finfo(torch.float32).eps * g.abs()
+    one_v = torch.equal(_bits(fused), _bits(g + d * v))
+    del d
+    same = (torch.equal(_bits(v), _bits(kernels.unit_noise_plain(seeds, (n,), torch.float32)))
+            and torch.equal(_bits(fused), _bits(kernels.damped_noise_plain(g, seeds, 1e-9))))
+    del v, fused
+    unit = lambda: kernels.unit_noise(seeds, (n,), torch.float32)
+    damp = lambda: kernels.damped_noise(g, seeds, 1e-9)
+    ms = {"unit": cuda_ms(unit, 10), "fused": cuda_ms(damp, 10)}
+    plain = {"unit": cuda_ms(lambda: kernels.unit_noise_plain(seeds, (n,), torch.float32), 2, 1),
+             "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
+    rand_ms = cuda_ms(lambda: torch.rand((1, n), device=dev), 10)
+    loops = sass.noise_loops(str(lib_path))
+    clock = sm_clock_hz(damp, max(100, int(500 / ms["fused"])))
+    for mode, nbytes in (("unit", 4 * n), ("fused", 8 * n)):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_instr = instruction_ms(n, loops[("float32", mode == "fused", True)], clock)
+        entry = dict(shape=f"(1, {n}) float32 {mode}", ms=ms[mode], plain_ms=plain[mode],
+                     bound_ms=max(t_bytes, t_instr),
+                     bound_by="bytes" if t_bytes >= t_instr else "operations",
+                     max_abs_err=0.0, library_ms=rand_ms)
+        out["damped_noise"].append(entry)
+        log(f"noise (1, {n}) f32 {mode} (the LRA whitening fit): bit-exact {same}, one v "
+            f"from one key {one_v}; kernel {ms[mode]:.4f} ms  plain {plain[mode]:.3f} ms  "
+            f"torch.rand {rand_ms:.4f} ms  bound {entry['bound_ms']:.4f} ms (bytes "
+            f"{t_bytes:.4f}, instructions {t_instr:.4f} at {clock / 1e6:.0f} MHz), "
+            f"{entry['bound_ms'] / ms[mode]:.3f} of the bound")
+    if not (same and one_v):
+        raise AssertionError(f"noise at (1, {n}) f32 differs from its plain version "
+                             "or draws another v in fused mode")
+    del g
+    torch.cuda.empty_cache()
+    tol = kernels.ROUTE_TOL[torch.float32][0]
+    for n in (1700, 100):
+        a = torch.randn((1, n, n), generator=gen, device=dev) / n ** 0.5
+        q1 = torch.eye(n, device=dev) + 0.05 * (a + a.mT) + 0.02 * (a - a.mT)
+        del a
+        seeds = _seeds(1, gen, dev)
+        run = lambda: kernels.procrustes(q1, seeds, k=32)
+        run_p = lambda: kernels.procrustes_plain(q1, seeds, k=32)
+        qk, qp = run(), run_p()
+        rel = _rel(qk, qp)
+        k = width_norm_k(32, n)
+        r = kernels.tsub_plain(q1)
+        row = _row(cuda_ms(run, 10, 2), cuda_ms(run_p, 2, 1),
+                   4 * n ** 3 + 8 * k * n * n, 2 * n * n * 4, PEAK_F32,
+                   _max_abs(qk, qp))
+        bmm_ms = cuda_ms(lambda: torch.bmm(r, q1), 10)
+        row.update(shape=f"(1, {n}, {n}) float32")
+        out["procrustes"].append(row)
+        log(f"procrustes (1, {n}, {n}) f32 (dense Q0.5EQ1.5, FFMA GEMM): q' rel err "
+            f"{rel:.2e} (tol {tol}); kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms"
+            f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound; yardstick torch.bmm(r, q1) "
+            f"{bmm_ms:.3f} ms")
+        if not rel < tol:
+            raise AssertionError(f"procrustes (1, {n}) f32 disagrees with its plain version")
+        if n != 1700:
+            continue
+        rk, rp = kernels.tsub(q1), kernels.tsub_plain(q1)
+        bk = kernels.norm_bound(rk, seeds, "skh", 0, k=32)
+        bp = kernels.norm_bound_plain(rk, seeds, "skh", 0, k=32)
+        brel = ((bk - bp).abs() / bp).max().item()
+        btol = kernels.norm_bound_rtol(rk, seeds, "skh", 0, k=32)
+        ratio = (bk / _true_norm(rk, "skh")).max().item()
+        same_r = torch.equal(_bits(rk), _bits(rp))
+        brow = _row(cuda_ms(lambda: kernels.norm_bound(rk, seeds, "skh", 0, k=32), 10, 2),
+                    cuda_ms(lambda: kernels.norm_bound_plain(rk, seeds, "skh", 0, k=32), 2, 1),
+                    8 * k * n * n, n * n * 4 + 4, PEAK_F32, _max_abs(bk, bp))
+        trow = _row(cuda_ms(lambda: kernels.tsub(q1), 10),
+                    cuda_ms(lambda: kernels.tsub_plain(q1), 3, 1),
+                    0, 2 * n * n * 4, PEAK_F32, 0.0,
+                    cuda_ms(lambda: torch.sub(q1.mT, q1), 10))
+        for name, row in (("norm_bound", brow), ("tsub", trow)):
+            row.update(shape=f"(1, {n}, {n}) float32" + (" skh" if name == "norm_bound" else ""))
+            out[name].append(row)
+            lib = "" if row["library_ms"] is None else f"  library {row['library_ms']:.4f} ms"
+            log(f"  {name} (1, {n}, {n}) f32: kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.3f} ms{lib}  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.3f} of the bound")
+        log(f"  dense PRO4P loop pieces (1, {n}, {n}) f32: tsub bit-exact {same_r}; skew "
+            f"norm_bound rel err vs plain {brel:.2e} (tol {btol:.2e}), bound/true {ratio:.5f}")
+        if not same_r or brel > btol or ratio > 1.001:
+            raise AssertionError(f"the PRO4P loop's pieces at (1, {n}) f32 disagree with "
+                                 "their plain versions")
+        del rk, rp
+    del q1, qk, qp, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_tiny(device, name: str, steps: int = 3, **options):
+    """A tiny GPT-2 trained by optimizer ``name`` (f32 Q, p = 1, with
     ``options``) on ``device``; the same seeds on every device, so the
-    Philox draws are the same."""
+    Philox draws are the same.  Returns the parameters' total change."""
     cfg = gpt2.tiny_config(n_layer=2, n_head=4, n_embd=128, block_size=64,
                            vocab_size=512, compute_dtype=torch.float32)
     model = gpt2.GPT2(cfg, device="cpu").to(device)   # same weights everywhere
@@ -1107,21 +1302,71 @@ def _train_tiny(device, newton: bool = False, steps: int = 3, **options):
                                    512, device=device)
     p0 = [p.detach().clone() for p in model.parameters()]
     mask = gpt2.scanned_layers_mask(model)
-    if newton:
+    if name == "KronNewton":
         opt = KronNewton(model.named_parameters(), lr=1e-2,
                          preconditioner_max_skew=2.0, preconditioner_init_scale=1.0,
                          norm_k=32, grad_clip_max_norm=10.0, device=device,
                          scanned_layers=mask, **options)
-    else:
+    elif name == "KronWhiten":
         opt = KronWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
                          whiten_grad=False, preconditioner_max_skew=2.0,
                          preconditioner_init_scale=1.0, norm_k=32,
                          weight_decay=0.01, device=device, scanned_layers=mask,
                          **options)
+    elif name == "LRAWhiten":
+        opt = LRAWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
+                        rank_of_approximation=LRA_RANK,
+                        preconditioner_init_scale=1.0, device=device)
+    else:
+        opt = LRANewton(model.named_parameters(), lr=1e-2,
+                        rank_of_approximation=LRA_RANK, grad_clip_max_norm=10.0,
+                        preconditioner_init_scale=1.0, device=device)
     for _ in range(steps):
         _one_step(model, gpt2.loss_gpt2, opt, x, y)
     return torch.cat([(p.detach() - q).flatten().cpu()
                       for p, q in zip(model.parameters(), p0)])
+
+
+def cp_problem(rank: int, sizes, device, seed: int = 0):
+    """The tensor-rank (CP) decomposition of
+    examples/tensor_rank_decomposition.py: a target T = sum_r x_r (x) y_r
+    (x) z_r from random factors, and random starting factors (R, I), (R,
+    J), (R, K), drawn on the CPU from ``seed``.  Returns (params, loss)
+    with loss() = |T - sum_r x_r (x) y_r (x) z_r|^2."""
+    gen = torch.Generator().manual_seed(seed)
+    truth = [torch.randn((rank, s), generator=gen) for s in sizes]
+    target = torch.einsum("ri,rj,rk->ijk", *truth).to(device)
+    params = [torch.randn((rank, s), generator=gen).to(device).requires_grad_()
+              for s in sizes]
+
+    def loss():
+        err = target - torch.einsum("ri,rj,rk->ijk", *params)
+        return torch.sum(err * err)
+
+    return params, loss
+
+
+def _cp_opt(params, device, dq=None, **kw):
+    """The example's Newton optimizers (lr 0.2, lr_preconditioner 0.5,
+    momentum 0.9, global-norm clip 10, init scale on the fly): DenseNewton
+    in geometry ``dq``, or LRANewton (rank 10) with ``dq`` None."""
+    args = dict(lr=0.2, lr_preconditioner=0.5, momentum=0.9,
+                grad_clip_max_norm=10.0, device=device, **kw)
+    if dq is None:
+        return LRANewton(params, rank_of_approximation=LRA_RANK, **args)
+    return DenseNewton(params, dq=dq, **args)
+
+
+def _train_cp_small(device, dq, steps: int = 3):
+    """The small tensor-rank problem (``CP_SMALL``, n = 24) by DenseNewton
+    in geometry ``dq`` (f32 Q, the example's settings) on ``device``;
+    returns the parameters' total change."""
+    params, loss = cp_problem(*CP_SMALL, device)
+    p0 = [p.detach().clone() for p in params]
+    opt = _cp_opt(params, device, dq)
+    for _ in range(steps):
+        opt.step(loss)
+    return torch.cat([(p.detach() - q).flatten().cpu() for p, q in zip(params, p0)])
 
 
 # the options held on the small path: (optimizer, options)
@@ -1135,30 +1380,36 @@ SMALL_OPTIONS = (
     ("KronNewton", dict(cache_p=True)),
     ("KronNewton", dict(shared_layers=True)),
 ) + tuple((name, dict(dq=dq)) for dq in GEOMETRIES
-          for name in ("KronWhiten", "KronNewton"))
+          for name in ("KronWhiten", "KronNewton")) + (
+    ("LRAWhiten", {}), ("LRANewton", {})) + tuple(
+    ("DenseNewton", dict(dq=dq)) for dq in kron_p.ALL_DQ)
 
 
 def check_small_path(dev) -> None:
     """The whole optimizer on the card (kernels) against the CPU (plain
     versions, which the CPU tests hold against the JAX package): 3 steps of
     a tiny GPT-2 with f32 Q, by KronWhiten and by KronNewton (exact Hvp),
-    plainly and with each option the port takes (``SMALL_OPTIONS``).
+    plainly and with each option the port takes, and by LRAWhiten and
+    LRANewton; 3 steps of the small tensor-rank problem (``CP_SMALL``) by
+    DenseNewton in each of the seven geometries (``SMALL_OPTIONS``).
     Same seeds and draws on both sides; the total parameter change agrees
     within 1e-3 (Frobenius-relative: f32 sums in another order, in the
     model, the Hvp and the kernels)."""
     for name, options in SMALL_OPTIONS:
-        newton = name == "KronNewton"
         steps = []
         for device in (dev, torch.device("cpu")):
             linalg.procrustes_loop3.layer_steps = 0
-            steps.append(_train_tiny(device, newton, **options))
+            steps.append(_train_cp_small(device, **options) if name == "DenseNewton"
+                         else _train_tiny(device, name, **options))
             steps[-1] = (steps[-1], int(linalg.procrustes_loop3.layer_steps))
         (on_card, card_steps), (on_cpu, cpu_steps) = steps
         rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
         loop = (f"; Procrustes loop steps taken card {card_steps}, CPU {cpu_steps}"
                 if options.get("dq") == "PRO4P" else "")
-        log(f"small path (tiny GPT-2, 3 steps, f32 Q, {name} {options or 'plain'}): "
-            f"card vs CPU plain, parameter change rel err {rel:.2e} (tol 1e-3){loop}")
+        what = ("small tensor-rank problem, 3 steps, f32 Q" if name == "DenseNewton"
+                else "tiny GPT-2, 3 steps, f32 Q")
+        log(f"small path ({what}, {name} {options or 'plain'}): card vs CPU plain, "
+            f"parameter change rel err {rel:.2e} (tol 1e-3){loop}")
         if not rel < 1e-3 or card_steps != cpu_steps:
             raise AssertionError(f"the card's {name} {options} disagrees with "
                                  "the plain path on a small input")
@@ -1168,12 +1419,16 @@ def _median(xs):
     return round(sorted(xs)[len(xs) // 2], 2) if xs else None
 
 
+# the optimizers whose step takes the closure (and runs the Hvp pass)
+NEWTON_OPTIMIZERS = (KronNewton, LRANewton, DenseNewton)
+
+
 def _one_step(model, loss_fn, opt, tokens, targets, before_step=None):
-    """One training step: KronNewton takes the closure (its step runs the
-    forward and the backward or the Hvp pass); KronWhiten the usual
-    zero_grad, backward, step, with ``before_step()`` called between the
-    backward and the optimizer step."""
-    if isinstance(opt, KronNewton):
+    """One training step: a Newton optimizer takes the closure (its step
+    runs the forward and the backward or the Hvp pass); a whitening one
+    the usual zero_grad, backward, step, with ``before_step()`` called
+    between the backward and the optimizer step."""
+    if isinstance(opt, NEWTON_OPTIMIZERS):
         return opt.step(lambda: loss_fn(model, tokens, targets))
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(model, tokens, targets)
@@ -1199,7 +1454,7 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     forward and backward, so its step is the train step.  Returns the
     counts (with ``<name>.step_mat`` for the step-matrix counts) and the
     median fit step's time (optimizer step, or KronNewton's whole step)."""
-    newton = isinstance(opt, KronNewton)
+    newton = isinstance(opt, NEWTON_OPTIMIZERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1248,7 +1503,7 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
                              f"expected {expected}")
     fit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if f]
     nofit_opt = [t for t, f in zip(opt_ms[1:], fitted[1:]) if not f]
-    what = "train step, KronNewton" if newton else "optimizer step"
+    what = "train step, Newton" if newton else "optimizer step"
     log(f"  [{card}] {label} {what} (median, first step excluded): "
         f"fit {_median(fit_opt)} ms, no fit {_median(nofit_opt)} ms")
     log(f"  [{card}] {label} train step (median): p=1.0 "
@@ -1634,6 +1889,151 @@ def geometry_path(dev, card: str, newton: bool) -> dict:
     return total
 
 
+def lra_gpt2_path(dev, card: str) -> dict:
+    """GPT-2 124M at its published widths (random weights from seed 0, f32
+    parameters, bf16 compute) with one LRA preconditioner (rank 10, f32)
+    over the whole parameter vector, n its parameter count: LRAWhiten with
+    the JAX class defaults and the recipe of __graft_entry__.py:164-167
+    (momentum 0.9, lr 1e-3, init scale 1), batch 4 x 1024, 3 steps at p =
+    1 then 3 at 0.1; LRANewton (lr 1e-3, global-norm clip 10, init scale 1,
+    exact Hvp), batch 2 x 1024, 2 steps at p = 1 then 3 at 0.1.  A fresh
+    model each; exact counts (``LRA_WHITEN_PER_FIT``,
+    ``GPT2_LRA_NEWTON_PER_FIT``), peak memory, a profiled fit step, and the
+    fit step's (n, r) passes (``LRA_FIT_PASSES``) at the HBM rate beside
+    the step's bytes bound (U and V read and written once).  Returns the
+    two arms' launch counts summed."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    total = {}
+    for name, batch, (p1, p01) in (("LRAWhiten", 4, (3, 3)), ("LRANewton", 2, (2, 3))):
+        model = gpt2.GPT2(cfg, device=dev, seed=0)
+        tokens, targets = gpt2.synthetic_lm_batch(
+            torch.Generator().manual_seed(1), batch, cfg.block_size,
+            cfg.vocab_size, device=dev)
+        n = sum(p.numel() for p in model.parameters())
+        prob = lambda c, p1=p1: 1.0 if c < p1 else 0.1
+        if name == "LRAWhiten":
+            opt = LRAWhiten(model.named_parameters(), lr=1e-3, momentum=0.9,
+                            rank_of_approximation=LRA_RANK,
+                            preconditioner_init_scale=1.0,
+                            preconditioner_update_probability=prob, device=dev)
+            per_fit = LRA_WHITEN_PER_FIT
+        else:
+            opt = LRANewton(model.named_parameters(), lr=1e-3,
+                            rank_of_approximation=LRA_RANK, grad_clip_max_norm=10.0,
+                            preconditioner_init_scale=1.0,
+                            preconditioner_update_probability=prob, device=dev)
+            per_fit = GPT2_LRA_NEWTON_PER_FIT
+            with torch.enable_grad():   # untimed, as newton_path's
+                hvp.gradients(gpt2.loss_gpt2(model, tokens, targets),
+                              list(model.parameters()))
+        label = f"GPT-2 124M {name}"
+        st = opt.precond
+        state_gb = sum(t.numel() * t.element_size() for t in st) / 1e9
+        log(f"{label}: n = {n} parameters ({n / 1e6:.2f}M) in one vector, rank "
+            f"{st.rank}, U and V {st.u.numel() * st.u.element_size() / 1e9:.2f} GB "
+            f"each ({state_gb:.2f} GB of LRA state, {st.u.dtype}), batch {batch} x "
+            f"{cfg.block_size}, bf16 compute")
+        launches, fit_ms = train(label, model, gpt2.loss_gpt2, opt, tokens, targets,
+                                 p1, p01, per_fit, card)
+        nr = n * st.rank * st.u.element_size()
+        lo, hi = ((LRA_FIT_PASSES[0] + LRA_APPLY_PASSES) * nr,
+                  (LRA_FIT_PASSES[1] + LRA_APPLY_PASSES) * nr)
+        least = 4 * nr
+        log(f"  [{card}] {label} fit step: (n, r) passes {LRA_FIT_PASSES[0]}-"
+            f"{LRA_FIT_PASSES[1]} (fit) + {LRA_APPLY_PASSES} (apply) move "
+            f"{lo / 1e9:.1f}-{hi / 1e9:.1f} GB, {lo / PEAK_BYTES * 1e3:.1f}-"
+            f"{hi / PEAK_BYTES * 1e3:.1f} ms at {PEAK_BYTES / 1e12:.2f} TB/s; the "
+            f"step's bytes bound (U and V read and written once) {least / 1e9:.1f} GB, "
+            f"{least / PEAK_BYTES * 1e3:.1f} ms; median fit "
+            f"{'train' if name == 'LRANewton' else 'optimizer'} step {fit_ms} ms")
+        profile_steps(label, (model, gpt2.loss_gpt2, opt, tokens, targets), card,
+                      (1.0, 0.0), tensor_cores=False)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model, opt, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def _closure_arm(label, opt, loss, steps, per_fit, card, fall=1.0) -> tuple:
+    """Drive a closure optimizer ``steps`` steps, the launch counts reset
+    just before and read just after; fail on a non-finite loss, a last loss
+    not ``fall`` times below the first, or other counts than ``per_fit``
+    per fit step.  Returns (counts, first loss, last loss, ms per step)."""
+    core = getattr(opt, "optimizer", opt)   # a closure class wraps one
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fits0, losses = core.fit_steps, []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(opt.step(loss).detach())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    fits = core.fit_steps - fits0
+    counts = {k: getattr(kernels, k).launches for k in per_fit}
+    first, last = losses[0].item(), losses[-1].item()
+    log(f"  [{card}] {label}: loss {first:.6g} -> {last:.6g} in {steps} steps "
+        f"({first / last:.3g}x), {ms:.2f} ms per step; fit steps {fits}; launches {counts}")
+    if not all(math.isfinite(x.item()) for x in (losses[0], losses[-1])) or \
+            not last * fall < first:
+        raise AssertionError(f"{label}: loss {first} -> {last}, expected a fall "
+                             f"of at least {fall}x")
+    if fits == 0 or any(counts[k] != v * fits for k, v in per_fit.items()):
+        raise AssertionError(f"{label}: launch counts {counts} for {fits} fit steps, "
+                             f"expected {per_fit} per fit step")
+    return counts, first, last, ms
+
+
+def cp_path(dev, card: str) -> dict:
+    """The reference showcase (examples/tensor_rank_decomposition.py:20-37,
+    demo_usage_of_all_preconditioners.py): the rank-10 CP decomposition of
+    a 20 x 50 x 100 tensor, n = 1700, f32, with the example's settings
+    (``_cp_opt``): DenseNewton in Q0.5EQ1.5 and LRANewton for CP_STEPS
+    steps each, DenseNewton in each of the six other geometries for
+    CP_GEOMETRY_STEPS; every arm from the same start, every step a fit.
+    Gates: the loss falls on every arm, by CP_FALL or more on
+    Q0.5EQ1.5's; exact counts (``_flat_per_fit``).  Returns the arms'
+    launch counts summed."""
+    total = {}
+    arms = [("DenseNewton Q0.5EQ1.5", "Q0.5EQ1.5", CP_STEPS, CP_FALL),
+            ("LRANewton rank 10", None, CP_STEPS, 1.0)] + [
+        (f"DenseNewton {dq}", dq, CP_GEOMETRY_STEPS, 1.0) for dq in GEOMETRIES]
+    for label, dq, steps, fall in arms:
+        params, loss = cp_problem(*CP_FULL, dev)
+        n = sum(p.numel() for p in params)
+        opt = _cp_opt(params, dev, dq)
+        counts, *_ = _closure_arm(f"tensor-rank (n = {n}) {label}", opt, loss, steps,
+                                  _flat_per_fit(CP_LEAVES, dq), card, fall)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del params, opt
+    torch.cuda.empty_cache()
+    return total
+
+
+def rosenbrock(x):
+    x1, x2 = x[0::2], x[1::2]
+    return torch.sum(100.0 * (x2 - x1 ** 2) ** 2 + (1.0 - x1) ** 2)
+
+
+def rosenbrock_path(dev, card: str) -> dict:
+    """examples/hello_psgd.py: the coupled Rosenbrock function of
+    ROSENBROCK_N = 100 variables from 0 (f(0) = 50), f32, by the
+    ``DenseNewton`` class of optim.classes (lr_params 1, lr_preconditioner
+    0.5, momentum 0.9), ROSENBROCK_STEPS steps; gate: the loss falls by
+    ROSENBROCK_FALL or more.  Returns its launch counts."""
+    x = torch.zeros(ROSENBROCK_N, device=dev, requires_grad=True)
+    opt = classes.DenseNewton([x], lr_params=1.0, lr_preconditioner=0.5,
+                              momentum=0.9, device=dev)
+    counts, first, last, _ = _closure_arm(
+        f"Rosenbrock (n = {ROSENBROCK_N}) DenseNewton class", opt,
+        lambda: rosenbrock(x), ROSENBROCK_STEPS, _flat_per_fit(1, "Q0.5EQ1.5"),
+        card, ROSENBROCK_FALL)
+    log(f"  [{card}] Rosenbrock final loss {last:.3e} (from {first:g})")
+    return counts
+
+
 _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
                "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
@@ -1648,6 +2048,9 @@ def _category(kernel: str) -> str:
     # P apply of an f32 Q, and f32 products of the Hvp pass's math attention
     if "f32f32_f32f32" in kernel or "simt_sgemm" in kernel:
         return "cuBLAS f32 matmuls (FFMA units)"
+    # its matrix-vector products: the LRA fit's U^T x and V^T x at n = 124.5M
+    if "gemv" in kernel:
+        return "cuBLAS matrix-vector products"
     if "nvjet" in kernel or "gemm" in kernel.lower() or "cutlass" in kernel:
         return "cuBLAS matmuls (model, P apply, term1)"
     if "sdpa" in kernel or "flash" in kernel or "fmha" in kernel:
@@ -1742,6 +2145,8 @@ def main() -> int:
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
     rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
     check_procrustes_loop(dev)
+    for k, entries in check_lra_dense_shapes(dev, lib_path).items():
+        rows[k]["lra_dense_shapes"] = entries
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
@@ -1761,7 +2166,14 @@ def main() -> int:
              ("GPT-2 124M geometries path",
               lambda: (geometry_path(dev, smi, newton=False), None), (), True, None),
              ("GPT-2 124M Newton geometries path",
-              lambda: (geometry_path(dev, smi, newton=True), None), (), True, None))
+              lambda: (geometry_path(dev, smi, newton=True), None), (), True, None),
+             # each arm profiles its own steps
+             ("GPT-2 124M LRA path", lambda: (lra_gpt2_path(dev, smi), None), (),
+              False, None),
+             ("Tensor-rank decomposition path", lambda: (cp_path(dev, smi), None), (),
+              False, None),
+             ("Rosenbrock path", lambda: (rosenbrock_path(dev, smi), None), (), False,
+              None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)

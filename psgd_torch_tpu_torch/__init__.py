@@ -1,13 +1,20 @@
-"""PyTorch/CUDA port of psgd_torch_tpu (PSGD Kron whitening on NVIDIA Hopper).
+"""PyTorch/CUDA port of psgd_torch_tpu (PSGD on NVIDIA Hopper).
 
 The package mirrors the JAX package's layout (``ops``, ``precond``,
 ``optim``, ``models``).  It imports torch, numpy and the standard library
-only.  Entry points (``models.gpt2.GPT2``, ``models.llama.Llama``,
-``optim.KronWhiten``, ``models.gpt2.synthetic_lm_batch``) run on the CUDA
-device unless the caller passes ``device="cpu"``; without a card they
-raise instead of falling back.  On CUDA tensors the hot-path kernels
-(``ops.kernels``: the Newton-Schulz update's three routes and the damping
-noise) are hand-written CUDA C++ for sm_90a, built with nvcc at first use.
+only.  Its preconditioners are the three families of the reference:
+Kronecker-factored (``precond.kron``), low-rank approximation
+(``precond.lra``) and dense (``precond.dense``), fitted by whitening or
+from Hessian-vector products.  Entry points (``models.gpt2.GPT2``,
+``models.llama.Llama``, the optimizers ``optim.KronWhiten``,
+``KronNewton``, ``LRAWhiten``, ``LRANewton``, ``DenseNewton`` and the
+reference-named closure classes of ``optim.classes``,
+``models.gpt2.synthetic_lm_batch``) run on the CUDA device unless the
+caller passes ``device="cpu"``; without a card they raise instead of
+falling back.  On CUDA tensors the hot-path kernels (``ops.kernels``: the
+Newton-Schulz update's three routes and their pieces, the norm bound, the
+Procrustes rotation and the noise) are hand-written CUDA C++ for sm_90a,
+built with nvcc at first use.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Kron whitening and Kron Newton as ``torch.optim.Optimizer`` classes.
+"""The port's PSGD optimizers as ``torch.optim.Optimizer`` classes.
 
 ``KronWhiten``: counterpart of ``scale_by_kron_whiten`` / ``kron_whiten`` in
 psgd_torch_tpu/optim/transforms.py (the optax chain weight decay -> whiten
@@ -24,6 +24,12 @@ the JAX transform:
 products, with the reference's closure contract: ``step(closure)`` takes a
 closure that returns the loss without calling backward.
 
+``LRAWhiten``, ``LRANewton`` and ``DenseNewton``: counterparts of
+``lra_whiten``, ``lra_newton`` and ``dense_newton`` (reference classes
+LRAWhiten, LRANewton, DenseNewton, psgd.py:1075-1563), one preconditioner
+over all parameters concatenated into one vector (``precond.lra``,
+``precond.dense``); the Newton ones take the closure as KronNewton does.
+
 ``scanned_layers`` marks parameters whose leading axis is a layer stack:
 each layer gets its own preconditioner and the whole stack one batched
 update.  ``shared_layers`` (True, or a subset of the scanned parameters)
@@ -40,6 +46,7 @@ path.  Complex parameters are refused (ROADMAP A3); ``stack_sharding`` and
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Any, Callable, Optional
@@ -49,7 +56,9 @@ import torch
 from .. import resolve_device
 from ..ops import fastrand
 from ..ops.linalg import real_dtype_of, resolve_norm_k
+from ..precond import dense as dense_p
 from ..precond import kron as kron_p
+from ..precond import lra as lra_p
 from . import hvp
 
 
@@ -205,6 +214,82 @@ def _global_norm_scale(xs, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-38), max=1.0)
 
 
+def _pytree_order(params):
+    """The parameters in the JAX pytree order: (names or None, tensors,
+    order), ``order`` the given index of each.  ``params``: tensors (kept
+    in order, as a list is), or (name, tensor) pairs such as
+    ``model.named_parameters()`` (sorted by their dotted path, as a dict
+    of dicts is)."""
+    items = list(params)
+    named = bool(items) and isinstance(items[0], tuple)
+    names = [n for n, _ in items] if named else None
+    tensors = [t for _, t in items] if named else items
+    order = list(range(len(tensors)))
+    if names is not None:
+        order.sort(key=lambda i: tuple(names[i].split(".")))
+        names = [names[i] for i in order]
+    return names, [tensors[i] for i in order], order
+
+
+def _host_gate(prob, k_gate, count: int, draw) -> bool:
+    """The fit gate uniform(k_gate) < p, decided on the host (a literal
+    p >= 1 fits without a draw)."""
+    if _static_always(prob):
+        return True
+    u = (float(fastrand.uniform01(k_gate)) if draw is None else
+         float(draw("uniform", k_gate[None], (), torch.float64)[0]))
+    return u < _sched(prob, count)
+
+
+def _ema_(mu: torch.Tensor, g: torch.Tensor, count: int,
+          momentum: float) -> torch.Tensor:
+    """The bias-warmed EMA in place, beta = min(count / (count + 1),
+    momentum) in the buffer's dtype (psgd.py:604-611)."""
+    b = _rounded(min(count / (count + 1.0), momentum), mu.dtype)
+    return mu.mul_(b).add_(g.to(mu.dtype) * _rounded(1.0 - b, mu.dtype))
+
+
+def _descend(group: dict, params, updates, count: int) -> None:
+    """Decoupled weight decay, then -lr."""
+    wd, lr = group["weight_decay"], _sched(group["lr"], count)
+    for p, u in zip(params, updates):
+        if wd and group["weight_decay_mode"] == "decoupled":
+            u = u + wd * p
+        p.add_(u * (-lr))
+
+
+def _classic_decay(group: dict, grads, params) -> list:
+    """Classic weight decay: wd p added to the gradients."""
+    wd = group["weight_decay"]
+    if wd and group["weight_decay_mode"] == "classic":
+        return [g + wd * p for g, p in zip(grads, params)]
+    return grads
+
+
+def _newton_pass(closure, params, do_fit: bool, k_v, exact: bool, draw):
+    """The Newton optimizers' autograd: on a fit step the probes v
+    (``hvp.rand_like``, split(k_v) per parameter) and the gradient and
+    H v in one pass (``hvp.hvp_exact``, or ``hvp_finite_diff``), else the
+    gradient by one plain backward.  ``.grad`` is not touched.  Returns
+    (the closure's first loss, grads, vs, hvs); vs, hvs None without a
+    fit."""
+    losses = []
+
+    def loss_fn():
+        losses.append(closure())
+        return losses[-1]
+
+    if do_fit:
+        vs = hvp.rand_like(k_v, params, draw)
+        hvp_fn = hvp.hvp_exact if exact else hvp.hvp_finite_diff
+        grads, hvs = hvp_fn(loss_fn, params, vs)
+    else:
+        vs = hvs = None
+        with torch.enable_grad():
+            grads = hvp.gradients(loss_fn(), params)
+    return losses[0], grads, vs, hvs
+
+
 class _Kron(torch.optim.Optimizer):
     """What KronWhiten and KronNewton share: the parameters in the JAX
     pytree order, the plans, the factored state, the momentum buffers, the
@@ -228,16 +313,11 @@ class _Kron(torch.optim.Optimizer):
         self.device = resolve_device(device)
 
         items = list(params)
-        named = bool(items) and isinstance(items[0], tuple)
-        names = [n for n, _ in items] if named else None
-        tensors = [t for _, t in items] if named else items
+        names, tensors, order = _pytree_order(items)
+        given = [n for n, _ in items] if names is not None else None
         scan = ([False] * len(tensors) if scanned_layers is None else
-                _leaf_flags("scanned_layers", scanned_layers, names,
+                _leaf_flags("scanned_layers", scanned_layers, given,
                             len(tensors)))
-        order = list(range(len(tensors)))
-        if names is not None:   # JAX pytree order: sorted dotted paths
-            order.sort(key=lambda i: tuple(names[i].split(".")))
-            names = [names[i] for i in order]
         scan = [scan[i] for i in order]
         if not (shared_layers is None or shared_layers is True
                 or isinstance(shared_layers, dict)):   # a sequence, reordered
@@ -247,7 +327,6 @@ class _Kron(torch.optim.Optimizer):
         # a shared stack is one tensor to the fit and the apply, not a stack
         self.scanned = [f and not s for f, s in zip(scan, shared)]
         self.shared = shared
-        tensors = [tensors[i] for i in order]
         for t in tensors:
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
@@ -293,12 +372,9 @@ class _Kron(torch.optim.Optimizer):
     def _gate(self, k_gate, count: int) -> bool:
         """The fit gate: uniform(k_gate) < p, decided on the host (a literal
         p >= 1 fits without a draw)."""
-        prob = self.param_groups[0]["preconditioner_update_probability"]
-        if _static_always(prob):
-            return True
-        u = (float(fastrand.uniform01(k_gate)) if self.draw is None else
-             float(self.draw("uniform", k_gate[None], (), torch.float64)[0]))
-        return u < _sched(prob, count)
+        return _host_gate(
+            self.param_groups[0]["preconditioner_update_probability"], k_gate,
+            count, self.draw)
 
     def _rescale(self, params, scale) -> None:
         """Multiply Q by the on-the-fly init scale (squared for the fit-P
@@ -315,12 +391,8 @@ class _Kron(torch.optim.Optimizer):
 
     def _momentum(self, params, grads, count: int):
         """The bias-warmed EMA of the gradients; the buffers."""
-        beta = min(count / (count + 1.0), self.momentum)
-        for p, g in zip(params, grads):
-            mu = self.state[p]["mu"]
-            b = _rounded(beta, mu.dtype)
-            mu.mul_(b).add_(g.to(mu.dtype) * _rounded(1.0 - b, mu.dtype))
-        return [self.state[p]["mu"] for p in params]
+        return [_ema_(self.state[p]["mu"], g, count, self.momentum)
+                for p, g in zip(params, grads)]
 
     def _fit(self, params, sources, k_fit, lr_q, beta_l, damping,
              return_pg: bool = False):
@@ -370,15 +442,6 @@ class _Kron(torch.optim.Optimizer):
         state = kron_p.KronState(q=factors, lips=())
         fn = kron_p.precond_grad_stacked if stacked else kron_p.precond_grad
         return fn(state, plan, g).to(p.dtype)
-
-    def _descend(self, params, updates, count: int) -> None:
-        """Decoupled weight decay, then -lr."""
-        group = self.param_groups[0]
-        wd, lr = group["weight_decay"], _sched(group["lr"], count)
-        for p, u in zip(params, updates):
-            if wd and group["weight_decay_mode"] == "decoupled":
-                u = u + wd * p
-            p.add_(u * (-lr))
 
 
 class KronWhiten(_Kron):
@@ -521,14 +584,16 @@ class KronWhiten(_Kron):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self._step([p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in self.param_groups[0]["params"]])
+        return loss
+
+    def _step(self, grads) -> None:
+        """One step from the gradients (in the parameters' order)."""
         group = self.param_groups[0]
         params = group["params"]
         count = self.count
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        wd = group["weight_decay"]
-        if wd and group["weight_decay_mode"] == "classic":
-            grads = [g + wd * p for g, p in zip(grads, params)]
+        grads = _classic_decay(group, grads, params)
 
         damping = _sched(group["damping"], count)
         if self.init_scale is None and count == 0:
@@ -575,9 +640,8 @@ class KronWhiten(_Kron):
                 if do_fit:
                     self._fit(params, fit_src, k_fit, *fit_args)
         self.fit_steps += int(do_fit)
-        self._descend(params, updates, count)
+        _descend(group, params, updates, count)
         self.count += 1
-        return loss
 
 
 class KronNewton(_Kron):
@@ -660,22 +724,9 @@ class KronNewton(_Kron):
         keys = fastrand.split(self.key, 4)
         self.key, k_gate, k_v, k_fit = keys[0], keys[1], keys[2], keys[3]
         do_fit = self._gate(k_gate, count) or count == 0
-        losses = []
-
-        def loss_fn():
-            losses.append(closure())
-            return losses[-1]
-
-        if do_fit:
-            vs = hvp.rand_like(k_v, params, self.draw)
-            hvp_fn = hvp.hvp_exact if self.exact_hvp else hvp.hvp_finite_diff
-            grads, hvs = hvp_fn(loss_fn, params, vs)
-        else:
-            with torch.enable_grad():
-                grads = hvp.gradients(loss_fn(), params)
-        wd = group["weight_decay"]
-        if wd and group["weight_decay_mode"] == "classic":
-            grads = [g + wd * p for g, p in zip(grads, params)]
+        loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
+                                            self.exact_hvp, self.draw)
+        grads = _classic_decay(group, grads, params)
 
         damping = _sched(group["damping"], count)
         if do_fit:
@@ -692,9 +743,9 @@ class KronNewton(_Kron):
                in enumerate(zip(params, src, self._apply_factors(params)))]
         scale = _global_norm_scale(pre, _sched(group["grad_clip_max_norm"],
                                                count))
-        self._descend(params, [u * scale for u in pre], count)
+        _descend(group, params, [u * scale for u in pre], count)
         self.count += 1
-        return losses[0]
+        return loss
 
 
 def kron_whiten(params, learning_rate: float | Callable = 1e-3,
@@ -711,3 +762,388 @@ def kron_newton(params, learning_rate: float | Callable = 0.01,
     """KronNewton with the JAX factory's argument names."""
     return KronNewton(params, lr=learning_rate, weight_decay=weight_decay,
                       weight_decay_mode=weight_decay_mode, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# LRA and dense: one preconditioner over the whole parameter vector
+# ---------------------------------------------------------------------------
+
+
+def _refuse_vector_sharding(vector_sharding) -> None:
+    if vector_sharding is not None:
+        raise NotImplementedError(
+            "vector_sharding is not ported yet (ROADMAP A8)")
+
+
+class _Flat(torch.optim.Optimizer):
+    """What LRAWhiten, LRANewton and DenseNewton share: the parameters in
+    the JAX pytree order, concatenated into one vector for the fit and the
+    apply (JAX ``ravel_pytree``) and split back for the step; the momentum
+    of that vector, the key chain and the weight decay.  The
+    preconditioner's state is ``self.precond``, the momentum ``self.mu``."""
+
+    def __init__(self, params, defaults: dict, *, init_scale, momentum: float,
+                 momentum_dtype, preconditioner_dtype, seed: int, device,
+                 draw, vector_sharding):
+        _refuse_vector_sharding(vector_sharding)
+        if defaults["weight_decay_mode"] not in ("decoupled", "classic"):
+            raise ValueError(
+                f"unknown weight_decay_mode {defaults['weight_decay_mode']!r}")
+        self.device = resolve_device(device)
+        _, tensors, _ = _pytree_order(params)
+        for t in tensors:
+            if t.device != self.device:
+                raise ValueError(f"parameter on {t.device}, optimizer on "
+                                 f"{self.device}")
+        kron_p.require_real(*(t.dtype for t in tensors),
+                            *((preconditioner_dtype,) if preconditioner_dtype
+                              else ()))
+        super().__init__([{"params": tensors}], defaults)
+        self.vec_dtype = functools.reduce(torch.promote_types,
+                                          (t.dtype for t in tensors))
+        self.n = sum(t.numel() for t in tensors)
+        self.qdtype = preconditioner_dtype or self.vec_dtype
+        self.momentum = momentum
+        self.init_scale = init_scale
+        self.draw = draw
+        self.count = 0
+        self.key = fastrand.prng_key(seed)
+        self.fit_steps = 0   # steps on which the preconditioner was fitted
+        self.mu = (torch.zeros(self.n, dtype=momentum_dtype or self.vec_dtype,
+                               device=self.device) if momentum > 0 else None)
+
+    def _flat(self, xs) -> torch.Tensor:
+        return torch.cat([x.reshape(-1).to(self.vec_dtype) for x in xs])
+
+    def _split(self, vec: torch.Tensor) -> list:
+        params = self.param_groups[0]["params"]
+        return [x.view(p.shape).to(p.dtype) for x, p in
+                zip(vec.split([p.numel() for p in params]), params)]
+
+    def _source(self, g: torch.Tensor, count: int) -> torch.Tensor:
+        """The apply's source: the momentum after this step's EMA, or g."""
+        if self.mu is None:
+            return g
+        return _ema_(self.mu, g, count, self.momentum)
+
+
+class _FlatNewton(_Flat):
+    """The Newton step of LRANewton and DenseNewton (JAX
+    ``scale_by_lra_newton`` / ``scale_by_dense_newton``): the gate
+    (uniform < p, or the first step); on a fit step the probes and H v
+    (``_newton_pass``), the on-the-fly init scale at step 0, and the fit
+    from the concatenated (v, H v) cast to the preconditioner's dtype;
+    then the momentum, P applied, the global-norm clip, weight decay and
+    -lr.  The closure returns the loss without calling backward."""
+
+    def _fit(self, v, h, key, count, lr_q, beta_l, damping) -> None:
+        raise NotImplementedError
+
+    def _apply(self, src: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is None:
+            raise ValueError(f"{type(self).__name__}.step needs a closure that "
+                             "returns the loss (without calling backward)")
+        group = self.param_groups[0]
+        params = group["params"]
+        count = self.count
+        keys = fastrand.split(self.key, 4)
+        self.key, k_gate, k_v, k_fit = keys[0], keys[1], keys[2], keys[3]
+        do_fit = _host_gate(group["preconditioner_update_probability"], k_gate,
+                            count, self.draw) or count == 0
+        loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
+                                            self.exact_hvp, self.draw)
+        g = self._flat(_classic_decay(group, grads, params))
+        if do_fit:
+            self._fit(self._flat(vs), self._flat(hvs), k_fit, count,
+                      _sched(group["lr_preconditioner"], count),
+                      _sched(group["betaL"], count),
+                      _sched(group["damping"], count))
+        self.fit_steps += int(do_fit)
+        pre = self._apply(self._source(g, count).to(self.qdtype)).to(g.dtype)
+        pre = pre * _global_norm_scale(
+            [pre], _sched(group["grad_clip_max_norm"], count))
+        _descend(group, params, self._split(pre), count)
+        self.count += 1
+        return loss
+
+
+def _newton_scale(v: torch.Tensor, h: torch.Tensor,
+                  damping: float) -> torch.Tensor:
+    """On-the-fly init scale mean(v^2)^(1/4) (mean(h^4) + damping^4)^(-1/8)
+    of the concatenated pair, in float32 (psgd.py:940-943)."""
+    return (torch.mean(v.to(torch.float32) ** 2) ** 0.25
+            * (torch.mean(h.to(torch.float32) ** 4) + damping ** 4)
+            ** (-1.0 / 8.0))
+
+
+class LRAWhiten(_Flat):
+    """Low-rank-approximation gradient/momentum whitening over the whole
+    parameter vector (reference class LRAWhiten, psgd.py:1075-1190; JAX
+    ``lra_whiten``), with the ``zero_grad`` / ``backward`` / ``step``
+    contract.
+
+    Per step: the on-the-fly init scale of d at step 0 without
+    ``preconditioner_init_scale`` ((mean g^4 + damping^4)^(-1/8) of the
+    concatenated gradient), the momentum EMA, the fit gate (uniform < p,
+    no forced first fit), ``precond.lra.update_lra_whiten`` from the
+    gradient (``whiten_grad``) or the momentum, before or after the apply
+    (``update_preconditioner_first``), P applied to the momentum (or the
+    gradient), amplitude clipping of the whole vector, weight decay and
+    -lr.  ``params``, ``device``, ``draw``: as ``KronWhiten``.  U and V
+    are drawn from key(seed + 1) at construction.  On CUDA a fit launches
+    ``kernels.unit_noise`` and ``kernels.damped_noise`` once each (the
+    probe and the damping, the same v).  ``vector_sharding`` raises
+    (ROADMAP A8)."""
+
+    def __init__(self, params, lr: float | Callable = 1e-3,
+                 weight_decay: float = 0.0,
+                 weight_decay_mode: str = "decoupled", *,
+                 rank_of_approximation: int = 10,
+                 preconditioner_init_scale: Optional[float] = None,
+                 lr_preconditioner: float | Callable = 0.1,
+                 betaL: float | Callable = 0.9,
+                 damping: float | Callable = 1e-9,
+                 momentum: float = 0.0,
+                 momentum_dtype: Optional[torch.dtype] = None,
+                 grad_clip_max_amps=(2.0, 10.0),
+                 preconditioner_update_probability: float | Callable = 1.0,
+                 update_preconditioner_first: bool = True,
+                 whiten_grad: bool = True,
+                 preconditioner_dtype: Optional[torch.dtype] = None,
+                 vector_sharding=None,
+                 seed: int = 0,
+                 device=None,
+                 draw=None):
+        momentum = momentum if 0.0 < momentum < 1.0 else 0.0
+        if not whiten_grad and momentum == 0.0:
+            raise ValueError("Cannot whiten momentum with momentum == 0")
+        defaults = dict(
+            lr=lr, weight_decay=weight_decay,
+            weight_decay_mode=weight_decay_mode,
+            lr_preconditioner=lr_preconditioner, betaL=betaL,
+            damping=damping, grad_clip_max_amps=tuple(grad_clip_max_amps),
+            preconditioner_update_probability=preconditioner_update_probability)
+        super().__init__(params, defaults,
+                         init_scale=preconditioner_init_scale,
+                         momentum=momentum, momentum_dtype=momentum_dtype,
+                         preconditioner_dtype=preconditioner_dtype, seed=seed,
+                         device=device, draw=draw,
+                         vector_sharding=vector_sharding)
+        self.update_preconditioner_first = update_preconditioner_first
+        self.whiten_grad = whiten_grad
+        self.precond = lra_p.init_lra(
+            self.n, rank_of_approximation, fastrand.prng_key(seed + 1),
+            1.0 if preconditioner_init_scale is None
+            else preconditioner_init_scale, self.qdtype, self.device, draw)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self._step([p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in self.param_groups[0]["params"]])
+        return loss
+
+    def _step(self, grads) -> None:
+        """One step from the gradients (in the parameters' order)."""
+        group = self.param_groups[0]
+        params = group["params"]
+        count = self.count
+        g = self._flat(_classic_decay(group, grads, params))
+        st, qdt = self.precond, self.qdtype
+        keys = fastrand.split(self.key, 3)
+        self.key, k_gate, k_fit = keys[0], keys[1], keys[2]
+        do_fit = _host_gate(group["preconditioner_update_probability"], k_gate,
+                            count, self.draw)
+        lr_q = _sched(group["lr_preconditioner"], count)
+        beta_l = _sched(group["betaL"], count)
+        damping = _sched(group["damping"], count)
+        amps = tuple(_sched(a, count) for a in group["grad_clip_max_amps"])
+        if self.init_scale is None and count == 0:
+            scale = (torch.mean(g.to(torch.float32) ** 4) + damping ** 4) \
+                ** (-1.0 / 8.0)
+            st = st._replace(d=st.d * scale.to(qdt))
+        src = self._source(g, count)
+        fit_src = (g if self.whiten_grad else src).to(qdt)
+
+        def fit(s):
+            return lra_p.update_lra_whiten(s, fit_src, k_fit, lr=lr_q,
+                                           beta_l=beta_l, damping=damping,
+                                           draw=self.draw)
+
+        def apply(s):
+            pg = lra_p.precond_grad(s, src.to(qdt)).to(g.dtype)
+            return _amp_clip(pg, *amps, stacked=False)
+
+        if self.update_preconditioner_first:
+            st = fit(st) if do_fit else st
+            pre = apply(st)
+        else:
+            pre = apply(st)
+            st = fit(st) if do_fit else st
+        self.precond = st
+        self.fit_steps += int(do_fit)
+        _descend(group, params, self._split(pre), count)
+        self.count += 1
+
+
+class LRANewton(_FlatNewton):
+    """Low-rank-approximation Newton-type preconditioner over the whole
+    parameter vector, fitted from Hessian-vector products (reference class
+    LRANewton, psgd.py:1201-1330; JAX ``lra_newton``), with the closure
+    contract of ``KronNewton``.  The init scale of d on the first step
+    without ``preconditioner_init_scale`` is mean(v^2)^(1/4) (mean(h^4)
+    + damping^4)^(-1/8) of the concatenated pair.  On CUDA a fit launches
+    ``kernels.unit_noise`` once per parameter (the probes) and
+    ``kernels.damped_noise`` once (the damping of h).  ``vector_sharding``
+    raises (ROADMAP A8)."""
+
+    def __init__(self, params, lr: float | Callable = 0.01,
+                 weight_decay: float = 0.0,
+                 weight_decay_mode: str = "decoupled", *,
+                 rank_of_approximation: int = 10,
+                 preconditioner_init_scale: Optional[float] = None,
+                 lr_preconditioner: float | Callable = 0.1,
+                 betaL: float | Callable = 0.9,
+                 damping: float | Callable = 1e-9,
+                 momentum: float = 0.0,
+                 momentum_dtype: Optional[torch.dtype] = None,
+                 grad_clip_max_norm: float | Callable = float("inf"),
+                 preconditioner_update_probability: float | Callable = 1.0,
+                 exact_hessian_vector_product: bool = True,
+                 preconditioner_dtype: Optional[torch.dtype] = None,
+                 vector_sharding=None,
+                 seed: int = 0,
+                 device=None,
+                 draw=None):
+        defaults = dict(
+            lr=lr, weight_decay=weight_decay,
+            weight_decay_mode=weight_decay_mode,
+            lr_preconditioner=lr_preconditioner, betaL=betaL,
+            damping=damping, grad_clip_max_norm=grad_clip_max_norm,
+            preconditioner_update_probability=preconditioner_update_probability)
+        super().__init__(params, defaults,
+                         init_scale=preconditioner_init_scale,
+                         momentum=momentum if 0.0 < momentum < 1.0 else 0.0,
+                         momentum_dtype=momentum_dtype,
+                         preconditioner_dtype=preconditioner_dtype, seed=seed,
+                         device=device, draw=draw,
+                         vector_sharding=vector_sharding)
+        self.exact_hvp = exact_hessian_vector_product
+        self.precond = lra_p.init_lra(
+            self.n, rank_of_approximation, fastrand.prng_key(seed + 1),
+            1.0 if preconditioner_init_scale is None
+            else preconditioner_init_scale, self.qdtype, self.device, draw)
+
+    def _fit(self, v, h, key, count, lr_q, beta_l, damping) -> None:
+        st = self.precond
+        if self.init_scale is None and count == 0:
+            st = st._replace(d=st.d * _newton_scale(v, h, damping).to(self.qdtype))
+        self.precond = lra_p.update_lra_newton(
+            st, v.to(self.qdtype), h.to(self.qdtype), key, lr=lr_q,
+            beta_l=beta_l, damping=damping, draw=self.draw)
+
+    def _apply(self, src):
+        return lra_p.precond_grad(self.precond, src)
+
+
+class DenseNewton(_FlatNewton):
+    """Dense Newton-type preconditioner, one (n, n) Q over the whole
+    parameter vector, in each of the seven geometries (reference class
+    DenseNewton, psgd.py:1427-1563; JAX ``dense_newton``), with the closure
+    contract of ``KronNewton``.  The on-the-fly init scale is
+    ``LRANewton``'s, squared for the fit-P geometries.  On CUDA a fit
+    launches ``kernels.unit_noise`` once per parameter and
+    ``kernels.damped_noise`` once, and Q0.5EQ1.5 one ``kernels.procrustes``
+    on the (1, n, n) stack, PRO4P ``linalg.procrustes_loop3`` (10
+    ``kernels.tsub`` and 10 skew ``kernels.norm_bound``).  The constructor
+    warns as the JAX transform's ``_advisories`` do.  ``vector_sharding``
+    raises (ROADMAP A8)."""
+
+    def __init__(self, params, lr: float | Callable = 0.01,
+                 weight_decay: float = 0.0,
+                 weight_decay_mode: str = "decoupled", *,
+                 preconditioner_init_scale: Optional[float] = None,
+                 lr_preconditioner: float | Callable = 0.1,
+                 betaL: float | Callable = 0.9,
+                 damping: float | Callable = 1e-9,
+                 momentum: float = 0.0,
+                 momentum_dtype: Optional[torch.dtype] = None,
+                 grad_clip_max_norm: float | Callable = float("inf"),
+                 preconditioner_update_probability: float | Callable = 1.0,
+                 exact_hessian_vector_product: bool = True,
+                 dq: str = "Q0.5EQ1.5",
+                 preconditioner_dtype: Optional[torch.dtype] = None,
+                 norm_k: Optional[int] = None,
+                 vector_sharding=None,
+                 seed: int = 0,
+                 device=None,
+                 draw=None):
+        dq = kron_p.canonical_dq(dq)
+        _refuse_vector_sharding(vector_sharding)
+        _advisories(preconditioner_init_scale, True, 0.0, dq,
+                    preconditioner_dtype)
+        defaults = dict(
+            lr=lr, weight_decay=weight_decay,
+            weight_decay_mode=weight_decay_mode,
+            lr_preconditioner=lr_preconditioner, betaL=betaL,
+            damping=damping, grad_clip_max_norm=grad_clip_max_norm,
+            preconditioner_update_probability=preconditioner_update_probability)
+        super().__init__(params, defaults,
+                         init_scale=preconditioner_init_scale,
+                         momentum=momentum if 0.0 < momentum < 1.0 else 0.0,
+                         momentum_dtype=momentum_dtype,
+                         preconditioner_dtype=preconditioner_dtype, seed=seed,
+                         device=device, draw=draw, vector_sharding=None)
+        self.exact_hvp = exact_hessian_vector_product
+        self.dq = dq
+        self.norm_k = norm_k
+        self.precond = dense_p.init_dense(
+            self.n, 1.0 if preconditioner_init_scale is None
+            else preconditioner_init_scale, dq, self.qdtype, self.device)
+
+    def _fit(self, v, h, key, count, lr_q, beta_l, damping) -> None:
+        st = self.precond
+        if self.init_scale is None and count == 0:
+            scale = _newton_scale(v, h, damping)
+            if self.dq in kron_p._FIT_P:
+                scale = scale * scale
+            st = st._replace(q=st.q * scale.to(real_dtype_of(self.qdtype)))
+        self.precond = dense_p.update_dense(
+            st, v.to(self.qdtype), h.to(self.qdtype), key, self.dq, lr=lr_q,
+            beta_l=beta_l, damping=damping,
+            norm_k=resolve_norm_k(self.norm_k, self.qdtype), draw=self.draw)
+
+    def _apply(self, src):
+        return dense_p.precond_grad(self.precond, src, self.dq)
+
+
+def lra_whiten(params, learning_rate: float | Callable = 1e-3,
+               weight_decay: float = 0.0,
+               weight_decay_mode: str = "decoupled", **kwargs) -> LRAWhiten:
+    """LRAWhiten with the JAX factory's argument names."""
+    return LRAWhiten(params, lr=learning_rate, weight_decay=weight_decay,
+                     weight_decay_mode=weight_decay_mode, **kwargs)
+
+
+def lra_newton(params, learning_rate: float | Callable = 0.01,
+               weight_decay: float = 0.0,
+               weight_decay_mode: str = "decoupled", **kwargs) -> LRANewton:
+    """LRANewton with the JAX factory's argument names."""
+    return LRANewton(params, lr=learning_rate, weight_decay=weight_decay,
+                     weight_decay_mode=weight_decay_mode, **kwargs)
+
+
+def dense_newton(params, learning_rate: float | Callable = 0.01,
+                 weight_decay: float = 0.0,
+                 weight_decay_mode: str = "decoupled",
+                 **kwargs) -> DenseNewton:
+    """DenseNewton with the JAX factory's argument names."""
+    return DenseNewton(params, lr=learning_rate, weight_decay=weight_decay,
+                       weight_decay_mode=weight_decay_mode, **kwargs)

@@ -1,0 +1,265 @@
+"""Low-rank-approximation (LRA) PSGD preconditioner: Q = (I + U V^T) diag(d).
+
+Counterpart of psgd_torch_tpu/precond/lra.py (reference psgd.py:987-1072
+and the whitening and Newton wrappers at :1066-1072, :1193-1198).  U and
+V are (n, r) with a small rank r (10 in the optimizers), d is (n, 1).  One
+update
+
+* approximately balances U and V toward U^T U = V^T V (a trace-matched
+  rescaling and a small rotation from E and E^2, psgd.py:1005-1015);
+* forms Q h, P h and inv(P^T) v through an r x r LU of I + V^T U in at
+  least float32 (``torch.linalg.lu_factor_ex``, which checks nothing on
+  the host, and ``lu_solve``; psgd.py:1020-1026);
+* updates d with its own Lipschitz estimate;
+* updates either U or V, on a coin ``uniform(fold_in(key, 7)) < 0.5``
+  decided on the host from the threefry key tree (``ops.fastrand``), as
+  the Kron gates are, so the card never waits (psgd.py:1034-1052).
+
+Rank 0 is Q = diag(d): only the d update runs.  The (n, r) updates are
+each one product of an (n, 2) block with a (2, r) block, so an update
+makes one (n, r) temporary per matrix it changes (5 GB at n = 124.4M,
+r = 10, f32).
+
+Randomness: the whitening probe is ``kernels.unit_noise`` and the damping
+``kernels.damped_noise`` from the same key (so the same v: uniform on
++-sqrt3, unit variance, where JAX draws a standard normal; the fit needs
+only E[v v^T] = I); the Newton damping of h is ``kernels.damped_noise``;
+the U/V init is ``kernels.unit_noise``.  An optional ``draw(kind, keys,
+shape, dtype)`` hook replaces every draw (the CPU tests replay the JAX
+draws through it).  Row sharding (JAX ``axis_name``, ``pad_lra_state``)
+is ROADMAP A8.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops import fastrand, kernels
+from ..ops.linalg import lift2single, lifted_real_dtype, real_dtype_of
+from .kron import require_real
+
+# the coin's key: fold_in(key, COIN_FOLD)
+COIN_FOLD = 7
+
+
+class LRAState(NamedTuple):
+    """U, V (n, r), d (n, 1) and the Lipschitz estimates of U, V and d
+    (() tensors in at least float32)."""
+    u: torch.Tensor
+    v: torch.Tensor
+    d: torch.Tensor
+    lu: torch.Tensor
+    lv: torch.Tensor
+    ld: torch.Tensor
+
+    @property
+    def rank(self) -> int:
+        return self.u.shape[1]
+
+
+def _normal(key, shape, dtype, device, draw) -> torch.Tensor:
+    """White unit-variance noise from one host key: ``kernels.unit_noise``
+    (one launch on CUDA), or the replayed draw."""
+    if draw is not None:
+        return draw("normal", fastrand.as_keys(key)[None], shape,
+                    dtype)[0].to(device)
+    return fastrand.unit_noise(key, shape, dtype, device)
+
+
+def init_lra(n: int, rank: int, key, scale: float = 1.0,
+             dtype=torch.float32, device=None, draw=None) -> LRAState:
+    """U, V white noise scaled to ||.||_F = sqrt(0.1) (keys split(key)),
+    d = scale, L = 0 (reference LRAWhiten.__init__, psgd.py:1114-1122), on
+    the card unless ``device`` names another device."""
+    if not 0 <= rank < max(n, 1):
+        raise ValueError(f"rank {rank} must be in [0, n={n})")
+    require_real(dtype)
+    device = resolve_device(device)
+    ku, kv = fastrand.split(key)
+    if rank > 0:
+        uv = []
+        for k in (ku, kv):
+            x = _normal(k, (n, rank), dtype, device, draw)
+            norm = torch.linalg.vector_norm(x.to(torch.float32))
+            uv.append(x * (0.1 ** 0.5 / norm.to(real_dtype_of(dtype))))
+        u, v = uv
+    else:
+        u = v = torch.zeros((n, 0), dtype=dtype, device=device)
+    d = torch.ones((n, 1), dtype=dtype, device=device) * torch.tensor(
+        scale, dtype=dtype)
+    zero = torch.zeros((), dtype=lifted_real_dtype(dtype), device=device)
+    return LRAState(u=u, v=v, d=d, lu=zero, lv=zero.clone(), ld=zero.clone())
+
+
+def lra_state_from_jax(state, device=None) -> LRAState:
+    """The JAX package's ``LRAState`` (any object with arrays ``u``, ``v``,
+    ``d``, ``lu``, ``lv``, ``ld``) as the port's, through numpy."""
+    device = resolve_device(device)
+    return LRAState(*(torch.from_numpy(np.array(getattr(state, f))).to(device)
+                      for f in LRAState._fields))
+
+
+def ip_uvt_matvec(u: torch.Tensor, v: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(I + U V^T) x (psgd.py:987-991)."""
+    return x + u @ (v.T @ x)
+
+
+def precond_grad(state: LRAState, g: torch.Tensor) -> torch.Tensor:
+    """P g with P = Q^T Q, Q = (I + U V^T) diag(d) (psgd.py:1055-1063);
+    takes (n,) or (n, 1) and returns the same shape."""
+    g2 = g[:, None] if g.ndim == 1 else g
+    out = ip_uvt_matvec(state.u, state.v, state.d * g2)
+    out = state.d * ip_uvt_matvec(state.v, state.u, out)
+    return out[:, 0] if g.ndim == 1 else out
+
+
+def log_det(state: LRAState) -> torch.Tensor:
+    """log |det Q| = sum log|d| + log|det(I + V^T U)| in at least float32
+    (the matrix determinant lemma)."""
+    d32 = lift2single(state.d)
+    out = torch.sum(torch.log(torch.abs(d32)))
+    if state.rank > 0:
+        small = torch.eye(state.rank, dtype=d32.dtype, device=d32.device) \
+            + lift2single(state.v).T @ lift2single(state.u)
+        out = out + torch.linalg.slogdet(small)[1]
+    return out
+
+
+def _max_update(lip: torch.Tensor, ell: torch.Tensor,
+                beta_l: float) -> torch.Tensor:
+    """L <- max(betaL L + (1 - betaL) ell, ell), in L's dtype."""
+    ell = ell.to(lip.dtype)
+    return torch.maximum(beta_l * lip + (1.0 - beta_l) * ell, ell)
+
+
+def _max_abs(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(x))
+
+
+def _coin(key, draw) -> bool:
+    """True: update U; False: update V (uniform(fold_in(key, 7)) < 0.5)."""
+    kc = fastrand.fold_in(key, COIN_FOLD)
+    u = (float(fastrand.uniform01(kc)) if draw is None else
+         float(draw("uniform", kc[None], (), torch.float64)[0]))
+    return u < 0.5
+
+
+def _update_d(state, d, v, h, ph, inv_pv, lr, beta_l):
+    rdt = real_dtype_of(d.dtype)
+    phh, vinvpv = ph * h, v * inv_pv
+    ld = _max_update(state.ld, _max_abs(phh) + _max_abs(vinvpv), beta_l)
+    return d - (lr / ld).to(rdt) * (phh - vinvpv) * d, ld
+
+
+def update_lra(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
+               lr: float = 0.1, beta_l: float = 0.9,
+               draw=None) -> LRAState:
+    """One LRA update from a (v, h) pair, already damped (reference
+    update_precond_lra, psgd.py:994-1052; JAX ``update_lra``).  ``key``: a
+    host threefry key, the coin's; ``draw`` replays the coin."""
+    require_real(v.dtype, h.dtype, state.u.dtype)
+    v = v[:, None] if v.ndim == 1 else v
+    h = h[:, None] if h.ndim == 1 else h
+    u, w, d = state.u, state.v, state.d
+    rank = u.shape[1]
+    rdt = real_dtype_of(u.dtype)
+
+    if rank == 0:
+        qh = d * h
+        d, ld = _update_d(state, d, v, h, d * qh, (v / d) / d, lr, beta_l)
+        return state._replace(d=d, ld=ld)
+
+    # approximate balancing of U and V toward U^T U = V^T V: with E and
+    # E2 as JAX forms them, U <- U/rho (I - E + E2), V <- V rho (I + E + E2)
+    utu, vtv = u.T @ u, w.T @ w
+    tr_u, tr_v = torch.trace(utu), torch.trace(vtv)
+    rho = (tr_u / tr_v) ** 0.25
+    rho2 = rho * rho
+    e = 0.1 * (utu / rho2 - vtv * rho2) / (tr_u / rho2 + tr_v * rho2)
+    e2 = 0.5 * (e @ e)
+    eye = torch.eye(rank, dtype=u.dtype, device=u.device)
+    u = u @ ((eye - (e - e2)) / rho)
+    w = w @ ((eye + (e + e2)) * rho)
+
+    # P h, and inv(P^T) v through the r x r LU of I + V^T U
+    qh = ip_uvt_matvec(u, w, d * h)
+    ph = d * ip_uvt_matvec(w, u, qh)
+    ip_vtu = w.T @ u + eye
+    lu_fac, piv, _ = torch.linalg.lu_factor_ex(lift2single(ip_vtu))
+    inv_qtv = v / d
+    sol1 = torch.linalg.lu_solve(lu_fac, piv, lift2single(u.T @ inv_qtv),
+                                 adjoint=True)
+    inv_qtv = inv_qtv - w @ sol1.to(u.dtype)
+    sol2 = torch.linalg.lu_solve(lu_fac, piv, lift2single(w.T @ inv_qtv))
+    inv_pv = (inv_qtv - u @ sol2.to(u.dtype)) / d
+
+    d, ld = _update_d(state, d, v, h, ph, inv_pv, lr, beta_l)
+
+    # either U or V: each step is [x, y] (n, 2) times a (2, r) block
+    a, b = qh, inv_qtv
+    na, nb = torch.linalg.vector_norm(a), torch.linalg.vector_norm(b)
+    lu, lv = state.lu, state.lv
+    if _coin(key, draw):
+        atv, btv = a.T @ w, b.T @ w
+        ell = (na * torch.linalg.vector_norm(w @ atv.T)
+               + nb * torch.linalg.vector_norm(w @ btv.T))
+        lu = _max_update(lu, ell, beta_l)
+        c = (lr / lu).to(rdt)
+        blk = torch.cat([atv @ ip_vtu, -(btv @ ip_vtu)]) * c
+        u = torch.addmm(u, torch.cat([a, b], dim=1), blk, alpha=-1)
+    else:
+        atu, btu = a.T @ u, b.T @ u
+        ell = (na * torch.linalg.vector_norm(u @ atu.T)
+               + nb * torch.linalg.vector_norm(u @ btu.T))
+        lv = _max_update(lv, ell, beta_l)
+        cols = torch.cat([a + w @ atu.T, b + w @ btu.T], dim=1)
+        w = torch.addmm(w, cols, torch.cat([atu, -btu]) * (lr / lv).to(rdt),
+                        alpha=-1)
+    return LRAState(u=u, v=w, d=d, lu=lu, lv=lv, ld=ld)
+
+
+def update_lra_whiten(state: LRAState, g: torch.Tensor, key,
+                      lr: float = 0.1, beta_l: float = 0.9,
+                      damping: float = 1e-9, draw=None) -> LRAState:
+    """Whitening: kv, ku = split(key); the probe v and h = g + (damping +
+    eps|g|) v, both keyed by kv (``kernels.unit_noise`` and
+    ``kernels.damped_noise``, the same v), then ``update_lra`` keyed by ku
+    (psgd.py:1066-1072)."""
+    require_real(g.dtype)
+    kv, ku = fastrand.split(key)
+    g2 = g[:, None] if g.ndim == 1 else g
+    if draw is not None:
+        v = draw("normal", kv[None], g2.shape, g2.dtype)[0].to(g2.device)
+        eps = torch.finfo(real_dtype_of(g2.dtype)).eps
+        h = g2 + (damping + eps * torch.abs(g2)) * v
+    else:
+        seeds = kernels.key_seed_words(kv[None], g2.device)
+        v = kernels.unit_noise(seeds, g2.shape, g2.dtype)[0]
+        h = kernels.damped_noise(g2.contiguous()[None], seeds, damping)[0]
+    return update_lra(state, v, h, ku, lr=lr, beta_l=beta_l, draw=draw)
+
+
+def update_lra_newton(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
+                      lr: float = 0.1, beta_l: float = 0.9,
+                      damping: float = 1e-9, draw=None) -> LRAState:
+    """Newton: kd, ku = split(key); h damped by noise keyed kd
+    (``kernels.damped_noise``), then ``update_lra`` keyed by ku
+    (psgd.py:1193-1198)."""
+    require_real(v.dtype, h.dtype)
+    kd, ku = fastrand.split(key)
+    v2 = v[:, None] if v.ndim == 1 else v
+    h2 = h[:, None] if h.ndim == 1 else h
+    if draw is not None:
+        noise = draw("normal", kd[None], h2.shape, h2.dtype)[0].to(h2.device)
+        eps = torch.finfo(real_dtype_of(h2.dtype)).eps
+        hd = h2 + (damping + eps * torch.abs(h2)) * noise
+    else:
+        hd = kernels.damped_noise(
+            h2.contiguous()[None], kernels.key_seed_words(kd[None], h2.device),
+            damping)[0]
+    return update_lra(state, v2, hd, ku, lr=lr, beta_l=beta_l, draw=draw)

@@ -613,3 +613,79 @@ def test_geometry_fit_launches_the_kernels(dev, dq, newton):
     with pytest.raises(TypeError):
         fit(kron.KronState(tuple(f.double() for f in st.q),
                            tuple(l.double() for l in st.lips)), dev)
+
+
+# GPT-2 124M's parameter count: the length of the LRA paths' flat vector
+GPT2_124M_PARAMS = 124_475_904
+
+
+def test_noise_unit_and_fused_give_one_v_at_the_lra_width(dev):
+    """Row 2 at (1, 124.5M) f32, the LRA whitening fit's shape: unit and
+    fused mode from the same seeds give the same v (the fused output is
+    g + (damping + eps|g|) v with the unit draw's v, bit for bit), and
+    both are the plain versions' bits."""
+    n, damping = GPT2_124M_PARAMS, 1e-3
+    seeds = _seeds(1, dev)
+    g = torch.randn((1, n), device=dev)
+    v = kernels.unit_noise(seeds, (n,), torch.float32)
+    fused = kernels.damped_noise(g, seeds, damping)
+    eps = torch.finfo(torch.float32).eps
+    d = torch.tensor(damping, dtype=torch.float32, device=dev) + eps * g.abs()
+    assert _same_bits(fused, g + d * v)
+    del d
+    assert _same_bits(v, kernels.unit_noise_plain(seeds, (n,), torch.float32))
+    assert _same_bits(fused, kernels.damped_noise_plain(g, seeds, damping))
+
+
+@pytest.mark.parametrize("n", [100, 1700])
+def test_procrustes_f32_at_the_dense_widths(dev, n):
+    """Row 4 at (1, n, n) f32, the dense Q0.5EQ1.5 fit's shapes (Rosenbrock
+    n = 100, the tensor-rank problem n = 1700, neither a multiple of 64):
+    the FFMA chain within ROUTE_TOL f32 of procrustes_plain (the same
+    arithmetic in another order), from a Q with a skew part, and two runs
+    give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    a = torch.randn((1, n, n), generator=gen, device=dev) / n ** 0.5
+    q1 = torch.eye(n, device=dev) + 0.05 * (a + a.mT) + 0.02 * (a - a.mT)
+    seeds = _seeds(1, dev)
+    for k in (32, 128):
+        qk = kernels.procrustes(q1, seeds, k=k)
+        rel = _rel(qk, kernels.procrustes_plain(q1, seeds, k=k))
+        assert qk.dtype == torch.float32 and rel < kernels.ROUTE_TOL[torch.float32][0], rel
+        assert torch.equal(qk, kernels.procrustes(q1, seeds, k=k))
+
+
+@pytest.mark.parametrize("name", ["LRAWhiten", "LRANewton", "DenseNewton"])
+def test_flat_optimizers_launch_the_kernels(dev, name):
+    """One fit step of each flat optimizer on the card (a 3-leaf problem,
+    f32) launches the port's kernels: LRAWhiten one unit_noise and one
+    damped_noise, LRANewton and DenseNewton one unit_noise per leaf and
+    one damped_noise, DenseNewton's Q0.5EQ1.5 one procrustes; the
+    parameters agree with the CPU's plain run within 1e-4."""
+    from psgd_torch_tpu_torch import optim
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(s, generator=gen) for s in ((2, 30), (2, 40), (2, 50))]
+    target = torch.randn((30, 40, 50), generator=gen)
+
+    def run(device):
+        params = [x.clone().to(device).requires_grad_() for x in init]
+        tgt = target.to(device)
+        loss = lambda: ((tgt - torch.einsum("ri,rj,rk->ijk", *params)) ** 2).sum()
+        opt = getattr(optim, name)(params, lr=0.01, device=device,
+                                   preconditioner_init_scale=1.0)
+        kernels.reset_launch_counts()
+        if name == "LRAWhiten":
+            loss().backward()
+            opt.step()
+        else:
+            opt.step(loss)
+        return torch.cat([p.detach().flatten().cpu() for p in params])
+
+    on_card = run(dev)
+    counts = {k: getattr(kernels, k).launches
+              for k in ("unit_noise", "damped_noise", "procrustes")}
+    expected = {"LRAWhiten": (1, 1, 0), "LRANewton": (3, 1, 0),
+                "DenseNewton": (3, 1, 1)}[name]
+    assert tuple(counts.values()) == expected, counts
+    ref = run("cpu")
+    assert (on_card - ref).norm() <= 1e-4 * ref.norm()

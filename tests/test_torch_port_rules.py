@@ -87,6 +87,30 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_lra_dense_entry_points_refuse_the_cpu_without_being_asked():
+    """The LRA and dense optimizers, the closure classes and the LRA and
+    dense state constructors raise without a card unless device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from psgd_torch_tpu_torch.ops import fastrand
+    from psgd_torch_tpu_torch.optim import (DenseNewton, LRANewton,
+                                            LRAWhiten, classes)
+    from psgd_torch_tpu_torch.precond import dense, lra
+    params = [torch.zeros(16, requires_grad=True)]
+    for opt in (LRAWhiten, LRANewton, DenseNewton, classes.KronWhiten,
+                classes.KronNewton, classes.LRAWhiten, classes.LRANewton,
+                classes.DenseNewton):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            opt(params, preconditioner_init_scale=1.0)
+        opt(params, preconditioner_init_scale=1.0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lra.init_lra(16, 2, fastrand.prng_key(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dense.init_dense(16)
+    assert lra.init_lra(16, 2, fastrand.prng_key(0), device="cpu").u.shape == (16, 2)
+    assert dense.init_dense(16, device="cpu").q.shape == (16, 16)
+
+
 @pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()))
 def test_kernel_sources_call_no_library_gemm(name):
     """Every product on the port's kernel paths is its own device code."""
