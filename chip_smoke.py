@@ -132,7 +132,36 @@
    (``check_lra_dense_shapes``) and step 4 the tiny GPT-2 by LRAWhiten and
    LRANewton and the small tensor-rank problem by DenseNewton in all seven
    geometries, card against CPU.
-14. Prints the kernels' JSON line (``launches`` is the sum over the ten
+14. The resumable-training path (``resume_path``): GPT-2 124M at its
+   published widths through the ported trainer's PSGD recipe
+   (``examples/train_gpt2.py``: bf16 Q and momentum, p from 1.0 to 0.1
+   over counts 0-3), batch 4 x 1024 from the committed corpus, 8 steps:
+   run A unbroken, checkpointed at step 4 (``utils.save_checkpoint`` into
+   OUT_DIR, deleted after the phase); A' the same again; B restored into a
+   fresh model and optimizer (``utils.restore_checkpoint``) and trained on
+   the same batches, the three under CUDA's deterministic algorithms:
+   per parameter |B - A| <= |A' - A|, B's state in its
+   saved dtypes, its fit steps exactly ``GPT2_PER_FIT`` and no FFMA GEMM in
+   its profiled fit step; a second restored optimizer fed A's recorded
+   gradients equal to A bit for bit (parameters, every state tensor, count,
+   key, fit_steps).  Then ``utils.FailsafeLoop`` around
+   ``utils.make_guarded_step`` on the same model and recipe, snapshots
+   every 2 steps, an infinite loss scale at step 5: the loop returns None,
+   falls back to step 4 at lr scale 0.5 with the model and the optimizer
+   equal to the snapshot bit for bit, and trains 3 more finite steps.
+   LLaMA-1.1B as in 6 at p = 1, checkpointed after 3 steps (about 7 GB):
+   the optimizer-only continuation bit for bit, the dtypes kept,
+   ``LLAMA_PER_FIT`` exact per restored fit step.  The tensor-rank problem
+   by each of the five closure classes at p = 0.5, checkpointed at step
+   10 of 20: resumed no further from unbroken than two unbroken runs.
+   After GPT-2's and LLaMA's unbroken runs ``utils.psgd_metrics`` is
+   finite, ``utils.state_memory_report``'s total equals the state tensors'
+   bytes and the allocated memory grew by that total within 2 % over the
+   optimizer's construction and first step.  Checkpoint bytes, save and
+   restore times and the rollback's time are logged; every path's
+   ``train`` logs its StepTimer (CUDA events) median beside the host
+   clock's.
+15. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes; rows 1, 3 and 6 also carry
@@ -147,10 +176,13 @@ Any failed phase raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -158,12 +190,16 @@ from pathlib import Path
 
 import torch
 
+from psgd_torch_tpu_torch.examples import train_gpt2
 from psgd_torch_tpu_torch.models import gpt2, llama
 from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
                                         LRANewton, LRAWhiten, classes, hvp)
 from psgd_torch_tpu_torch.precond import kron as kron_p
+from psgd_torch_tpu_torch.utils import (FailsafeLoop, StepTimer, make_guarded_step,
+                                        psgd_metrics, restore_checkpoint,
+                                        save_checkpoint, state_memory_report)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
 # tensor cores, HBM3 bandwidth
@@ -294,6 +330,29 @@ TC_ROWS = ("fused_ns_update", "ns_step", "procrustes", "norm_bound", "tiled_step
 # its epilogues by template argument (ns_common.cuh's Epilogue)
 TC_EPILOGUES = {"0": "kDiv", "1": "kStep", "2": "kDivTrace", "3": "kMulTrace"}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"  # git-ignored
+# the resumable-training path: GPT-2 124M through the ported trainer's
+# recipe for RESUME_STEPS steps on the corpus, checkpointed at RESUME_AT;
+# the optimizer's key is seed 1, whose gate under the recipe's schedule (p
+# from 1.0 to 0.1 over counts 0-3) fits at counts 0, 2 and 4: fit and
+# no-fit steps on both sides of the checkpoint (seed 0's fits 0-3 only)
+RESUME_STEPS = 8
+RESUME_AT = 4
+RESUME_SEED = 1
+RESUME_BATCH = 4
+# LLaMA-1.1B: steps before and after its checkpoint, at p = 1
+LLAMA_RESUME = (3, 3)
+# the five optimizers on the tensor-rank problem through their classes:
+# steps before and after the checkpoint, a gated schedule p = 0.5
+CP_RESUME = (10, 10)
+CP_RESUME_P = 0.5
+# the failsafe loop on GPT-2 124M: snapshots every 2 steps, the gradient
+# poisoned (an infinite loss scale) on the step after step 5
+FAILSAFE_EVERY = 2
+FAILSAFE_POISON = 5
+FAILSAFE_AFTER = 3
+# how far the growth of allocated memory over an optimizer's first step
+# may stray from its state's bytes (the allocator rounds each block)
+MEMORY_SLACK = 0.02
 T0 = time.perf_counter()
 
 
@@ -1459,6 +1518,8 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     losses, step_ms, opt_ms, fitted = [], [], [], []
+    timer = StepTimer(warmup=1, device=opt.device)
+    timer.start()
     for step in range(steps_p1 + steps_p01):
         if idle_first and step == 1 and (fitted[0] or _launched(per_fit)):
             raise AssertionError(f"{label}: step 0 fitted {fitted[0]} times "
@@ -1475,6 +1536,7 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
         t1 = marks[-1]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        timer.mark()
         losses.append(loss.item())
         step_ms.append((t2 - t0) * 1e3)
         opt_ms.append((t2 - t1) * 1e3)
@@ -1509,6 +1571,9 @@ def train(label, model, loss_fn, opt, tokens, targets, steps_p1, steps_p01,
     log(f"  [{card}] {label} train step (median): p=1.0 "
         f"{_median(step_ms[1:steps_p1])} ms, p=0.1 "
         f"{_median(step_ms[steps_p1:])} ms; peak memory {peak_gb:.2f} GB")
+    log(f"  [{card}] {label} train step (median, first step excluded): host clock "
+        f"{_median(step_ms[1:])} ms, CUDA events (StepTimer) "
+        f"{_median([t * 1e3 for t in timer.times])} ms")
     launches.update({f"{k}.step_mat": v for k, v in step_mat.items()})
     return launches, _median(fit_opt)
 
@@ -1565,27 +1630,39 @@ def _state_size(opt, key: str) -> tuple[int, int]:
     return sum(t.numel() for t in ts), sum(t.numel() * t.element_size() for t in ts)
 
 
+def _copied(tree):
+    """A state_dict with every tensor cloned (a step updates some in place)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_copied(v) for v in tree)
+    return tree
+
+
 def _snapshot(opt) -> dict:
-    """Copies of the parameters, the optimizer state and its key chain."""
+    """Copies of the parameters and of the optimizer's whole state
+    (``state_dict()``: per-parameter state, count, key, fit_steps)."""
     params = opt.param_groups[0]["params"]
-    copy = lambda v: tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone()
     return dict(params=[p.detach().clone() for p in params],
-                state=[{k: copy(v) for k, v in opt.state[p].items()} for p in params],
-                key=opt.key.copy(), count=opt.count)
+                opt=_copied(opt.state_dict()))
 
 
 @torch.no_grad()
 def _restore(opt, snap) -> None:
-    """The parameters, the state entries ``opt`` holds and its key chain
-    as in the snapshot (copied again: a step replaces or updates them)."""
-    params = opt.param_groups[0]["params"]
-    for p, p0, st in zip(params, snap["params"], snap["state"]):
+    """The parameters and the optimizer's state as in the snapshot
+    (``load_state_dict`` copies it again).  A twin without cache_p (the
+    uncached one) reads the snapshot's Q and drops its cache."""
+    for p, p0 in zip(opt.param_groups[0]["params"], snap["params"]):
         p.copy_(p0)
-        for k in opt.state[p]:
-            v = st[k]
-            opt.state[p][k] = (tuple(t.clone() for t in v) if isinstance(v, tuple)
-                               else v.clone())
-    opt.key, opt.count = snap["key"].copy(), snap["count"]
+    state = snap["opt"]
+    if state["psgd"]["layout"]["cache_p"] and not opt.cache_p:
+        psgd = dict(state["psgd"], layout=dict(state["psgd"]["layout"], cache_p=False))
+        state = dict(state, psgd=psgd, state={
+            i: {k: v for k, v in st.items() if k != "pcache"}
+            for i, st in state["state"].items()})
+    opt.load_state_dict(state)
 
 
 def _update_from(opt, snap, grads, prob) -> list:
@@ -1676,8 +1753,8 @@ def check_twins(model, loss_fn, opt, tokens, targets, mask, dev) -> None:
     nofit_a = _update_from(opt, snap, grads, 0.0)
     nofit_n = _update_from(uncached, snap, grads, 0.0)
     worst, bad = {}, []
-    for i, (p, st) in enumerate(zip(params, snap["state"])):
-        r_n, amp = _amplification(opt, i, st["pcache"], moms[i])
+    for i, p in enumerate(params):
+        r_n, amp = _amplification(opt, i, snap["opt"]["state"][i]["pcache"], moms[i])
         order = opt.plans[i].order
         bounds = {"fit": min(TWIN_CAP, 3 * math.sqrt(
                       r_n ** 2 + (4 * order + 1) * (amp * U_BF16) ** 2 / 3)),
@@ -2034,6 +2111,491 @@ def rosenbrock_path(dev, card: str) -> dict:
     return counts
 
 
+def _state_leaves(tree, where: str = "") -> list:
+    """(path, tensor) of every tensor of a state_dict, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [(where, tree)]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _state_leaves(v, f"{where}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree) for x in _state_leaves(v, f"{where}/{i}")]
+    return []
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _state_differences(a: dict, b: dict) -> list:
+    """Where two optimizer state_dicts differ: a tensor's bits or dtype,
+    count or fit_steps (the key is one of the tensors)."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    bad = [k for (k, x), (_, y) in zip(la, lb) if not _same_bits(x, y)]
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        bad.append("the tensors' paths")
+    bad += [k for k in ("count", "fit_steps") if a["psgd"][k] != b["psgd"][k]]
+    return bad
+
+
+def _param_differences(a, b) -> list:
+    return [n for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters())
+            if not _same_bits(x.detach(), y.detach())]
+
+
+def _gaps(a, b) -> dict:
+    """max |a - b| per parameter of two models (or parameter lists)."""
+    named = lambda m: (list(m.named_parameters()) if hasattr(m, "named_parameters")
+                       else list(enumerate(m)))
+    return {n: (x.detach().double() - y.detach().double()).abs().max().item()
+            for (n, x), (_, y) in zip(named(a), named(b))}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """CUDA's deterministic algorithms for the runs a resumed run is held
+    against (the attention backward's deterministic variant; cuBLAS on a
+    fixed workspace configuration, which torch requires in this mode), so
+    two unbroken runs differ only where the card leaves no choice."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _all_counts() -> dict:
+    """Every row's launch count (and unit_noise's, and the step-matrix
+    counts), as ``train`` returns them."""
+    out = {name: getattr(kernels, name).launches for name, _, _ in ROWS}
+    out["unit_noise"] = kernels.unit_noise.launches
+    out.update({f"{f.__name__}.step_mat": f.step_mat_launches
+                for f in kernels.STEP_MAT_KERNELS})
+    return out
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _train_step(model, loss_fn, opt, batch, record=None) -> tuple:
+    """One step (zero_grad, backward, step) on ``batch``; with ``record``
+    the gradients are cloned into it before the optimizer reads them.
+    Returns (loss, host ms to the step's end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *batch)
+    loss.backward()
+    if record is not None:
+        record.append([p.grad.detach().clone() for p in opt.param_groups[0]["params"]])
+    opt.step()
+    torch.cuda.synchronize()
+    return loss.item(), (time.perf_counter() - t0) * 1e3
+
+
+def _feed(opt, grads) -> None:
+    """Optimizer steps from recorded gradients (no model pass)."""
+    for gs in grads:
+        for p, g in zip(opt.param_groups[0]["params"], gs):
+            p.grad = g
+        opt.step()
+
+
+def _unbroken_run(label, model, loss_fn, opt_fn, batches, save_at, ckdir, card):
+    """The unbroken run: ``opt_fn(model)`` built after one untimed forward
+    and backward (so allocated memory holds no gradient and no first-use
+    workspace), trained on ``batches`` and checkpointed before step
+    ``save_at``, its gradients from there on recorded on the device.  The
+    growth of allocated memory over the optimizer's construction and first
+    step is held against its state's bytes, its metrics after the run
+    against finiteness.  Returns (optimizer, recorded gradients)."""
+    loss_fn(model, *batches[0]).backward()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    opt = opt_fn(model)
+    params = opt.param_groups[0]["params"]
+    timer = StepTimer(warmup=1, device=opt.device)
+    timer.start()
+    grads, losses, ms, save_ms, growth, before = [], [], [], None, None, None
+    for i, batch in enumerate(batches):
+        if i == save_at:
+            _, save_ms = _timed_ms(lambda: save_checkpoint(
+                str(ckdir), i, model, opt, extra={"data_step": i}))
+        if i == len(batches) - 1:
+            before = [p.detach().clone() for p in params]
+        loss, t = _train_step(model, loss_fn, opt, batch,
+                              grads if i >= save_at else None)
+        timer.mark()
+        losses.append(loss)
+        ms.append(t)
+        if i == 0:
+            opt.zero_grad(set_to_none=True)
+            growth = torch.cuda.memory_allocated() - m0
+    nbytes = (ckdir / f"step_{save_at}" / "state.pt").stat().st_size
+    fits = opt.fit_steps
+    log(f"  [{card}] {label}, unbroken run: losses {[round(x, 4) for x in losses]}, fit "
+        f"steps {fits}; train step median (first excluded) host clock "
+        f"{_median(ms[1:])} ms, CUDA events (StepTimer) "
+        f"{_median([t * 1e3 for t in timer.times])} ms")
+    log(f"  [{card}] {label} checkpoint at step {save_at}: {nbytes / 1e9:.3f} GB on "
+        f"disk, saved in {save_ms:.0f} ms")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    updates = [p.detach() - b for p, b in zip(params, before)]
+    check_state_metrics(label, opt, updates, growth, card)
+    return opt, grads
+
+
+def check_state_metrics(label, opt, updates, growth: int, card: str) -> None:
+    """``psgd_metrics`` of the state and the last update all finite;
+    ``state_memory_report``'s total equal to the bytes of the state
+    tensors counted from ``state_dict()`` (all but the key, which the port
+    keeps on the host); the growth of
+    allocated memory over the optimizer's construction and first step
+    within MEMORY_SLACK of that total."""
+    metrics = psgd_metrics(opt, updates, per_leaf=True)
+    bad = [k for k, v in metrics.items() if not torch.isfinite(v.float()).item()]
+    report = state_memory_report(opt)
+    direct = sum(t.numel() * t.element_size() for k, t in _state_leaves(opt.state_dict())
+                 if k != "/psgd/key")
+    shown = {k: round(float(metrics[k]), 6) for k in metrics if "/" not in k}
+    log(f"  [{card}] {label} metrics: {shown} ({len(metrics)} values, per leaf "
+        f"included; non-finite: {bad or 'none'})")
+    log(f"  [{card}] {label} state memory report (bytes): {report}; state tensors "
+        f"counted directly {direct}; allocated-memory growth over the optimizer's "
+        f"construction and first step {growth} ({growth / direct - 1:+.4%})")
+    if bad or report["total"] != direct or abs(growth - direct) > MEMORY_SLACK * direct:
+        raise AssertionError(f"{label}: metrics non-finite {bad}, report {report['total']} "
+                             f"against {direct} bytes, growth {growth}")
+
+
+def check_dtypes(label, opt, reference: dict, param_dtype, q_dtype) -> None:
+    """Every restored tensor has the dtype of the same tensor in the
+    unbroken run's state (``reference``); Q and momentum ``q_dtype``, the
+    Lipschitz estimates f32, the parameters ``param_dtype``."""
+    got = _state_leaves(opt.state_dict())
+    bad = [k for k, t in got if t.dtype != reference[k]]
+    for i, p in enumerate(opt.param_groups[0]["params"]):
+        st = opt.state[p]
+        if (p.dtype != param_dtype or {q.dtype for q in st["q"]} != {q_dtype}
+                or {x.dtype for x in st["lips"]} != {torch.float32}
+                or st["mu"].dtype != q_dtype):
+            bad.append(f"leaf {i}")
+    log(f"  {label} restored dtypes: parameters {param_dtype}, Q and momentum "
+        f"{q_dtype}, Lipschitz estimates float32 on every leaf: {not bad}")
+    if bad:
+        raise AssertionError(f"{label}: restored dtypes differ at {bad}")
+
+
+def gpt2_resume(dev, card: str) -> dict:
+    """GPT-2 124M at its published widths (random weights from seed 0, f32
+    parameters, bf16 compute) trained by the ported trainer's PSGD recipe
+    (``train_gpt2.psgd_optimizer``: bf16 Q and momentum, p from 1.0 to 0.1
+    over counts 0-3, key seed RESUME_SEED) on batches of RESUME_BATCH x
+    1024 from the corpus (``train_gpt2.batch_source``), RESUME_STEPS steps:
+    run A unbroken, checkpointed at RESUME_AT (``save_checkpoint``); A'
+    the same again; B restored from A's checkpoint into a fresh model and
+    optimizer (``restore_checkpoint``) and trained on the same batches.
+    Gates: B's state keeps its dtypes; its fit steps launch exactly
+    GPT2_PER_FIT; per parameter |B - A| <= |A' - A|, with A, A' and B
+    under CUDA's deterministic algorithms (``_deterministic``), so the
+    tolerance is what the card still leaves to chance; a second restored optimizer fed A's
+    recorded gradients equals A bit for bit (parameters, every state
+    tensor, count, key, fit_steps); B's profiled fit step runs no FFMA GEMM.
+    Then the failsafe loop (``failsafe_gpt2``).  Returns the launch counts."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    batch_fn = train_gpt2.batch_source("corpus", cfg, RESUME_BATCH, dev, log=log)
+    batches = [batch_fn(i) for i in range(RESUME_STEPS)]
+    loss_fn = gpt2.loss_gpt2
+    label = "GPT-2 124M resumable"
+    total = {}
+
+    def fresh(seed):
+        model = gpt2.GPT2(cfg, device=dev, seed=seed)
+        return model, train_gpt2.psgd_optimizer(model, RESUME_STEPS, dev,
+                                                seed=RESUME_SEED)
+
+    log(f"{label}: the trainer's PSGD recipe, batch {RESUME_BATCH} x {cfg.block_size} "
+        f"from the corpus, {RESUME_STEPS} steps, checkpoint at {RESUME_AT}")
+    ckdir = OUT_DIR / "checkpoint_gpt2"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        model_a = gpt2.GPT2(cfg, device=dev, seed=0)
+        kernels.reset_launch_counts()
+        with _deterministic():
+            opt_a, grads = _unbroken_run(
+                label, model_a, loss_fn,
+                lambda m: train_gpt2.psgd_optimizer(m, RESUME_STEPS, dev,
+                                                    seed=RESUME_SEED),
+                batches, RESUME_AT, ckdir, card)
+            _add(total, _all_counts())
+            model_p, opt_p = fresh(0)
+            for batch in batches:
+                _train_step(model_p, loss_fn, opt_p, batch)
+        dtypes = {k: t.dtype for k, t in _state_leaves(opt_a.state_dict())}
+        gap = _gaps(model_p, model_a)
+        model_b, opt_b = fresh(7)
+        (step, extra), restore_ms = _timed_ms(
+            lambda: restore_checkpoint(str(ckdir), model_b, opt_b))
+        if step != RESUME_AT or extra != {"data_step": RESUME_AT} or opt_b.count != RESUME_AT:
+            raise AssertionError(f"{label}: restored step {step}, extra {extra}, count "
+                                 f"{opt_b.count}")
+        log(f"  [{card}] {label} restored in {restore_ms:.0f} ms")
+        check_dtypes(label, opt_b, dtypes, torch.float32, torch.bfloat16)
+        fits0 = opt_b.fit_steps
+        kernels.reset_launch_counts()
+        with _deterministic():
+            losses_b = [_train_step(model_b, loss_fn, opt_b, batch)[0]
+                        for batch in batches[RESUME_AT:]]
+        counts = _all_counts()
+        _add(total, counts)
+        fits = opt_b.fit_steps - fits0
+        resumed = _gaps(model_b, model_a)
+        worse = [n for n in gap if resumed[n] > gap[n]]
+        log(f"  [{card}] {label} train continuation (deterministic algorithms): B's "
+            f"losses {[round(x, 4) for x in losses_b]}, fit steps {fits} (before the "
+            f"checkpoint {fits0}); max |A' - A| {max(gap.values()):.3e}, max |B - A| "
+            f"{max(resumed.values()):.3e}, max |B - A'| "
+            f"{max(_gaps(model_b, model_p).values()):.3e}; parameters with "
+            f"|B - A| > |A' - A|: {worse or 'none'}")
+        del model_p, opt_p
+        per_fit = {k: counts[k] for k in GPT2_PER_FIT}
+        if not 0 < fits < len(batches) - RESUME_AT or any(
+                per_fit[k] != n * fits for k, n in GPT2_PER_FIT.items()) or worse:
+            raise AssertionError(f"{label}: resumed launches {per_fit} for {fits} fit "
+                                 f"steps, parameters further than A' {worse}")
+        model_o, opt_o = fresh(9)
+        restore_checkpoint(str(ckdir), model_o, opt_o)
+        kernels.reset_launch_counts()
+        _feed(opt_o, grads)
+        _add(total, _all_counts())
+        bad = _param_differences(model_o, model_a) + _state_differences(
+            opt_o.state_dict(), opt_a.state_dict())
+        log(f"  [{card}] {label} optimizer-only continuation ({len(grads)} steps from "
+            f"A's gradients): parameters, every state tensor, count, key and fit_steps "
+            f"equal to A's bit for bit: {not bad}")
+        if bad:
+            raise AssertionError(f"{label}: optimizer-only continuation differs at {bad}")
+        del grads, model_o, opt_o, model_a, opt_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_steps(f"{label} B", (model_b, loss_fn, opt_b, *batches[0]), card, (1.0,))
+        del model_b, opt_b
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add(total, failsafe_gpt2(dev, card, cfg, batches))
+    return total
+
+
+def failsafe_gpt2(dev, card: str, cfg, batches) -> dict:
+    """``FailsafeLoop`` around ``make_guarded_step`` on GPT-2 124M with the
+    trainer's recipe, snapshots every FAILSAFE_EVERY steps: FAILSAFE_POISON
+    good steps, then one whose loss is scaled by inf (its gradient and
+    update non-finite).  Gates: the loop returns None, its step falls back
+    to the last snapshot's and its lr scale to 0.5; the model's and the
+    optimizer's state equal the snapshot bit for bit; FAILSAFE_AFTER more
+    steps with a finite loss.  Returns the launch counts."""
+    label = "GPT-2 124M failsafe"
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    opt = train_gpt2.psgd_optimizer(model, RESUME_STEPS, dev, seed=RESUME_SEED)
+    loss_fn = lambda m, tokens, targets, scale: gpt2.loss_gpt2(m, tokens, targets) * scale
+    loop = FailsafeLoop(make_guarded_step(opt, loss_fn), model, opt,
+                        snapshot_every=FAILSAFE_EVERY)
+    kernels.reset_launch_counts()
+    losses = [loop.run_step(*batches[i], 1.0) for i in range(FAILSAFE_POISON)]
+    out, step_ms = _timed_ms(lambda: loop.run_step(*batches[FAILSAFE_POISON], math.inf))
+    snap, back, scale = loop._good, loop.step, loop.lr_scale
+    bad = [k for k, v in model.state_dict().items() if not _same_bits(v, snap.model[k])]
+    bad += _state_differences(opt.state_dict(), snap.optimizer)
+    _, rollback_ms = _timed_ms(lambda: (model.load_state_dict(snap.model),
+                                        opt.load_state_dict(snap.optimizer)))
+    after = [loop.run_step(*batches[(FAILSAFE_POISON + i) % len(batches)], 1.0)
+             for i in range(FAILSAFE_AFTER)]
+    counts = _all_counts()
+    log(f"  [{card}] {label}: losses {[round(x, 4) for x in losses]}, poisoned step "
+        f"returned {out} in {step_ms:.0f} ms, back at step {back} with lr scale "
+        f"{scale}; model and optimizer equal to the snapshot bit for bit: "
+        f"{not bad}; the rollback's load {rollback_ms:.1f} ms; then losses "
+        f"{[None if x is None else round(x, 4) for x in after]}")
+    if (out is not None or back != FAILSAFE_POISON - FAILSAFE_POISON % FAILSAFE_EVERY
+            or snap.step != back or scale != 0.5 or bad
+            or not all(x is not None and math.isfinite(x) for x in losses + after)):
+        raise AssertionError(f"{label}: returned {out}, back at step {back}, snapshot "
+                             f"{snap.step}, lr scale {scale}, differs at {bad}, "
+                             f"losses {losses} {after}")
+    del loop, snap, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_resume(dev, card: str) -> dict:
+    """LLaMA-1.1B (batch 1 x 1024, bf16 compute, f32 parameters) by the
+    optimizer of tools/bench_llama.py:108-114 at p = 1: LLAMA_RESUME[0]
+    steps, a checkpoint (about 7 GB), LLAMA_RESUME[1] more with their
+    gradients recorded.  A fresh model and optimizer restored from the
+    checkpoint and fed those gradients equal the unbroken run bit for bit,
+    keep their dtypes (f32 parameters, bf16 Q and momentum) and launch
+    exactly LLAMA_PER_FIT per fit step on the split and tiled routes.
+    The checkpoint is deleted at the end.  Returns the launch counts."""
+    cfg = llama.llama_1b(compute_dtype=torch.bfloat16)
+    batch = llama.synthetic_lm_batch(torch.Generator().manual_seed(1), 1,
+                                     cfg.block_size, cfg.vocab_size, device=dev)
+    before, after = LLAMA_RESUME
+    steps = before + after
+    label = "LLaMA-1.1B resumable"
+    ckdir = OUT_DIR / "checkpoint_llama"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    total = {}
+    log(f"{label}: batch 1 x {cfg.block_size}, the bench_llama optimizer at p = 1, "
+        f"{steps} steps, checkpoint at {before}")
+    try:
+        model_a = llama.Llama(cfg, device=dev, seed=0)
+        kernels.reset_launch_counts()
+        opt_a, grads = _unbroken_run(
+            label, model_a, llama.loss_llama,
+            lambda m: _bench_opt(m, llama.scanned_layers_mask(m), steps, dev),
+            [batch] * steps, before, ckdir, card)
+        _add(total, _all_counts())
+        dtypes = {k: t.dtype for k, t in _state_leaves(opt_a.state_dict())}
+        model_o = llama.Llama(cfg, device=dev, seed=1)
+        opt_o = _bench_opt(model_o, llama.scanned_layers_mask(model_o), steps, dev)
+        _, restore_ms = _timed_ms(lambda: restore_checkpoint(str(ckdir), model_o, opt_o))
+        log(f"  [{card}] {label} restored in {restore_ms:.0f} ms")
+        check_dtypes(label, opt_o, dtypes, torch.float32, torch.bfloat16)
+        fits0 = opt_o.fit_steps
+        kernels.reset_launch_counts()
+        _feed(opt_o, grads)
+        counts = _all_counts()
+        _add(total, counts)
+        fits = opt_o.fit_steps - fits0
+        per_fit = {k: counts[k] for k in LLAMA_PER_FIT}
+        bad = _param_differences(model_o, model_a) + _state_differences(
+            opt_o.state_dict(), opt_a.state_dict())
+        log(f"  [{card}] {label} optimizer-only continuation ({len(grads)} steps): "
+            f"launches {per_fit} for {fits} fit steps; equal to the unbroken run bit "
+            f"for bit: {not bad}")
+        if fits != after or any(per_fit[k] != n * fits for k, n in LLAMA_PER_FIT.items()) \
+                or bad:
+            raise AssertionError(f"{label}: launches {per_fit} for {fits} fit steps, "
+                                 f"differs at {bad}")
+        del grads, model_o, opt_o, model_a, opt_a
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+class _Tensors:
+    """``state_dict`` and ``load_state_dict`` over a list of parameter
+    tensors: the model interface ``save_checkpoint`` reads."""
+
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def state_dict(self) -> dict:
+        return {str(i): t.detach() for i, t in enumerate(self.tensors)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for i, t in enumerate(self.tensors):
+            t.copy_(state[str(i)])
+
+
+# the five optimizers through their closure classes on the tensor-rank
+# problem: the example's Newton settings, whitening at lr 0.01
+_CP_NEWTON = dict(lr_params=0.2, lr_preconditioner=0.5, momentum=0.9,
+                  grad_clip_max_norm=10.0)
+CP_RESUME_CLASSES = (("KronWhiten", dict(lr_params=0.01, momentum=0.9)),
+                     ("KronNewton", _CP_NEWTON),
+                     ("LRAWhiten", dict(lr_params=0.01, momentum=0.9,
+                                        rank_of_approximation=LRA_RANK)),
+                     ("LRANewton", dict(_CP_NEWTON, rank_of_approximation=LRA_RANK)),
+                     ("DenseNewton", _CP_NEWTON))
+
+
+def cp_resume(dev, card: str) -> dict:
+    """The tensor-rank problem (``CP_FULL``, n = 1700, f32) by each of the
+    five closure classes with a gated schedule (p = CP_RESUME_P): two
+    unbroken runs of sum(CP_RESUME) steps, and one checkpointed after
+    CP_RESUME[0], restored into a fresh class and continued.  Gate: per
+    parameter |resumed - unbroken| <= |unbroken' - unbroken|.  Returns the
+    launch counts of the resumed continuations."""
+    before, after = CP_RESUME
+    total = {}
+    for name, kw in CP_RESUME_CLASSES:
+        label = f"tensor-rank {name} class resumable"
+
+        def fresh():
+            params, loss = cp_problem(*CP_FULL, dev)
+            opt = getattr(classes, name)(
+                params, device=dev, preconditioner_update_probability=lambda c: CP_RESUME_P,
+                **kw)
+            return params, loss, opt
+
+        unbroken = []
+        for _ in range(2):
+            params, loss, opt = fresh()
+            for _ in range(before + after):
+                opt.step(loss)
+            unbroken.append((params, loss().item(), opt.optimizer.fit_steps))
+        params, loss, opt = fresh()
+        for _ in range(before):
+            opt.step(loss)
+        ckdir = OUT_DIR / "checkpoint_cp"
+        save_checkpoint(str(ckdir), before, _Tensors(params), opt)
+        params, loss, opt = fresh()
+        restore_checkpoint(str(ckdir), _Tensors(params), opt)
+        shutil.rmtree(ckdir)
+        kernels.reset_launch_counts()
+        for _ in range(after):
+            opt.step(loss)
+        _add(total, _all_counts())
+        (u1, final, fits), (u2, _, _) = unbroken
+        gap, resumed = _gaps(u2, u1), _gaps(params, u1)
+        worse = [n for n in gap if resumed[n] > gap[n]]
+        log(f"  [{card}] {label}: loss {loss().item():.6g} resumed, {final:.6g} "
+            f"unbroken, fit steps {fits} of {before + after}; max |U' - U| "
+            f"{max(gap.values()):.3e}, max |R - U| {max(resumed.values()):.3e}")
+        if worse or not 0 < fits < before + after or not math.isfinite(final):
+            raise AssertionError(f"{label}: resumed further than two unbroken runs at "
+                                 f"{worse}, fit steps {fits}, loss {final}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def resume_path(dev, card: str) -> dict:
+    """The resumable-training path: GPT-2 124M through the trainer with its
+    failsafe loop (``gpt2_resume``), LLaMA-1.1B (``llama_resume``) and the
+    five optimizers on the tensor-rank problem (``cp_resume``).  Returns
+    the launch counts summed."""
+    total = {}
+    for drive in (gpt2_resume, llama_resume, cp_resume):
+        _add(total, drive(dev, card))
+    log(f"  resumable path launches: {total}")
+    return total
+
+
 _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
                "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
@@ -2173,7 +2735,10 @@ def main() -> int:
              ("Tensor-rank decomposition path", lambda: (cp_path(dev, smi), None), (),
               False, None),
              ("Rosenbrock path", lambda: (rosenbrock_path(dev, smi), None), (), False,
-              None))
+              None),
+             # GPT-2 124M's resumed run profiles its own fit step
+             ("Resumable training path", lambda: (resume_path(dev, smi), None), (),
+              False, None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)

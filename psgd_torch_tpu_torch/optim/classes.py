@@ -12,6 +12,9 @@ reference's names (``lr_params``, ``dQ``; the rest as the optimizer's):
     for _ in range(steps):
         loss = opt.step(lambda: rosenbrock(params[0]))
 
+``state_dict()`` and ``load_state_dict()`` are the wrapped optimizer's, so a
+class checkpoints and resumes as its optimizer does.
+
 ``step(closure)`` runs autograd itself and updates the parameters in
 place: the closure computes the loss and calls no backward.  The
 whitening classes take the gradient of the closure's loss; the Newton
@@ -122,6 +125,14 @@ class _ClosureOptimizer:
         if name == "whiten_grad" and not value and opt.momentum == 0.0:
             raise ValueError("Cannot whiten momentum with momentum == 0")
         return value
+
+    def state_dict(self) -> dict:
+        """The wrapped optimizer's ``state_dict`` (its whole state)."""
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """The wrapped optimizer's ``load_state_dict``."""
+        self.optimizer.load_state_dict(state_dict)
 
     def step(self, closure, has_aux: bool = False):
         """One step; returns what the closure returned."""

@@ -51,6 +51,7 @@ import math
 import warnings
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -290,10 +291,138 @@ def _newton_pass(closure, params, do_fit: bool, k_v, exact: bool, draw):
     return losses[0], grads, vs, hvs
 
 
-class _Kron(torch.optim.Optimizer):
+def _storable(value) -> bool:
+    """A hyperparameter that ``state_dict`` keeps: not a schedule (a
+    callable, or a tuple holding one).  A schedule belongs to the
+    optimizer, as JAX's belongs to the transform; the state holds count."""
+    if isinstance(value, (tuple, list)):
+        return all(_storable(v) for v in value)
+    return not callable(value)
+
+
+def _describe(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return f"a tensor of shape {tuple(x.shape)}"
+    return repr(x)
+
+
+def _first_mismatch(saved, here, where: str) -> Optional[str]:
+    """Where ``saved`` and ``here`` first differ in structure: dict keys,
+    sequence lengths, tensor shapes (not dtypes: a state keeps its own),
+    plain values.  None when they agree."""
+    if isinstance(saved, torch.Tensor) or isinstance(here, torch.Tensor):
+        if (isinstance(saved, torch.Tensor) and isinstance(here, torch.Tensor)
+                and saved.shape == here.shape):
+            return None
+        return f"{where}: saved {_describe(saved)}, here {_describe(here)}"
+    if isinstance(saved, dict) and isinstance(here, dict):
+        for k in list(here) + [k for k in saved if k not in here]:
+            if k not in saved or k not in here:
+                return (f"{where}[{k!r}]: " + ("not in the saved state"
+                        if k not in saved else "not in this optimizer"))
+            found = _first_mismatch(saved[k], here[k], f"{where}[{k!r}]")
+            if found:
+                return found
+        return None
+    if isinstance(saved, (tuple, list)) and isinstance(here, (tuple, list)):
+        if len(saved) != len(here):
+            return f"{where}: saved {len(saved)} entries, here {len(here)}"
+        for i, (a, b) in enumerate(zip(saved, here)):
+            found = _first_mismatch(a, b, f"{where}[{i}]")
+            if found:
+                return found
+        return None
+    return None if saved == here else \
+        f"{where}: saved {_describe(saved)}, here {_describe(here)}"
+
+
+class _Resumable(torch.optim.Optimizer):
+    """``state_dict`` / ``load_state_dict`` for the port's optimizers: the
+    whole state the next step reads, as JAX's pure-pytree state.
+
+    ``state_dict()`` holds tensors, ints, floats, strings and containers
+    only, so ``torch.save`` writes it and ``torch.load(weights_only=True)``
+    reads it back: ``state`` (per parameter, in the parameters' order),
+    ``param_groups`` without their schedules (``_storable``) and ``psgd``:
+    the layout the state depends on, ``count``, ``fit_steps``, the key as
+    an int64 tensor and what ``_extra_state`` adds.  Like torch's, it
+    holds references: copy it (or save it) before stepping on.
+
+    ``load_state_dict`` raises ValueError naming the first place where the
+    saved layout or state differs from this optimizer's, and otherwise
+    takes copies of the saved tensors on this optimizer's device with the
+    dtypes they were saved with (torch's own load casts floating state to
+    the parameters' dtype), the saved count, key and fit_steps, and the
+    saved hyperparameters but this optimizer's schedules."""
+
+    def _layout(self) -> dict:
+        """What the state's structure depends on, by name."""
+        raise NotImplementedError
+
+    def _extra_state(self) -> dict:
+        """State that lives outside ``self.state``."""
+        return {}
+
+    def _load_extra_state(self, saved: dict) -> None:
+        pass
+
+    def _copy_here(self, x):
+        """x with every tensor copied onto this optimizer's device, dtype
+        kept."""
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(self.device, copy=True)
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._copy_here(v) for v in x)
+        if isinstance(x, dict):
+            return {k: self._copy_here(v) for k, v in x.items()}
+        return x
+
+    def _per_param_state(self) -> dict:
+        params = self.param_groups[0]["params"]
+        return {i: dict(self.state[p]) for i, p in enumerate(params)
+                if self.state[p]}
+
+    def state_dict(self) -> dict:
+        groups = [dict({k: v for k, v in g.items()
+                        if k != "params" and _storable(v)},
+                       params=list(range(len(g["params"]))))
+                  for g in self.param_groups]
+        psgd = dict(layout=self._layout(), count=self.count,
+                    fit_steps=self.fit_steps,
+                    key=torch.from_numpy(self.key.astype(np.int64)),
+                    **self._extra_state())
+        return {"state": self._per_param_state(), "param_groups": groups,
+                "psgd": psgd}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        saved = state_dict["psgd"]
+        for part, ours, theirs in (
+                ("layout", self._layout(), saved["layout"]),
+                ("state", self._per_param_state(), state_dict["state"]),
+                ("state", self._extra_state(),
+                 {k: saved.get(k) for k in self._extra_state()})):
+            found = _first_mismatch(theirs, ours, part)
+            if found:
+                raise ValueError(f"state_dict does not match this "
+                                 f"{type(self).__name__}: {found}")
+        for i, p in enumerate(self.param_groups[0]["params"]):
+            self.state[p] = self._copy_here(state_dict["state"].get(i, {}))
+        for group, theirs in zip(self.param_groups,
+                                 state_dict["param_groups"]):
+            group.update({k: v for k, v in theirs.items()
+                          if k != "params" and _storable(group.get(k))})
+        self.count = int(saved["count"])
+        self.fit_steps = int(saved["fit_steps"])
+        self.key = saved["key"].cpu().numpy().astype(np.uint32)
+        self._load_extra_state(self._copy_here(
+            {k: saved[k] for k in self._extra_state()}))
+
+
+class _Kron(_Resumable):
     """What KronWhiten and KronNewton share: the parameters in the JAX
-    pytree order, the plans, the factored state, the momentum buffers, the
-    key chain and the per-leaf fit and apply."""
+    pytree order, the plans, the factored state (per parameter: ``q``,
+    ``lips``, ``mu``, ``pcache``), the momentum buffers, the key chain and
+    the per-leaf fit and apply."""
 
     # (per-tensor fit, stacked fit) of precond.kron
     _FITS: tuple
@@ -361,6 +490,16 @@ class _Kron(torch.optim.Optimizer):
                 state["pcache"] = kron_p.compute_p_factors(st, plan)
             if momentum > 0:
                 state["mu"] = torch.zeros_like(t, dtype=momentum_dtype or t.dtype)
+
+    def _layout(self) -> dict:
+        out = {"optimizer": type(self).__name__, "cache_p": self.cache_p}
+        for i, (p, plan, f, s) in enumerate(zip(
+                self.param_groups[0]["params"], self.plans, self.scanned,
+                self.shared)):
+            out[f"leaf {i}"] = dict(shape=list(p.shape), shared=s, scanned=f,
+                                    plan=list(plan.shape),
+                                    diagonal=list(plan.is_diag), dq=plan.dq)
+        return out
 
     # -- pieces of one step -------------------------------------------------
 
@@ -775,12 +914,13 @@ def _refuse_vector_sharding(vector_sharding) -> None:
             "vector_sharding is not ported yet (ROADMAP A8)")
 
 
-class _Flat(torch.optim.Optimizer):
+class _Flat(_Resumable):
     """What LRAWhiten, LRANewton and DenseNewton share: the parameters in
     the JAX pytree order, concatenated into one vector for the fit and the
     apply (JAX ``ravel_pytree``) and split back for the step; the momentum
     of that vector, the key chain and the weight decay.  The
-    preconditioner's state is ``self.precond``, the momentum ``self.mu``."""
+    preconditioner's state is ``self.precond``, the momentum ``self.mu``;
+    ``state_dict`` carries both under ``psgd``."""
 
     def __init__(self, params, defaults: dict, *, init_scale, momentum: float,
                  momentum_dtype, preconditioner_dtype, seed: int, device,
@@ -811,6 +951,18 @@ class _Flat(torch.optim.Optimizer):
         self.fit_steps = 0   # steps on which the preconditioner was fitted
         self.mu = (torch.zeros(self.n, dtype=momentum_dtype or self.vec_dtype,
                                device=self.device) if momentum > 0 else None)
+
+    def _layout(self) -> dict:
+        return {"optimizer": type(self).__name__,
+                "shapes": [list(p.shape) for p in self.param_groups[0]["params"]],
+                "dq": getattr(self, "dq", None)}
+
+    def _extra_state(self) -> dict:
+        return {"precond": self.precond._asdict(), "mu": self.mu}
+
+    def _load_extra_state(self, saved: dict) -> None:
+        self.precond = type(self.precond)(**saved["precond"])
+        self.mu = saved["mu"]
 
     def _flat(self, xs) -> torch.Tensor:
         return torch.cat([x.reshape(-1).to(self.vec_dtype) for x in xs])

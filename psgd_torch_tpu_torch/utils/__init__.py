@@ -1,0 +1,12 @@
+"""Utilities for training with the port's optimizers (counterpart of
+psgd_torch_tpu/utils): checkpoint and resume, failure detection and
+rollback, optimizer-health metrics and state memory, profiling."""
+
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .failsafe import FailsafeLoop, finite_check, make_guarded_step
+from .metrics import psgd_metrics, state_memory_report
+from .profiling import StepTimer, trace
+
+__all__ = ["FailsafeLoop", "StepTimer", "finite_check", "latest_step",
+           "make_guarded_step", "psgd_metrics", "restore_checkpoint",
+           "save_checkpoint", "state_memory_report", "trace"]

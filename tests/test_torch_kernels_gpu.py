@@ -689,3 +689,54 @@ def test_flat_optimizers_launch_the_kernels(dev, name):
     assert tuple(counts.values()) == expected, counts
     ref = run("cpu")
     assert (on_card - ref).norm() <= 1e-4 * ref.norm()
+
+
+def test_checkpoint_resumes_bf16_state_on_the_card(dev, tmp_path):
+    """A tiny GPT-2 with the trainer's PSGD recipe on the card (bf16 Q and
+    momentum, f32 parameters), checkpointed after 2 steps and restored into
+    a fresh model and optimizer: every restored tensor keeps its dtype
+    (bf16 Q and momentum, f32 Lipschitz estimates), and fed the unbroken
+    run's gradients for 2 more steps the restored optimizer lands on the
+    same parameters and state bit for bit."""
+    from psgd_torch_tpu_torch.examples import train_gpt2
+    from psgd_torch_tpu_torch.models import gpt2
+    from psgd_torch_tpu_torch.utils import checkpoint
+
+    cfg = gpt2.tiny_config(n_layer=2, n_head=2, n_embd=64, block_size=32,
+                           vocab_size=128)
+
+    def fresh(seed):
+        model = gpt2.GPT2(cfg, device=dev, seed=seed)
+        return model, train_gpt2.psgd_optimizer(model, 4, dev, seed=1)
+
+    model, opt = fresh(0)
+    grads = []
+    for i in range(4):
+        if i == 2:
+            checkpoint.save_checkpoint(str(tmp_path), 2, model, opt)
+        x, y = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(i), 2,
+                                       cfg.block_size, cfg.vocab_size, device=dev)
+        opt.zero_grad(set_to_none=True)
+        gpt2.loss_gpt2(model, x, y).backward()
+        if i >= 2:
+            grads.append([p.grad.clone() for p in opt.param_groups[0]["params"]])
+        opt.step()
+    model2, opt2 = fresh(3)
+    assert checkpoint.restore_checkpoint(str(tmp_path), model2, opt2)[0] == 2
+    for st in opt2.state.values():
+        assert {q.dtype for q in st["q"]} == {torch.bfloat16}
+        assert {x.dtype for x in st["lips"]} == {torch.float32}
+        assert st["mu"].dtype == torch.bfloat16 and st["mu"].device == dev
+    for gs in grads:
+        for p, g in zip(opt2.param_groups[0]["params"], gs):
+            p.grad = g
+        opt2.step()
+    for a, b in zip(opt.param_groups[0]["params"], opt2.param_groups[0]["params"]):
+        assert torch.equal(a, b)
+    for p, p2 in zip(opt.param_groups[0]["params"], opt2.param_groups[0]["params"]):
+        for k, v in opt.state[p].items():
+            for x, y in zip(v if isinstance(v, tuple) else (v,),
+                            opt2.state[p2][k] if isinstance(v, tuple) else (opt2.state[p2][k],)):
+                assert x.dtype == y.dtype and torch.equal(x, y), k
+    assert (opt.count, opt.fit_steps) == (opt2.count, opt2.fit_steps)
+    assert (opt.key == opt2.key).all()

@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
     assert lines["BAD"] == "[]", lines["BAD"]
-    assert int(lines["N"]) >= 11
+    assert int(lines["N"]) >= 20
     assert lines["HVP"] == "True"
 
 
@@ -109,6 +109,30 @@ def test_lra_dense_entry_points_refuse_the_cpu_without_being_asked():
         dense.init_dense(16)
     assert lra.init_lra(16, 2, fastrand.prng_key(0), device="cpu").u.shape == (16, 2)
     assert dense.init_dense(16, device="cpu").q.shape == (16, 16)
+
+
+def test_utils_data_and_trainer_refuse_the_cpu_without_being_asked():
+    """The trainer, the corpus batches and the step timer raise without a
+    card unless the CPU is asked for; the utils, lm_data and the trainer
+    import no JAX (test_port_imports_no_jax walks them too)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import numpy as np
+    from psgd_torch_tpu_torch.examples import train_gpt2
+    from psgd_torch_tpu_torch.models import lm_data
+    from psgd_torch_tpu_torch.utils import StepTimer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_gpt2.main(["--steps", "1", "--data", "synthetic"])
+    toks = np.arange(100, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_data.corpus_batch(torch.Generator(), toks, 2, 8)
+    assert lm_data.corpus_batch(torch.Generator(), toks, 2, 8,
+                                device="cpu")[0].shape == (2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StepTimer()
+    assert StepTimer(device="cpu").device == torch.device("cpu")
+    for sub in ("utils", "examples"):
+        assert (Path(ROOT) / "psgd_torch_tpu_torch" / sub / "__init__.py").exists()
 
 
 @pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()))
