@@ -17,6 +17,10 @@
      larger of its bytes and its instructions (the loop's SASS counted by
      ``ops/sass.py``, the SM clock read under load), both terms
      logged for unit and fused mode, ``torch.rand`` as the library call;
+     its complex mode and float64 instantiation bit for bit at
+     ``CX_NOISE_CHECKS``, the complex mode timed at (12, 768, 2304)
+     complex64 beside ``torch.randn(..., dtype=torch.complex64)``
+     (``check_noise_complex``);
    - each instantiation of the transpose-subtract bit for bit, R and R16,
      at (12, 768) f32, (22, 2048) and (22, 2560) bf16 (``check_transpose_sub``),
      timed against its bytes bound; ``procrustes`` also logs its share;
@@ -61,7 +65,10 @@
    cache_p, shared_layers) and in each of the six other geometries
    (``dq``; PRO4P's Procrustes loop taking the same steps on both); by
    LRAWhiten and LRANewton; the small tensor-rank problem (n = 24) by
-   DenseNewton in each of the seven geometries.
+   DenseNewton in each of the seven geometries; the tiny GPT-2 with f64
+   Q by KronWhiten and KronNewton (the XLA tail and the f64 noise); a
+   tiny complex least squares (``CX_TINY``) by both in complex64 (rtol
+   1e-4) and complex128 (1e-9) (``check_complex_small``).
 5. GPT-2 124M, batch 4 x 1024, bf16 compute, trained by KronWhiten in the
    bench configuration for 5 steps at update probability 1.0 and 5 at 0.1,
    on one fixed batch; one fit and one no-fit step profiled.
@@ -161,15 +168,31 @@
    restore times and the rollback's time are logged; every path's
    ``train`` logs its StepTimer (CUDA events) median beside the host
    clock's.
-15. Prints the kernels' JSON line (``launches`` is the sum over the
+15. The complex fixed-point path (``complex_fixed_point_path``): the
+   reference's verification problem on a stack of 12 complex64 Kronecker
+   Hessians on (768, 2304), the Newton fit below 0.30 RMS error, the
+   whitening fit below half of P = I's, their trajectories logged; the
+   JAX test's complex128 sizes in every form and geometry below 0.30 at
+   its N = 1500 (28 host-bound runs side by side in 7 processes);
+   exact counts (one complex damping and two XLA tails per fit step).
+16. The complex optimizer path (``complex_optimizer_path``): complex least
+   squares over 12 layers of complex64 parameters in GPT-2 124M's
+   attention shapes by KronWhiten and KronNewton, 200 steps each: the
+   loss falls, exact counts per fit step (the complex noise mode, the XLA
+   tail and its starts; no other row), fit and no-fit step times and peak
+   memory, a state_dict round trip keeping Q complex64 bit for bit.
+17. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes; rows 1, 3 and 6 also carry
    ``step_mat_launches`` and the step
    matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
    ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
-   and (22, 2560) bf16; the run fails
-   if a row's count is 0), the card's name and power limit, then the fixed last line.
+   and (22, 2560) bf16; row 2 also carries its complex mode's
+   ``complex_launches`` (fused; ``complex_unit_launches`` unit) and its
+   ``complex_*`` times and bound at (12, 768, 2304) complex64; the run
+   fails if a row's count is 0 or the complex mode's is), the card's name
+   and power limit, then the fixed last line.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 """
@@ -180,12 +203,15 @@ import contextlib
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
+import zlib
 from pathlib import Path
 
 import torch
@@ -550,6 +576,7 @@ def check_noise(dev, lib_path) -> dict:
                 bad = int((_bits(k) != _bits(p)).sum())
                 raise AssertionError(f"noise {what} {shape} {dtype}: {bad} "
                                      "elements differ from the plain version")
+        fused_err = _max_abs(damp_k, damp_p)
         u = unit_k.float()
         numel, size = math.prod(shape), torch.finfo(dtype).bits // 8
         vec = numel // b % 8 == 0
@@ -585,7 +612,7 @@ def check_noise(dev, lib_path) -> dict:
         t_bytes, t_instr = terms["fused"]
         row = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=max(t_bytes, t_instr),
                    bound_by="bytes" if t_bytes >= t_instr else "operations",
-                   max_abs_err=0.0, library_ms=ms_rand,
+                   max_abs_err=fused_err, library_ms=ms_rand,
                    bound_terms_ms={"bytes": t_bytes, "instructions": t_instr},
                    unit_ms=ms_unit, unit_bound_terms_ms=dict(zip(
                        ("bytes", "instructions"), terms["unit"])))
@@ -1262,9 +1289,12 @@ def check_lra_dense_shapes(dev, lib_path) -> dict:
     d = torch.tensor(1e-9, device=dev) + torch.finfo(torch.float32).eps * g.abs()
     one_v = torch.equal(_bits(fused), _bits(g + d * v))
     del d
-    same = (torch.equal(_bits(v), _bits(kernels.unit_noise_plain(seeds, (n,), torch.float32)))
-            and torch.equal(_bits(fused), _bits(kernels.damped_noise_plain(g, seeds, 1e-9))))
-    del v, fused
+    plain_v = kernels.unit_noise_plain(seeds, (n,), torch.float32)
+    plain_fused = kernels.damped_noise_plain(g, seeds, 1e-9)
+    same = torch.equal(_bits(v), _bits(plain_v)) and torch.equal(_bits(fused),
+                                                                  _bits(plain_fused))
+    errs = {"unit": _max_abs(v, plain_v), "fused": _max_abs(fused, plain_fused)}
+    del v, fused, plain_v, plain_fused
     unit = lambda: kernels.unit_noise(seeds, (n,), torch.float32)
     damp = lambda: kernels.damped_noise(g, seeds, 1e-9)
     ms = {"unit": cuda_ms(unit, 10), "fused": cuda_ms(damp, 10)}
@@ -1279,7 +1309,7 @@ def check_lra_dense_shapes(dev, lib_path) -> dict:
         entry = dict(shape=f"(1, {n}) float32 {mode}", ms=ms[mode], plain_ms=plain[mode],
                      bound_ms=max(t_bytes, t_instr),
                      bound_by="bytes" if t_bytes >= t_instr else "operations",
-                     max_abs_err=0.0, library_ms=rand_ms)
+                     max_abs_err=errs[mode], library_ms=rand_ms)
         out["damped_noise"].append(entry)
         log(f"noise (1, {n}) f32 {mode} (the LRA whitening fit): bit-exact {same}, one v "
             f"from one key {one_v}; kernel {ms[mode]:.4f} ms  plain {plain[mode]:.3f} ms  "
@@ -1441,7 +1471,10 @@ SMALL_OPTIONS = (
 ) + tuple((name, dict(dq=dq)) for dq in GEOMETRIES
           for name in ("KronWhiten", "KronNewton")) + (
     ("LRAWhiten", {}), ("LRANewton", {})) + tuple(
-    ("DenseNewton", dict(dq=dq)) for dq in kron_p.ALL_DQ)
+    ("DenseNewton", dict(dq=dq)) for dq in kron_p.ALL_DQ) + (
+    # float64 Q: the XLA tail and the noise kernel's float64 instantiation
+    ("KronWhiten", dict(preconditioner_dtype=torch.float64)),
+    ("KronNewton", dict(preconditioner_dtype=torch.float64)))
 
 
 def check_small_path(dev) -> None:
@@ -1465,8 +1498,9 @@ def check_small_path(dev) -> None:
         rel = ((on_card - on_cpu).norm() / on_cpu.norm()).item()
         loop = (f"; Procrustes loop steps taken card {card_steps}, CPU {cpu_steps}"
                 if options.get("dq") == "PRO4P" else "")
+        qdt = str(options.get("preconditioner_dtype", "f32")).removeprefix("torch.")
         what = ("small tensor-rank problem, 3 steps, f32 Q" if name == "DenseNewton"
-                else "tiny GPT-2, 3 steps, f32 Q")
+                else f"tiny GPT-2, 3 steps, {qdt} Q")
         log(f"small path ({what}, {name} {options or 'plain'}): card vs CPU plain, "
             f"parameter change rel err {rel:.2e} (tol 1e-3){loop}")
         if not rel < 1e-3 or card_steps != cpu_steps:
@@ -2596,6 +2630,455 @@ def resume_path(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# complex and float64 Kron: the noise's complex mode and the XLA tail
+# ---------------------------------------------------------------------------
+
+# the noise's complex mode: its row-2 shape (path B's qkv stack), and the
+# shapes held bit for bit (vector and scalar kernels, complex64, complex128,
+# and the real float64 instantiation)
+CX_NOISE_SHAPE = (12, 768, 2304)
+CX_NOISE_CHECKS = (((12, 768, 2304), torch.complex64), ((12, 768, 768), torch.complex64),
+                   ((3, 97, 33), torch.complex64), ((3, 97, 33), torch.complex128),
+                   ((2, 1024, 768), torch.complex128), ((3, 97, 33), torch.float64),
+                   ((1, 1024, 768), torch.float64))
+# path A: the reference's verification problem (misc/psgd_kron_verification.py,
+# tests/test_kron_fixed_point.py): a complex64 stack of Kronecker Hermitian
+# positive definite Hessians H1 (x) H2 (cond >= 100 each) on GPT-2 124M's
+# qkv leaf, Q0.5EQ1.5, both factors dense, lr annealed (1 - i/N) / 2,
+# damping 0; then the JAX test's own sizes in complex128
+FP_STACK = (12, 768, 2304)
+FP_NEWTON_STEPS = 200
+FP_WHITEN_STEPS = 50
+FP_TOL = 0.30
+FP_PROBES = 8
+FP_SMALL_STEPS = 1500      # the JAX test's N, for the 8 forms and the geometries
+# the complex128 runs are host-bound (a few ms of launches per fit): they run
+# side by side in this many processes, each driving the card
+FP_WORKERS = 7
+FP_SMALL_FORMS = ("scalar", "diag", "matrix", "kron_diag_diag", "kron_diag_matrix",
+                  "kron_matrix_diag", "kron_matrix_matrix", "kron3")
+# path B: complex least squares 0.5 |W X - Y|^2 / batch over a 12-layer
+# stack of complex64 parameters in GPT-2 124M's attention shapes
+CX_LAYERS = 12
+CX_SHAPES = ((768, 2304), (768, 768))
+CX_BATCH = 4096
+CX_STEPS = 200
+CX_STEPS_P1 = 10          # then p = 0.1
+CX_TINY = (2, ((8, 24), (8, 8)), 64)
+# per fit step: one damping per leaf, one XLA tail per dense factor (the
+# (768, 2304) leaf's 2304 dim is diagonal at max_skew 2) and its two starts
+CX_WHITEN_PER_FIT = {"damped_noise": 2, "xla_ns_update": 3, "philox_start": 6}
+CX_NEWTON_PER_FIT = dict(CX_WHITEN_PER_FIT, unit_noise=2)
+# rows that no complex path may launch (every row but the noise)
+CX_IDLE_ROWS = tuple(name for name, _, _ in ROWS if name != "damped_noise")
+
+
+def check_noise_complex(dev, lib_path) -> dict:
+    """The noise kernel's complex mode (complex64, complex128) and its float64
+    instantiation, unit and fused, bit for bit against the plain versions
+    (two real plain draws from the (B, 4) seed words) at ``CX_NOISE_CHECKS``;
+    at ``CX_NOISE_SHAPE`` complex64 the times of both modes, their plain
+    versions and ``torch.randn(..., dtype=torch.complex64)``, and the
+    bound: max(bytes at the HBM rate, the loop's SASS instructions at the
+    issue rate).  Returns row 2's complex-mode entries."""
+    loops = sass.noise_loops(str(lib_path))
+    for (dtype, fused, vec), c in sorted(loops.items(), key=str):
+        if dtype.startswith("complex"):
+            log(f"noise_complex_kernel<{dtype}, {'fused' if fused else 'unit'}, "
+                f"{'vector' if vec else 'scalar'}> main loop: {c['instructions']} "
+                f"instructions, {c['imad_wide_hi']} IMAD.WIDE/HI per {c['elements']:g} "
+                f"complex elements: {c['per_element']:.2f} and "
+                f"{c['imad_per_element']:.2f} per element")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for shape, dtype in CX_NOISE_CHECKS:
+        b = shape[0]
+        seeds = torch.randint(-2**31, 2**31 - 1, (b, kernels.seed_width(dtype)),
+                              generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+        g = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        pairs = ((kernels.unit_noise(seeds, shape[1:], dtype),
+                  kernels.unit_noise_plain(seeds, shape[1:], dtype)),
+                 (kernels.damped_noise(g, seeds, 1e-9),
+                  kernels.damped_noise_plain(g, seeds, 1e-9)))
+        for what, (k, p) in zip(("unit", "fused"), pairs):
+            if not _same_bits(k, p):
+                raise AssertionError(f"noise {what} {shape} {dtype}: differs from "
+                                     "the plain version")
+        fused_err = (pairs[1][0] - pairs[1][1]).abs().max().item()
+        power = torch.mean(torch.abs(pairs[0][0].to(torch.complex128)) ** 2).item()
+        log(f"noise {shape} {dtype}: unit and fused bit-exact; mean |v|^2 {power:.4f}")
+        del pairs
+        if (shape, dtype) != (CX_NOISE_SHAPE, torch.complex64):
+            continue
+        numel = math.prod(shape)
+        unit = lambda: kernels.unit_noise(seeds, shape[1:], dtype)
+        fused = lambda: kernels.damped_noise(g, seeds, 1e-9)
+        ms = {"unit": cuda_ms(unit, 20), "fused": cuda_ms(fused, 20)}
+        plain = {"unit": cuda_ms(lambda: kernels.unit_noise_plain(seeds, shape[1:], dtype),
+                                 2, 1),
+                 "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
+        lib_ms = cuda_ms(lambda: torch.randn(shape, dtype=dtype, device=dev), 20)
+        clock = sm_clock_hz(fused, max(300, int(500 / ms["fused"])))
+        terms = {mode: (nbytes / PEAK_BYTES * 1e3,
+                        instruction_ms(numel, loops[("complex64", mode == "fused", True)],
+                                       clock))
+                 for mode, nbytes in (("unit", numel * 8), ("fused", 2 * numel * 8))}
+        for mode in ("unit", "fused"):
+            t_bytes, t_instr = terms[mode]
+            log(f"  complex64 {mode:5s} kernel {ms[mode]:.4f} ms  plain {plain[mode]:.3f} ms"
+                f"{f'  torch.randn {lib_ms:.4f} ms' if mode == 'unit' else ''}  bound "
+                f"{max(t_bytes, t_instr):.4f} ms: bytes {t_bytes:.4f} ms, instructions "
+                f"{t_instr:.4f} ms (SM clock under load {clock / 1e6:.0f} MHz); "
+                f"{max(t_bytes, t_instr) / ms[mode]:.3f} of the bound")
+        t_bytes, t_instr = terms["fused"]
+        out = dict(complex_shape=list(shape), complex_dtype="complex64",
+                   complex_ms=ms["fused"], complex_plain_ms=plain["fused"],
+                   complex_bound_ms=max(t_bytes, t_instr),
+                   complex_bound_by="bytes" if t_bytes >= t_instr else "operations",
+                   complex_library_ms=lib_ms, complex_max_abs_err=fused_err,
+                   complex_unit_ms=ms["unit"], complex_unit_plain_ms=plain["unit"],
+                   complex_unit_bound_ms=max(terms["unit"]))
+        del g
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spread_diag(gen, shape, dev):
+    """A spectrum 10^(2u - 1), u uniform: cond ~ 100 (``_spread_diag``)."""
+    u = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+    return 10.0 ** (2.0 * u - 1.0)
+
+
+def _spread_hpd(gen, b, n, dtype, dev):
+    """(b, n, n) Hermitian positive definite matrices Q diag(10^(2u - 1)) Q^H,
+    Q the unitary factor of a complex Gaussian (``_spread_spd``)."""
+    a = torch.randn((b, n, n), generator=gen, device=dev, dtype=torch.complex128)
+    qm, _ = torch.linalg.qr(a)
+    ev = _spread_diag(gen, (b, 1, n), dev).to(torch.complex128)
+    return ((qm * ev) @ qm.mH).to(dtype)
+
+
+def _fp_form(name, gen, dtype, dev):
+    """The JAX test's synthetic Hessians (tests/test_kron_fixed_point.py
+    ``_case``): (shape, H applied to a probe, max_size, max_skew)."""
+    diag = lambda shape: _spread_diag(gen, shape, dev).to(dtype)   # noqa: E731
+    hpd = lambda n: _spread_hpd(gen, 1, n, dtype, dev)[0]           # noqa: E731
+    if name == "scalar":
+        return (), (lambda v: 3.7 * v), 0.0, 0.0
+    if name == "diag":
+        h = diag((10,))
+        return (10,), (lambda v: h * v), 0.0, 0.0
+    if name == "matrix":
+        h = hpd(5)
+        return (5,), (lambda v: h @ v), math.inf, math.inf
+    if name == "kron_diag_diag":
+        h1, h2 = diag((10, 1)), diag((1, 3))
+        return (10, 3), (lambda v: h1 * v * h2), 0.0, 0.0
+    if name == "kron_diag_matrix":
+        h1, h2 = diag((10, 1)), hpd(5)
+        return (10, 5), (lambda v: h1 * (v @ h2)), 7.0, math.inf
+    if name == "kron_matrix_diag":
+        h1, h2 = hpd(5), diag((1, 10))
+        return (5, 10), (lambda v: (h1 @ v) * h2), 7.0, math.inf
+    if name == "kron_matrix_matrix":
+        h1, h2 = hpd(5), hpd(7)
+        return (5, 7), (lambda v: h1 @ v @ h2), math.inf, math.inf
+    h1, h2, h3 = hpd(3), hpd(4), hpd(5)
+    return (3, 4, 5), (lambda v: torch.einsum("li,mj,nk,ijk->lmn", h1, h2, h3, v)), \
+        math.inf, math.inf
+
+
+def _fp_run(shape, h_apply, plan, state, mode, steps, gen, dtype, dev, seed,
+            stack=None, every=None):
+    """The fixed-point drive: per step a probe v, g = H v, and the whitening
+    fit on g or the Newton fit on (v, g) at lr (1 - i/N)/2, damping 0;
+    ``stack``: B layers in one stacked call.  Returns (state, [(step,
+    error)] every ``every`` steps and at the end)."""
+    lead = () if stack is None else (stack,)
+    root = fastrand.prng_key(seed)
+    trail = []
+    for i in range(steps):
+        v = torch.randn(lead + shape, generator=gen, device=dev, dtype=dtype)
+        g = h_apply(v)
+        lr = (1.0 - i / steps) / 2.0
+        key = fastrand.fold_in(root, i)
+        keys = key if stack is None else fastrand.split(key, stack)
+        if mode == "whiten":
+            fit = (kron_p.update_kron_whiten if stack is None
+                   else kron_p.update_kron_whiten_stacked)
+            state = fit(state, plan, g, keys, lr=lr, damping=0.0)
+        else:
+            fit = (kron_p.update_kron_newton if stack is None
+                   else kron_p.update_kron_newton_stacked)
+            state = fit(state, plan, v, g, keys, lr=lr, damping=0.0)
+        if every and (i + 1) % every == 0 and i + 1 < steps:
+            trail.append((i + 1, _fp_error(state, plan, h_apply, shape, gen, dtype,
+                                           dev, stack)))
+    trail.append((steps, _fp_error(state, plan, h_apply, shape, gen, dtype, dev,
+                                   stack)))
+    return state, trail
+
+
+def _fp_error(state, plan, h_apply, shape, gen, dtype, dev, stack, identity=False):
+    """RMS relative error |P H v - v| / |v| over FP_PROBES fresh probes (P = I
+    with ``identity``), over every layer of a stack."""
+    lead = () if stack is None else (stack,)
+    err = scale = 0.0
+    for _ in range(FP_PROBES):
+        v = torch.randn(lead + shape, generator=gen, device=dev, dtype=dtype)
+        g = h_apply(v)
+        if identity:
+            pg = g
+        elif stack is None:
+            pg = kron_p.precond_grad(state, plan, g)
+        else:
+            pg = kron_p.precond_grad_stacked(state, plan, g)
+        err += torch.sum(torch.abs(pg - v) ** 2).item()
+        scale += torch.sum(torch.abs(v) ** 2).item()
+    return (err / scale) ** 0.5
+
+
+def _fp_small_run(run) -> tuple:
+    """One fixed-point run at the JAX test's sizes in complex128 (its form,
+    geometry, mode and N; its seed from their names), in a worker process:
+    (form, dq, mode, steps, RMS relative error, seconds)."""
+    form, dq, mode, steps, device = run
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(
+        zlib.crc32(f"{form}/{dq}/{mode}".encode()))
+    shape, h_apply, max_size, max_skew = _fp_form(form, gen, torch.complex128, dev)
+    st, plan = kron_p.init_kron(shape, 1.0, max_size, max_skew, dq,
+                                dtype=torch.complex128, device=dev)
+    _, trail = _fp_run(shape, h_apply, plan, st, mode, steps, gen, torch.complex128,
+                       dev, 23)
+    return form, dq, mode, steps, trail[-1][1], time.perf_counter() - t0
+
+
+def complex_fixed_point_path(dev, card: str) -> dict:
+    """Path A.  The full-width stack (``FP_STACK``, complex64, B layers each
+    with its own H1 (x) H2): the Newton fit must bring the RMS relative
+    error below FP_TOL within FP_NEWTON_STEPS steps, the whitening fit
+    below half of P = I's within FP_WHITEN_STEPS; both trajectories
+    logged.  Then the JAX test's sizes in complex128: the 8 forms by
+    Q0.5EQ1.5 and the six other geometries on kron_matrix_matrix,
+    whitening and Newton, FP_SMALL_STEPS steps each (the JAX test's N),
+    every error below FP_TOL; these 28 runs, host-bound, run side by side
+    in FP_WORKERS processes (``_fp_small_run``).
+    Returns the launch counts."""
+    b, m, n = FP_STACK
+    gen = torch.Generator(device=dev).manual_seed(21)
+    h1 = _spread_hpd(gen, b, m, torch.complex64, dev)
+    h2 = _spread_hpd(gen, b, n, torch.complex64, dev)
+    h_apply = lambda v: h1 @ v @ h2      # noqa: E731
+    plan = kron_p.make_kron_plan((m, n), max_size=math.inf, max_skew=math.inf)
+    ident = _fp_error(None, plan, h_apply, (m, n), gen, torch.complex64, dev, b, True)
+    kernels.reset_launch_counts()
+    for mode, steps in (("newton", FP_NEWTON_STEPS), ("whiten", FP_WHITEN_STEPS)):
+        st, _ = kron_p.init_kron((m, n), 1.0, math.inf, math.inf,
+                                 dtype=torch.complex64, device=dev)
+        st = kron_p.KronState(tuple(f.expand((b,) + f.shape).clone() for f in st.q),
+                              tuple(l.expand(b).clone() for l in st.lips))
+        t0 = time.perf_counter()
+        st, trail = _fp_run((m, n), h_apply, plan, st, mode, steps, gen,
+                            torch.complex64, dev, 22, stack=b, every=max(steps // 6, 1))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        err = trail[-1][1]
+        limit = FP_TOL if mode == "newton" else ident / 2
+        log(f"  [{card}] fixed point {FP_STACK} complex64 {mode}: P = I error "
+            f"{ident:.4f}; trajectory {[(s, round(e, 4)) for s, e in trail]}; "
+            f"{ms:.1f} ms per fit step (probe, H v and fit)")
+        if not err < limit:
+            raise AssertionError(f"fixed point {mode}: error {err} not below {limit}")
+        del st
+    counts = _all_counts()
+    counts["xla_ns_update"] = kernels.xla_ns_update.launches
+    counts["philox_start"] = kernels.philox_start.launches
+    counts["damped_noise.complex"] = kernels.damped_noise.complex_launches
+    expect = 2 * FP_NEWTON_STEPS + 2 * FP_WHITEN_STEPS
+    log(f"  fixed point launches: {counts}")
+    if counts["xla_ns_update"] != expect or counts["philox_start"] != 2 * expect or \
+            counts["damped_noise.complex"] != FP_NEWTON_STEPS + FP_WHITEN_STEPS or \
+            any(counts[k] for k in CX_IDLE_ROWS):
+        raise AssertionError(f"fixed point: launch counts {counts}, expected "
+                             f"{expect} XLA tails (two starts each) and one complex "
+                             "damping per step")
+    del h1, h2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [(form, dq, mode, FP_SMALL_STEPS, str(dev))
+            # PRO4P's runs, the longest, first
+            for form, dq in [("kron_matrix_matrix", dq)
+                             for dq in sorted(GEOMETRIES, key=lambda d: d != "PRO4P")] +
+            [(form, "Q0.5EQ1.5") for form in FP_SMALL_FORMS]
+            for mode in ("whiten", "newton")]
+    with multiprocessing.get_context("spawn").Pool(FP_WORKERS) as pool:
+        results = pool.map(_fp_small_run, runs, chunksize=1)
+        pool.close()
+        pool.join()
+    for form, dq, mode, steps, err, seconds in results:
+        log(f"  [{card}] fixed point complex128 {form} {dq} {mode}: error "
+            f"{err:.4f} after {steps} steps ({seconds:.1f} s)")
+        if not err < FP_TOL:
+            raise AssertionError(f"fixed point {form}/{dq}/{mode}: error {err}")
+    log(f"  [{card}] fixed point complex128: {len(runs)} runs in {FP_WORKERS} "
+        f"processes, worst error {max(r[4] for r in results):.4f} (tol {FP_TOL}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def _cx_problem(layers, shapes, batch, dtype, dev, gen):
+    """Complex least squares per layer and leaf: W (layers, m, d) from 0,
+    X (d, batch) with its rows scaled by 10^[-1, 1] (cond 100 in X X^H),
+    Y = W* X + 0.01 noise, W* Gaussian / sqrt(d), drawn from ``gen`` on
+    its device.  Returns (params, loss) with loss() = sum 0.5 |W X - Y|^2 /
+    batch."""
+    params, data = [], []
+    for m, d in shapes:
+        gdev = gen.device
+        s = 10.0 ** torch.linspace(-1.0, 1.0, d, dtype=torch.float64, device=gdev)
+        x = torch.randn((d, batch), generator=gen, device=gdev, dtype=dtype) * s[:, None].to(dtype)
+        w_true = torch.randn((layers, m, d), generator=gen, device=gdev, dtype=dtype) / d ** 0.5
+        y = w_true @ x + 0.01 * torch.randn((layers, m, batch), generator=gen,
+                                            device=gdev, dtype=dtype)
+        params.append(torch.zeros((layers, m, d), dtype=dtype, device=dev).requires_grad_())
+        data.append((x.to(dev), y.to(dev)))
+
+    def loss():
+        total = 0.0
+        for w, (x, y) in zip(params, data):
+            r = w @ x - y
+            total = total + 0.5 * torch.sum(torch.real(r * r.conj())) / x.shape[-1]
+        return total
+
+    return params, loss
+
+
+def _cx_opt(name, params, dev, steps_p1=None):
+    """Path B's optimizers: KronWhiten with the main path's settings
+    (Q0.5EQ1.5, momentum 0.9, momentum whitening, max_skew 2, scanned
+    layers; Q and momentum in the parameters' complex dtype) or KronNewton
+    (exact Hvp), p = 1 for ``steps_p1`` steps, then 0.1."""
+    prob = 1.0 if steps_p1 is None else (lambda c: 1.0 if c < steps_p1 else 0.1)
+    common = dict(preconditioner_max_skew=2.0, preconditioner_init_scale=None,
+                  preconditioner_update_probability=prob,
+                  scanned_layers=[True] * len(params), device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the advisories
+        if name == "KronWhiten":
+            return KronWhiten(params, lr=1e-3, momentum=0.9, whiten_grad=False, **common)
+        return KronNewton(params, lr=0.2, **common)
+
+
+def _cx_step(opt, loss):
+    if isinstance(opt, KronNewton):
+        return opt.step(loss)
+    opt.zero_grad(set_to_none=True)
+    out = loss()
+    out.backward()
+    opt.step()
+    return out
+
+
+def check_complex_small(dev) -> None:
+    """Path B at a tiny width (``CX_TINY``) on the card against the CPU: 3
+    steps of KronWhiten and of KronNewton from the same data and seeds (the
+    same Philox noise on both), parameters within rtol 1e-4 in complex64
+    and 1e-9 in complex128 (Frobenius-relative)."""
+    layers, shapes, batch = CX_TINY
+    for dtype, tol in ((torch.complex64, 1e-4), (torch.complex128, 1e-9)):
+        for name in ("KronWhiten", "KronNewton"):
+            finals = []
+            for device in (dev, torch.device("cpu")):
+                gen = torch.Generator().manual_seed(31)
+                params, loss = _cx_problem(layers, shapes, batch, dtype, device, gen)
+                opt = _cx_opt(name, params, device)
+                for _ in range(3):
+                    _cx_step(opt, loss)
+                finals.append(torch.cat([p.detach().cpu().flatten() for p in params]))
+            rel = ((finals[0] - finals[1]).norm() / finals[1].norm()).item()
+            log(f"complex small path ({name}, {dtype}, layers {layers}, shapes {shapes}, "
+                f"3 steps): card vs CPU rel err {rel:.2e} (tol {tol:g})")
+            if not rel < tol:
+                raise AssertionError(f"complex small path {name} {dtype}: {rel}")
+
+
+def complex_optimizer_path(dev, card: str) -> dict:
+    """Path B.  KronWhiten and KronNewton (``_cx_opt``) on the complex least
+    squares (``_cx_problem``) over CX_LAYERS layers of complex64 parameters
+    in ``CX_SHAPES``, batch CX_BATCH, CX_STEPS steps each (p = 1 for
+    CX_STEPS_P1, then 0.1): the loss falls (by how much is logged), each
+    fit step launches exactly ``CX_WHITEN_PER_FIT`` / ``CX_NEWTON_PER_FIT``
+    (the complex noise mode and the XLA tail) and no other row; fit and
+    no-fit step times and peak memory logged; after a state_dict round
+    trip (torch.save / torch.load(weights_only=True)) into a fresh
+    optimizer Q and the momentum are still complex64 and bitwise equal.
+    Returns the launch counts (with the complex mode's)."""
+    import io
+    total = {}
+    for name, per_fit in (("KronWhiten", CX_WHITEN_PER_FIT),
+                          ("KronNewton", CX_NEWTON_PER_FIT)):
+        gen = torch.Generator(device=dev).manual_seed(32)
+        params, loss = _cx_problem(CX_LAYERS, CX_SHAPES, CX_BATCH, torch.complex64,
+                                   dev, gen)
+        opt = _cx_opt(name, params, dev, CX_STEPS_P1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, fit_ms, nofit_ms = [], [], []
+        for step in range(CX_STEPS):
+            fits0 = opt.fit_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(_cx_step(opt, loss).item())
+            torch.cuda.synchronize()
+            (fit_ms if opt.fit_steps > fits0 else nofit_ms).append(
+                (time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fits = opt.fit_steps
+        counts = {k: getattr(kernels, k).launches for k in per_fit}
+        cx = {k: getattr(kernels, k).complex_launches for k in ("damped_noise", "unit_noise")}
+        idle = {k: getattr(kernels, k).launches for k in CX_IDLE_ROWS}
+        what = "train step (closure: forward, Hvp or backward, fit, apply)" \
+            if name == "KronNewton" else "train step (forward, backward, optimizer)"
+        log(f"  [{card}] complex least squares {CX_LAYERS} x {CX_SHAPES} complex64, batch "
+            f"{CX_BATCH}, {name}: loss {losses[0]:.6g} -> {losses[-1]:.6g} in {CX_STEPS} "
+            f"steps ({losses[0] / losses[-1]:.3g}x; at step 50 {losses[49]:.6g}); "
+            f"{what} median fit {_median(fit_ms[1:])} ms, no fit {_median(nofit_ms)} ms; "
+            f"peak memory {peak:.2f} GB; fit steps {fits}; launches {counts}, complex "
+            f"mode {cx}, other rows {idle}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"complex {name}: loss {losses[0]} -> {losses[-1]}")
+        if fits == 0 or any(counts[k] != v * fits for k, v in per_fit.items()) or \
+                cx["damped_noise"] != counts["damped_noise"] or \
+                cx["unit_noise"] != counts.get("unit_noise", 0) or any(idle.values()):
+            raise AssertionError(f"complex {name}: launches {counts} {cx} {idle} for "
+                                 f"{fits} fit steps, expected {per_fit} per fit step")
+        buf = io.BytesIO()
+        torch.save(opt.state_dict(), buf)
+        buf.seek(0)
+        twin = _cx_opt(name, params, dev, CX_STEPS_P1)
+        twin.load_state_dict(torch.load(buf, weights_only=True))
+        for p in params:
+            for a, b in zip(twin.state[p]["q"] + (twin.state[p].get("mu", p),),
+                            opt.state[p]["q"] + (opt.state[p].get("mu", p),)):
+                if a.dtype != torch.complex64 or not _same_bits(a, b):
+                    raise AssertionError(f"complex {name}: state_dict round trip gave "
+                                         f"{a.dtype}, bits equal {_same_bits(a, b)}")
+        log(f"  complex {name}: state_dict round trip ({buf.getbuffer().nbytes / 1e6:.1f} "
+            "MB) keeps Q and the momentum complex64, bit for bit")
+        _add(total, counts)
+        total["damped_noise.complex"] = total.get("damped_noise.complex", 0) + cx["damped_noise"]
+        total["unit_noise.complex"] = total.get("unit_noise.complex", 0) + cx["unit_noise"]
+        del params, loss, opt, twin, buf
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 _NS_KERNELS = ("gemm_kernel", "tc_gemm_kernel", "row_stats_kernel", "select_kernel",
                "start_kernel", "row_norm_kernel", "bound_scalars_kernel",
                "transpose_sub_kernel", "combine_kernel", "trace_sum_kernel")
@@ -2694,6 +3177,7 @@ def main() -> int:
     phase("kernels against their plain versions")
     rows = {"damped_noise": check_noise(dev, lib_path),
             "fused_ns_update": check_ns(dev, tc_lines)}
+    rows["damped_noise"].update(check_noise_complex(dev, lib_path))
     check_transpose_sub(dev)
     check_routes(dev)
     step_mat_rows = check_step_mat(dev)
@@ -2712,6 +3196,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
+    check_complex_small(dev)
     launches = {}
     # (phase, drive, profiled probabilities, tensor-core gate, profile label)
     paths = (("GPT-2 124M path", lambda: gpt2_path(dev, smi), (1.0, 0.0), True,
@@ -2736,6 +3221,10 @@ def main() -> int:
               False, None),
              ("Rosenbrock path", lambda: (rosenbrock_path(dev, smi), None), (), False,
               None),
+             ("Complex fixed-point path",
+              lambda: (complex_fixed_point_path(dev, smi), None), (), False, None),
+             ("Complex optimizer path",
+              lambda: (complex_optimizer_path(dev, smi), None), (), False, None),
              # GPT-2 124M's resumed run profiles its own fit step
              ("Resumable training path", lambda: (resume_path(dev, smi), None), (),
               False, None))
@@ -2759,9 +3248,13 @@ def main() -> int:
         if row["name"] in STEP_MAT_ROWS:
             row["step_mat_launches"] = launches[f"{row['name']}.step_mat"]
             row.update(step_mat_rows[row["name"]])
-        if row["launches"] == 0 or row.get("step_mat_launches", 1) == 0:
+        if row["name"] == "damped_noise":
+            row["complex_launches"] = launches.get("damped_noise.complex", 0)
+            row["complex_unit_launches"] = launches.get("unit_noise.complex", 0)
+        if row["launches"] == 0 or row.get("step_mat_launches", 1) == 0 or \
+                row.get("complex_launches", 1) == 0:
             raise AssertionError(f"{row['name']} was launched on no path "
-                                 "(or never with the step matrix)")
+                                 "(or never with the step matrix, or the complex mode)")
     print(json.dumps({"kernels": out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-// Loads and stores of the kernels' two storage types, float32 and bfloat16,
+// Loads and stores of the kernels' storage types, float32 and bfloat16,
 // through float: a bf16 value widens exactly, and a float rounds to the
 // nearest bf16 (ties to even) once.  Shared by noise.cu and the NS kernels.
+// float64 (the noise kernel's double instantiation) moves as double.
 //
 // ldv<V> / stv<V> move V consecutive elements as one access (V = 1) or as
-// vectors: float4s of f32, 16-byte vectors of bf16 (and 8-byte ones for
-// stv<4>, the bf16 copy of four f32); the caller guarantees the alignment.
+// vectors: float4s of f32, double2s of f64, 16-byte vectors of bf16 (and
+// 8-byte ones for stv<4>, the bf16 copy of four f32); the caller
+// guarantees the alignment.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -16,7 +18,9 @@ __device__ __forceinline__ float ld(const float* p, long long i) { return p[i]; 
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
   return __bfloat162float(p[i]);
 }
+__device__ __forceinline__ double ld(const double* p, long long i) { return p[i]; }
 __device__ __forceinline__ void st(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(double* p, long long i, double v) { p[i] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
@@ -70,6 +74,24 @@ __device__ __forceinline__ void ldv(const __nv_bfloat16* p, float* v) {
       unpack_bf16x2(x.w, v + i + 6);
     }
   }
+}
+
+template <int V>
+__device__ __forceinline__ void ldv(const double* p, double* v) {
+  static_assert(V % 2 == 0, "double vectors are double2");
+#pragma unroll
+  for (int i = 0; i < V; i += 2) {
+    const double2 x = *reinterpret_cast<const double2*>(p + i);
+    v[i] = x.x, v[i + 1] = x.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void stv(double* p, const double* v) {
+  static_assert(V % 2 == 0, "double vectors are double2");
+#pragma unroll
+  for (int i = 0; i < V; i += 2)
+    *reinterpret_cast<double2*>(p + i) = make_double2(v[i], v[i + 1]);
 }
 
 template <int V>

@@ -14,8 +14,9 @@ same derivation.
 Noise.  The device draws come from Philox4x32-10 keyed by a key's two words
 (``ops.philox``; on CUDA the kernels of ``ops.kernels``).  Distribution:
 uniform(-sqrt3, sqrt3), zero mean and unit variance -- the whitening math
-only uses E[v v^T] = I, so any white unit-variance noise is sound (same
-argument as psgd_torch_tpu/ops/fastrand.py).
+only uses E[v v^H] = I, so any white unit-variance noise is sound (same
+argument as psgd_torch_tpu/ops/fastrand.py).  A complex draw is two real
+ones, from the two keys of split(key), each scaled by 2^-0.5.
 """
 
 from __future__ import annotations
@@ -87,16 +88,34 @@ def uniform01(keys) -> np.ndarray:
     return bits.view(np.float32) - np.float32(1.0)
 
 
+def noise_keys(keys, dtype) -> np.ndarray:
+    """The noise kernel's keys for a (B, 2) key array: the keys themselves
+    for a real dtype, split(keys[i]) = (kr, ki) as a (B, 4) row for a
+    complex one (its real part's key, then its imaginary part's), as the
+    JAX package's complex ``unit_noise`` splits its key."""
+    keys = as_keys(keys).reshape(-1, 2)
+    if dtype.is_complex:
+        return split(keys).reshape(keys.shape[0], 4)
+    return keys
+
+
 def unit_noise_stacked(keys, shape, dtype, device) -> torch.Tensor:
     """(B,)+shape white noise; batch element i's stream is a pure function
-    of keys[i].  On CUDA it is one launch of the Philox noise kernel."""
+    of keys[i].  A complex dtype takes its real part from kr and its
+    imaginary part from ki, (kr, ki) = split(keys[i]), each a real unit
+    draw (f32 for complex64, f64 for complex128) times 2^-0.5: the JAX
+    package's (u(kr) s + 1j u(ki) s).  On CUDA it is one launch of the
+    Philox noise kernel."""
     from .kernels import key_seed_words, unit_noise
-    if dtype.is_complex:
-        raise NotImplementedError(
-            "complex noise is not ported yet (ROADMAP A3)")
-    return unit_noise(key_seed_words(keys, device), tuple(shape), dtype)
+    return unit_noise(key_seed_words(noise_keys(keys, dtype), device),
+                      tuple(shape), dtype)
 
 
 def unit_noise(key, shape, dtype, device) -> torch.Tensor:
     """Zero-mean unit-variance white noise from one key."""
     return unit_noise_stacked(as_keys(key)[None], shape, dtype, device)[0]
+
+
+def normal_like(key, x: torch.Tensor) -> torch.Tensor:
+    """``unit_noise`` in x's shape, dtype and device (JAX ``normal_like``)."""
+    return unit_noise(key, x.shape, x.dtype, x.device)

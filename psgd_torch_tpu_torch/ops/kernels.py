@@ -25,8 +25,19 @@ kernels:
     runs each step of PRO4P's Procrustes loop (``linalg.procrustes_loop3``).
 * ``damped_noise`` and ``unit_noise`` (csrc/noise.cu) -- per-batch-seeded
   Philox4x32-10 uniform(-sqrt3, sqrt3) noise, alone or fused into the
-  whitening damping g + (damping + eps|g|) v.  Replaces
+  whitening damping g + (damping + eps|g|) v, in f32, bf16 and f64, and
+  in a complex mode (complex64, complex128: the real part from one stream,
+  the imaginary part from another, each scaled by 2^-0.5).  Replaces
   ``unit_noise``/``_noise_kernel`` and the damping around it.
+
+The XLA tail.  For the dtypes the JAX package's kernels refuse (float64,
+complex64, complex128: ``ns_update_supported``, ``unit_noise_supported``)
+the JAX package runs its XLA tail (``kron._ns_tail_stacked_xla``), and
+``ns_route`` sends them to ``"xla"``, its counterpart in PyTorch
+operations (``xla_ns_update``: the bound and the Procrustes step of
+``ops.linalg``, their products ``torch.matmul``, cuBLAS on the card).  The
+route is chosen by dtype alone; f32 and bf16 never take it.  The noise
+kernel takes those dtypes itself.
 
 Products: every bf16 product at a width n % 8 == 0 runs on the Hopper
 tensor cores (csrc/ns_gemm_sm90.cuh: TMA loads, ``wgmma``, f32
@@ -69,8 +80,9 @@ import numpy as np
 import torch
 
 from .linalg import (compute_dtype_of, lifted_real_dtype, norm_bound_stored,
-                     norm_lower_bound_spd, procrustes_step2, width_norm_k)
-from .philox import UNIT_SCALE, seed_words_u32, unit_uniform
+                     norm_lower_bound_spd, procrustes_step2, real_dtype_of,
+                     width_norm_k)
+from .philox import UNIT_SCALE, seed_words_u32, uniform_pm1, unit_uniform
 
 NORM_K = 32
 SKH_TAG = 0x5BD1E995  # xored into seed word 1 for the skew bound's stream
@@ -78,6 +90,10 @@ SKH_TAG = 0x5BD1E995  # xored into seed word 1 for the skew bound's stream
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the noise kernel's dtypes; a complex dtype takes four seed words per
+# batch element (its two streams), the others two
+_NOISE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2,
+               torch.complex64: 3, torch.complex128: 4}
 _MODE_CODE = {"spd": 0, "skh": 1}
 _TENSOR_MAP_ERROR = 10000  # + a CUresult: the tensor-core GEMM's host side
 # TMA moves 16-byte rows: the tensor-core GEMM's bf16 widths are multiples of 8
@@ -88,6 +104,9 @@ _TC_WIDTH_MULTIPLE = 8
 # the tiled up to the third; n a multiple of 128.
 NS_CAPS = {torch.bfloat16: (1536, 2048, 4096), torch.float32: (1280, 1536, 3072)}
 NS_ROUTES = ("single", "split", "tiled")
+# the dtypes of the XLA tail (``ns_route`` -> "xla"): those the JAX
+# package's NS and noise kernels refuse
+XLA_DTYPES = (torch.float64, torch.complex64, torch.complex128)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +169,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     signatures = {
-        "psgd_noise": ([vp, vp, vp, i32, i64, i32, i32, f32, f32, f32, vp], i32),
+        "psgd_noise": ([vp, vp, vp, i32, i64, i32, i32, f32, ctypes.c_double,
+                        ctypes.c_double, vp], i32),
         "psgd_ns_workspace_bytes": ([i32] * 4, i64),
         "psgd_ns_update": ([vp] * 9 + [i32, i32, i32, i32, f32, f32, f32, f32, vp],
                            i32),
@@ -260,9 +280,11 @@ def _ptr(t) -> int | None:
 def key_seed_words(keys, device) -> torch.Tensor:
     """(B, 2) int32 device tensor of Philox seed words: the raw threefry key
     data (as ``key_seed_words`` in the JAX package), so a stream is keyed by
-    the full 64-bit key.  A CUDA copy goes through pinned memory without
-    blocking, so the host never waits on the card."""
-    words = np.ascontiguousarray(np.asarray(keys, np.uint32).reshape(-1, 2))
+    the full 64-bit key; a complex noise's (B, 4) keys (``fastrand.noise_keys``)
+    give (B, 4).  A CUDA copy goes through pinned memory without blocking,
+    so the host never waits on the card."""
+    words = np.asarray(keys, np.uint32)
+    words = np.ascontiguousarray(words.reshape(-1, words.shape[-1]))
     t = torch.from_numpy(words.view(np.int32).copy())
     device = torch.device(device)
     if device.type == "cuda":
@@ -279,26 +301,53 @@ def _eps(dtype: torch.dtype) -> float:
     return float(torch.finfo(dtype).eps)
 
 
+def seed_width(dtype: torch.dtype) -> int:
+    """Seed words per batch element of the noise: 4 for a complex dtype
+    (the real and the imaginary part's streams), else 2."""
+    return 4 if dtype.is_complex else 2
+
+
+# each part of a complex noise element is a real unit draw times this
+COMPLEX_PART = 2.0 ** -0.5
+
+
 def unit_noise_plain(seeds: torch.Tensor, shape, dtype) -> torch.Tensor:
-    """(B,)+shape uniform(-sqrt3, sqrt3) in ``dtype``; the kernel's bits."""
+    """(B,)+shape uniform(-sqrt3, sqrt3) in ``dtype``; the kernel's bits.
+    float64 widens the float32 draw.  A complex dtype (``seeds`` (B, 4)):
+    the real part is the real draw in the part's dtype from ``seeds[:, :2]``,
+    the imaginary part that from ``seeds[:, 2:]``, each times 2^-0.5 (one
+    rounding): the composition of two real draws."""
+    if dtype.is_complex:
+        rd = real_dtype_of(dtype)
+        part = torch.tensor(COMPLEX_PART, dtype=rd)
+        return torch.complex(unit_noise_plain(seeds[:, :2], shape, rd) * part,
+                             unit_noise_plain(seeds[:, 2:], shape, rd) * part)
     return unit_uniform(seeds, tuple(shape)).to(dtype)
 
 
 def damped_noise_plain(g: torch.Tensor, seeds: torch.Tensor,
                        damping: float) -> torch.Tensor:
     """g + (damping + eps(dtype)|g|) v with v the unit noise in g's dtype,
-    computed in float32 with one rounding per operation, as the kernel."""
-    v = unit_noise_plain(seeds, g.shape[1:], g.dtype).float()
-    g32 = g.float()
-    d = torch.tensor(damping, dtype=torch.float32) + _eps(g.dtype) * g32.abs()
-    return (g32 + d * v).to(g.dtype)
+    one rounding per operation, as the kernel: in float32 for f32 and bf16
+    (v rounded to g's dtype first), in float64 for f64, and per part in
+    the part's dtype for a complex g, |g| = hypot(re g, im g)."""
+    rd = real_dtype_of(g.dtype)
+    v = unit_noise_plain(seeds, g.shape[1:], g.dtype)
+    if g.dtype.is_complex:
+        d = (torch.tensor(damping, dtype=rd)
+             + _eps(rd) * torch.hypot(g.real, g.imag))
+        return torch.complex(g.real + d * v.real, g.imag + d * v.imag)
+    cd = compute_dtype_of(g.dtype)
+    gc = g.to(cd)
+    d = torch.tensor(damping, dtype=cd) + _eps(g.dtype) * gc.abs()
+    return (gc + d * v.to(cd)).to(g.dtype)
 
 
 # the noise kernel indexes a batch element with 32-bit integers
 MAX_NOISE_PER_BATCH = 2 ** 31 - 1
 
 
-def _noise_launch(g, out, seeds, fused, damping, eps):
+def _noise_launch(g, out, seeds, fused, damping, eps, scale=UNIT_SCALE):
     dev = out.device
     b = out.shape[0]
     per_batch = out.numel() // b if b else 0
@@ -308,40 +357,82 @@ def _noise_launch(g, out, seeds, fused, damping, eps):
     with torch.cuda.device(dev):
         err = library().psgd_noise(
             g.data_ptr() if g is not None else None, out.data_ptr(),
-            seeds.data_ptr(), b, per_batch, _DTYPE_CODE[out.dtype], int(fused),
-            UNIT_SCALE, damping, eps, _stream(dev))
+            seeds.data_ptr(), b, per_batch, _NOISE_CODE[out.dtype], int(fused),
+            scale, damping, eps, _stream(dev))
     _check(err, "psgd_noise")
 
 
-@_counted
+def _counted_noise(fn):
+    """A noise wrapper's launch counter and the count of its launches in
+    the complex mode."""
+    fn.complex_launches = 0
+    return _counted(fn)
+
+
+def _require_noise(dtype, seeds, b, dev) -> None:
+    if dtype not in _NOISE_CODE:
+        raise TypeError(f"the noise kernel takes "
+                        f"{sorted(str(d) for d in _NOISE_CODE)}, not {dtype}")
+    _require(seeds, "seeds", dev, (torch.int32,), (b, seed_width(dtype)))
+
+
+def _count_noise(fn, dtype) -> None:
+    fn.launches += 1
+    fn.complex_launches += dtype.is_complex
+
+
+@_counted_noise
 def unit_noise(seeds: torch.Tensor, shape, dtype) -> torch.Tensor:
     """(B,)+shape white noise; element i's stream is a pure function of
-    seeds[i] (two 32-bit words).  CUDA: one kernel launch."""
+    seeds[i] (two 32-bit words, four for a complex dtype: ``seed_width``).
+    CUDA: one kernel launch (f32, bf16, f64, complex64, complex128)."""
     out_shape = (seeds.shape[0],) + tuple(shape)
     if seeds.device.type == "cpu":
         return unit_noise_plain(seeds, shape, dtype)
-    _require(seeds, "seeds", seeds.device, (torch.int32,), (seeds.shape[0], 2))
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"the noise kernel takes float32/bfloat16, not {dtype}")
+    _require_noise(dtype, seeds, seeds.shape[0], seeds.device)
     out = torch.empty(out_shape, dtype=dtype, device=seeds.device)
     _noise_launch(None, out, seeds, False, 0.0, 0.0)
-    unit_noise.launches += 1
+    _count_noise(unit_noise, dtype)
     return out
 
 
-@_counted
+@_counted_noise
 def damped_noise(g: torch.Tensor, seeds: torch.Tensor,
                  damping: float) -> torch.Tensor:
     """g + (damping + eps(dtype)|g|) v for a stack g (B, ...), v white noise
-    keyed per batch element by seeds (B, 2).  CUDA: one launch, v made in
-    registers (never written to memory)."""
+    keyed per batch element by seeds (B, ``seed_width``).  CUDA: one launch,
+    v made in registers (never written to memory)."""
     if g.device.type == "cpu":
         return damped_noise_plain(g, seeds, damping)
-    _require(g, "g", g.device, _DTYPE_CODE)
-    _require(seeds, "seeds", g.device, (torch.int32,), (g.shape[0], 2))
+    _require(g, "g", g.device, _NOISE_CODE)
+    _require_noise(g.dtype, seeds, g.shape[0], g.device)
     out = torch.empty_like(g)
-    _noise_launch(g, out, seeds, True, float(damping), _eps(g.dtype))
-    damped_noise.launches += 1
+    _noise_launch(g, out, seeds, True, float(damping), _eps(real_dtype_of(g.dtype)))
+    _count_noise(damped_noise, g.dtype)
+    return out
+
+
+def _int32_words(words: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 as the int32 bit patterns."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+@_counted
+def philox_start(seeds: torch.Tensor, shape) -> torch.Tensor:
+    """(B,)+shape float32 uniform(-1, 1), ``philox.uniform_pm1``'s bits: the
+    norm bounds' subspace starts of the XLA tail.  CUDA: one launch of the
+    noise kernel in unit mode at scale 2 (where the plain version's Philox
+    in integer operations is some 270 launches); counted in its own
+    ``.launches``."""
+    if seeds.device.type == "cpu":
+        return uniform_pm1(seeds, tuple(shape))
+    if seeds.dtype != torch.int32:
+        seeds = _int32_words(seed_words_u32(seeds))
+    _require(seeds, "seeds", seeds.device, (torch.int32,), (seeds.shape[0], 2))
+    out = torch.empty((seeds.shape[0],) + tuple(shape), dtype=torch.float32,
+                      device=seeds.device)
+    _noise_launch(None, out, seeds, False, 0.0, 0.0, scale=2.0)
+    philox_start.launches += 1
     return out
 
 
@@ -353,15 +444,19 @@ def damped_noise(g: torch.Tensor, seeds: torch.Tensor,
 def ns_route(n: int, dtype: torch.dtype) -> str:
     """The NS route the JAX package takes for a factor of width n and
     ``dtype`` (``fused_ns_update`` :164-176 with ``ns_update_supported``):
-    "single" up to the first cap of ``NS_CAPS``, "split" up to the second,
-    "tiled" up to the third.  Above the caps, for n not a multiple of 128,
-    and for other dtypes it is "single", whose plain version is exactly the
-    XLA tail (``kron._ns_tail_stacked_xla``) the JAX package runs there.
+    "xla" for float64, complex64 and complex128 (``XLA_DTYPES``), which the
+    JAX package sends to its XLA tail; in f32 and bf16 "single" up to the
+    first cap of ``NS_CAPS``, "split" up to the second, "tiled" up to the
+    third.  Above the caps and for n not a multiple of 128 it is "single",
+    whose plain version is exactly the XLA tail (``kron._ns_tail_stacked_xla``)
+    the JAX package runs there.
 
     The routes are not only memory layouts: in bf16 they store q1 (split)
     or q1, R, RQ and RRQ (tiled) in Q's dtype where the single route keeps
     them in f32, so each width computes what the JAX package computes for
     it."""
+    if dtype in XLA_DTYPES:
+        return "xla"
     caps = NS_CAPS.get(dtype)
     if caps is None or n % 128 or not caps[0] < n <= caps[2]:
         return "single"
@@ -384,21 +479,50 @@ def _lips_update(bound, lips, term2, lr, beta_l):
 def _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, start,
                 step_mat=None):
     """ell, L' and q1 = q - lr/L' (S q - term2 q), S = step_mat or term1
-    (ell from term1 either way), computed in f32 (f64 for f64 Q) and not
-    yet stored."""
+    (ell from term1 either way), computed in ``compute_dtype_of(q.dtype)``
+    (f32 for f32 and bf16 Q) and not yet stored."""
     cd = compute_dtype_of(q.dtype)
+    rd = real_dtype_of(cd)
     n = q.shape[-1]
-    t1, f, t2 = term1.to(cd), q.to(cd), term2.to(cd)
+    t1, f, t2 = term1.to(cd), q.to(cd), term2.to(rd)
     s = t1 if step_mat is None else step_mat.to(cd)
     bound = norm_lower_bound_spd(t1, seeds, k=width_norm_k(k, n), v0=start)
     lip, coeff = _lips_update(bound, lips, t2, lr, beta_l)
-    q1 = f - coeff.to(cd)[:, None, None] * (s @ f - t2[:, None, None] * f)
+    q1 = f - coeff.to(rd)[:, None, None] * (s @ f - t2[:, None, None] * f)
     return q1, lip
 
 
 def _procrustes_plain(q1, seeds, max_step, k, start):
     return procrustes_step2(q1, max_step, norm_k=width_norm_k(k, q1.shape[-1]),
                             seeds=_tagged(seeds), v0=start)
+
+
+# ---------------------------------------------------------------------------
+# the XLA tail (float64, complex64, complex128)
+# ---------------------------------------------------------------------------
+
+
+@_counted_step_mat
+def xla_ns_update(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
+                  k=NORM_K, starts=None, step_mat=None):
+    """The NS update as the JAX package's XLA tail computes it
+    (``kron._ns_tail_stacked_xla``, batched): ``_single_plain`` in Q's
+    dtype, PyTorch operations on any device (their products cuBLAS on the
+    card); the route of ``XLA_DTYPES``, which refuses the others.  Its two
+    starts are ``philox_start`` draws from ``seeds`` (the skew bound's from
+    seeds ^ ``SKH_TAG``) unless ``starts`` gives them.  Counts its calls in
+    ``.launches`` (and ``.step_mat_launches``)."""
+    if q.dtype not in XLA_DTYPES:
+        raise TypeError(f"the XLA tail takes {[str(d) for d in XLA_DTYPES]}; "
+                        f"{q.dtype} runs the NS kernels")
+    if starts is None:
+        shape = (width_norm_k(k, q.shape[-1]), q.shape[-1])
+        starts = (philox_start(seeds, shape), philox_start(_tagged(seeds), shape))
+    out = _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step, k,
+                        starts, step_mat)
+    xla_ns_update.launches += 1
+    xla_ns_update.step_mat_launches += step_mat is not None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +533,8 @@ def _procrustes_plain(q1, seeds, max_step, k, start):
 def _single_plain(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
                   k=NORM_K, starts=None, step_mat=None):
     """The ``_ns_tail_stacked_xla`` math (psgd_torch_tpu/precond/kron.py),
-    batched, in float64 for f64 Q and float32 otherwise, q1 kept unrounded."""
+    batched, in ``compute_dtype_of(q.dtype)`` (float32 for f32 and bf16 Q,
+    Q's own dtype otherwise), q1 kept unrounded."""
     v_spd, v_skh = starts if starts is not None else (None, None)
     q1, lip = _step_plain(term1, q, lips, term2, seeds, lr, beta_l, k, v_spd,
                           step_mat)
@@ -791,13 +916,16 @@ def _dispatch(ops, single, term1, q, lips, term2, seeds, lr, beta_l, max_step,
     route = ns_route(q.shape[-1], q.dtype) if route is None else route
     args = (term1, q, lips, term2, seeds, lr, beta_l, max_step, k, starts,
             step_mat)
+    if route == "xla":
+        return xla_ns_update(*args)
     if route == "single":
         return single(*args)
     if route == "split":
         return _split_route(ops, *args)
     if route == "tiled":
         return _tiled_route(ops, *args)
-    raise ValueError(f"unknown NS route {route!r}; routes are {NS_ROUTES}")
+    raise ValueError(f"unknown NS route {route!r}; routes are "
+                     f"{NS_ROUTES + ('xla',)}")
 
 
 def fused_ns_update_plain(term1, q, lips, term2, seeds, lr, beta_l,
@@ -880,7 +1008,9 @@ STEP_MAT_KERNELS = (fused_ns_update, ns_step, tiled_step)
 
 def reset_launch_counts() -> None:
     for fn in (fused_ns_update, damped_noise, unit_noise, transpose_sub,
-               *SPLIT_KERNELS, *TILED_KERNELS):
+               xla_ns_update, philox_start, *SPLIT_KERNELS, *TILED_KERNELS):
         fn.launches = 0
-    for fn in STEP_MAT_KERNELS:
+    for fn in (*STEP_MAT_KERNELS, xla_ns_update):
         fn.step_mat_launches = 0
+    for fn in (damped_noise, unit_noise):
+        fn.complex_launches = 0

@@ -124,10 +124,12 @@ def norm_lower_bound_skh(a: torch.Tensor, seeds=None, k: int = 32,
 
 
 def compute_dtype_of(dtype: torch.dtype) -> torch.dtype:
-    """Where a plain version computes for factors of ``dtype``: float64 for
-    float64, float32 for float32 and bfloat16 (the kernels' f32
-    accumulation)."""
-    return torch.float64 if dtype == torch.float64 else torch.float32
+    """Where a plain version computes for factors of ``dtype``: float32 for
+    float32 and bfloat16 (the kernels' f32 accumulation); float64,
+    complex64 and complex128 in their own dtype."""
+    if dtype in (torch.float64, torch.complex64, torch.complex128):
+        return dtype
+    return torch.float32
 
 
 def _toward_zero_f32(t: torch.Tensor) -> torch.Tensor:
@@ -205,6 +207,34 @@ def norm_bound_stored(a: torch.Tensor, mode: str, seeds=None, k: int = 32,
     return s[..., 0, 0] * torch.amax(_row_norms(v)[..., 0], dim=-1)
 
 
+def stack_norm_bound(mat: torch.Tensor, seeds, mode: str = "spd",
+                     k: int = 32, v0=None) -> torch.Tensor:
+    """The norm lower bound of each matrix of a stack (B, n, n), ``mode``
+    "spd" or "skh": ``kernels.norm_bound`` (row 5 on CUDA) for f32 and
+    bf16, and for the dtypes of the XLA tail (``kernels.XLA_DTYPES``:
+    f64, complex64, complex128) ``norm_lower_bound_spd`` / ``_skh``, what
+    the JAX package runs there, its start a ``kernels.philox_start`` draw
+    from ``seeds`` unless ``v0`` gives it.  Chosen by dtype alone."""
+    from . import kernels
+    if mat.dtype in kernels.XLA_DTYPES:
+        fn = norm_lower_bound_spd if mode == "spd" else norm_lower_bound_skh
+        if v0 is None:
+            v0 = kernels.philox_start(seeds, (width_norm_k(k, mat.shape[-1]),
+                                              mat.shape[-1]))
+        return fn(mat, k=k, v0=v0)
+    return kernels.norm_bound(mat.contiguous(), seeds, mode, 0, k=k, start=v0)
+
+
+def skew_part(q: torch.Tensor) -> torch.Tensor:
+    """R = Q^H - Q of each matrix of a stack: ``kernels.tsub`` (row 7 on
+    CUDA) for f32 and bf16, PyTorch operations for the dtypes of the XLA
+    tail (a complex Q conjugates)."""
+    from . import kernels
+    if q.dtype in kernels.XLA_DTYPES:
+        return q.mH - q
+    return kernels.tsub(q.contiguous())
+
+
 def _real_trace_f32(m: torch.Tensor) -> torch.Tensor:
     """Real part of the trace, accumulated in at least float32."""
     d = torch.real(torch.diagonal(m, dim1=-2, dim2=-1))
@@ -237,24 +267,22 @@ def procrustes_step3(q: torch.Tensor, seeds: torch.Tensor,
                      v0=None) -> torch.Tensor:
     """One online Procrustes rotation of each Q of a stack (B, n, n), the
     third-order expansion Q <- (I + aR + (aR)^2/2 + (aR)^3/8) Q of exp(aR)
-    with R = Q^T - Q and a the larger root of the step-size quadratic,
+    with R = Q^H - Q and a the larger root of the step-size quadratic,
     clamped at ``max_step_size`` and 0 where tr(RQ) <= 0 or tr(RRRQ) >= 0;
     traces in at least float32 (reference psgd.py:127-155, JAX
-    ``procrustes_step3``).  R is ``kernels.tsub`` and its norm bound
-    ``kernels.norm_bound(..., "skh")`` keyed by ``seeds`` (B, 2) (or
-    started at ``v0``): kernels on CUDA, their plain versions on the CPU.
-    The three products stay ``matmul``."""
-    from . import kernels
+    ``procrustes_step3``).  R is ``skew_part`` and its norm bound
+    ``stack_norm_bound(..., "skh")`` keyed by ``seeds`` (B, 2) (or
+    started at ``v0``): for f32 and bf16 kernels on CUDA, their plain
+    versions on the CPU.  The three products stay ``matmul``."""
     q = q.contiguous()
-    return _step3(q, kernels.tsub(q), seeds, max_step_size, norm_k, v0)
+    return _step3(q, skew_part(q), seeds, max_step_size, norm_k, v0)
 
 
 def _step3(q, r, seeds, max_step_size, norm_k, v0):
-    """``procrustes_step3`` given R = Q^T - Q."""
-    from . import kernels
+    """``procrustes_step3`` given R = Q^H - Q."""
     rd = real_dtype_of(q.dtype)
     tiny = _tiny(q.dtype)
-    rnorm = kernels.norm_bound(r, seeds, "skh", 0, k=norm_k, start=v0)
+    rnorm = stack_norm_bound(r, seeds, "skh", k=norm_k, v0=v0)
     r = r / (rnorm.to(rd) + tiny)[..., None, None]
     rq = r @ q
     rrq = r @ rq
@@ -275,7 +303,7 @@ def procrustes_loop3(q: torch.Tensor, keys, max_iters: int = 10,
                      rel_tol: float = 1e-3, norm_k: int = 32,
                      draw=None) -> torch.Tensor:
     """Up to ``max_iters`` third-order Procrustes steps on each Q of a stack
-    (B, n, n), a layer leaving once max|Q^T - Q| < rel_tol max|Q| and not
+    (B, n, n), a layer leaving once max|Q^H - Q| < rel_tol max|Q| and not
     changed after that: what JAX's vmapped ``procrustes_loop3`` (a
     ``while_loop``) computes per layer (reference psgd.py:446-449).
 
@@ -283,7 +311,8 @@ def procrustes_loop3(q: torch.Tensor, keys, max_iters: int = 10,
     host threefry keys); ``draw(kind, keys, shape, dtype)`` replaces the
     steps' bound starts.  The loop runs all ``max_iters`` steps, each
     masked per layer, so the card never waits on the host for the exit
-    test: 10 ``tsub`` and 10 skew ``norm_bound`` launches per call.
+    test: 10 ``tsub`` and 10 skew ``norm_bound`` launches per call (f32,
+    bf16; the XLA dtypes run both in PyTorch operations).
     ``procrustes_loop3.layer_steps`` sums, on the device, the steps that
     changed a layer (reset it to 0 to count afresh)."""
     from . import kernels
@@ -292,7 +321,7 @@ def procrustes_loop3(q: torch.Tensor, keys, max_iters: int = 10,
     taken = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
     q = q.contiguous()
     for step in range(max_iters):
-        r = kernels.tsub(q)
+        r = skew_part(q)
         asym = torch.amax(torch.abs(r), dim=(-2, -1))
         active = active & (asym >= rel_tol * torch.amax(torch.abs(q),
                                                         dim=(-2, -1)))
@@ -315,12 +344,12 @@ procrustes_loop3.layer_steps = 0
 def norm_lower_bound(a: torch.Tensor) -> torch.Tensor:
     """Legacy spectral-norm lower bound of each matrix (..., n, n) from its
     largest row or column energy, ||A|| <= sqrt(2) bound; 0 for A = 0
-    (reference preconditioned...py:70-98, JAX ``norm_lower_bound``).  Real
-    matrices; the exact EQ whitening's bound."""
+    (reference preconditioned...py:70-98, JAX ``norm_lower_bound``), real
+    or complex; the exact EQ whitening's bound."""
     max_abs = torch.amax(torch.abs(a), dim=(-2, -1))
     scale = torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
     s = a / scale[..., None, None]
-    aa = s * s
+    aa = torch.real(s * torch.conj(s))
     col, row = torch.sum(aa, dim=-2), torch.sum(aa, dim=-1)
     use_rows = torch.amax(col, dim=-1) > torch.amax(row, dim=-1)
 
@@ -330,9 +359,10 @@ def norm_lower_bound(a: torch.Tensor) -> torch.Tensor:
 
     j0 = torch.argmax(col, dim=-1)[..., None, None]
     c0 = torch.take_along_dim(s, j0, dim=-1).mT           # column j0 (..., 1, n)
-    b0 = torch.linalg.vector_norm(unit(c0 @ s) @ s.mT, dim=(-2, -1))
+    b0 = torch.linalg.vector_norm(unit(c0.conj() @ s) @ s.mH, dim=(-2, -1))
     j1 = torch.argmax(row, dim=-1)[..., None, None]
     r1 = torch.take_along_dim(s, j1, dim=-2)              # row j1 (..., 1, n)
-    b1 = torch.linalg.vector_norm(unit(r1 @ s.mT) @ s, dim=(-2, -1))
+    b1 = torch.linalg.vector_norm(unit(r1.conj() @ s.mT) @ s.conj(),
+                                  dim=(-2, -1))
     bound = torch.where(use_rows, b0, b1)
     return torch.where(max_abs > 0, max_abs * bound, max_abs)

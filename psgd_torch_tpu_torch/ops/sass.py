@@ -3,7 +3,8 @@ in the SASS of a built kernel library (``cuobjdump -sass``).
 
     python3 -m psgd_torch_tpu_torch.ops.sass build/kernels/libpsgd_kernels_<hash>.so
 
-For each instantiation of ``noise_kernel`` it takes the longest span
+For each instantiation of ``noise_kernel`` (and of the complex mode's
+``noise_complex_kernel``, per complex element) it takes the longest span
 between a backward branch and its target (the grid-stride loop), counts
 its instructions, its ``IMAD.WIDE`` and ``IMAD.HI`` (the integer multiplies
 of Philox, which issue on the half-rate pipe) and the bytes its global
@@ -26,8 +27,9 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 # the last operand whatever predicates come before it
 _TARGET = re.compile(r"(\.L_x_\d+|0x[0-9a-f]+)")
 _PRED = re.compile(r"^@!?U?P\w+\s+")
-# noise_kernel<T, kFused[, kOct]>
+# noise_kernel<T, kFused[, kOct]> and noise_complex_kernel<T, kFused, kVec>
 _NOISE = re.compile(r"noise_kernelI(f|13__nv_bfloat16)Lb([01])E(?:Lb([01])E)?")
+_COMPLEX = re.compile(r"noise_complex_kernelI(f|d)Lb([01])ELb([01])E")
 
 
 def _cuobjdump() -> str:
@@ -107,18 +109,24 @@ def main_loop(lines: list[str]) -> dict:
 
 def noise_loops_of(funcs: dict[str, list[str]]) -> dict[tuple, dict]:
     """{(dtype, fused, vector or None): main-loop counts per element} for
-    every noise_kernel instantiation among ``funcs``."""
+    every noise_kernel instantiation among ``funcs`` (f32 and bf16), and
+    per complex element for every noise_complex_kernel (complex64 and
+    complex128)."""
     out = {}
     for name, lines in funcs.items():
-        m = _NOISE.search(name)
-        if not m:
+        if m := _COMPLEX.search(name):
+            size = 8 if m.group(1) == "f" else 16
+            dtype = "complex64" if size == 8 else "complex128"
+        elif m := _NOISE.search(name):
+            size = 4 if m.group(1) == "f" else 2
+            dtype = "float32" if size == 4 else "bfloat16"
+        else:
             continue
-        size = 4 if m.group(1) == "f" else 2
         loop = main_loop(lines)
         elems = loop["store_bytes"] / size
         if not elems:
             raise ValueError(f"{name}: its longest loop stores nothing")
-        key = ("float32" if size == 4 else "bfloat16", m.group(2) == "1",
+        key = (dtype, m.group(2) == "1",
                None if m.group(3) is None else m.group(3) == "1")
         out[key] = dict(loop, elements=elems,
                         per_element=loop["instructions"] / elems,

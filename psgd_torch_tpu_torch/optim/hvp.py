@@ -32,6 +32,7 @@ import torch
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops import fastrand
+from ..ops.linalg import real_dtype_of
 
 # the attention backend of the exact Hvp pass (twice differentiable)
 HVP_ATTENTION = SDPBackend.MATH
@@ -86,12 +87,12 @@ def hvp_finite_diff(loss_fn: Callable[[], torch.Tensor],
                     params: Sequence[torch.Tensor],
                     vs: Sequence[torch.Tensor], delta: float | None = None):
     """(grads, Hvs) with Hv = (g(p + delta v) - g(p)) / delta, delta =
-    eps(dtype)^(1/2) of the first parameter by default (reference
+    eps(real dtype)^(1/2) of the first parameter by default (reference
     psgd.py:923-938).  The parameters are perturbed in place and restored
     to their bits afterwards."""
     params = list(params)
     if delta is None:
-        delta = float(torch.finfo(params[0].dtype).eps) ** 0.5
+        delta = float(torch.finfo(real_dtype_of(params[0].dtype)).eps) ** 0.5
     with torch.enable_grad():
         grads = [g.detach() for g in gradients(loss_fn(), params)]
     saved = [p.detach().clone() for p in params]

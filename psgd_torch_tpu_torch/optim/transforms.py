@@ -34,14 +34,19 @@ over all parameters concatenated into one vector (``precond.lra``,
 each layer gets its own preconditioner and the whole stack one batched
 update.  ``shared_layers`` (True, or a subset of the scanned parameters)
 instead pools a stack into one preconditioner over the whole tensor, its
-layer axis a diagonal factor.  ``cache_p`` keeps P_i = Q_i^T Q_i per
+layer axis a diagonal factor.  ``cache_p`` keeps P_i = Q_i^H Q_i per
 factor after every fit, so the apply is one product per dim.  KronWhiten
 also takes ``share_fit_apply`` (a fit step's update is the fit's own
 P damped(src)) and ``pipelined_fit`` (the fit reads the momentum as it
 was before this step's EMA).  Parameter order (which fixes each leaf's
 key) is the JAX pytree order: named parameters are sorted by their dotted
-path.  Complex parameters are refused (ROADMAP A3); ``stack_sharding`` and
-``factor_sharding`` raise (ROADMAP A8).
+path.  KronWhiten and KronNewton take real and complex parameters and Q
+(complex64, complex128; a complex Q over real parameters as the JAX
+transforms take it: the sources cast to Q's dtype, the update's real part
+applied); a complex gradient is what torch puts in ``.grad``, the
+conjugate of what ``jax.grad`` returns, and ``p - lr * update`` descends.
+The LRA and dense optimizers still refuse complex parameters (ROADMAP
+A3b); ``stack_sharding`` and ``factor_sharding`` raise (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -81,22 +86,37 @@ def _squeezed_shape(shape) -> tuple:
 def _amp_clip(g: torch.Tensor, max_avg_amp: float, max_element_amp: float,
               stacked: bool) -> torch.Tensor:
     """RMS (accumulated in float32) and elementwise amplitude clipping per
-    tensor, or per layer of a stack (psgd.py:642-651)."""
+    tensor, or per layer of a stack (psgd.py:642-651); a complex element
+    is scaled down to modulus ``max_element_amp``, g / max(|g| / max, 1)
+    (JAX ``_amp_clip``)."""
     dims = tuple(range(1, g.ndim)) if stacked else tuple(range(g.ndim))
     sq = torch.real(g * torch.conj(g)).to(torch.float32)
     avg_amp = torch.sqrt(torch.mean(sq, dim=dims, keepdim=True) if dims
                          else sq)
     scale = torch.clamp(max_avg_amp / torch.clamp(avg_amp, min=1e-30),
                         max=1.0).to(real_dtype_of(g.dtype))
-    return torch.clamp(g * scale, -max_element_amp, max_element_amp)
+    g = g * scale
+    if g.is_complex():
+        return g / torch.clamp(torch.abs(g) / max_element_amp, min=1.0)
+    return torch.clamp(g, -max_element_amp, max_element_amp)
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in ``dtype``; a complex x cast to a real dtype keeps its real part,
+    as JAX's ``astype`` does."""
+    if x.is_complex() and not dtype.is_complex:
+        x = torch.real(x)
+    return x.to(dtype)
 
 
 def _whiten_scale_from_grads(grads, flags, damping: float) -> torch.Tensor:
     """On-the-fly init scale (mean|g|^4 + damping^4)^(-1/8), max over tensors
-    (each layer of a stack counts as a tensor), on the device."""
+    (each layer of a stack counts as a tensor), on the device.  Of a
+    complex g the real part only, as the JAX transform's
+    ``g.astype(jnp.float32)`` reads it (ROADMAP, notes on the reference)."""
     ms = []
     for g, f in zip(grads, flags):
-        g4 = torch.abs(g.to(torch.float32)) ** 4
+        g4 = torch.abs(_cast(g, torch.float32)) ** 4
         if f:
             ms.append(torch.amax(torch.mean(g4.reshape(g4.shape[0], -1), 1)))
         else:
@@ -198,10 +218,11 @@ def _kron_plan(t: torch.Tensor, scanned: bool, shared: bool, max_size: float,
 def _newton_scale_from_vh(vs, hs, damping: float) -> torch.Tensor:
     """On-the-fly init scale (mean|v|^2)^(1/4) (mean|h|^4 + damping^4)^(-1/8),
     mean|v|^2 over all leaves, mean|h|^4 the max over leaves, in float32 on
-    the device (psgd.py:940-943)."""
+    the device (psgd.py:940-943); of complex v and h the real parts, as
+    the JAX transform reads them."""
     numel = sum(v.numel() for v in vs)
-    v2 = sum(torch.sum(torch.abs(v.to(torch.float32)) ** 2) for v in vs) / numel
-    h4 = torch.amax(torch.stack([torch.mean(torch.abs(h.to(torch.float32)) ** 4)
+    v2 = sum(torch.sum(torch.abs(_cast(v, torch.float32)) ** 2) for v in vs) / numel
+    h4 = torch.amax(torch.stack([torch.mean(torch.abs(_cast(h, torch.float32)) ** 4)
                                  for h in hs]))
     return v2 ** 0.25 * (h4 + damping ** 4) ** (-1.0 / 8.0)
 
@@ -211,7 +232,7 @@ def _global_norm_scale(xs, max_norm: float):
     device scalar (psgd.py:967-971); 1.0 for an infinite max_norm."""
     if math.isinf(max_norm):
         return 1.0
-    norm = torch.sqrt(sum(torch.sum(x * x) for x in xs))
+    norm = torch.sqrt(sum(torch.sum(torch.real(x * torch.conj(x))) for x in xs))
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-38), max=1.0)
 
 
@@ -245,9 +266,10 @@ def _host_gate(prob, k_gate, count: int, draw) -> bool:
 def _ema_(mu: torch.Tensor, g: torch.Tensor, count: int,
           momentum: float) -> torch.Tensor:
     """The bias-warmed EMA in place, beta = min(count / (count + 1),
-    momentum) in the buffer's dtype (psgd.py:604-611)."""
-    b = _rounded(min(count / (count + 1.0), momentum), mu.dtype)
-    return mu.mul_(b).add_(g.to(mu.dtype) * _rounded(1.0 - b, mu.dtype))
+    momentum) in the buffer's real dtype (psgd.py:604-611)."""
+    rd = real_dtype_of(mu.dtype)
+    b = _rounded(min(count / (count + 1.0), momentum), rd)
+    return mu.mul_(b).add_(_cast(g, mu.dtype) * _rounded(1.0 - b, rd))
 
 
 def _descend(group: dict, params, updates, count: int) -> None:
@@ -460,9 +482,6 @@ class _Kron(_Resumable):
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
                                  f"{self.device}")
-        kron_p.require_real(*(t.dtype for t in tensors),
-                            *((preconditioner_dtype,) if preconditioner_dtype
-                              else ()))
 
         super().__init__([{"params": tensors}], defaults)
         self.momentum = momentum
@@ -550,7 +569,7 @@ class _Kron(_Resumable):
             if return_pg:
                 kw["return_pg"] = True
             state = kron_p.KronState(q=st["q"], lips=st["lips"])
-            views = [self._view(x, i).to(qdt) for x in src]
+            views = [_cast(self._view(x, i), qdt) for x in src]
             if self.scanned[i]:
                 out = fit_stacked(state, self.plans[i], *views,
                                   fastrand.split(key, views[0].shape[0]), **kw)
@@ -573,14 +592,14 @@ class _Kron(_Resumable):
         """P src for leaf i (parameter p), in p's dtype and the plan's
         shape, through ``factors``: the leaf's Q, or its cached P_i."""
         plan, stacked = self.plans[i], self.scanned[i]
-        g = self._view(src, i).to(factors[0].dtype)
+        g = _cast(self._view(src, i), factors[0].dtype)
         if self.cache_p:
             fn = (kron_p.precond_grad_cached_stacked if stacked
                   else kron_p.precond_grad_cached)
-            return fn(factors, plan, g).to(p.dtype)
+            return _cast(fn(factors, plan, g), p.dtype)
         state = kron_p.KronState(q=factors, lips=())
         fn = kron_p.precond_grad_stacked if stacked else kron_p.precond_grad
-        return fn(state, plan, g).to(p.dtype)
+        return _cast(fn(state, plan, g), p.dtype)
 
 
 class KronWhiten(_Kron):
@@ -707,7 +726,7 @@ class KronWhiten(_Kron):
     def _finish(self, i, p, pg, clip_amps):
         """P src in p's dtype, clipped per tensor (per layer of a scanned
         stack), in p's shape."""
-        return _amp_clip(pg.to(p.dtype), *clip_amps,
+        return _amp_clip(_cast(pg, p.dtype), *clip_amps,
                          stacked=self.scanned[i]).reshape(p.shape)
 
     def _apply(self, params, sources, clip_amps, factors=None):

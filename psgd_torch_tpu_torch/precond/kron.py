@@ -1,14 +1,20 @@
 """Kronecker-factored PSGD preconditioner: the seven dQ geometries' fits.
 
 Counterpart of psgd_torch_tpu/precond/kron.py: plans and state, balancing,
-the L-constants, the apply P g = Q^T Q g (P g = Q g for the fit-P
-geometries QUAD4P and PRO4P) and its cached form (P_i = Q_i^T Q_i per
+the L-constants, the apply P g = Q^H Q g (P g = Q g for the fit-P
+geometries QUAD4P and PRO4P) and its cached form (P_i = Q_i^H Q_i per
 factor, then one product per dim), the damping, and the whitening fit
 (from a gradient g, optionally returning its P damped(g)) and Newton fit
 (from a probe v and its Hessian-vector product h) of every geometry, per
 tensor and for a layer stack, plus the exact EQ whitening
-(``update_kron_whiten_eq_exact``).  Complex tensors raise
-``NotImplementedError`` (ROADMAP A3).
+(``update_kron_whiten_eq_exact``).  Real (bf16, f32, f64) and complex
+(complex64, complex128) tensors alike: every contraction conjugates where
+the JAX package's does (Q^H, x x^H, (p + p^H) / 2), so a complex Q stays
+a Hermitian preconditioner's factor.  f64 and complex factors take the
+XLA tail (``kernels.ns_route`` "xla"; the bounds and the Procrustes loop
+in PyTorch operations), as the JAX package does.  The LRA and dense
+preconditioners still refuse complex dtypes (``require_real``, ROADMAP
+A3b).
 
 Geometries (``_GEOMETRIES``): Q0.5EQ1.5 (the default) steps each dense
 factor through the NS update, ``kernels.fused_ns_update``; QEP, QEQ,
@@ -18,10 +24,11 @@ running ``linalg.procrustes_loop3`` (``kernels.tsub`` and the skew
 ``kernels.norm_bound`` per step); EQ forms A = Q h and v Q^-1
 (``torch.linalg.solve_triangular``) and steps triu(term1 - term2) Q.  On
 CUDA the damping is ``kernels.damped_noise`` and EQ whitening's probe
-``kernels.unit_noise``; on the CPU their plain versions.
+``kernels.unit_noise`` (both one launch per stack, in the complex mode
+for a complex tensor); on the CPU their plain versions.
 
 Contractions are explicit per-dimension products (one ``matmul`` along one
-axis at a time, Q^T after Q), never a multi-operand einsum: the card's
+axis at a time, Q^H after Q), never a multi-operand einsum: the card's
 PyTorch has no opt_einsum, and contracting left to right would start the
 exprP chain of a (768, 2304) leaf with a 768*768*2304-element outer
 product.  Plans therefore carry no subscripts.
@@ -42,7 +49,8 @@ import torch
 from .. import resolve_device
 from ..ops import fastrand, kernels
 from ..ops.linalg import (lift2single, lifted_real_dtype, norm_lower_bound,
-                          procrustes_loop3, real_dtype_of, width_norm_k)
+                          procrustes_loop3, real_dtype_of, stack_norm_bound,
+                          width_norm_k)
 
 DQ_EQ = "EQ"
 DQ_QEP = "QEP"
@@ -65,12 +73,14 @@ def canonical_dq(dq: str) -> str:
 
 
 def require_real(*dtypes: torch.dtype) -> None:
-    """Refuse complex dtypes: the port's noise, damping and clipping are
-    real-only until ROADMAP A3 lands."""
+    """Refuse complex dtypes where the port has no complex form: the LRA
+    and dense preconditioners (ROADMAP A3b; the JAX package's LRA and
+    dense code transposes where a Hermitian preconditioner conjugates)."""
     for dt in dtypes:
         if dt.is_complex:
             raise NotImplementedError(
-                f"complex dtype {dt} is not ported yet (ROADMAP A3)")
+                f"complex dtype {dt} is not ported yet for the LRA and dense "
+                "preconditioners (ROADMAP A3b; Kron took complex in A3)")
 
 
 class KronPlan(NamedTuple):
@@ -215,8 +225,10 @@ def _coeff(lr: float, lip: torch.Tensor, dtype) -> torch.Tensor:
 def _apply_factor(f: torch.Tensor, x: torch.Tensor, dim: int,
                   transpose: bool) -> torch.Tensor:
     """Apply factor f (B, n, n) or diagonal (B, n) along axis ``dim`` of a
-    batched tensor x (B, ...): f @ x along that axis, or f^T @ x."""
+    batched tensor x (B, ...): f @ x along that axis, or f^H @ x."""
     ax = dim + 1
+    if transpose:
+        f = f.conj()
     if f.ndim == 2:
         view = [f.shape[0]] + [1] * (x.ndim - 1)
         view[ax] = f.shape[1]
@@ -240,14 +252,14 @@ def _batched_factors(q):
 
 
 def _factor_pass(qs, x: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """Every factor applied once along its dim (f^T with ``transpose``)."""
+    """Every factor applied once along its dim (f^H with ``transpose``)."""
     for i, f in enumerate(qs):
         x = _apply_factor(f, x, i, transpose)
     return x
 
 
 def _precond_batched(q, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
-    """P g per batch element: Q applied along every dim, then Q^T (for the
+    """P g per batch element: Q applied along every dim, then Q^H (for the
     fit-P geometries, Q alone).  q factors and g carry the batch axis."""
     qs = _batched_factors(q)
     x = _factor_pass(qs, _work_view(plan, g), transpose=False)
@@ -266,7 +278,7 @@ def _single_pass(factors, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
 
 def precond_grad(state: KronState, plan: KronPlan,
                  g: torch.Tensor) -> torch.Tensor:
-    """P g for one tensor: P = Q^T Q (or P = Q for the fit-P geometries)."""
+    """P g for one tensor: P = Q^H Q (or P = Q for the fit-P geometries)."""
     q = tuple(f[None] for f in state.q)
     return _precond_batched(q, plan, g[None])[0]
 
@@ -291,16 +303,15 @@ def apply_all_factors_stacked(state: KronState, plan: KronPlan,
 
 def compute_p_factors(state: KronState,
                       plan: KronPlan) -> Tuple[torch.Tensor, ...]:
-    """The cached form of P = Q^T Q: P_i = Q_i^T Q_i for a dense factor (one
-    ``matmul``, batched over a stack's layer axis), q_i^2 for a diagonal
+    """The cached form of P = Q^H Q: P_i = Q_i^H Q_i for a dense factor (one
+    ``matmul``, batched over a stack's layer axis), |q_i|^2 for a diagonal
     or scalar one, in Q's dtype (JAX ``compute_p_factors``).  Takes a
     per-tensor state or a stack's.  The fit-P geometries have no such
     form: Q already is P."""
     if plan.fits_p:
         raise ValueError("compute_p_factors: the *4P geometries fit P "
                          "directly; their apply is already a single pass")
-    require_real(*(f.dtype for f in state.q))
-    return tuple(f * f if diag else f.mT @ f
+    return tuple(f.conj() * f if diag else f.mH @ f
                  for f, diag in zip(state.q, plan.is_diag))
 
 
@@ -319,13 +330,14 @@ def precond_grad_cached_stacked(p_factors: Tuple[torch.Tensor, ...],
 
 
 def _gram(pg: torch.Tensor, i: int, diag: bool) -> torch.Tensor:
-    """term1 = contraction of pg with itself over every dim but i: (B, n, n),
-    or its diagonal (B, n) for a diagonal factor."""
+    """term1 = contraction of pg with its conjugate over every dim but i:
+    X X^H (B, n, n) with X pg's dim i against the rest, or its diagonal
+    (B, n) for a diagonal factor."""
     x = pg.movedim(i + 1, 1)
     x = x.reshape(x.shape[0], x.shape[1], -1)
     if diag:
-        return torch.sum(x * x, dim=-1)
-    return torch.bmm(x, x.transpose(1, 2))
+        return torch.sum(x * x.conj(), dim=-1)
+    return torch.bmm(x, x.mH)
 
 
 # ---------------------------------------------------------------------------
@@ -337,12 +349,12 @@ def _damped_stacked(g: torch.Tensor, keys, damping: float,
                     v: Optional[torch.Tensor] = None) -> torch.Tensor:
     """g + (damping + eps(dtype)|g|) v per layer, v keyed per layer by keys
     (reference psgd.py:334-336).  Without a pre-drawn v, one fused noise
-    launch (the noise never reaches memory on CUDA).  Real dtypes only."""
-    require_real(g.dtype)
+    launch (the noise never reaches memory on CUDA); a complex g takes the
+    complex mode, its v keyed per layer by split(keys[i])."""
     if v is not None:
         eps = torch.finfo(real_dtype_of(g.dtype)).eps
         return g + (damping + eps * torch.abs(g)) * v
-    seeds = kernels.key_seed_words(keys, g.device)
+    seeds = kernels.key_seed_words(fastrand.noise_keys(keys, g.dtype), g.device)
     return kernels.damped_noise(g.contiguous(), seeds, damping)
 
 
@@ -372,7 +384,7 @@ class _Geometry(NamedTuple):
     * ``"left"``: q - c E q (QEP, PRO4P; PRO4P then ``procrustes_loop3``
       keyed fold_in(krest, i + 200));
     * ``"right"``: q - c q E (QEQ);
-    * ``"quad"``: p = q - c E q, p = p - c p E, then (p + p^T) / 2, at
+    * ``"quad"``: p = q - c E q, p = p - c p E, then (p + p^H) / 2, at
       c = lr / (2 L) (QUAD) or lr / L (QUAD4P); a diagonal factor is
       q (1 - c E)^2;
     * ``"triu"``: q - c triu(E) q (EQ).
@@ -399,13 +411,13 @@ _GEOMETRIES = {
 
 def _spd_bound(mat: torch.Tensor, keys, norm_k: int, draw) -> torch.Tensor:
     """The spd norm bound of each matrix of a stack (B, n, n), keyed per
-    layer: ``kernels.norm_bound`` (row 5 on CUDA)."""
+    layer: ``linalg.stack_norm_bound`` (``kernels.norm_bound``, row 5 on
+    CUDA, for f32 and bf16; the XLA tail's bound for the other dtypes)."""
     n = mat.shape[-1]
     start = (None if draw is None else
              draw("normal", keys, (width_norm_k(norm_k, n), n), mat.dtype))
-    return kernels.norm_bound(mat.contiguous(),
-                              kernels.key_seed_words(keys, mat.device), "spd",
-                              0, k=norm_k, start=start)
+    return stack_norm_bound(mat, kernels.key_seed_words(keys, mat.device),
+                            "spd", k=norm_k, v0=start)
 
 
 def _probe(keys, wshape, dtype, device, draw) -> torch.Tensor:
@@ -418,7 +430,8 @@ def _probe(keys, wshape, dtype, device, draw) -> torch.Tensor:
 
 
 def _solve_factors(q, plan: KronPlan, v: torch.Tensor) -> torch.Tensor:
-    """v Q^-1 along every dim of a batched v: a diagonal factor divides, a
+    """v Q^-1 along every dim of a batched v (EQ passes conj(v)): a
+    diagonal factor divides, a
     dense (upper triangular) factor is one right-hand triangular solve
     along its axis, lifted to f32 for bf16 (JAX ``_update_eq_core``'s
     conj_b; XLA's ``triangular_solve`` there)."""
@@ -475,7 +488,7 @@ def _dense_step(geo: _Geometry, f, s_mat, shift, c):
     if geo.side == "quad":
         p = f - c * left(f)
         p = p - c * right(p)
-        return 0.5 * (p + p.mT)
+        return 0.5 * (p + p.mH)
     return f - c * (torch.triu(s_mat) @ f)
 
 
@@ -507,8 +520,6 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
     shape, formed with the pre-update (QEP: balanced) Q; None for EQ,
     which never forms it."""
     geo = _GEOMETRIES[plan.dq]
-    require_real(src.dtype, *(f.dtype for f in state.q),
-                 *(() if v is None else (v.dtype,)))
     b = src.shape[0]
     keys = fastrand.as_keys(keys).reshape(b, 2)
     wshape = plan.shape or (1,)
@@ -530,7 +541,7 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
             dv = None if draw is None else draw("normal", kd, wshape, src.dtype)
             h = _damped_stacked(x, kd, damping, dv)
         a = _single_pass(q, plan, h)
-        conj_b = _solve_factors(q, plan, vw)
+        conj_b = _solve_factors(q, plan, vw.conj())
     else:
         ks = fastrand.split(keys)
         kd, krest = ks[:, 0], ks[:, 1]
@@ -542,7 +553,7 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
     for i, f in enumerate(q):
         diag = plan.is_diag[i]
         if plan.dq == DQ_EQ:
-            term1, term2 = _gram(a, i, diag), _gram(conj_b, i, diag)
+            term1, term2 = _gram(a, i, diag), _gram(conj_b.conj(), i, diag)
         else:
             y = _apply_factor(f, pg, i, False) if geo.qep else pg
             term1 = _gram(y, i, diag)
@@ -550,7 +561,8 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
                 vy = _apply_factor(f, vw, i, False) if geo.qep else vw
                 term2 = _gram(vy, i, diag)
             elif geo.qep:
-                term2 = (plan.numel / wshape[i]) * (f * f if diag else f @ f.mT)
+                term2 = (plan.numel / wshape[i]) * (f * f.conj() if diag
+                                                    else f @ f.mH)
             else:
                 term2 = plan.numel / wshape[i]
         if isinstance(term2, float):
@@ -683,13 +695,12 @@ def update_kron_whiten_eq_exact(state: KronState, plan: KronPlan,
     """EQ whitening of one tensor with v integrated out through explicit
     triangular inverses (the old Kron class's V=None path, reference
     preconditioned...py:2040-2070; JAX update_kron_whiten_eq_exact):
-    term2_i = prod_{j != i} tr(Q_j^-T Q_j^-1) Q_i^-T Q_i^-1.  No probe: the
+    term2_i = prod_{j != i} tr(Q_j^-H Q_j^-1) Q_i^-H Q_i^-1.  No probe: the
     only draw is the balance gate, keyed by ``key`` itself and taken
     before the fit.  ``step_normalizer`` "2nd" steps at lr / L' with
     L' from the legacy bound (``linalg.norm_lower_bound``) of term1 + term2
     (a diagonal factor: max |term1 + term2|); any other value normalizes
     the gradient by its own bound and leaves L as it is."""
-    require_real(g.dtype, *(f.dtype for f in state.q))
     key = fastrand.as_keys(key)[None]
     q = ((state.q[0].reshape(1, 1),) if plan.order == 0 else
          tuple(f[None] for f in state.q))
@@ -701,14 +712,14 @@ def update_kron_whiten_eq_exact(state: KronState, plan: KronPlan,
     for f, diag in zip(q, plan.is_diag):
         if diag:
             inv = 1.0 / f
-            ihih.append(inv * inv)
+            ihih.append(inv.conj() * inv)
             traces.append(torch.sum(ihih[-1], dim=-1))
         else:
             eye = torch.eye(f.shape[-1], dtype=lift2single(f).dtype,
                             device=f.device)
             inv = torch.linalg.solve_triangular(lift2single(f), eye,
                                                 upper=True).to(f.dtype)
-            ihih.append(inv.mT @ inv)
+            ihih.append(inv.mH @ inv)
             traces.append(torch.diagonal(ihih[-1], dim1=-2, dim2=-1).sum(-1))
     new_q, new_l = [], []
     for i, (f, diag) in enumerate(zip(q, plan.is_diag)):

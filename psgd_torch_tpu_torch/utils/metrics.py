@@ -48,7 +48,9 @@ def _momentum(opt) -> list:
 
 
 def _rms(xs) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in xs)
+    """RMS in float32; of a complex tensor the real part, as JAX's
+    ``x.astype(jnp.float32)`` reads it."""
+    sq = sum(torch.sum(torch.square(torch.real(x).to(torch.float32))) for x in xs)
     return torch.sqrt(sq / sum(x.numel() for x in xs))
 
 

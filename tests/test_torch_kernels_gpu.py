@@ -27,7 +27,9 @@ def _seeds(b, dev):
 
 
 def _bits(t):
-    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
 
 
 def _same_bits(a, b):
@@ -49,6 +51,57 @@ def test_noise_kernel_bit_exact(dev, per_batch, b, dtype):
                       kernels.unit_noise_plain(seeds, (per_batch,), dtype))
     assert _same_bits(kernels.damped_noise(g, seeds, 1e-9),
                       kernels.damped_noise_plain(g, seeds, 1e-9))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128, torch.float64])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("per_batch", [1, 7, 8, 4096 + 2, 97 * 33, 768 * 2304])
+def test_noise_complex_and_f64_bit_exact(dev, per_batch, b, dtype):
+    """The complex mode (four seed words per batch element: the real part's
+    stream, the imaginary part's) and the float64 instantiation, unit and
+    fused, bit for bit against their plain versions (two real plain draws
+    for a complex dtype; the float32 draw widened for float64): complex
+    lengths that are multiples of 4 take the vector kernel, the others the
+    scalar one."""
+    seeds = torch.arange(kernels.seed_width(dtype) * b, dtype=torch.int32,
+                         device=dev).reshape(b, -1) * 7919 + 3
+    g = torch.randn((b, per_batch), device=dev, dtype=dtype)
+    assert _same_bits(kernels.unit_noise(seeds, (per_batch,), dtype),
+                      kernels.unit_noise_plain(seeds, (per_batch,), dtype))
+    assert _same_bits(kernels.damped_noise(g, seeds, 1e-9),
+                      kernels.damped_noise_plain(g, seeds, 1e-9))
+
+
+def test_philox_start_is_uniform_pm1(dev):
+    """philox_start, the XLA tail's subspace starts: one noise launch at
+    scale 2, uniform_pm1's bits, from int32 and from int64 (tagged) seed
+    words."""
+    from psgd_torch_tpu_torch.ops import philox
+    seeds = _seeds(3, dev)
+    for s in (seeds, kernels._tagged(seeds)):
+        assert torch.equal(kernels.philox_start(s, (32, 768)),
+                           philox.uniform_pm1(s, (32, 768)))
+
+
+def test_xla_route_on_the_card(dev):
+    """The XLA tail on CUDA tensors (complex64, (3, 256)): counted in
+    xla_ns_update.launches and philox_start.launches (two starts), no NS
+    kernel launched, within 1e-4 of the same call on the CPU."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((3, 256, 512), generator=gen, device=dev, dtype=torch.complex64)
+    term1 = x @ x.mH / 512
+    q = torch.eye(256, device=dev, dtype=torch.complex64) + 0.02 * torch.randn(
+        (3, 256, 256), generator=gen, device=dev, dtype=torch.complex64)
+    args = (term1, q, torch.zeros(3, device=dev), torch.full((3,), 2.0, device=dev),
+            _seeds(3, dev), 0.1, 0.9)
+    kernels.reset_launch_counts()
+    out, lip = kernels.fused_ns_update(*args)
+    assert (kernels.xla_ns_update.launches, kernels.philox_start.launches,
+            kernels.fused_ns_update.launches) == (1, 2, 0)
+    ref, rlip = kernels.fused_ns_update(*(a.cpu() if torch.is_tensor(a) else a
+                                          for a in args))
+    assert ((out.cpu() - ref).abs().max() / ref.abs().max()).item() < 1e-4
+    assert ((lip.cpu() - rlip).abs() / rlip).max().item() < 1e-4
 
 
 def test_noise_unaligned_g_takes_the_scalar_kernel(dev):
@@ -421,13 +474,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kernels.fused_ns_update(term1, q, lips, term2, seeds, lr, beta,
                                 starts=(q[:, :8], q[:, :8]))
     with pytest.raises(TypeError):
-        kernels.fused_ns_update(term1.double(), q.double(), lips, term2, seeds,
+        kernels.fused_ns_update(term1.half(), q.half(), lips, term2, seeds,
                                 lr, beta)
     with pytest.raises(ValueError):
         kernels.fused_ns_update(term1, q.transpose(1, 2), lips, term2, seeds,
                                 lr, beta)
     with pytest.raises(TypeError):
-        kernels.damped_noise(q.double(), seeds, 1e-9)
+        kernels.damped_noise(q.half(), seeds, 1e-9)
+    with pytest.raises(ValueError):       # a complex g takes four seed words
+        kernels.damped_noise(q.to(torch.complex64), seeds, 1e-9)
     with pytest.raises(ValueError):
         kernels.fused_ns_update(term1, q, lips, term2, seeds, lr, beta,
                                 route="monolith")
@@ -572,7 +627,10 @@ def test_geometry_fit_launches_the_kernels(dev, dq, newton):
     the damping by damped_noise (EQ whitening: its probe by unit_noise),
     no NS kernel; Q and L agree with the CPU's plain fit from the same
     state and keys within 1e-4 (f32 sums in another order).  A float64
-    stack on the card raises: no kernel takes it."""
+    stack on the card takes the XLA tail's bounds (PyTorch operations,
+    their starts ``philox_start`` launches) and the noise kernel's float64
+    instantiation, no bound kernel, and agrees with the CPU's within
+    1e-10."""
     from psgd_torch_tpu_torch.ops import fastrand
     from psgd_torch_tpu_torch.precond import kron
     plan = kron.make_kron_plan((16, 40), max_skew=2.0, dq=dq)
@@ -610,9 +668,18 @@ def test_geometry_fit_launches_the_kernels(dev, dq, newton):
     for a, b in zip(out.q + out.lips, ref.q + ref.lips):
         assert a.device.type == "cuda"
         assert (a.cpu() - b).norm() <= 1e-4 * b.norm(), dq
-    with pytest.raises(TypeError):
-        fit(kron.KronState(tuple(f.double() for f in st.q),
-                           tuple(l.double() for l in st.lips)), dev)
+    st64 = kron.KronState(tuple(f.double() for f in st.q),
+                          tuple(l.double() for l in st.lips))
+    kernels.reset_launch_counts()
+    out = fit(st64, dev)
+    assert kernels.norm_bound.launches == 0 and kernels.tsub.launches == 0
+    assert kernels.philox_start.launches == 1 + loop
+    assert kernels.damped_noise.launches == (0 if eq_probe else 1)
+    assert kernels.unit_noise.launches == (1 if eq_probe else 0)
+    ref = fit(st64, "cpu")
+    for a, b in zip(out.q + out.lips, ref.q + ref.lips):
+        assert a.dtype == torch.float64
+        assert (a.cpu() - b).norm() <= 1e-10 * b.norm(), dq
 
 
 # GPT-2 124M's parameter count: the length of the LRA paths' flat vector

@@ -19,7 +19,8 @@ from psgd_torch_tpu_torch.ops import fastrand
 from psgd_torch_tpu_torch.precond import kron as tkron
 
 _JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32,
-        torch.bfloat16: jnp.bfloat16}
+        torch.bfloat16: jnp.bfloat16, torch.complex128: jnp.complex128,
+        torch.complex64: jnp.complex64}
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,16 +35,23 @@ def _drawer(kind, shape, dtype):
 def jax_draw(kind, keys, shape, dtype):
     """Replay hook: the JAX package's draws for the port's (B, 2) keys.
     "normal" as jax.random.normal(key, shape, dtype) (the damping probe and
-    the bound starts); "uniform" as jax.random.uniform(key) in JAX's
-    default float type (the fit and balance gates)."""
+    the bound starts; complex for a complex dtype, as the JAX package draws
+    its complex probes and starts); "uniform" as jax.random.uniform(key) in
+    JAX's default float type (the fit and balance gates)."""
     ks = jnp.asarray(np.asarray(keys, np.uint32))
     out = _drawer(kind, tuple(shape), dtype)(ks)
-    return torch.from_numpy(np.array(out.astype(jnp.float64))).to(dtype)
+    wide = jnp.complex128 if dtype.is_complex else jnp.float64
+    return torch.from_numpy(np.array(out.astype(wide))).to(dtype)
 
 
 def to_np(x):
-    return np.asarray(x.detach().cpu().to(torch.float64)) \
-        if isinstance(x, torch.Tensor) else np.asarray(x, np.float64)
+    """A tensor or array as float64, complex128 if it is complex."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return np.asarray(x.to(torch.complex128 if x.is_complex()
+                               else torch.float64))
+    x = np.asarray(x)
+    return x.astype(np.complex128 if np.iscomplexobj(x) else np.float64)
 
 
 # the 124M leaves (per layer for the stacked ones), bench max_skew 2.0

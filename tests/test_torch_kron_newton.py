@@ -1,7 +1,8 @@
 """The port's Q0.5EQ1.5 Newton fit (psgd_torch_tpu_torch.precond.kron) and
 its optimizer (KronNewton) against the JAX package's update_kron_newton,
 update_kron_newton_stacked and kron_newton, on replayed draws, in float64;
-the refusals of complex tensors (ROADMAP A3) and of unported options."""
+the refusals of unported options.  Complex tensors: test_torch_complex_kron.py
+and test_torch_complex_optim.py."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,7 @@ import torch
 import psgd_torch_tpu.optim as jopt
 from psgd_torch_tpu.precond import kron as jkron
 from psgd_torch_tpu_torch.ops import fastrand
-from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten, kron_newton
+from psgd_torch_tpu_torch.optim import KronNewton, kron_newton
 from psgd_torch_tpu_torch.precond import kron as tkron
 from test_torch_kron import _compare_states, _random_state, jax_draw
 from test_torch_kron_whiten import MODELS
@@ -213,47 +214,3 @@ def test_newton_unported_options_raise():
     opt = KronNewton(model.named_parameters(), device="cpu")
     with pytest.raises(ValueError, match="closure"):
         opt.step()
-
-
-# ---------------------------------------------------------------------------
-# complex tensors are refused (ROADMAP A3), not silently made real
-# ---------------------------------------------------------------------------
-
-
-def _complex_case():
-    st, plan = tkron.init_kron((8, 4), max_skew=float("inf"),
-                               dtype=torch.complex64, device="cpu")
-    g = torch.randn(8, 4, dtype=torch.complex64)
-    return st, plan, g
-
-
-REFUSALS = {
-    "update_kron_whiten": lambda st, plan, g: tkron.update_kron_whiten(
-        st, plan, g, fastrand.prng_key(0)),
-    "update_kron_whiten_stacked": lambda st, plan, g: tkron.update_kron_whiten_stacked(
-        tkron.KronState(tuple(f[None] for f in st.q), tuple(l[None] for l in st.lips)),
-        plan, g[None], fastrand.split(fastrand.prng_key(0), 1)),
-    "update_kron_newton": lambda st, plan, g: tkron.update_kron_newton(
-        st, plan, g, g, fastrand.prng_key(0)),
-    "update_kron_newton_stacked": lambda st, plan, g: tkron.update_kron_newton_stacked(
-        tkron.KronState(tuple(f[None] for f in st.q), tuple(l[None] for l in st.lips)),
-        plan, g[None], g[None], fastrand.split(fastrand.prng_key(0), 1)),
-    "damping": lambda st, plan, g: tkron._damped(g, fastrand.prng_key(0), 1e-9),
-    "KronWhiten": lambda st, plan, g: KronWhiten(
-        [torch.nn.Parameter(g)], device="cpu"),
-    "KronNewton": lambda st, plan, g: KronNewton(
-        [torch.nn.Parameter(g)], device="cpu"),
-    "KronNewton_complex_Q": lambda st, plan, g: KronNewton(
-        [torch.nn.Parameter(g.real.contiguous())], device="cpu",
-        preconditioner_dtype=torch.complex64),
-}
-
-
-@pytest.mark.parametrize("entry", sorted(REFUSALS))
-def test_complex_tensors_are_refused(entry):
-    """A complex64 (8, 4) gradient (or state) raises NotImplementedError
-    naming ROADMAP A3 at each entry point, where the port used to return
-    factors whose imaginary part was dropped."""
-    st, plan, g = _complex_case()
-    with pytest.raises(NotImplementedError, match="A3"):
-        REFUSALS[entry](st, plan, g)

@@ -119,8 +119,81 @@ def test_fastrand_noise_routes_to_the_plain_version_on_cpu():
     assert torch.equal(out, want)
     one = fastrand.unit_noise(keys[1], (4, 8), torch.float32, "cpu")
     assert torch.equal(one, want[1])
-    with pytest.raises(NotImplementedError):
-        fastrand.unit_noise(keys[0], (4,), torch.complex64, "cpu")
+    # a complex draw is the composition of two real ones (split(key))
+    c = fastrand.unit_noise(keys[0], (4,), torch.complex64, "cpu")
+    kr, ki = fastrand.split(keys[0])
+    part = torch.tensor(2 ** -0.5, dtype=torch.float32)
+    real = [kernels.unit_noise_plain(kernels.key_seed_words(k, "cpu"), (4,),
+                                     torch.float32)[0] * part for k in (kr, ki)]
+    assert torch.equal(c, torch.complex(*real))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_noise_is_two_real_draws(dtype):
+    """unit_noise_stacked of a complex dtype: layer i's real part is the
+    real draw (f32 for complex64, f32 widened to f64 for complex128) keyed
+    by kr, its imaginary part that keyed by ki, (kr, ki) = split(keys[i])
+    (jax.random.split's keys bit for bit), each times 2^-0.5 rounded once,
+    equal bit for bit; the seed words are (kr, ki) per layer."""
+    keys = fastrand.split(fastrand.prng_key(8), 3)
+    split = fastrand.split(keys)
+    np.testing.assert_array_equal(split, np.asarray(jax.vmap(jax.random.split)(keys)))
+    np.testing.assert_array_equal(fastrand.noise_keys(keys, dtype),
+                                  split.reshape(3, 4))
+    out = fastrand.unit_noise_stacked(keys, (5, 7), dtype, "cpu")
+    rd = torch.float32 if dtype == torch.complex64 else torch.float64
+    part = torch.tensor(2 ** -0.5, dtype=rd)
+    for i in range(3):
+        re, im = (kernels.unit_noise_plain(kernels.key_seed_words(split[i, j], "cpu"),
+                                           (5, 7), rd)[0] * part for j in (0, 1))
+        assert out.dtype == dtype and torch.equal(out[i], torch.complex(re, im))
+        # per-layer seeds: layer i alone draws the same
+        assert torch.equal(fastrand.unit_noise(keys[i], (5, 7), dtype, "cpu"), out[i])
+    both = torch.view_as_real(out).reshape(-1, 2)
+    assert abs(both.var(0).sum().item() - 1.0) < 0.15      # E|v|^2 = 1
+    assert abs(torch.corrcoef(both.T)[0, 1].item()) < 0.15  # parts independent
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_damping_is_per_part(dtype):
+    """damped_noise's plain version of a complex g: g + (damping + eps
+    hypot(re g, im g)) v per part in the part's dtype, one rounding per
+    operation, v the complex unit noise of the (B, 4) seeds; and the
+    damping of precond.kron draws it from split(key)."""
+    keys = fastrand.split(fastrand.prng_key(9), 2)
+    seeds = kernels.key_seed_words(fastrand.noise_keys(keys, dtype), "cpu")
+    rng = np.random.default_rng(1)
+    g = torch.from_numpy(rng.standard_normal((2, 6, 5))
+                         + 1j * rng.standard_normal((2, 6, 5))).to(dtype)
+    rd = torch.float32 if dtype == torch.complex64 else torch.float64
+    v = kernels.unit_noise(seeds, (6, 5), dtype)
+    d = torch.tensor(1e-3, dtype=rd) + torch.finfo(rd).eps * torch.hypot(g.real, g.imag)
+    want = torch.complex(g.real + d * v.real, g.imag + d * v.imag)
+    assert torch.equal(kernels.damped_noise(g, seeds, 1e-3), want)
+    from psgd_torch_tpu_torch.precond import kron as tkron
+    assert torch.equal(tkron._damped_stacked(g, keys, 1e-3), want)
+
+
+def test_float64_noise_widens_the_float32_draw():
+    """float64 unit noise is the float32 draw widened; the damping is
+    computed in float64 with one rounding per operation."""
+    seeds = _seeds(2, seed=10)
+    u64 = kernels.unit_noise(seeds, (9, 4), torch.float64)
+    assert u64.dtype == torch.float64
+    assert torch.equal(u64, kernels.unit_noise(seeds, (9, 4), torch.float32).double())
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 9, 4)))
+    want = g + (torch.tensor(1e-9, dtype=torch.float64)
+                + torch.finfo(torch.float64).eps * g.abs()) * u64
+    assert torch.equal(kernels.damped_noise(g, seeds, 1e-9), want)
+
+
+def test_normal_like():
+    """normal_like(key, x): unit_noise in x's shape, dtype and device."""
+    x = torch.zeros(3, 4, dtype=torch.complex128)
+    key = fastrand.prng_key(11)
+    out = fastrand.normal_like(key, x)
+    assert out.shape == x.shape and out.dtype == x.dtype
+    assert torch.equal(out, fastrand.unit_noise(key, (3, 4), torch.complex128, "cpu"))
 
 
 
@@ -145,6 +218,14 @@ _SASS = """
         /*0030*/                   STG.E desc[UR4][R2.64+0x4], R6 ;            /* 0x0 */
         /*0040*/               @P0 BRA.U !UP0, 0x10 ;                          /* 0x0 */
         /*0050*/                   BRA 0x50;                                   /* 0x0 */
+        Function : _ZN12_GLOBAL__N_120noise_complex_kernelIfLb1ELb1EEEvPKT_PS1_PKjxfS1_S1_S1_
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;     /* 0x0 */
+.L_x_2:
+        /*0010*/                   IMAD.WIDE.U32 R4, R2, -0x2daee0ad, RZ ;     /* 0x0 */
+        /*0020*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x0 */
+        /*0030*/                   STG.E.128 desc[UR4][R2.64+0x10], R8 ;       /* 0x0 */
+        /*0040*/              @!P0 BRA `(.L_x_2) ;                             /* 0x0 */
+        /*0050*/                   EXIT ;                                      /* 0x0 */
 """
 
 
@@ -154,7 +235,7 @@ def test_sass_loop_counts_per_element():
     or without predicates), counting its instructions, IMAD.WIDE/HI and
     stored bytes: 7 instructions and 16 bytes (8 bf16) in the first, 4
     instructions and 8 bytes (2 f32) in the second, whose self-loop at 0x50
-    is shorter."""
+    is shorter; the complex mode's loop counts per complex element."""
     from psgd_torch_tpu_torch.ops import sass
     loops = sass.noise_loops_of(sass.split_functions(_SASS))
     vec = loops[("bfloat16", False, True)]
@@ -162,5 +243,8 @@ def test_sass_loop_counts_per_element():
     assert vec["per_element"] == 7 / 8 and vec["imad_per_element"] == 2 / 8
     old = loops[("float32", True, None)]
     assert (old["instructions"], old["imad_wide_hi"], old["elements"]) == (4, 1, 2)
+    # the complex mode: 32 bytes stored per pass are 4 complex64 elements
+    cx = loops[("complex64", True, True)]
+    assert (cx["instructions"], cx["imad_wide_hi"], cx["elements"]) == (4, 1, 4)
     with pytest.raises(ValueError, match="no loop"):
         sass.main_loop(["        /*0000*/  EXIT ;"])

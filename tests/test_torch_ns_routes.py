@@ -40,7 +40,9 @@ def _jax_route(n, jdt):
 @pytest.mark.parametrize("n", WIDTHS)
 def test_route_rule_matches_jax(n, jdt):
     assert kernels.ns_route(n, _TDT[jdt]) == _jax_route(n, jdt)
-    assert kernels.ns_route(n, torch.float64) == "single"
+    # the dtypes the JAX package sends to its XLA tail take the "xla" route
+    assert kernels.ns_route(n, torch.float64) == "xla"
+    assert not pk.ns_update_supported(n, jnp.float64)
 
 
 def test_route_rule_off_the_128_grid():
