@@ -172,8 +172,9 @@
    reference's verification problem on a stack of 12 complex64 Kronecker
    Hessians on (768, 2304), the Newton fit below 0.30 RMS error, the
    whitening fit below half of P = I's, their trajectories logged; the
-   JAX test's complex128 sizes in every form and geometry below 0.30 at
-   its N = 1500 (28 host-bound runs side by side in 7 processes);
+   JAX test's complex128 sizes in each geometry (kron_matrix_matrix; the
+   8 forms are held on the CPU) below 0.30 at its N = 1500 (14 host-bound
+   runs side by side in 7 processes);
    exact counts (one complex damping and two XLA tails per fit step).
 16. The complex optimizer path (``complex_optimizer_path``): complex least
    squares over 12 layers of complex64 parameters in GPT-2 124M's
@@ -181,7 +182,27 @@
    loss falls, exact counts per fit step (the complex noise mode, the XLA
    tail and its starts; no other row), fit and no-fit step times and peak
    memory, a state_dict round trip keeping Q complex64 bit for bit.
-17. Prints the kernels' JSON line (``launches`` is the sum over the
+17. The distributed paths (ranks: processes on cuda:0 joined by gloo, the
+   kernel library built by this process before any starts; 2 ranks
+   sharing one H100 over gloo, so their times are not scaling figures).
+   ``stack_sharded_path``: GPT-2 124M by KronWhiten (as 5), GPT-2 124M by
+   KronNewton (as 7) and LLaMA-1.1B by KronWhiten (as 6), 3 steps at p =
+   1 and 3 at 0.1, on 2 ranks with ``stack_sharding`` beside a 1-rank
+   reference, all three stepping from rank 0's gradients: every rank's
+   parameters and Q (its layers of the reference's for the sharded
+   stacks) equal the reference's bit for bit (SHA-256 per tensor), each
+   rank's launches per fit step are the path's (row 1 at B = 6, rows
+   3-9 at B = 11) and its stacked Q half the reference's; step 3 holds
+   the split and tiled routes at B = 11.  ``pair_paths``: GPT-2 124M on 2
+   ranks with distinct 2 x 1024 micro-batches, gradients averaged by
+   all_reduce, stack sharding over ``make_mesh``'s fsdp dim, 6 steps:
+   ``drift_check`` exactly 0 on every parameter, momentum and replicated
+   Q and L; then GPT-2 124M's parameters as DTensors on a 1-D fsdp mesh
+   (``gpt2_partition_specs``) by ``per_shard_kron_whiten`` in 5's
+   settings: each rank's shards and Q equal the same shards run in one
+   process (``on_shards``) bit for bit.  The ranks' launch counts come
+   back to this process and count toward the kernels' line.
+18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes; rows 1, 3 and 6 also carry
@@ -201,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import multiprocessing
@@ -209,12 +231,15 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import zlib
+from datetime import timedelta
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from psgd_torch_tpu_torch.examples import train_gpt2
 from psgd_torch_tpu_torch.models import gpt2, llama
@@ -907,8 +932,11 @@ def _short(key: str) -> str:
     return key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
 
 
-# windows profiled before a phase that saw no device events fails
-PROFILE_TRIES = 3
+# windows profiled before a phase that saw no device events fails, and the
+# pause before each retry (three empty windows in a row, then none, seen
+# on one machine)
+PROFILE_TRIES = 5
+PROFILE_RETRY_S = 1.0
 
 
 def _profiled(fn, cpu: bool = False):
@@ -932,6 +960,7 @@ def _profiled(fn, cpu: bool = False):
         if kern:
             return kern, wall_ms
         log("    the profiler saw no device time; profiling again")
+        time.sleep(PROFILE_RETRY_S)
     raise RuntimeError(f"torch.profiler saw no device time in {PROFILE_TRIES} "
                        "windows")
 
@@ -1859,7 +1888,7 @@ def options_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
         torch.cuda.empty_cache()
 
 
-def _newton_opt(model, mask, steps_p1, dev, qdtype=None, dq="Q0.5EQ1.5"):
+def _newton_opt(model, mask, steps_p1, dev, qdtype=None, dq="Q0.5EQ1.5", **options):
     """KronNewton in the Newton arm of tools/measure_cache_p_tpu.py:134-140
     (lr 1e-3, max_skew 2, init scale 1, norm_k 128, global-norm clip 10,
     one preconditioner per layer), p = 1 for the first steps_p1 steps and
@@ -1870,7 +1899,7 @@ def _newton_opt(model, mask, steps_p1, dev, qdtype=None, dq="Q0.5EQ1.5"):
         preconditioner_init_scale=1.0,
         preconditioner_update_probability=lambda c: 1.0 if c < steps_p1 else 0.1,
         norm_k=128, grad_clip_max_norm=10.0, preconditioner_dtype=qdtype,
-        scanned_layers=mask, device=dev, dq=dq)
+        scanned_layers=mask, device=dev, dq=dq, **options)
 
 
 def time_hvp(label, state, card: str, fit_ms) -> None:
@@ -2652,12 +2681,13 @@ FP_NEWTON_STEPS = 200
 FP_WHITEN_STEPS = 50
 FP_TOL = 0.30
 FP_PROBES = 8
-FP_SMALL_STEPS = 1500      # the JAX test's N, for the 8 forms and the geometries
+FP_SMALL_STEPS = 1500      # the JAX test's N, for the geometries
 # the complex128 runs are host-bound (a few ms of launches per fit): they run
 # side by side in this many processes, each driving the card
 FP_WORKERS = 7
-FP_SMALL_FORMS = ("scalar", "diag", "matrix", "kron_diag_diag", "kron_diag_matrix",
-                  "kron_matrix_diag", "kron_matrix_matrix", "kron3")
+# one complex128 case per geometry and mode on the card: the JAX test's
+# sweep over its 8 forms is held on the CPU (tests/test_torch_complex_kron.py)
+FP_SMALL_FORM = "kron_matrix_matrix"
 # path B: complex least squares 0.5 |W X - Y|^2 / batch over a 12-layer
 # stack of complex64 parameters in GPT-2 124M's attention shapes
 CX_LAYERS = 12
@@ -2862,11 +2892,11 @@ def complex_fixed_point_path(dev, card: str) -> dict:
     with its own H1 (x) H2): the Newton fit must bring the RMS relative
     error below FP_TOL within FP_NEWTON_STEPS steps, the whitening fit
     below half of P = I's within FP_WHITEN_STEPS; both trajectories
-    logged.  Then the JAX test's sizes in complex128: the 8 forms by
-    Q0.5EQ1.5 and the six other geometries on kron_matrix_matrix,
-    whitening and Newton, FP_SMALL_STEPS steps each (the JAX test's N),
-    every error below FP_TOL; these 28 runs, host-bound, run side by side
-    in FP_WORKERS processes (``_fp_small_run``).
+    logged.  Then the JAX test's sizes in complex128: each of the seven
+    geometries on kron_matrix_matrix, whitening and Newton, FP_SMALL_STEPS
+    steps each (the JAX test's N), every error below FP_TOL; these 14
+    runs, host-bound, run side by side in FP_WORKERS processes
+    (``_fp_small_run``).
     Returns the launch counts."""
     b, m, n = FP_STACK
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -2911,9 +2941,8 @@ def complex_fixed_point_path(dev, card: str) -> dict:
     t0 = time.perf_counter()
     runs = [(form, dq, mode, FP_SMALL_STEPS, str(dev))
             # PRO4P's runs, the longest, first
-            for form, dq in [("kron_matrix_matrix", dq)
-                             for dq in sorted(GEOMETRIES, key=lambda d: d != "PRO4P")] +
-            [(form, "Q0.5EQ1.5") for form in FP_SMALL_FORMS]
+            for form, dq in [(FP_SMALL_FORM, dq) for dq in
+                             sorted(GEOMETRIES + ("Q0.5EQ1.5",), key=lambda d: d != "PRO4P")]
             for mode in ("whiten", "newton")]
     with multiprocessing.get_context("spawn").Pool(FP_WORKERS) as pool:
         results = pool.map(_fp_small_run, runs, chunksize=1)
@@ -3152,6 +3181,493 @@ def profile_steps(label, state, card: str, probs, tensor_cores: bool = True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The distributed paths: ranks are processes on cuda:0 joined by gloo
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = (3, 3)        # p = 1.0, then 0.1
+DIST_DP_STEPS = 6
+DIST_TIMEOUT_S = 600
+DIST_LABEL = "2 ranks sharing one H100 over gloo; not a scaling figure"
+# (model, optimizer) of the stack-sharded arms, LLaMA's first: its three
+# processes take ~66 GB, which the card holds only before the others' caches
+# grow; LLaMA's Newton arm stays out (two ranks at its 34.2 GB peak do not
+# fit beside the reference)
+DIST_ARMS = ("llama", "gpt2", "gpt2_newton")
+
+
+def _digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (its dtype and shape prefixed)."""
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _bcast(t: torch.Tensor, src: int = 0) -> None:
+    """Rank ``src``'s tensor into every rank's, bit for bit (its bytes)."""
+    dist.broadcast(t.reshape(-1).view(torch.uint8), src=src)
+
+
+def _no_nvcc():
+    raise RuntimeError("a rank found no built kernel library: the parent "
+                       "builds it before any rank starts")
+
+
+def _dist_main(rank: int, world: int, store: str, job: str, out: str) -> None:
+    """One rank: cuda:0, the main path's matmul settings, joined to the
+    others through the file store; runs ``job`` and saves its result.
+    Its allocator grows segments in place: three LLaMA-1.1B processes
+    take ~66 GB of the card, and split cached blocks would not fit."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels._nvcc = _no_nvcc
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        name, arg = job.split(":") if ":" in job else (job, None)
+        result = _DIST_JOBS[name](rank, world, arg)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, f"{out}.{rank}")
+
+
+def _spawn(job: str, world: int) -> list:
+    """Run ``job`` in ``world`` spawned rank processes (the parent's memory
+    freed first); their results in rank order.  Fails if a rank fails."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {job}: {world} ranks; this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    OUT_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=OUT_DIR))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_main, args=(r, world, str(tmp / "store"), job,
+                                                  str(tmp / "result")))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        # a failed rank ends the run at once: the others would wait in a
+        # collective until the group's timeout
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline and \
+                not any(p.exitcode not in (None, 0) for p in procs):
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"{job}: rank exit codes {codes}")
+        return [torch.load(tmp / f"result.{r}", weights_only=False)
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dist_arm(arm: str, dev, **options):
+    """(label, model, loss_fn, optimizer, batch, per_fit) of a stack-sharded
+    arm: the main paths' models and optimizers (``gpt2_path``,
+    ``newton_path`` B, ``llama_path``), with ``options`` over them."""
+    if arm == "llama":
+        cfg = llama.llama_1b(compute_dtype=torch.bfloat16)
+        model = llama.Llama(cfg, device=dev, seed=0)
+        mask, loss_fn, make, batch = (llama.scanned_layers_mask(model), llama.loss_llama,
+                                      llama.synthetic_lm_batch, 1)
+        opt = _bench_opt(model, mask, DIST_STEPS[0], dev, **options)
+        label, per_fit = "LLaMA-1.1B", LLAMA_PER_FIT
+    else:
+        cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+        model = gpt2.GPT2(cfg, device=dev, seed=0)
+        mask, loss_fn, make = (gpt2.scanned_layers_mask(model), gpt2.loss_gpt2,
+                               gpt2.synthetic_lm_batch)
+        if arm == "gpt2":
+            batch, label, per_fit = 4, "GPT-2 124M", GPT2_PER_FIT
+            opt = _bench_opt(model, mask, DIST_STEPS[0], dev, **options)
+        else:
+            batch, label, per_fit = 2, "GPT-2 124M Newton", GPT2_NEWTON_PER_FIT
+            opt = _newton_opt(model, mask, DIST_STEPS[0], dev, **options)
+    tokens, targets = make(torch.Generator().manual_seed(1), batch, cfg.block_size,
+                           cfg.vocab_size, device=dev)
+    return label, model, loss_fn, opt, (tokens, targets), per_fit
+
+
+def _newton_pass_from(rank: int):
+    """The Newton step's autograd pass as rank 0 takes it, broadcast to the
+    other ranks (their gradients and H v equal rank 0's bit for bit, as
+    the ranks' of a data-parallel run are after their all-reduce)."""
+    from psgd_torch_tpu_torch.optim import transforms
+    own = transforms._newton_pass
+
+    def shared(closure, params, do_fit, k_v, exact, draw):
+        if rank == 0:
+            loss, grads, vs, hvs = own(closure, params, do_fit, k_v, exact, draw)
+        else:
+            loss = torch.zeros((), device=params[0].device)
+            grads = [torch.empty_like(p) for p in params]
+            vs, hvs = ((None, None) if not do_fit else
+                       ([torch.empty_like(p) for p in params],
+                        [torch.empty_like(p) for p in params]))
+        loss = loss.detach().float().reshape(1)
+        for t in [loss] + grads + (vs + hvs if do_fit else []):
+            _bcast(t)
+        return loss[0], grads, vs, hvs
+
+    transforms._newton_pass = shared
+
+
+def _sharded_leaves(opt) -> list:
+    """The leaves that stack sharding shards (or would shard): scanned,
+    unshared, with a dense factor."""
+    return [i for i, (f, plan) in enumerate(zip(opt.scanned, opt.plans))
+            if f and not all(plan.is_diag)]
+
+
+def _stack_job(rank: int, world: int, _) -> list:
+    """Each arm of ``DIST_ARMS`` in turn (``_stack_arm``), its memory
+    freed before the next."""
+    pair = dist.new_group([0, 1])
+    out = []
+    for arm in DIST_ARMS:
+        t0 = time.perf_counter()
+        out.append(_stack_arm(rank, arm, pair))
+        out[-1]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _stack_arm(rank: int, arm: str, pair) -> dict:
+    """Ranks 0 and 1 train ``arm`` with stack_sharding over their group,
+    rank 2 without (the 1-rank reference).  Rank 0 takes the forward and
+    backward on the arm's batch and broadcasts the gradients, so all three
+    step from the same ones."""
+    dev = torch.device("cuda", 0)
+    label, model, loss_fn, opt, batch, per_fit = _dist_arm(
+        arm, dev, stack_sharding=pair if rank < 2 else None)
+    params = opt.param_groups[0]["params"]
+    newton = isinstance(opt, KronNewton)
+    if newton:
+        _newton_pass_from(rank)
+        if rank:      # the probes are drawn where the pass runs
+            per_fit = dict(per_fit, unit_noise=0)
+    else:
+        grads = [torch.zeros_like(p) for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, opt_ms, fitted = [], [], []
+    for _ in range(sum(DIST_STEPS)):
+        fits0 = opt.fit_steps
+        if newton:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = opt.step(lambda: loss_fn(model, *batch))
+        else:
+            if rank == 0:
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, *batch)
+                loss.backward()
+                grads = [p.grad for p in params]
+            for p, g in zip(params, grads):
+                _bcast(g)
+                p.grad = g
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        fitted.append(opt.fit_steps - fits0)
+        if rank == 0:
+            losses.append(loss.item())
+    counts = _all_counts()
+    sharded = _sharded_leaves(opt)
+    layers = [params[i].shape[0] for i in sharded]
+    q = {i: opt.state[params[i]]["q"] for i in range(len(params))}
+    out = dict(label=label, per_fit=per_fit, losses=losses, opt_ms=opt_ms, fitted=fitted,
+               counts=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               q_bytes=sum(f.numel() * f.element_size() for i in sharded for f in q[i]),
+               params=[_digest(p) for p in params], sharded=sharded)
+    if rank < 2:
+        out["q"] = {i: [_digest(f) for f in q[i]] for i in range(len(params))}
+    else:   # the reference's Q, cut as each rank holds it
+        out["q"] = {i: [_digest(f) for f in q[i]] for i in range(len(params))
+                    if i not in sharded}
+        out["q_slices"] = {r: {i: [_digest(f[r * n // 2:(r + 1) * n // 2]) for f in q[i]]
+                               for i, n in zip(sharded, layers)} for r in (0, 1)}
+    return out
+
+
+def _dist_times(label: str, res: dict, card: str) -> None:
+    fit = [t for t, f in zip(res["opt_ms"][1:], res["fitted"][1:]) if f]
+    nofit = [t for t, f in zip(res["opt_ms"][1:], res["fitted"][1:]) if not f]
+    log(f"  [{card}; {DIST_LABEL}] {label}: optimizer step (train step for "
+        f"Newton; median, first step excluded) fit {_median(fit)} ms, no fit "
+        f"{_median(nofit)} ms; peak memory {res['peak_gb']:.2f} GB allocated, "
+        f"{res['reserved_gb']:.2f} GB reserved")
+
+
+def stack_sharded_path(dev, card: str) -> dict:
+    """Each arm of ``DIST_ARMS`` on 2 stack-sharded ranks beside a 1-rank
+    reference fed the same gradients: every rank's parameters equal the
+    reference's, each rank's Q of the sharded stacks equals its layers of
+    the reference's and the replicated Q the reference's, bit for bit
+    (SHA-256 per tensor); each rank's launches per fit step are the arm's
+    (the kernels at half the batch: row 1 at B = 6, LLaMA's rows 3-9 at
+    B = 11) and its stacked Q about half the reference's."""
+    total = {}
+    t0 = time.perf_counter()
+    arms = _spawn("stack", 3)
+    for j in range(len(DIST_ARMS)):
+        ranks = [arms[r][j] for r in range(3)]
+        ref, label = ranks[2], ranks[0]["label"]
+        losses = ranks[0]["losses"]
+        log(f"{label} stack-sharded over 2 ranks (and a 1-rank reference), "
+            f"{sum(DIST_STEPS)} steps: losses {[round(x, 4) for x in losses]}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"{label} stack-sharded: losses {losses}")
+        for r in (0, 1):
+            res = ranks[r]
+            if res["params"] != ref["params"]:
+                bad = [i for i, (a, b) in enumerate(zip(res["params"], ref["params"]))
+                       if a != b]
+                raise AssertionError(f"{label}: rank {r}'s parameters {bad} differ "
+                                     "from the 1-rank run's")
+            for i, ds in res["q"].items():
+                want = ref["q_slices"][r][i] if i in ref["sharded"] else ref["q"][i]
+                if ds != want:
+                    raise AssertionError(f"{label}: rank {r}'s Q of leaf {i} differs "
+                                         "from the 1-rank run's")
+            fits = sum(res["fitted"])
+            per = {k: res["counts"][k] / max(fits, 1) for k in res["per_fit"]}
+            if fits == 0 or any(res["counts"][k] != n * fits
+                                for k, n in res["per_fit"].items()):
+                raise AssertionError(f"{label}: rank {r} launched {per} per fit "
+                                     f"step, expected {res['per_fit']}")
+            if not 0.4 < res["q_bytes"] / ref["q_bytes"] < 0.6:
+                raise AssertionError(f"{label}: rank {r} holds {res['q_bytes']} "
+                                     f"bytes of stacked Q, the reference {ref['q_bytes']}")
+            log(f"  rank {r}: parameters and Q bit for bit the 1-rank run's; "
+                f"launches per fit step {per}; stacked Q {res['q_bytes'] / 1e6:.2f} "
+                f"MB (1-rank {ref['q_bytes'] / 1e6:.2f} MB)")
+            _dist_times(f"{label} rank {r}", res, card)
+            _add(total, res["counts"])
+        _dist_times(f"{label} 1-rank reference", ref, card)
+        log(f"  [{card}] {label} arm {ranks[0]['seconds']:.1f} s in the ranks")
+    log(f"  [{card}] stack-sharded path {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _dp_job(rank: int, world: int, _) -> dict:
+    """The production layout: GPT-2 124M stack-sharded over the mesh's
+    fsdp dim, each rank on its own micro-batch, gradients averaged by
+    all_reduce; the drift of every replicated tensor after the steps."""
+    from psgd_torch_tpu_torch.parallel import drift_check, make_mesh
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(axis_names=("dp", "fsdp"))
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    opt = _bench_opt(model, gpt2.scanned_layers_mask(model), DIST_DP_STEPS // 2, dev,
+                     stack_sharding=(mesh, "fsdp"))
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(10 + rank), 2, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(DIST_DP_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = gpt2.loss_gpt2(model, tokens, targets)
+        loss.backward()
+        for p in opt.param_groups[0]["params"]:
+            dist.all_reduce(p.grad)
+            p.grad.div_(world)
+        opt.step()
+        losses.append(loss.item())
+    params = opt.param_groups[0]["params"]
+    names = [n for n, _ in sorted(model.named_parameters(),
+                                  key=lambda kv: tuple(kv[0].split(".")))]
+    tensors = {f"param {n}": p for n, p in zip(names, params)}
+    tensors.update({f"momentum {n}": opt.state[p]["mu"] for n, p in zip(names, params)})
+    for i, (n, p) in enumerate(zip(names, params)):
+        if not opt.sharded[i]:
+            for j, f in enumerate(opt.state[p]["q"] + opt.state[p]["lips"]):
+                tensors[f"Q/L {n}[{j}]"] = f
+    return dict(drift=drift_check(tensors), losses=losses, counts=_all_counts(),
+                fits=opt.fit_steps)
+
+
+def _dp_drift_check(ranks: list, card: str) -> dict:
+    """GPT-2 124M on 2 ranks, distinct 2 x 1024 micro-batches, gradients
+    averaged by all_reduce, stack sharding on: ``drift_check`` exactly 0
+    on the parameters, the momentum and every replicated Q and L."""
+    drift = ranks[0]["drift"]
+    worst = max(drift.values())
+    log(f"GPT-2 124M, 2 ranks ({DIST_LABEL}), distinct micro-batches, all_reduce "
+        f"mean, stack sharding: {len(drift)} replicated tensors, largest drift "
+        f"{worst}; rank losses {[round(r['losses'][-1], 4) for r in ranks]}; "
+        f"{ranks[0]['seconds']:.1f} s in the ranks")
+    if worst != 0.0 or ranks[1]["drift"] != drift:
+        raise AssertionError(f"data-parallel drift: {[k for k, v in drift.items() if v]}")
+    total = {}
+    for r in ranks:
+        _add(total, r["counts"])
+    return total
+
+
+def _full_from_shards(local, placements, mesh) -> torch.Tensor:
+    """The whole tensor from its shards over a 1-D mesh (one all_gather of
+    the shards' bytes along the sharded dim)."""
+    from torch.distributed.tensor import Shard
+    pl = placements[0]
+    if not isinstance(pl, Shard):
+        return local
+    parts = [torch.empty_like(local) for _ in range(mesh.size())]
+    dist.all_gather([x.view(torch.uint8) for x in parts], local.contiguous().view(torch.uint8))
+    return torch.cat(parts, dim=pl.dim)
+
+
+def _per_shard_job(rank: int, world: int, _) -> dict:
+    """GPT-2 124M's parameters as DTensors on a 1-D fsdp mesh
+    (``gpt2_partition_specs``), trained by ``per_shard_kron_whiten`` in the
+    main path's settings.  Rank 0 takes the forward and backward on the
+    whole model and broadcasts the gradients; each rank hands the optimizer
+    its shard as a DTensor (what FSDP2 would hand it), then the shards are
+    gathered back into the model.  Rank 0 also runs each rank's shards in
+    one process (``on_shards``) from the same gradients."""
+    from torch.distributed.tensor import DTensor, Shard
+    from psgd_torch_tpu_torch.parallel import (PerShardKronWhiten, gpt2_partition_specs,
+                                               make_mesh)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(axis_names=("fsdp",))
+    specs = gpt2_partition_specs(mesh)
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1), 4,
+                                              cfg.block_size, cfg.vocab_size, device=dev)
+    named = list(model.named_parameters())
+
+    def shard_of(full, pl, r):
+        return (full.chunk(mesh.size(), dim=pl.dim)[r] if isinstance(pl, Shard)
+                else full).detach().clone().contiguous()
+
+    kw = dict(lr=1e-3 / 4, weight_decay=0.01, momentum=0.9, whiten_grad=False,
+              preconditioner_max_skew=2.0, preconditioner_init_scale=1.0,
+              preconditioner_update_probability=lambda c: 1.0 if c < DIST_STEPS[0] else 0.1,
+              preconditioner_dtype=torch.bfloat16, momentum_dtype=torch.bfloat16,
+              norm_k=128, device=dev)
+    dparams = [(n, torch.nn.Parameter(DTensor.from_local(
+        shard_of(p, specs[n][0], rank), mesh, specs[n], run_check=False)))
+        for n, p in named]
+    opt = PerShardKronWhiten(dparams, mesh, **kw)
+    refs = []
+    if rank == 0:
+        for r in range(mesh.size()):
+            shards = [(n, shard_of(p, specs[n][0], r),
+                       {specs[n][0].dim: r} if isinstance(specs[n][0], Shard) else {})
+                      for n, p in named]
+            refs.append((PerShardKronWhiten.on_shards(shards, **kw), shards))
+    kernels.reset_launch_counts()
+    losses, opt_ms = [], []
+    grads = [torch.zeros_like(p) for _, p in named]
+    for _ in range(sum(DIST_STEPS)):
+        if rank == 0:
+            model.zero_grad(set_to_none=True)
+            loss = gpt2.loss_gpt2(model, tokens, targets)
+            loss.backward()
+            losses.append(loss.item())
+            grads = [p.grad for _, p in named]
+        for (n, p), (_, dp), g in zip(named, dparams, grads):
+            _bcast(g)
+            dp.grad = DTensor.from_local(shard_of(g, specs[n][0], rank), mesh, specs[n],
+                                         run_check=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        if rank == 0:
+            for (ref, shards), r in zip(refs, range(mesh.size())):
+                for (n, t, _), g in zip(shards, grads):
+                    t.grad = shard_of(g, specs[n][0], r)
+                ref.step()
+        with torch.no_grad():
+            for (n, p), (_, dp) in zip(named, dparams):
+                p.copy_(_full_from_shards(dp.to_local(), specs[n], mesh))
+    counts = _all_counts()
+    local = {n: _digest(dp.to_local()) for n, dp in dparams}
+    q = {n: [_digest(f) for f in opt.state[loc]["q"]]
+         for (n, _), loc in zip(sorted(dparams, key=lambda kv: tuple(kv[0].split("."))),
+                                opt.param_groups[0]["params"])}
+    out = dict(losses=losses, opt_ms=opt_ms, counts=counts, local=local, q=q,
+               fits=opt.fit_steps, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if rank == 0:
+        out["refs"] = []
+        for ref, shards in refs:
+            locs = {n: _digest(t) for n, t, _ in shards}
+            qs = {n: [_digest(f) for f in ref.state[t]["q"]] for n, t, _ in shards}
+            out["refs"].append((locs, qs))
+    return out
+
+
+def _per_shard_check(ranks: list, card: str) -> dict:
+    """GPT-2 124M by ``per_shard_kron_whiten`` on a 1-D mesh of 2: each
+    rank's shards and their Q equal the same shards preconditioned in one
+    process with the same keys, bit for bit; the loss falls."""
+    losses = ranks[0]["losses"]
+    for r, res in enumerate(ranks):
+        locs, qs = ranks[0]["refs"][r]
+        if res["local"] != locs or res["q"] != qs:
+            bad = [n for n in locs if res["local"][n] != locs[n] or res["q"][n] != qs[n]]
+            raise AssertionError(f"per-shard: rank {r}'s shards {bad} differ from "
+                                 "the one-process run's")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"per-shard: losses {losses}")
+    log(f"GPT-2 124M per-shard whitening on a 1-D mesh of 2 ({DIST_LABEL}): losses "
+        f"{[round(x, 4) for x in losses]}; each rank's shards and Q bit for bit the "
+        f"one-process run's; {ranks[0]['seconds']:.1f} s in the ranks")
+    total = {}
+    for r, res in enumerate(ranks):
+        log(f"  [{card}; {DIST_LABEL}] rank {r}: optimizer step (median, first "
+            f"excluded) {_median(res['opt_ms'][1:])} ms over {res['fits']} fit steps; "
+            f"launches {{{', '.join(f'{k}: {v}' for k, v in res['counts'].items() if v)}}}; "
+            f"peak memory {res['peak_gb']:.2f} GB")
+        _add(total, res["counts"])
+    return total
+
+
+def _pair_job(rank: int, world: int, _) -> dict:
+    """The two-rank jobs in one spawn: the drift, then the per-shard run."""
+    out = {}
+    for name, job in (("dp", _dp_job), ("per_shard", _per_shard_job)):
+        t0 = time.perf_counter()
+        out[name] = job(rank, world, None)
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pair_paths(dev, card: str) -> dict:
+    """The data-parallel drift path and the per-shard path, one pair of
+    rank processes for both."""
+    t0 = time.perf_counter()
+    ranks = _spawn("pair", 2)
+    total = _dp_drift_check([r["dp"] for r in ranks], card)
+    _add(total, _per_shard_check([r["per_shard"] for r in ranks], card))
+    log(f"  [{card}] data-parallel and per-shard paths {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+_DIST_JOBS = {"stack": _stack_job, "pair": _pair_job}
+
+
 def log_apply_launches(profiles, card: str) -> None:
     """The cuBLAS launches (and ms) of a profiled fit and no-fit step of
     arm A against the plain GPT-2 path's: what the shared fit skips (the
@@ -3187,6 +3703,9 @@ def main() -> int:
     rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True,
                             tc_lines=tc_lines))
     check_tiled(dev, 2, 2048, torch.float32, timed=False)
+    # the batch of LLaMA's stacks on each of 2 stack-sharded ranks
+    check_split(dev, 11, 2048, torch.bfloat16, timed=False)
+    check_tiled(dev, 11, 2560, torch.bfloat16, timed=False)
     for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
     rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
@@ -3227,7 +3746,12 @@ def main() -> int:
               lambda: (complex_optimizer_path(dev, smi), None), (), False, None),
              # GPT-2 124M's resumed run profiles its own fit step
              ("Resumable training path", lambda: (resume_path(dev, smi), None), (),
-              False, None))
+              False, None),
+             # rank processes on this card: their counts come back to the parent
+             ("Stack-sharded path", lambda: (stack_sharded_path(dev, smi), None), (),
+              False, None),
+             ("Data-parallel drift and per-shard paths",
+              lambda: (pair_paths(dev, smi), None), (), False, None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)

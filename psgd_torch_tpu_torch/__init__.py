@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of psgd_torch_tpu (PSGD on NVIDIA Hopper).
 
 The package mirrors the JAX package's layout (``ops``, ``precond``,
-``optim``, ``models``).  It imports torch, numpy and the standard library
+``optim``, ``models``, ``parallel``: the distributed layer on
+``torch.distributed``).  It imports torch, numpy and the standard library
 only.  Its preconditioners are the three families of the reference:
 Kronecker-factored (``precond.kron``), low-rank approximation
 (``precond.lra``) and dense (``precond.dense``), fitted by whitening or

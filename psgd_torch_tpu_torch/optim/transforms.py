@@ -46,7 +46,21 @@ transforms take it: the sources cast to Q's dtype, the update's real part
 applied); a complex gradient is what torch puts in ``.grad``, the
 conjugate of what ``jax.grad`` returns, and ``p - lr * update`` descends.
 The LRA and dense optimizers still refuse complex parameters (ROADMAP
-A3b); ``stack_sharding`` and ``factor_sharding`` raise (ROADMAP A8).
+A3b).
+
+``stack_sharding=(mesh, dim)`` (KronWhiten, KronNewton; or a
+``ProcessGroup``, or a tuple of mesh dims taken as one) partitions the
+preconditioner ZeRO-style, as the JAX transforms' ``stack_sharding``
+does: of each scanned, unshared leaf with a dense factor, rank r of k
+holds, fits and applies Q (and L, and the cache) for layers
+[r L/k, (r+1) L/k) only, keyed by its slice of ``split(key, L)`` so the
+result does not depend on k, bit for bit; the preconditioned layers are
+then assembled on every rank by one ``all_gather`` of their bytes
+(``parallel.mesh.all_gather_stack``).  Every other leaf, and the
+gradients, momentum, gate and init scale, stay replicated: the ranks
+must see the same gradients (average them first, as DDP does).
+``factor_sharding`` and LRA's and dense's ``vector_sharding`` raise
+(ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -151,7 +165,7 @@ def _advisories(init_scale, whiten_grad: bool, momentum: float, dq: str,
             stacklevel=3)
 
 
-_UNPORTED = {"stack_sharding": "A8", "factor_sharding": "A8"}
+_UNPORTED = {"factor_sharding": "A8b"}
 
 
 def _refuse_unported(unported: dict) -> None:
@@ -444,7 +458,9 @@ class _Kron(_Resumable):
     """What KronWhiten and KronNewton share: the parameters in the JAX
     pytree order, the plans, the factored state (per parameter: ``q``,
     ``lips``, ``mu``, ``pcache``), the momentum buffers, the key chain and
-    the per-leaf fit and apply."""
+    the per-leaf fit and apply.  With ``stack_sharding`` the leaves marked
+    in ``self.sharded`` hold their state for this rank's layers
+    ``self.layers[i]`` only; ``_gather`` assembles their updates."""
 
     # (per-tensor fit, stacked fit) of precond.kron
     _FITS: tuple
@@ -452,7 +468,8 @@ class _Kron(_Resumable):
     def __init__(self, params, defaults: dict, *, max_size: float,
                  max_skew: float, init_scale, momentum: float, momentum_dtype,
                  dq: str, preconditioner_dtype, norm_k, seed: int,
-                 scanned_layers, shared_layers, cache_p: bool, device, draw):
+                 scanned_layers, shared_layers, cache_p: bool, device, draw,
+                 stack_sharding=None):
         if defaults["weight_decay_mode"] not in ("decoupled", "classic"):
             raise ValueError(
                 f"unknown weight_decay_mode {defaults['weight_decay_mode']!r}")
@@ -494,15 +511,19 @@ class _Kron(_Resumable):
         self.fit_steps = 0   # steps on which Q was fitted
         self.plans = [_kron_plan(t, f, s, max_size, max_skew, dq)
                       for t, f, s in zip(tensors, self.scanned, self.shared)]
+        self.stack, self.layers = self._shard_stacks(stack_sharding, names,
+                                                     tensors)
+        self.sharded = [s is not None for s in self.layers]
         scale0 = 1.0 if init_scale is None else init_scale
-        for t, f, plan in zip(tensors, self.scanned, self.plans):
+        for t, f, plan, s in zip(tensors, self.scanned, self.plans,
+                                 self.layers):
             qdt = preconditioner_dtype or t.dtype
             st = kron_p.init_kron_from_plan(plan, scale0, qdt, self.device)
             if f:
+                n = t.shape[0] if s is None else s.stop - s.start
                 st = kron_p.KronState(
-                    q=tuple(x.expand((t.shape[0],) + x.shape).clone()
-                            for x in st.q),
-                    lips=tuple(x.expand(t.shape[0]).clone() for x in st.lips))
+                    q=tuple(x.expand((n,) + x.shape).clone() for x in st.q),
+                    lips=tuple(x.expand(n).clone() for x in st.lips))
             state = self.state[t]
             state["q"], state["lips"] = st.q, st.lips
             if cache_p:
@@ -510,15 +531,73 @@ class _Kron(_Resumable):
             if momentum > 0:
                 state["mu"] = torch.zeros_like(t, dtype=momentum_dtype or t.dtype)
 
+    def _shard_stacks(self, stack_sharding, names, tensors):
+        """(shard group, per leaf this rank's layers or None): the scanned,
+        unshared leaves with a dense factor are sharded (JAX
+        transforms.py:887-893); a stack whose L does not divide by k
+        raises."""
+        if stack_sharding is None:
+            return None, [None] * len(tensors)
+        from ..parallel.mesh import shard_group
+        sg = shard_group(stack_sharding)
+        layers = []
+        for i, (t, f, plan) in enumerate(zip(tensors, self.scanned,
+                                             self.plans)):
+            if not f or all(plan.is_diag):
+                layers.append(None)
+                continue
+            n_layer = t.shape[0]
+            if n_layer % sg.size:
+                leaf = names[i] if names is not None else f"leaf {i}"
+                raise ValueError(
+                    f"stack_sharding: {leaf} has {n_layer} layers, which "
+                    f"{sg.size} shards do not divide")
+            n = n_layer // sg.size
+            layers.append(slice(sg.index * n, (sg.index + 1) * n))
+        return sg, layers
+
+    @property
+    def per_rank(self) -> bool:
+        """Whether this rank's state is its own (checkpoints: one file
+        per rank)."""
+        return self.stack is not None
+
     def _layout(self) -> dict:
         out = {"optimizer": type(self).__name__, "cache_p": self.cache_p}
+        if self.stack is not None:
+            out["stack_sharding"] = dict(world=self.stack.size,
+                                         rank=self.stack.index)
         for i, (p, plan, f, s) in enumerate(zip(
                 self.param_groups[0]["params"], self.plans, self.scanned,
                 self.shared)):
             out[f"leaf {i}"] = dict(shape=list(p.shape), shared=s, scanned=f,
                                     plan=list(plan.shape),
                                     diagonal=list(plan.is_diag), dq=plan.dq)
+            if self.sharded[i]:
+                out[f"leaf {i}"]["layers"] = [self.layers[i].start,
+                                              self.layers[i].stop]
         return out
+
+    def _local(self, x, i):
+        """x, or this rank's layers of it for a stack-sharded leaf."""
+        return x if self.layers[i] is None else x[self.layers[i]]
+
+    def _local_shape(self, i, p) -> tuple:
+        return tuple(self._local(p, i).shape)
+
+    def _gather(self, updates: list) -> list:
+        """The stack-sharded leaves' updates assembled from every rank's
+        layers (``all_gather_stack``), in place in ``updates`` (each slice
+        freed once its stack is whole); the others as they are."""
+        from ..parallel.mesh import all_gather_stack
+        for i, s in enumerate(self.sharded):
+            if s:
+                updates[i] = all_gather_stack(updates[i], self.stack)
+        return updates
+
+    def _leaf_key(self, k_fit, i):
+        """Leaf i's fit key."""
+        return fastrand.fold_in(k_fit, i)
 
     # -- pieces of one step -------------------------------------------------
 
@@ -563,16 +642,18 @@ class _Kron(_Resumable):
         for i, (p, src) in enumerate(zip(params, sources)):
             st = self.state[p]
             qdt = st["q"][0].dtype
-            key = fastrand.fold_in(k_fit, i)
+            key = self._leaf_key(k_fit, i)
             kw = dict(lr=lr_q, beta_l=beta_l, damping=damping,
                       norm_k=resolve_norm_k(self.norm_k, qdt), draw=self.draw)
             if return_pg:
                 kw["return_pg"] = True
             state = kron_p.KronState(q=st["q"], lips=st["lips"])
-            views = [_cast(self._view(x, i), qdt) for x in src]
+            views = [_cast(self._view(self._local(x, i), i), qdt) for x in src]
             if self.scanned[i]:
-                out = fit_stacked(state, self.plans[i], *views,
-                                  fastrand.split(key, views[0].shape[0]), **kw)
+                keys = fastrand.split(key, p.shape[0])
+                if self.sharded[i]:
+                    keys = keys[self.layers[i]]
+                out = fit_stacked(state, self.plans[i], *views, keys, **kw)
             else:
                 out = fit_one(state, self.plans[i], *views, key, **kw)
             if return_pg:
@@ -592,7 +673,7 @@ class _Kron(_Resumable):
         """P src for leaf i (parameter p), in p's dtype and the plan's
         shape, through ``factors``: the leaf's Q, or its cached P_i."""
         plan, stacked = self.plans[i], self.scanned[i]
-        g = _cast(self._view(src, i), factors[0].dtype)
+        g = _cast(self._view(self._local(src, i), i), factors[0].dtype)
         if self.cache_p:
             fn = (kron_p.precond_grad_cached_stacked if stacked
                   else kron_p.precond_grad_cached)
@@ -620,6 +701,10 @@ class KronWhiten(_Kron):
     ``pipelined_fit`` needs momentum whitening and an explicit
     ``preconditioner_init_scale``, and fits from step 1 on;
     ``share_fit_apply`` refuses ``dq="EQ"``, whose fit never forms P g.
+    ``stack_sharding=(mesh, dim)`` (or a ``ProcessGroup``, or a tuple of
+    mesh dims): each rank fits and applies its L/k layers of every
+    scanned, unshared stack with a dense factor and the stack's update is
+    gathered (module docstring); with every option above.
 
     ``dq`` takes each of the seven geometries (``kron.ALL_DQ``).  On CUDA
     tensors: Q0.5EQ1.5 steps each dense factor through the NS kernels
@@ -661,6 +746,7 @@ class KronWhiten(_Kron):
                  pipelined_fit: bool = False,
                  share_fit_apply: bool = False,
                  cache_p: bool = False,
+                 stack_sharding=None,
                  device=None,
                  draw=None,
                  **unported):
@@ -715,7 +801,7 @@ class KronWhiten(_Kron):
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
-            draw=draw)
+            draw=draw, stack_sharding=stack_sharding)
         _advisories(preconditioner_init_scale, whiten_grad, momentum, dq,
                     preconditioner_dtype)
         self.update_preconditioner_first = update_preconditioner_first
@@ -725,9 +811,11 @@ class KronWhiten(_Kron):
 
     def _finish(self, i, p, pg, clip_amps):
         """P src in p's dtype, clipped per tensor (per layer of a scanned
-        stack), in p's shape."""
+        stack), in p's shape (this rank's layers of a stack-sharded
+        leaf)."""
         return _amp_clip(_cast(pg, p.dtype), *clip_amps,
-                         stacked=self.scanned[i]).reshape(p.shape)
+                         stacked=self.scanned[i]).reshape(
+                             self._local_shape(i, p))
 
     def _apply(self, params, sources, clip_amps, factors=None):
         """P src clipped per leaf (the unclipped product freed leaf by
@@ -798,7 +886,7 @@ class KronWhiten(_Kron):
                 if do_fit:
                     self._fit(params, fit_src, k_fit, *fit_args)
         self.fit_steps += int(do_fit)
-        _descend(group, params, updates, count)
+        _descend(group, params, self._gather(updates), count)
         self.count += 1
 
 
@@ -818,8 +906,9 @@ class KronNewton(_Kron):
     gradient; through the cache refreshed by every fit with ``cache_p``),
     the global-norm trust-region clip ``grad_clip_max_norm``, weight decay
     and -lr.  ``.grad`` is neither read nor written.  Arguments otherwise
-    as ``KronWhiten`` (``shared_layers``, ``cache_p``, ``dq`` and the
-    advisories included).  On CUDA tensors each geometry's fit runs the
+    as ``KronWhiten`` (``shared_layers``, ``cache_p``, ``stack_sharding``,
+    ``dq`` and the advisories included; the norm clip reads the gathered
+    tree).  On CUDA tensors each geometry's fit runs the
     kernels ``KronWhiten``'s does, the probe v is ``kernels.unit_noise``
     per leaf and the damping of h (EQ too) ``kernels.damped_noise``.
     """
@@ -847,6 +936,7 @@ class KronNewton(_Kron):
                  scanned_layers: Any = None,
                  shared_layers: Any = None,
                  cache_p: bool = False,
+                 stack_sharding=None,
                  device=None,
                  draw=None,
                  **unported):
@@ -866,7 +956,7 @@ class KronNewton(_Kron):
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
-            draw=draw)
+            draw=draw, stack_sharding=stack_sharding)
         _advisories(preconditioner_init_scale, True, 0.0, dq,
                     preconditioner_dtype)
         self.exact_hvp = exact_hessian_vector_product
@@ -897,8 +987,13 @@ class KronNewton(_Kron):
 
         src = self._momentum(params, grads, count) if self.momentum > 0 \
             else grads
-        pre = [self._precond(i, p, x, f).reshape(p.shape) for i, (p, x, f)
-               in enumerate(zip(params, src, self._apply_factors(params)))]
+        # contiguous: the norm clip then sums each leaf in one order, sharded
+        # (gathered) or not
+        pre = self._gather([
+            self._precond(i, p, x, f).reshape(self._local_shape(i, p)).contiguous()
+            for i, (p, x, f) in enumerate(zip(params, src,
+                                              self._apply_factors(params)))])
+        # the clip reads the whole tree, after the gather (JAX :313-314)
         scale = _global_norm_scale(pre, _sched(group["grad_clip_max_norm"],
                                                count))
         _descend(group, params, [u * scale for u in pre], count)
@@ -930,7 +1025,7 @@ def kron_newton(params, learning_rate: float | Callable = 0.01,
 def _refuse_vector_sharding(vector_sharding) -> None:
     if vector_sharding is not None:
         raise NotImplementedError(
-            "vector_sharding is not ported yet (ROADMAP A8)")
+            "vector_sharding is not ported yet (ROADMAP A8b)")
 
 
 class _Flat(_Resumable):
@@ -1068,7 +1163,7 @@ class LRAWhiten(_Flat):
     are drawn from key(seed + 1) at construction.  On CUDA a fit launches
     ``kernels.unit_noise`` and ``kernels.damped_noise`` once each (the
     probe and the damping, the same v).  ``vector_sharding`` raises
-    (ROADMAP A8)."""
+    (ROADMAP A8b)."""
 
     def __init__(self, params, lr: float | Callable = 1e-3,
                  weight_decay: float = 0.0,
@@ -1173,7 +1268,7 @@ class LRANewton(_FlatNewton):
     + damping^4)^(-1/8) of the concatenated pair.  On CUDA a fit launches
     ``kernels.unit_noise`` once per parameter (the probes) and
     ``kernels.damped_noise`` once (the damping of h).  ``vector_sharding``
-    raises (ROADMAP A8)."""
+    raises (ROADMAP A8b)."""
 
     def __init__(self, params, lr: float | Callable = 0.01,
                  weight_decay: float = 0.0,
@@ -1235,7 +1330,7 @@ class DenseNewton(_FlatNewton):
     on the (1, n, n) stack, PRO4P ``linalg.procrustes_loop3`` (10
     ``kernels.tsub`` and 10 skew ``kernels.norm_bound``).  The constructor
     warns as the JAX transform's ``_advisories`` do.  ``vector_sharding``
-    raises (ROADMAP A8)."""
+    raises (ROADMAP A8b)."""
 
     def __init__(self, params, lr: float | Callable = 0.01,
                  weight_decay: float = 0.0,

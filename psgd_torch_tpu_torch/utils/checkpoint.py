@@ -7,6 +7,12 @@ A checkpoint is ``path/step_N/state.pt``: {"step", "model", "optimizer",
 "extra"}, written under a temporary name, flushed to disk and renamed, so
 a crash leaves no half checkpoint (the JAX version is atomic through
 orbax).  ``restore_checkpoint`` reads it with ``weights_only=True``.
+
+An optimizer whose state is its rank's own (``stack_sharding``, the
+per-shard optimizers: ``optimizer.per_rank``) writes one file per rank,
+``path/step_N/state.rank{r}of{k}.pt`` (each renamed into place on its
+own), and each rank restores its own; gathering a whole checkpoint onto
+one rank is not ported (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -21,6 +27,22 @@ import torch
 _FILE = "state.pt"
 
 
+def _file(optimizer) -> str:
+    """The checkpoint file of this process: one per rank for an optimizer
+    whose state is its rank's own."""
+    if getattr(getattr(optimizer, "optimizer", optimizer), "per_rank", False):
+        import torch.distributed as dist
+        return f"state.rank{dist.get_rank()}of{dist.get_world_size()}.pt"
+    return _FILE
+
+
+def _write(path: str, payload: dict) -> None:
+    with open(path, "wb") as fh:
+        torch.save(payload, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
 def save_checkpoint(path: str, step: int, model, optimizer,
                     extra: Optional[dict] = None) -> None:
     """Save the model's and the optimizer's ``state_dict()`` (and
@@ -28,14 +50,18 @@ def save_checkpoint(path: str, step: int, model, optimizer,
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"step_{step}")
+    payload = {"step": step, "model": model.state_dict(),
+               "optimizer": optimizer.state_dict(), "extra": extra or {}}
+    name = _file(optimizer)
+    if name != _FILE:        # one file per rank, each renamed into place
+        os.makedirs(final, exist_ok=True)
+        tmp = os.path.join(final, f".{name}.{os.getpid()}.tmp")
+        _write(tmp, payload)
+        os.replace(tmp, os.path.join(final, name))
+        return
     tmp = tempfile.mkdtemp(prefix=f".step_{step}.", dir=path)
     try:
-        with open(os.path.join(tmp, _FILE), "wb") as fh:
-            torch.save({"step": step, "model": model.state_dict(),
-                        "optimizer": optimizer.state_dict(),
-                        "extra": extra or {}}, fh)
-            fh.flush()
-            os.fsync(fh.fileno())
+        _write(os.path.join(tmp, _FILE), payload)
         if os.path.isdir(final):
             old = tempfile.mkdtemp(prefix=f".old_step_{step}.", dir=path)
             os.replace(final, os.path.join(old, "replaced"))
@@ -71,7 +97,7 @@ def restore_checkpoint(path: str, model, optimizer,
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {path}")
     device = next(iter(model.state_dict().values())).device
-    saved = torch.load(os.path.join(path, f"step_{step}", _FILE),
+    saved = torch.load(os.path.join(path, f"step_{step}", _file(optimizer)),
                        map_location=device, weights_only=True)
     model.load_state_dict(saved["model"])
     optimizer.load_state_dict(saved["optimizer"])

@@ -65,7 +65,9 @@ def psgd_metrics(optimizer, updates: Optional[list] = None,
     parameters by) ``update_rms`` and ``update_abs_max``, the amplitude
     clip's engagement signal; with ``per_leaf`` ``L_max/leaf{i}`` and
     ``q_abs_max/leaf{i}``.  Reductions in float32; values are 0-dim tensors
-    on the optimizer's device."""
+    on the optimizer's device.  An optimizer whose state is its rank's own
+    (``stack_sharding``, the per-shard optimizers) reports that state, and
+    every key but ``step`` and the update's says so: ``L_max@rank{r}``."""
     opt = _core(optimizer)
     out: Dict[str, torch.Tensor] = {
         "step": torch.full((), opt.count, dtype=torch.int32,
@@ -95,6 +97,10 @@ def psgd_metrics(optimizer, updates: Optional[list] = None,
     mus = _momentum(opt)
     if mus:
         out["momentum_rms"] = _rms(mus)
+    if getattr(opt, "per_rank", False):
+        import torch.distributed as dist
+        at = f"@rank{dist.get_rank()}"
+        out = {k if k == "step" else k + at: v for k, v in out.items()}
     if updates is not None:
         updates = list(updates)
         out["update_rms"] = _rms(updates)
@@ -114,19 +120,23 @@ def state_memory_report(optimizer, per_device: bool = False) -> Dict[str, int]:
     ``cache_p`` factors P_i), ``other`` and ``total``.  ``other`` is 0:
     the port keeps count, key and fit_steps on the host, where JAX holds
     its count (int32) and key (uint32[2]) as 12 bytes of device arrays.
-    Nothing in the port is sharded yet (ROADMAP A8), so ``per_device``
-    gives the full sizes."""
-    del per_device
+    With ``stack_sharding`` ``per_device`` gives this rank's bytes, else
+    the whole state over the group (each sharded stack's slice times the
+    shard count); a per-shard optimizer reports its rank's own either
+    way."""
     opt = _core(optimizer)
     report = {"q": 0, "lips": 0, "momentum": _nbytes(_momentum(opt)),
               "pcache": 0, "other": 0}
     precond = getattr(opt, "precond", None)
     if precond is None:
-        for p in opt.param_groups[0]["params"]:
+        stack = getattr(opt, "stack", None)
+        for i, p in enumerate(opt.param_groups[0]["params"]):
             st = opt.state[p]
-            report["q"] += _nbytes(st["q"])
-            report["lips"] += _nbytes(st["lips"])
-            report["pcache"] += _nbytes(st.get("pcache", ()))
+            k = (stack.size if stack is not None and opt.sharded[i]
+                 and not per_device else 1)
+            report["q"] += k * _nbytes(st["q"])
+            report["lips"] += k * _nbytes(st["lips"])
+            report["pcache"] += k * _nbytes(st.get("pcache", ()))
     elif hasattr(precond, "lips"):
         report["q"], report["lips"] = _nbytes((precond.q,)), _nbytes((precond.lips,))
     else:

@@ -35,12 +35,14 @@ _CHECK = textwrap.dedent("""
     print("BAD", bad)
     print("N", len([m for m in new if m.startswith("psgd_torch_tpu_torch")]))
     print("HVP", "psgd_torch_tpu_torch.optim.hvp" in new)
+    print("PAR", ",".join(m for m in new if m.startswith("psgd_torch_tpu_torch.parallel")))
 """)
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and
-    chip_smoke.py; none of them pulls in a forbidden module."""
+    """A fresh interpreter imports every module of the port (the
+    distributed ``parallel`` modules included) and chip_smoke.py; none of
+    them pulls in a forbidden module."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -49,6 +51,8 @@ def test_port_imports_no_jax():
     assert lines["BAD"] == "[]", lines["BAD"]
     assert int(lines["N"]) >= 20
     assert lines["HVP"] == "True"
+    assert {"psgd_torch_tpu_torch.parallel.mesh",
+            "psgd_torch_tpu_torch.parallel.sharded"} <= set(lines["PAR"].split(","))
 
 
 def test_sources_name_no_forbidden_import():
