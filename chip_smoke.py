@@ -200,8 +200,28 @@
    Q and L; then GPT-2 124M's parameters as DTensors on a 1-D fsdp mesh
    (``gpt2_partition_specs``) by ``per_shard_kron_whiten`` in 5's
    settings: each rank's shards and Q equal the same shards run in one
-   process (``on_shards``) bit for bit.  The ranks' launch counts come
-   back to this process and count toward the kernels' line.
+   process (``on_shards``) bit for bit.  ``factor_sharded_path`` (the
+   embeddings' ``factor_sharding``, one global preconditioner over
+   sharded dims): A, GPT-2 124M as 5 on a 1-D fsdp mesh of 2 laid out by
+   ``sharding_recipe`` (the blocks stack-sharded; wte's 768 dim moved onto
+   its vocab dim by ``all_to_all``, wpe's gathered), 3 steps at p = 1 and
+   3 at 0.1; B, LLaMA-1.1B's wte and lm_head at full size on 2 ranks by
+   KronWhiten and by KronNewton (bf16 Q; the 2048 factor on the split
+   route at B = 1), 3 fit steps each; C, GPT-2's wte and wpe on fsdp 2 x
+   tp 2 (wte's two axes meet on its vocab dim) in QUAD and QEQ, 3 fit
+   steps each.  Each arm beside a 1-rank reference on rank 0 stepping from
+   the same gradients: ``drift_check`` exactly 0 on the replicated tensors
+   (dense Q, L, the other leaves), ``state_memory_report`` over the mesh
+   (each routed block times its shard count) equal to the reference's and
+   each rank's momentum less, every routed leaf's update within cosine
+   ``FACTOR_COS`` and relative error ``FACTOR_REL`` of the reference's
+   (``tools/factor_fault_margin.py`` reads both against planted faults),
+   exact launches per fit step
+   (``FACTOR_PER_FIT``), A's loss falling and its other leaves the
+   reference's bit for bit; step 3 holds the noise at the arms' B = 1
+   blocks (``FACTOR_NOISE_SHAPES``) and the split route at B = 1.  The
+   ranks' launch counts come back to this process and count toward the
+   kernels' line.
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
@@ -221,6 +241,8 @@ Any failed phase raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import functools
 import gc
 import hashlib
 import json
@@ -587,6 +609,7 @@ def check_noise(dev, lib_path) -> dict:
                          ((3, 97, 33), torch.bfloat16),
                          ((12, 768, 2304), torch.bfloat16),
                          ((1, 1024, 768), torch.float32),
+                         *((s, torch.bfloat16) for s in FACTOR_NOISE_SHAPES),
                          ((22, 2048, 11264), torch.bfloat16)):
         b = shape[0]
         seeds = _seeds(b, gen, dev)
@@ -609,7 +632,7 @@ def check_noise(dev, lib_path) -> dict:
             f"and fused bit-exact; unit mean {u.mean().item():.2e} var "
             f"{u.var().item():.4f} range [{u.min().item():.4f}, {u.max().item():.4f}]")
         del unit_k, unit_p, damp_k, damp_p, u
-        if not vec:
+        if not vec or shape in FACTOR_NOISE_SHAPES:
             continue
         unit = lambda: kernels.unit_noise(seeds, shape[1:], dtype)
         fused = lambda: kernels.damped_noise(g, seeds, 1e-9)
@@ -990,11 +1013,11 @@ def require_tensor_cores(name, kernel_names) -> None:
                              "tc_gemm_kernel and no FFMA gemm_kernel")
 
 
-def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
+def check_split(dev, b, n, dtype, timed, tc_lines=(), branches=True) -> dict:
     """ns_step and procrustes alone against their plain versions (procrustes
     on the kernel's q1): q1 to f32 accumulation order (``_within_order``),
-    L' and q' with kernels.ROUTE_TOL; the procrustes step takes both
-    branches."""
+    L' and q' with kernels.ROUTE_TOL; with ``branches`` the procrustes
+    step takes both branches (a batch of one shows only one)."""
     term1, q, lips, term2, seeds = _ns_problem(b, n, dtype, 3 * n, dev)
     step = lambda: kernels.ns_step(term1, q, lips, term2, seeds, 0.1, 0.9, k=128)
     step_p = lambda: kernels.ns_step_plain(term1, q, lips, term2, seeds, 0.1,
@@ -1011,8 +1034,8 @@ def check_split(dev, b, n, dtype, timed, tc_lines=()) -> dict:
     log(f"split stages {b}x{n}x{n} {dtype}: ns_step q1 to accumulation order "
         f"{q1_ok} (rel err {errs[0]:.2e}), L rel err {errs[1]:.2e} (tol "
         f"{tol_l}); procrustes q' rel err {errs[2]:.2e} (tol {tol_q}), {shown}")
-    if not q1_ok or errs[1] > tol_l or errs[2] > tol_q or not both or \
-            q1.dtype != dtype or qk.dtype != dtype:
+    if not q1_ok or errs[1] > tol_l or errs[2] > tol_q or (branches and not both) \
+            or q1.dtype != dtype or qk.dtype != dtype:
         raise AssertionError(f"split stages {b}x{n} {dtype} disagree with "
                              "their plain versions")
     if not timed:
@@ -3219,6 +3242,7 @@ def _dist_main(rank: int, world: int, store: str, job: str, out: str) -> None:
     Its allocator grows segments in place: three LLaMA-1.1B processes
     take ~66 GB of the card, and split cached blocks would not fit."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    faulthandler.enable()      # a crashed rank prints its Python stack
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3521,16 +3545,28 @@ def _dp_drift_check(ranks: list, card: str) -> dict:
     return total
 
 
-def _full_from_shards(local, placements, mesh) -> torch.Tensor:
-    """The whole tensor from its shards over a 1-D mesh (one all_gather of
-    the shards' bytes along the sharded dim)."""
-    from torch.distributed.tensor import Shard
-    pl = placements[0]
-    if not isinstance(pl, Shard):
-        return local
-    parts = [torch.empty_like(local) for _ in range(mesh.size())]
-    dist.all_gather([x.view(torch.uint8) for x in parts], local.contiguous().view(torch.uint8))
-    return torch.cat(parts, dim=pl.dim)
+def _whole(p) -> torch.Tensor:
+    """A DTensor's global value from every rank's block: one all_gather
+    of the blocks' bytes over the world (the collective gloo takes CUDA
+    tensors for), each block put in place by its rank's mesh coordinate."""
+    mesh, local = p.device_mesh, p.to_local().detach().contiguous()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather([x.reshape(-1).view(torch.uint8) for x in parts],
+                    local.reshape(-1).view(torch.uint8))
+    out = torch.empty(p.shape, dtype=local.dtype, device=local.device)
+    sizes = mesh.mesh.shape
+    for r, part in enumerate(parts):
+        coord = [int(i) for i in (mesh.mesh == r).nonzero()[0]]
+        index = []
+        for d in range(p.ndim):
+            k, i = 1, 0
+            for md, pl in enumerate(p.placements):
+                if pl.is_shard(d):
+                    k, i = k * sizes[md], i * sizes[md] + coord[md]
+            n = p.shape[d] // k
+            index.append(slice(i * n, (i + 1) * n))
+        out[tuple(index)] = part
+    return out
 
 
 def _per_shard_job(rank: int, world: int, _) -> dict:
@@ -3599,7 +3635,7 @@ def _per_shard_job(rank: int, world: int, _) -> dict:
                 ref.step()
         with torch.no_grad():
             for (n, p), (_, dp) in zip(named, dparams):
-                p.copy_(_full_from_shards(dp.to_local(), specs[n], mesh))
+                p.copy_(_whole(dp))
     counts = _all_counts()
     local = {n: _digest(dp.to_local()) for n, dp in dparams}
     q = {n: [_digest(f) for f in opt.state[loc]["q"]]
@@ -3665,7 +3701,335 @@ def pair_paths(dev, card: str) -> dict:
     return total
 
 
-_DIST_JOBS = {"stack": _stack_job, "pair": _pair_job}
+# the factor-sharded path (ROADMAP A8b): per fit step each rank launches
+# what one rank would, every routed leaf on its blocks (arm A: GPT-2's
+# counts, wte's 768 and wpe's 1024 and 768 factors at B = 1 on row 1; arm
+# B: LLaMA's wte and lm_head, the 2048 factor on the split route, rows 3
+# and 4, at B = 1, Newton's probes drawn whole on every rank; arm C:
+# GPT-2's wte and wpe in QUAD and QEQ, row 5 on the three dense factors)
+_FACTOR_B = {"ns_step": 2, "procrustes": 2, "damped_noise": 2, "fused_ns_update": 0,
+             "norm_bound": 0}
+_FACTOR_C = {"norm_bound": 3, "damped_noise": 2, "fused_ns_update": 0, "ns_step": 0,
+             "procrustes": 0}
+FACTOR_PER_FIT = {"gpt2": GPT2_PER_FIT, "llama_whiten": _FACTOR_B,
+                  "llama_newton": dict(_FACTOR_B, unit_noise=2,
+                                       **{"ns_step.step_mat": 2}),
+                  "QUAD": _FACTOR_C, "QEQ": _FACTOR_C}
+FACTOR_LABELS = {"llama_whiten": "LLaMA-1.1B wte and lm_head by KronWhiten",
+                 "llama_newton": "LLaMA-1.1B wte and lm_head by KronNewton",
+                 "QUAD": "GPT-2 wte and wpe in QUAD", "QEQ": "GPT-2 wte and wpe in QEQ"}
+FACTOR_STEPS = (3, 3)      # arm A: p = 1.0, then 0.1
+FACTOR_FITS = 3            # arms B and C, each optimizer
+# every routed leaf's update against the 1-rank reference's: cosine and
+# |u_k - u_1| / |u_1|.  JAX's contract is cosine > 0.99
+# (tests/test_parallel.py:421-445), which no planted fault of
+# tools/factor_fault_margin.py fails; on an H100 sound arms read at most
+# 4.9e-6 and 3.1e-3, a skipped psum 1.7e-4 and 0.042 or more in arms B and
+# C (PERF.md, PR 14 call 6)
+FACTOR_COS = 1 - 5e-5
+FACTOR_REL = 1e-2
+FACTOR_LABEL = "2 ranks (4 in arm C) sharing one H100 over gloo, not scaling figures"
+LLAMA_VOCAB = (32000, 2048)
+# the damping's B = 1 blocks in the compute layout: GPT-2's wte on 2 ranks
+# (arm A) and on 4 (C), LLaMA's wte on 2 (B; its lm_head's is the transpose)
+FACTOR_NOISE_SHAPES = ((1, 25152, 768), (1, 12576, 768), (1, 16000, 2048))
+
+
+def _blocks_of(x, mesh, placements):
+    """This rank's block of a tensor every rank holds whole, as a DTensor
+    (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+
+def _counted(fn, total: dict) -> float:
+    """fn()'s host ms to the card's end; its launches added to ``total``."""
+    before = _all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _add(total, {k: v - before[k] for k, v in _all_counts().items()})
+    return ms
+
+
+def _agree(a, b) -> tuple:
+    """(1 - cosine, relative error |a - b| / |b|) of an update a against
+    the reference's b, in float64."""
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
+    return (float(1 - a @ b / (a.norm() * b.norm())),
+            float((a - b).norm() / b.norm()))
+
+
+def _replicated(opt, names) -> dict:
+    """What the mesh holds equal on every rank: the non-routed parameters
+    and their Q and L (a stack-sharded leaf's are its layers: out), the
+    routed leaves' dense Q factors and L."""
+    out = {}
+    for n, p, r, sh in zip(names, opt.param_groups[0]["params"], opt.routed,
+                           opt.sharded):
+        st = opt.state[p]
+        if r is None:
+            out[f"param {n}"] = p
+        if sh:
+            continue
+        for j, f in enumerate(st["q"]):
+            if r is None or f.ndim == 2:
+                out[f"Q {n}[{j}]"] = f
+        for j, f in enumerate(st["lips"]):
+            out[f"L {n}[{j}]"] = f
+    return out
+
+
+def _factor_result(label, opt, names, counts, opt_ms, fitted, agree, ref,
+                   **extra) -> dict:
+    """One rank's readings of an arm; ``state_memory_report`` of the
+    optimizer per rank and over the mesh, and of the 1-rank reference
+    (rank 0's)."""
+    from psgd_torch_tpu_torch.parallel import drift_check
+    return dict(label=label, counts=counts, opt_ms=opt_ms, fitted=fitted, agree=agree,
+                drift=drift_check(_replicated(opt, names)),
+                mine=state_memory_report(opt, per_device=True),
+                whole=state_memory_report(opt),
+                ref=None if ref is None else state_memory_report(ref),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.max_memory_reserved() / 1e9, **extra)
+
+
+def _factor_gpt2(rank: int) -> dict:
+    """Arm A: GPT-2 124M in the main path's settings on a 1-D fsdp mesh of
+    2, laid out by ``sharding_recipe``: the blocks stack-sharded, wte (its
+    768 dim moved onto the vocab dim) and wpe (no diagonal dim: 768
+    gathered) factor-sharded.  Rank 0 takes the forward and backward and
+    broadcasts the gradients; each rank hands the optimizer its blocks of
+    the routed leaves' as DTensors and gathers them back into the model.
+    Rank 0 also steps a 1-rank reference from the same gradients."""
+    from psgd_torch_tpu_torch.parallel import (gpt2_partition_specs, make_mesh,
+                                               sharding_recipe)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(axis_names=("fsdp",))
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    mask = gpt2.scanned_layers_mask(model)
+    rec = sharding_recipe(mesh, gpt2_partition_specs(mesh), model.named_parameters(),
+                          scanned_layers=mask)
+    routed = sorted(rec.routed())
+    if rec.stack_axis != "fsdp" or routed != ["wpe", "wte"]:
+        raise AssertionError(f"recipe: stack axis {rec.stack_axis}, routed {routed}")
+    kw = dict(lr=1e-3 / 4, weight_decay=0.01, momentum=0.9, whiten_grad=False,
+              preconditioner_max_skew=2.0, preconditioner_init_scale=1.0,
+              preconditioner_update_probability=lambda c: 1.0 if c < FACTOR_STEPS[0]
+              else 0.1, preconditioner_dtype=torch.bfloat16,
+              momentum_dtype=torch.bfloat16, norm_k=128, device=dev)
+    named = dict(model.named_parameters())
+    placed = dict(rec.place(model.named_parameters()))
+    opt = KronWhiten(list(placed.items()), **kw, **rec.transform_kwargs)
+    ref = refp = None
+    if rank == 0:
+        refp = {n: torch.nn.Parameter(p.detach().clone()) for n, p in named.items()}
+        ref = KronWhiten(list(refp.items()), scanned_layers=mask, **kw)
+    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1), 4,
+                                              cfg.block_size, cfg.vocab_size, device=dev)
+    grads = {n: torch.zeros_like(p) for n, p in named.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, losses, opt_ms, fitted, agree = {}, [], [], [], []
+    for _ in range(sum(FACTOR_STEPS)):
+        if rank == 0:
+            model.zero_grad(set_to_none=True)
+            loss = gpt2.loss_gpt2(model, tokens, targets)
+            loss.backward()
+            losses.append(loss.item())
+            grads = {n: p.grad for n, p in named.items()}
+        for n in named:
+            _bcast(grads[n])
+            placed[n].grad = (_blocks_of(grads[n], mesh, placed[n].placements)
+                              if n in routed else grads[n])
+        before = {n: named[n].detach().clone() for n in routed}
+        fits0 = opt.fit_steps
+        opt_ms.append(_counted(opt.step, counts))
+        fitted.append(opt.fit_steps - fits0)
+        with torch.no_grad():
+            for n in routed:
+                named[n].copy_(_whole(placed[n]))
+        if rank == 0:
+            was = {n: refp[n].detach().clone() for n in routed}
+            for n, p in refp.items():
+                p.grad = grads[n]
+            ref.step()
+            agree.append({n: _agree(named[n] - before[n], refp[n] - was[n])
+                          for n in routed})
+    names = sorted(named, key=lambda n: tuple(n.split(".")))
+    out = _factor_result("GPT-2 124M", opt, names, counts, opt_ms, fitted, agree, ref,
+                         per_fit=FACTOR_PER_FIT["gpt2"], losses=losses)
+    if rank == 0:     # the non-routed leaves: stack sharding, bit for bit
+        out["unequal"] = [n for n in names if n not in routed
+                          and not torch.equal(named[n], refp[n])]
+    return out
+
+
+def _factor_leaves(rank: int, mesh, arm: str, shapes: dict, placements: dict,
+                   newton: bool, **kw) -> dict:
+    """Arms B and C: ``shapes``' leaves as DTensors on ``mesh`` by KronWhiten
+    (or KronNewton), bf16 Q, FACTOR_FITS fit steps from gradients drawn
+    from seed 0 (Newton: h = c v, c from seed 0, v the optimizer's probes);
+    rank 0 steps a 1-rank reference from the same ones (Newton through a
+    closure whose gradient is g and whose Hessian is diag(c))."""
+    dev = torch.device("cuda", 0)
+    names = sorted(shapes)
+    gen = torch.Generator().manual_seed(0)
+    init = {n: (0.02 * torch.randn(shapes[n], generator=gen)).to(dev) for n in names}
+    c = {n: (10.0 ** (2 * torch.rand(shapes[n], generator=gen) - 1)).to(dev)
+         for n in names}
+    cls = KronNewton if newton else KronWhiten
+    kw = dict(kw, lr=1e-3, preconditioner_init_scale=1.0, momentum=0.9,
+              preconditioner_dtype=torch.bfloat16, momentum_dtype=torch.bfloat16,
+              norm_k=128, device=dev)
+    params = {n: torch.nn.Parameter(_blocks_of(init[n], mesh, placements[n]))
+              for n in names}
+    opt = cls(list(params.items()), factor_sharding=(mesh, placements), **kw)
+    ref = refp = None
+    if rank == 0:
+        refp = {n: torch.nn.Parameter(init[n].clone()) for n in names}
+        ref = cls(list(refp.items()), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, opt_ms, fitted, agree = {}, [], [], []
+    for _ in range(FACTOR_FITS):
+        g = {n: torch.randn(shapes[n], generator=gen).to(dev) for n in names}
+        for n, p in params.items():
+            p.grad = _blocks_of(g[n], mesh, placements[n])
+        before = {n: _whole(p) for n, p in params.items()}
+        fits0 = opt.fit_steps
+        if newton:
+            step = functools.partial(opt.step, hvp_fn=lambda vs: [
+                c[n] * v for n, v in zip(names, vs)])
+        else:
+            step = opt.step
+        opt_ms.append(_counted(step, counts))
+        fitted.append(opt.fit_steps - fits0)
+        after = {n: _whole(p) for n, p in params.items()}
+        if rank == 0:
+            was = {n: p.detach().clone() for n, p in refp.items()}
+            if newton:
+                ref.step(lambda: sum(torch.sum(g[n] * p + 0.5 * c[n] * (p - was[n]) ** 2)
+                                     for n, p in refp.items()))
+            else:
+                for n, p in refp.items():
+                    p.grad = g[n]
+                ref.step()
+            agree.append({n: _agree(after[n] - before[n], refp[n] - was[n])
+                          for n in names})
+    return _factor_result(FACTOR_LABELS[arm], opt, names, counts, opt_ms, fitted, agree,
+                          ref, per_fit=FACTOR_PER_FIT[arm])
+
+
+def _factor_job(rank: int, world: int, arg) -> list:
+    """Arms A and B on 2 ranks (``arg`` "ab"), or arm C on 4 ("c"), each
+    arm's memory freed before the next."""
+    from types import SimpleNamespace
+    from psgd_torch_tpu_torch.parallel import (gpt2_partition_specs, llama_partition_specs,
+                                               make_mesh)
+    if arg == "ab":
+        mesh = make_mesh(axis_names=("fsdp",))
+        specs = llama_partition_specs(mesh, SimpleNamespace(lm_head=True))
+        pl = {n: specs[n] for n in ("wte", "lm_head")}
+        shapes = {"wte": LLAMA_VOCAB, "lm_head": LLAMA_VOCAB[::-1]}
+        arms = [lambda: _factor_gpt2(rank)] + [
+            (lambda newton=newton: _factor_leaves(
+                rank, mesh, "llama_newton" if newton else "llama_whiten", shapes, pl,
+                newton)) for newton in (False, True)]
+    else:
+        mesh = make_mesh(axis_names=("fsdp", "tp"), axis_sizes=(2, 2))
+        specs = gpt2_partition_specs(mesh)
+        pl = {n: specs[n] for n in ("wte", "wpe")}
+        shapes = {"wte": (50304, 768), "wpe": (1024, 768)}
+        arms = [(lambda dq=dq: _factor_leaves(rank, mesh, dq, shapes, pl, False, dq=dq,
+                                              preconditioner_max_skew=2.0))
+                for dq in ("QUAD", "QEQ")]
+    out = []
+    for arm in arms:
+        t0 = time.perf_counter()
+        out.append(arm())
+        out[-1]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _factor_check(arms: list, card: str) -> dict:
+    """The gates of one spawn's arms (``arms[r][j]``: rank r, arm j)."""
+    total = {}
+    for j in range(len(arms[0])):
+        ranks = [a[j] for a in arms]
+        label, k = ranks[0]["label"], len(ranks)
+        head = ranks[0]
+        if "losses" in head:
+            losses = head["losses"]
+            log(f"{label} factor-sharded over {k} ranks: losses "
+                f"{[round(x, 4) for x in losses]}")
+            if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+                raise AssertionError(f"{label} factor-sharded: losses {losses}")
+            if head["unequal"]:
+                raise AssertionError(f"{label}: non-routed {head['unequal']} differ from "
+                                     "the 1-rank reference")
+        worst = [max(v[j] for a in head["agree"] for v in a.values()) for j in (0, 1)]
+        if not (worst[0] < 1 - FACTOR_COS and worst[1] < FACTOR_REL):
+            raise AssertionError(f"{label}: updates against the 1-rank reference "
+                                 f"(1 - cosine, relative error) {head['agree']}, need "
+                                 f"< {1 - FACTOR_COS:g} and < {FACTOR_REL:g}")
+        for r, res in enumerate(ranks):
+            drift = res["drift"]
+            if set(drift.values()) != {0.0}:
+                raise AssertionError(f"{label}: rank {r} drift "
+                                     f"{[n for n, v in drift.items() if v]}")
+            fits = sum(res["fitted"])
+            per = {key: res["counts"].get(key, 0) / max(fits, 1) for key in res["per_fit"]}
+            if fits == 0 or any(res["counts"].get(key, 0) != n * fits
+                                for key, n in res["per_fit"].items()):
+                raise AssertionError(f"{label}: rank {r} launched {per} per fit step, "
+                                     f"expected {res['per_fit']}")
+            mine, whole = res["mine"], res["whole"]
+            # over the mesh each routed block counts times its shard count:
+            # equal to the reference's only if every rank holds 1/k
+            if whole != head["ref"] or not mine["momentum"] < whole["momentum"]:
+                raise AssertionError(f"{label}: rank {r}'s state {mine} bytes, over the "
+                                     f"mesh {whole}, the 1-rank reference's {head['ref']}")
+            fit = [t for t, f in zip(res["opt_ms"][1:], res["fitted"][1:]) if f]
+            nofit = [t for t, f in zip(res["opt_ms"][1:], res["fitted"][1:]) if not f]
+            log(f"  [{card}; {FACTOR_LABEL}] {label} rank {r}: optimizer step (median, "
+                f"first excluded) fit {_median(fit) if fit else 'none'} ms, no fit "
+                f"{_median(nofit) if nofit else 'none'} ms; peak {res['peak_gb']:.2f} GB "
+                f"allocated, {res['reserved_gb']:.2f} GB reserved; state_memory_report "
+                f"per rank / replicated: momentum {mine['momentum'] / 1e6:.2f} / "
+                f"{whole['momentum'] / 1e6:.2f} MB, Q {mine['q'] / 1e6:.2f} / "
+                f"{whole['q'] / 1e6:.2f} MB, total {mine['total'] / whole['total']:.3f}; "
+                f"launches per fit step {per}; drift 0.0 on {len(drift)} tensors")
+            _add(total, res["counts"])
+        log(f"  {label}: updates against the 1-rank reference per step, (1 - cosine, "
+            f"relative error) {head['agree']}; worst {worst}; "
+            f"{head['seconds']:.1f} s in the ranks")
+    return total
+
+
+def factor_sharded_path(dev, card: str) -> dict:
+    """Arms A and B on 2 ranks, arm C on 4 (``_factor_job``): every
+    replicated tensor equal on every rank (``drift_check`` 0.0), the state
+    over the mesh the 1-rank reference's (``state_memory_report``), every
+    routed leaf's update within ``FACTOR_COS`` and ``FACTOR_REL`` of the
+    1-rank reference's, exact launches per fit step
+    (``FACTOR_PER_FIT``); arm A's loss falls and its non-routed leaves
+    equal the reference's bit for bit."""
+    t0 = time.perf_counter()
+    total = _factor_check(_spawn("factor:ab", 2), card)
+    _add(total, _factor_check(_spawn("factor:c", 4), card))
+    log(f"  [{card}] factor-sharded path {time.perf_counter() - t0:.1f} s; its "
+        f"launches (ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
+    return total
+
+
+_DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job}
 
 
 def log_apply_launches(profiles, card: str) -> None:
@@ -3703,8 +4067,10 @@ def main() -> int:
     rows.update(check_tiled(dev, 22, 2560, torch.bfloat16, timed=True,
                             tc_lines=tc_lines))
     check_tiled(dev, 2, 2048, torch.float32, timed=False)
-    # the batch of LLaMA's stacks on each of 2 stack-sharded ranks
+    # the batch of LLaMA's stacks on each of 2 stack-sharded ranks, and of
+    # its factor-sharded vocab leaves' 2048 factor
     check_split(dev, 11, 2048, torch.bfloat16, timed=False)
+    check_split(dev, 1, 2048, torch.bfloat16, timed=False, branches=False)
     check_tiled(dev, 11, 2560, torch.bfloat16, timed=False)
     for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
@@ -3751,7 +4117,9 @@ def main() -> int:
              ("Stack-sharded path", lambda: (stack_sharded_path(dev, smi), None), (),
               False, None),
              ("Data-parallel drift and per-shard paths",
-              lambda: (pair_paths(dev, smi), None), (), False, None))
+              lambda: (pair_paths(dev, smi), None), (), False, None),
+             ("Factor-sharded path",
+              lambda: (factor_sharded_path(dev, smi), None), (), False, None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)

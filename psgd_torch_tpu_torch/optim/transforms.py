@@ -59,8 +59,26 @@ then assembled on every rank by one ``all_gather`` of their bytes
 (``parallel.mesh.all_gather_stack``).  Every other leaf, and the
 gradients, momentum, gate and init scale, stay replicated: the ranks
 must see the same gradients (average them first, as DDP does).
-``factor_sharding`` and LRA's and dense's ``vector_sharding`` raise
-(ROADMAP A8b).
+``factor_sharding=(mesh, placements)`` (KronWhiten, KronNewton) keeps one
+global preconditioner for each leaf whose dims FSDP or TP shard, as the
+JAX transforms' ``factor_sharding`` does: ``placements`` maps every
+parameter name to its DTensor placements (``parallel.gpt2_partition_specs``
+/ ``llama_partition_specs``), and a leaf that is not scanned, not shared,
+in a geometry of ``kron.DIM_SHARDABLE_DQS`` and whose squeezed dims are
+sharded is routed: it must be a DTensor parameter on ``mesh`` with exactly
+those placements (what FSDP2 or TP hands an optimizer).  Its momentum is
+this rank's block, its diagonal Q factors (and cache) this rank's blocks
+in the compute layout (``kron.dim_shard_reshard_plan``: the axes of a
+dense dim moved onto a diagonal dim, or the dense dim gathered), its dense
+factors and L whole and equal on every rank; the fit runs on the local
+blocks with one sum per dense factor over the mesh
+(``kron.update_kron_whiten_dim_sharded`` / ``_newton_``), and the update
+is written into ``p.to_local()``.  Every other leaf is a plain tensor,
+replicated (or stack-sharded).  The amplitude clip's RMS, the step-0 init
+scale and Newton's norm clip read the global leaves.  With routed leaves
+``KronNewton.step`` takes the gradients from ``.grad`` and the pair from
+``hvp_fn=`` or ``vs=``/``hvs=``, as the per-shard optimizers do.  LRA's
+and dense's ``vector_sharding`` raise (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -68,7 +86,7 @@ from __future__ import annotations
 import functools
 import math
 import warnings
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -123,18 +141,21 @@ def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _whiten_scale_from_grads(grads, flags, damping: float) -> torch.Tensor:
+def _whiten_scale_from_grads(grads, flags, damping: float,
+                             mean=None) -> torch.Tensor:
     """On-the-fly init scale (mean|g|^4 + damping^4)^(-1/8), max over tensors
     (each layer of a stack counts as a tensor), on the device.  Of a
     complex g the real part only, as the JAX transform's
-    ``g.astype(jnp.float32)`` reads it (ROADMAP, notes on the reference)."""
+    ``g.astype(jnp.float32)`` reads it (ROADMAP, notes on the reference).
+    ``mean(i, x)``: leaf i's mean (``_Kron._mean``: a routed leaf's over
+    the global leaf)."""
     ms = []
-    for g, f in zip(grads, flags):
+    for i, (g, f) in enumerate(zip(grads, flags)):
         g4 = torch.abs(_cast(g, torch.float32)) ** 4
         if f:
             ms.append(torch.amax(torch.mean(g4.reshape(g4.shape[0], -1), 1)))
         else:
-            ms.append(torch.mean(g4))
+            ms.append(torch.mean(g4) if mean is None else mean(i, g4))
     return (torch.amax(torch.stack(ms)) + damping ** 4) ** (-1.0 / 8.0)
 
 
@@ -163,18 +184,6 @@ def _advisories(init_scale, whiten_grad: bool, momentum: float, dq: str,
             "Fitting P directly (QUAD4P/PRO4P) in half precision is risky; "
             "prefer float32 preconditioner_dtype for the *4P geometries.",
             stacklevel=3)
-
-
-_UNPORTED = {"factor_sharding": "A8b"}
-
-
-def _refuse_unported(unported: dict) -> None:
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        if value:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP {_UNPORTED[name]})")
 
 
 def _leaf_flags(option: str, value, names, n: int) -> list:
@@ -229,24 +238,37 @@ def _kron_plan(t: torch.Tensor, scanned: bool, shared: bool, max_size: float,
     return kron_p.make_kron_plan(shape, max_size, max_skew, dq, force_diag=fd)
 
 
-def _newton_scale_from_vh(vs, hs, damping: float) -> torch.Tensor:
+def _newton_scale_from_vh(vs, hs, damping: float, opt=None) -> torch.Tensor:
     """On-the-fly init scale (mean|v|^2)^(1/4) (mean|h|^4 + damping^4)^(-1/8),
     mean|v|^2 over all leaves, mean|h|^4 the max over leaves, in float32 on
     the device (psgd.py:940-943); of complex v and h the real parts, as
-    the JAX transform reads them."""
-    numel = sum(v.numel() for v in vs)
-    v2 = sum(torch.sum(torch.abs(_cast(v, torch.float32)) ** 2) for v in vs) / numel
-    h4 = torch.amax(torch.stack([torch.mean(torch.abs(_cast(h, torch.float32)) ** 4)
-                                 for h in hs]))
+    the JAX transform reads them.  ``opt``: the optimizer whose routed
+    leaves (factor_sharding) these are blocks of (``_Kron._sum``,
+    ``_mean``, ``_numel``: the global leaves' statistics)."""
+    def total(i, x):
+        return torch.sum(x) if opt is None else opt._sum(i, x)
+
+    def mean(i, x):
+        return torch.mean(x) if opt is None else opt._mean(i, x)
+
+    numel = sum(v.numel() if opt is None else opt._numel(i, v)
+                for i, v in enumerate(vs))
+    v2 = sum(total(i, torch.abs(_cast(v, torch.float32)) ** 2)
+             for i, v in enumerate(vs)) / numel
+    h4 = torch.amax(torch.stack([mean(i, torch.abs(_cast(h, torch.float32)) ** 4)
+                                 for i, h in enumerate(hs)]))
     return v2 ** 0.25 * (h4 + damping ** 4) ** (-1.0 / 8.0)
 
 
-def _global_norm_scale(xs, max_norm: float):
+def _global_norm_scale(xs, max_norm: float, opt=None):
     """Trust-region scale min(1, max_norm / ||xs||) over all tensors, a
-    device scalar (psgd.py:967-971); 1.0 for an infinite max_norm."""
+    device scalar (psgd.py:967-971); 1.0 for an infinite max_norm.
+    ``opt`` as ``_newton_scale_from_vh``."""
     if math.isinf(max_norm):
         return 1.0
-    norm = torch.sqrt(sum(torch.sum(torch.real(x * torch.conj(x))) for x in xs))
+    sq = [torch.real(x * torch.conj(x)) for x in xs]
+    norm = torch.sqrt(sum(torch.sum(x) if opt is None else opt._sum(i, x)
+                          for i, x in enumerate(sq)))
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-38), max=1.0)
 
 
@@ -454,13 +476,27 @@ class _Resumable(torch.optim.Optimizer):
             {k: saved[k] for k in self._extra_state()}))
 
 
+class _Routed(NamedTuple):
+    """A factor-sharded leaf: its DTensor parameter, where its shard sits
+    (``parallel.sharded._LeafShard``), per squeezed dim the mesh dims that
+    shard it, the reshard plan and its block's squeezed shape."""
+    dparam: Any
+    shard: Any
+    dim_axes: tuple
+    rplan: tuple
+    local_shape: tuple
+
+
 class _Kron(_Resumable):
     """What KronWhiten and KronNewton share: the parameters in the JAX
     pytree order, the plans, the factored state (per parameter: ``q``,
     ``lips``, ``mu``, ``pcache``), the momentum buffers, the key chain and
     the per-leaf fit and apply.  With ``stack_sharding`` the leaves marked
     in ``self.sharded`` hold their state for this rank's layers
-    ``self.layers[i]`` only; ``_gather`` assembles their updates."""
+    ``self.layers[i]`` only; ``_gather`` assembles their updates.  With
+    ``factor_sharding`` the leaves marked in ``self.routed`` are DTensors
+    (``self.routed[i].dparam``) whose local blocks are the optimizer's
+    parameters; ``_routed`` fits and applies each."""
 
     # (per-tensor fit, stacked fit) of precond.kron
     _FITS: tuple
@@ -469,7 +505,7 @@ class _Kron(_Resumable):
                  max_skew: float, init_scale, momentum: float, momentum_dtype,
                  dq: str, preconditioner_dtype, norm_k, seed: int,
                  scanned_layers, shared_layers, cache_p: bool, device, draw,
-                 stack_sharding=None):
+                 stack_sharding=None, factor_sharding=None):
         if defaults["weight_decay_mode"] not in ("decoupled", "classic"):
             raise ValueError(
                 f"unknown weight_decay_mode {defaults['weight_decay_mode']!r}")
@@ -495,6 +531,9 @@ class _Kron(_Resumable):
         # a shared stack is one tensor to the fit and the apply, not a stack
         self.scanned = [f and not s for f, s in zip(scan, shared)]
         self.shared = shared
+        self.plans = [_kron_plan(t, f, s, max_size, max_skew, dq)
+                      for t, f, s in zip(tensors, self.scanned, self.shared)]
+        tensors = self._route(factor_sharding, names, tensors)
         for t in tensors:
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
@@ -509,16 +548,16 @@ class _Kron(_Resumable):
         self.count = 0
         self.key = fastrand.prng_key(seed)
         self.fit_steps = 0   # steps on which Q was fitted
-        self.plans = [_kron_plan(t, f, s, max_size, max_skew, dq)
-                      for t, f, s in zip(tensors, self.scanned, self.shared)]
         self.stack, self.layers = self._shard_stacks(stack_sharding, names,
                                                      tensors)
         self.sharded = [s is not None for s in self.layers]
         scale0 = 1.0 if init_scale is None else init_scale
-        for t, f, plan, s in zip(tensors, self.scanned, self.plans,
-                                 self.layers):
+        for i, (t, f, plan, s) in enumerate(zip(tensors, self.scanned,
+                                                self.plans, self.layers)):
             qdt = preconditioner_dtype or t.dtype
             st = kron_p.init_kron_from_plan(plan, scale0, qdt, self.device)
+            if self.routed[i] is not None:
+                st = self._compute_blocks(i, st)
             if f:
                 n = t.shape[0] if s is None else s.stop - s.start
                 st = kron_p.KronState(
@@ -530,6 +569,177 @@ class _Kron(_Resumable):
                 state["pcache"] = kron_p.compute_p_factors(st, plan)
             if momentum > 0:
                 state["mu"] = torch.zeros_like(t, dtype=momentum_dtype or t.dtype)
+
+    def _route(self, factor_sharding, names, tensors) -> list:
+        """Route the factor-sharded leaves (JAX transforms.py:896-912):
+        ``self.routed`` per leaf, the mesh's collectives ``self.comm``;
+        returns the tensors with each routed leaf's local block in its
+        place.  Raises ValueError, naming the leaf, where the parameters
+        do not match the map."""
+        self.routed, self.comm = [None] * len(tensors), None
+        if factor_sharding is None:
+            return tensors
+        from torch.distributed.tensor import DTensor
+        from ..parallel.mesh import MeshAxes, routed_axes
+        from ..parallel.sharded import _LeafShard
+        mesh, placements = factor_sharding
+        if names is None:
+            raise ValueError("factor_sharding maps parameter names to "
+                             "placements: pass named parameters")
+        missing = [k for k in names if k not in placements]
+        unknown = sorted(set(placements) - set(names))
+        if missing or unknown:
+            raise ValueError(
+                "factor_sharding placements do not match params: "
+                f"{missing} have no placements, {unknown} are not parameters")
+        self.comm = MeshAxes(mesh)
+        mesh_names = tuple(mesh.mesh_dim_names)
+        out = list(tensors)
+        for i, (name, t) in enumerate(zip(names, tensors)):
+            plan, want = self.plans[i], tuple(placements[name])
+            axes = routed_axes(t.shape, want, mesh_names,
+                               scanned=self.scanned[i], shared=self.shared[i],
+                               dq=plan.dq)
+            if axes is None:
+                if isinstance(t, DTensor):
+                    raise ValueError(
+                        f"factor_sharding: {name} is a DTensor, but it is not "
+                        "routed (scanned, shared, unsharded, or a geometry "
+                        "the dim-sharded fit lacks): pass it as a plain tensor")
+                continue
+            if not isinstance(t, DTensor):
+                raise ValueError(
+                    f"factor_sharding: {name} is a plain tensor, but its "
+                    f"placements {want} shard it: pass it as a DTensor "
+                    "parameter with those placements")
+            if t.device_mesh != mesh:
+                raise ValueError(f"factor_sharding: {name} lives on another mesh")
+            if tuple(t.placements) != want:
+                raise ValueError(
+                    f"factor_sharding: {name} has placements {tuple(t.placements)}, "
+                    f"the map {want}")
+            shard = _LeafShard(t, mesh, name)
+            with torch.no_grad():      # the block's storage, updated in place
+                out[i] = t.to_local()
+            rplan = kron_p.dim_shard_reshard_plan(plan, axes, self.comm.sizes)
+            local = tuple(b for n, b in zip(t.shape, out[i].shape) if int(n) != 1)
+            self.routed[i] = _Routed(t, shard, axes, rplan, local)
+            self.comm.groups(*self._fit_axes(i), tuple(
+                mesh_names[md] for md in shard.axes))
+        return out
+
+    def _fit_axes(self, i) -> list:
+        """The axes tuples whose collectives leaf i's dim-sharded fit runs
+        (``kron._update_kron_dim_sharded``), in a fixed order."""
+        r, plan = self.routed[i], self.plans[i]
+        eff, moves, gathers = r.rplan
+        diag = [eff[d] if plan.is_diag[d] else () for d in range(plan.order)]
+        out = [(ax,) for _, ax, _ in moves]
+        out += [(ax,) for d in gathers for ax in r.dim_axes[d]]
+        out += [tuple(ax for e, a in enumerate(diag) if e != d for ax in a)
+                for d in range(plan.order)]
+        return [a for a in out + diag if a]
+
+    def _compute_blocks(self, i, st: kron_p.KronState) -> kron_p.KronState:
+        """A routed leaf's whole state cut to this rank's: each diagonal
+        factor its block in the compute layout, dense factors and L whole."""
+        eff = self.routed[i].rplan[0]
+        qs = []
+        for f, diag, axes in zip(st.q, self.plans[i].is_diag, eff):
+            if diag and axes:
+                loc = f.shape[0] // self.comm.size(axes)
+                f = f.narrow(0, self.comm.index(axes) * loc, loc).clone()
+            qs.append(f)
+        return kron_p.KronState(q=tuple(qs), lips=st.lips)
+
+    def _sum(self, i, x) -> torch.Tensor:
+        """sum(x) over leaf i: for a routed leaf the local sums summed over
+        its shards, each shard once, in shard order
+        (``parallel.sharded.global_sums``), so every rank holds the same."""
+        x = torch.sum(x)
+        if self.routed[i] is None:
+            return x
+        from ..parallel.sharded import global_sums
+        shard = self.routed[i].shard
+        names = tuple(self.comm.mesh.mesh_dim_names[md] for md in shard.axes)
+        return global_sums([x], [shard], {shard.axes: self.comm.group(names)})[0]
+
+    def _numel(self, i, x) -> int:
+        return x.numel() if self.routed[i] is None else self.plans[i].numel
+
+    def _mean(self, i, x) -> torch.Tensor:
+        """mean(x) over leaf i (a routed leaf's over the global leaf)."""
+        if self.routed[i] is None:
+            return torch.mean(x)
+        return self._sum(i, x) / self.plans[i].numel
+
+    def _grads(self) -> list:
+        """The gradients in the parameters' order: ``.grad``, a routed
+        leaf's its DTensor's local block (zeros where there is none)."""
+        out = []
+        for p, r in zip(self.param_groups[0]["params"], self.routed):
+            g = p.grad if r is None else (None if r.dparam.grad is None
+                                          else r.dparam.grad.to_local())
+            out.append(torch.zeros_like(p) if g is None else g)
+        return out
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        super().zero_grad(set_to_none)
+        for r in self.routed:
+            if r is not None and r.dparam.grad is not None:
+                if set_to_none:
+                    r.dparam.grad = None
+                else:
+                    r.dparam.grad.zero_()
+
+    def _routed(self, i, p, fit_src, apply_src, do_fit: bool, k_fit, lr_q,
+                beta_l, damping, fit_first: bool, share: bool = False):
+        """Leaf i's dim-sharded fit and apply (fit_src (g,) or (v, h)),
+        its state updated: P apply_src as this rank's block, in p's dtype
+        and the leaf's squeezed local shape."""
+        r, plan, st = self.routed[i], self.plans[i], self.state[p]
+        qdt = st["q"][0].dtype
+        views = [None if x is None else _cast(x.reshape(r.local_shape), qdt)
+                 for x in fit_src]     # None off fit steps
+        kw = dict(lr=lr_q, beta_l=beta_l, damping=damping,
+                  norm_k=resolve_norm_k(self.norm_k, qdt), fit_first=fit_first,
+                  pcache=st["pcache"] if self.cache_p else None, draw=self.draw)
+        fit = (kron_p.update_kron_newton_dim_sharded if len(views) == 2 else
+               functools.partial(kron_p.update_kron_whiten_dim_sharded,
+                                 share=share))
+        res = fit(kron_p.KronState(q=st["q"], lips=st["lips"]), plan, *views,
+                  self._leaf_key(k_fit, i), r.dim_axes, r.rplan,
+                  _cast(apply_src.reshape(r.local_shape), qdt), do_fit,
+                  self.comm, **kw)
+        if self.cache_p:
+            st["pcache"] = res[1]
+        st["q"], st["lips"] = res[0].q, res[0].lips
+        return _cast(res[-1], p.dtype)
+
+    def _routed_clip(self, i, pg, clip_amps) -> torch.Tensor:
+        """The amplitude clip of a routed leaf's block, its RMS over the
+        global leaf (JAX ``_sharded_amp_clip``: a float32 local sum,
+        summed over the leaf's shards)."""
+        max_avg, max_el = clip_amps
+        rdt = real_dtype_of(pg.dtype)
+        ss = self._sum(i, torch.real(pg * torch.conj(pg)).to(torch.float32))
+        avg = torch.sqrt(ss / self.plans[i].numel)
+        pg = pg * torch.clamp(max_avg / torch.clamp(avg, min=1e-30),
+                              max=1.0).to(rdt)
+        if pg.is_complex():
+            return pg / torch.clamp(torch.abs(pg) / max_el, min=1.0)
+        return torch.clamp(pg, -max_el, max_el)
+
+    def _local_view(self, i, x) -> torch.Tensor:
+        """Leaf i's part of a global tensor: a routed leaf's block (a
+        DTensor's local one, or cut from a plain tensor); a non-routed
+        leaf's whole."""
+        from torch.distributed.tensor import DTensor
+        if self.routed[i] is None:
+            return x
+        if isinstance(x, DTensor):
+            return x.to_local()
+        return x[tuple(self.routed[i].shard.slices)]
 
     def _shard_stacks(self, stack_sharding, names, tensors):
         """(shard group, per leaf this rank's layers or None): the scanned,
@@ -560,13 +770,18 @@ class _Kron(_Resumable):
     def per_rank(self) -> bool:
         """Whether this rank's state is its own (checkpoints: one file
         per rank)."""
-        return self.stack is not None
+        return self.stack is not None or self.comm is not None
 
     def _layout(self) -> dict:
         out = {"optimizer": type(self).__name__, "cache_p": self.cache_p}
         if self.stack is not None:
             out["stack_sharding"] = dict(world=self.stack.size,
                                          rank=self.stack.index)
+        if self.comm is not None:
+            mesh = self.comm.mesh
+            out["factor_sharding"] = dict(
+                mesh=list(mesh.mesh_dim_names), shape=list(mesh.mesh.shape),
+                coordinate=list(mesh.get_coordinate()))
         for i, (p, plan, f, s) in enumerate(zip(
                 self.param_groups[0]["params"], self.plans, self.scanned,
                 self.shared)):
@@ -576,6 +791,11 @@ class _Kron(_Resumable):
             if self.sharded[i]:
                 out[f"leaf {i}"]["layers"] = [self.layers[i].start,
                                               self.layers[i].stop]
+            if self.routed[i] is not None:
+                out[f"leaf {i}"]["dim_axes"] = [list(a) for a in
+                                                self.routed[i].dim_axes]
+                out[f"leaf {i}"]["compute_axes"] = [
+                    list(a) for a in self.routed[i].rplan[0]]
         return out
 
     def _local(self, x, i):
@@ -640,6 +860,9 @@ class _Kron(_Resumable):
         fit_one, fit_stacked = self._FITS
         pgs = []
         for i, (p, src) in enumerate(zip(params, sources)):
+            if self.routed[i] is not None:     # fitted with its apply
+                pgs.append(None)
+                continue
             st = self.state[p]
             qdt = st["q"][0].dtype
             key = self._leaf_key(k_fit, i)
@@ -747,10 +970,9 @@ class KronWhiten(_Kron):
                  share_fit_apply: bool = False,
                  cache_p: bool = False,
                  stack_sharding=None,
+                 factor_sharding=None,
                  device=None,
-                 draw=None,
-                 **unported):
-        _refuse_unported(unported)
+                 draw=None):
         dq = kron_p.canonical_dq(dq)
         momentum = momentum if 0.0 < momentum < 1.0 else 0.0
         if not whiten_grad and momentum == 0.0:
@@ -801,7 +1023,8 @@ class KronWhiten(_Kron):
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
-            draw=draw, stack_sharding=stack_sharding)
+            draw=draw, stack_sharding=stack_sharding,
+            factor_sharding=factor_sharding)
         _advisories(preconditioner_init_scale, whiten_grad, momentum, dq,
                     preconditioner_dtype)
         self.update_preconditioner_first = update_preconditioner_first
@@ -821,8 +1044,21 @@ class KronWhiten(_Kron):
         """P src clipped per leaf (the unclipped product freed leaf by
         leaf), through ``factors`` (default: what the state holds now)."""
         factors = factors or self._apply_factors(params)
-        return [self._finish(i, p, self._precond(i, p, src, f), clip_amps)
+        return [None if self.routed[i] is not None else
+                self._finish(i, p, self._precond(i, p, src, f), clip_amps)
                 for i, (p, src, f) in enumerate(zip(params, sources, factors))]
+
+    def _fill_routed(self, updates, params, fit_src, apply_src, do_fit,
+                     k_fit, fit_args, clip_amps) -> list:
+        """The routed leaves' updates (their fit and apply at once, clipped
+        over the global leaf) into ``updates``."""
+        for i, p in enumerate(params):
+            if self.routed[i] is not None:
+                pg = self._routed(i, p, fit_src[i], apply_src[i], do_fit, k_fit,
+                                  *fit_args, self.update_preconditioner_first,
+                                  self.share_fit_apply)
+                updates[i] = self._routed_clip(i, pg, clip_amps).reshape(p.shape)
+        return updates
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -830,8 +1066,7 @@ class KronWhiten(_Kron):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        self._step([p.grad if p.grad is not None else torch.zeros_like(p)
-                    for p in self.param_groups[0]["params"]])
+        self._step(self._grads())
         return loss
 
     def _step(self, grads) -> None:
@@ -843,8 +1078,8 @@ class KronWhiten(_Kron):
 
         damping = _sched(group["damping"], count)
         if self.init_scale is None and count == 0:
-            self._rescale(params,
-                          _whiten_scale_from_grads(grads, self.scanned, damping))
+            self._rescale(params, _whiten_scale_from_grads(
+                grads, self.scanned, damping, self._mean))
 
         keys = fastrand.split(self.key, 3)
         self.key, k_gate, k_fit = keys[0], keys[1], keys[2]
@@ -861,11 +1096,15 @@ class KronWhiten(_Kron):
             do_fit = do_fit and count > 0
             before = (None if self.update_preconditioner_first
                       else self._apply_factors(params))
+            stale = [(self.state[p]["mu"].clone() if do_fit and r else None,)
+                     for p, r in zip(params, self.routed)]
             if do_fit:
                 self._fit(params, [(self.state[p]["mu"],) for p in params],
                           k_fit, *fit_args)
             mus = self._momentum(params, grads, count)
-            updates = self._apply(params, mus, clip, before)
+            updates = self._fill_routed(self._apply(params, mus, clip, before),
+                                        params, stale, mus, do_fit, k_fit,
+                                        fit_args, clip)
         else:
             mus = (self._momentum(params, grads, count) if self.momentum > 0
                    else None)
@@ -875,8 +1114,8 @@ class KronWhiten(_Kron):
                 # the fit's P damped(src), pre-update Q, is the update
                 pgs = self._fit(params, fit_src, k_fit, *fit_args,
                                 return_pg=True)
-                updates = [self._finish(i, p, pgs[i], clip)
-                           for i, p in enumerate(params)]
+                updates = [None if pg is None else self._finish(i, p, pg, clip)
+                           for i, (p, pg) in enumerate(zip(params, pgs))]
             elif self.update_preconditioner_first:
                 if do_fit:
                     self._fit(params, fit_src, k_fit, *fit_args)
@@ -885,6 +1124,8 @@ class KronWhiten(_Kron):
                 updates = self._apply(params, apply_src, clip)
                 if do_fit:
                     self._fit(params, fit_src, k_fit, *fit_args)
+            self._fill_routed(updates, params, fit_src, apply_src, do_fit,
+                              k_fit, fit_args, clip)
         self.fit_steps += int(do_fit)
         _descend(group, params, self._gather(updates), count)
         self.count += 1
@@ -937,10 +1178,9 @@ class KronNewton(_Kron):
                  shared_layers: Any = None,
                  cache_p: bool = False,
                  stack_sharding=None,
+                 factor_sharding=None,
                  device=None,
-                 draw=None,
-                 **unported):
-        _refuse_unported(unported)
+                 draw=None):
         defaults = dict(
             lr=lr, weight_decay=weight_decay,
             weight_decay_mode=weight_decay_mode,
@@ -956,33 +1196,75 @@ class KronNewton(_Kron):
             preconditioner_dtype=preconditioner_dtype, norm_k=norm_k,
             seed=seed, scanned_layers=scanned_layers,
             shared_layers=shared_layers, cache_p=cache_p, device=device,
-            draw=draw, stack_sharding=stack_sharding)
+            draw=draw, stack_sharding=stack_sharding,
+            factor_sharding=factor_sharding)
         _advisories(preconditioner_init_scale, True, 0.0, dq,
                     preconditioner_dtype)
         self.exact_hvp = exact_hessian_vector_product
 
     @torch.no_grad()
-    def step(self, closure=None):
-        if closure is None:
+    def step(self, closure=None, *, hvp_fn=None, vs=None, hvs=None):
+        """One step.  Without factor-sharded leaves the closure's autograd
+        gives the gradients and, on a fit step, the pair (v, H v)
+        (``_newton_pass``).  With them (JAX ``update(g, s, params,
+        hvp_fn=)`` or ``update(g, s, vs=, hvs=)``) the gradients come from
+        ``.grad`` (a routed leaf's DTensor's local block); on a fit step
+        the pair from ``hvp_fn(vs) -> hvs`` (called with the probes at the
+        parameters' global shapes, drawn as ``hvp.rand_like`` draws them
+        on every rank alike; H v per leaf, global plain tensors or
+        DTensors) or the explicit global ``vs`` and ``hvs``, which fit
+        every step; ``closure``, if given, only returns the loss."""
+        routed = self.comm is not None
+        if not routed and (hvp_fn is not None or vs is not None
+                           or hvs is not None):
+            raise ValueError("KronNewton takes hvp_fn, vs and hvs with "
+                             "factor_sharding only; pass the closure")
+        if not routed and closure is None:
             raise ValueError("KronNewton.step needs a closure that returns "
                              "the loss (without calling backward)")
-        group = self.param_groups[0]
-        params = group["params"]
+        if routed and hvp_fn is None and (vs is None or hvs is None):
+            raise ValueError("KronNewton with factor_sharding needs hvp_fn "
+                             "or explicit (vs, hvs)")
+        params = self.param_groups[0]["params"]
         count = self.count
         keys = fastrand.split(self.key, 4)
         self.key, k_gate, k_v, k_fit = keys[0], keys[1], keys[2], keys[3]
-        do_fit = self._gate(k_gate, count) or count == 0
-        loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
-                                            self.exact_hvp, self.draw)
-        grads = _classic_decay(group, grads, params)
+        explicit = routed and hvp_fn is None     # (vs, hvs): fits every step
+        do_fit = explicit or self._gate(k_gate, count) or count == 0
+        if not routed:
+            loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
+                                                self.exact_hvp, self.draw)
+        else:
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            grads = self._grads()
+            if do_fit and hvp_fn is not None:
+                vs = hvp.rand_like(k_v, [p if r is None else r.dparam for p, r
+                                         in zip(params, self.routed)], self.draw)
+                hvs = hvp_fn(vs)
+            if do_fit:
+                vs = [self._local_view(i, v) for i, v in enumerate(vs)]
+                hvs = [self._local_view(i, h) for i, h in enumerate(hvs)]
+        self._newton_step(grads, vs, hvs, do_fit, k_fit, count)
+        return loss
 
+    def _newton_step(self, grads, vs, hvs, do_fit: bool, k_fit,
+                     count: int) -> None:
+        """One step from the gradients and, on a fit step, the pairs (this
+        rank's blocks of the routed leaves)."""
+        group = self.param_groups[0]
+        params = group["params"]
+        grads = _classic_decay(group, grads, params)
         damping = _sched(group["damping"], count)
+        lr_q, beta_l = (_sched(group["lr_preconditioner"], count),
+                        _sched(group["betaL"], count))
         if do_fit:
             if self.init_scale is None and count == 0:
-                self._rescale(params, _newton_scale_from_vh(vs, hvs, damping))
-            self._fit(params, list(zip(vs, hvs)), k_fit,
-                      _sched(group["lr_preconditioner"], count),
-                      _sched(group["betaL"], count), damping)
+                self._rescale(params, _newton_scale_from_vh(vs, hvs, damping,
+                                                            self))
+            self._fit(params, list(zip(vs, hvs)), k_fit, lr_q, beta_l, damping)
         self.fit_steps += int(do_fit)
 
         src = self._momentum(params, grads, count) if self.momentum > 0 \
@@ -990,15 +1272,21 @@ class KronNewton(_Kron):
         # contiguous: the norm clip then sums each leaf in one order, sharded
         # (gathered) or not
         pre = self._gather([
+            None if self.routed[i] is not None else
             self._precond(i, p, x, f).reshape(self._local_shape(i, p)).contiguous()
             for i, (p, x, f) in enumerate(zip(params, src,
                                               self._apply_factors(params)))])
+        for i, p in enumerate(params):
+            if self.routed[i] is not None:
+                pair = (vs[i], hvs[i]) if do_fit else (None, None)
+                pre[i] = self._routed(i, p, pair, src[i], do_fit, k_fit, lr_q,
+                                      beta_l, damping,
+                                      True).reshape(p.shape).contiguous()
         # the clip reads the whole tree, after the gather (JAX :313-314)
         scale = _global_norm_scale(pre, _sched(group["grad_clip_max_norm"],
-                                               count))
+                                               count), self)
         _descend(group, params, [u * scale for u in pre], count)
         self.count += 1
-        return loss
 
 
 def kron_whiten(params, learning_rate: float | Callable = 1e-3,

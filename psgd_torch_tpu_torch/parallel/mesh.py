@@ -17,11 +17,16 @@ gradients stay bit for bit equal.  What is left is where the state lives:
   flattened dim, or a ``ProcessGroup``);
 * ``all_gather_stack``: a layer stack assembled from its shards, bit for
   bit (``all_gather`` of the shards' bytes);
+* ``MeshAxes``: the collectives of the dim-sharded (``factor_sharding``)
+  fit over named mesh dims;
+* ``psgd_state_specs``: the placements of a Kron optimizer's state under
+  ``stack_sharding`` and ``factor_sharding``;
 * ``drift_check``: max |x - rank 0's copy| per tensor over a group.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -51,10 +56,13 @@ def make_mesh(n_devices: Optional[int] = None,
     axis, as the JAX ``make_mesh`` factors a device count: 8 ranks ->
     (dp 1, fsdp 4, tp 2), 4 -> (1, 2, 2), 2 -> (1, 2, 1).  ``n_devices``,
     when given, must equal the world size (a mesh spans every rank).
-    ``device_type`` is the mesh's device: "cuda" (default) or "cpu"; the
-    collectives are the default group's backend's (gloo in the tests and
-    on a one-card machine, where several ranks share ``cuda:0``)."""
+    ``device_type`` is the mesh's device: "cuda" (default; without a card
+    it raises) or "cpu"; the collectives are the default group's backend's
+    (gloo in the tests and on a one-card machine, where several ranks
+    share ``cuda:0``)."""
     from torch.distributed.device_mesh import init_device_mesh
+    from .. import resolve_device
+    resolve_device(device_type)
     world = dist.get_world_size()
     if n_devices is not None and int(n_devices) != world:
         raise ValueError(f"n_devices {n_devices} is not the world size {world}")
@@ -195,6 +203,95 @@ def all_gather_stack(local: torch.Tensor, sg: ShardGroup) -> torch.Tensor:
     return out
 
 
+class MeshAxes:
+    """The collectives of the dim-sharded (``factor_sharding``) fit over
+    named dims of a ``DeviceMesh`` (JAX's ``all_gather``, ``all_to_all``,
+    ``psum``, ``pmax`` and ``axis_index`` over mesh axes inside
+    ``shard_map``).  ``axes`` arguments are tuples of mesh dim names, taken
+    as one flattened dim whose shards run major to minor in the tuple's
+    order (JAX ``_linear_axis_index``).  Each tuple's process group is made
+    by ``groups`` (a collective: every rank calls it alike, in the same
+    order) or on first use.
+
+    Copies move bytes (``_bytes``), so every dtype crosses exactly.  Sums
+    run in float32 or wider (``torch.promote_types(dtype, float32)``: bf16
+    partials summed in float32 and cast back once), by gloo's (or NCCL's)
+    all-reduce, which leaves every rank of the group the same bits; so a
+    replicated factor fitted from the sum stays equal on every rank."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names)
+        self._size = dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+        self._coord = dict(zip(names, mesh.get_coordinate()))
+        self._groups = {}
+
+    @property
+    def sizes(self) -> dict:
+        """Mesh dim name -> size."""
+        return dict(self._size)
+
+    def size(self, axes) -> int:
+        k = 1
+        for ax in axes:
+            k *= self._size[ax]
+        return k
+
+    def index(self, axes) -> int:
+        """This rank's linear shard index over ``axes``."""
+        idx = 0
+        for ax in axes:
+            idx = idx * self._size[ax] + self._coord[ax]
+        return idx
+
+    def groups(self, *axes_list) -> None:
+        """Make the groups of these axes tuples now."""
+        for axes in axes_list:
+            self.group(axes)
+
+    def group(self, axes) -> ShardGroup:
+        axes = tuple(axes)
+        if axes not in self._groups:
+            self._groups[axes] = shard_group((self.mesh, axes))
+        return self._groups[axes]
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The blocks of ``dim`` over one mesh dim, in shard order (JAX
+        ``all_gather(..., tiled=True)``)."""
+        whole = all_gather_stack(x.movedim(dim, 0), self.group((axis,)))
+        return whole.movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """JAX ``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+        block j of ``split_dim`` goes to shard j of ``axis``, and the blocks
+        received are joined along ``concat_dim`` in shard order.  One
+        ``all_to_all_single`` of the blocks' bytes."""
+        sg = self.group((axis,))
+        blocks = x.chunk(sg.size, dim=split_dim)
+        send = torch.cat([_bytes(blocks[s]) for s in sg.order])
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=sg.group)
+        shape = blocks[0].shape
+        parts = [None] * sg.size
+        for j, part in enumerate(recv.chunk(sg.size)):
+            parts[sg.order[j]] = part.view(x.dtype).reshape(shape)
+        return torch.cat(parts, dim=concat_dim)
+
+    def sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """JAX ``psum`` over ``axes``, in float32 or wider, cast back."""
+        acc = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+        flat = torch.view_as_real(acc) if acc.is_complex() else acc
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group(axes).group)
+        return acc.to(x.dtype)
+
+    def max(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """JAX ``pmax`` over ``axes`` (exact in any dtype)."""
+        x = x.contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group(axes).group)
+        return x
+
+
 def drift_check(tensors, group=None):
     """Max |x - rank 0's copy| of each tensor over ``group`` (default: the
     world), the debug counterpart of the reference's resync broadcasts
@@ -217,3 +314,129 @@ def drift_check(tensors, group=None):
         dist.all_reduce(d, op=dist.ReduceOp.MAX, group=group)
         out.append(float(d))
     return dict(zip(names, out)) if names is not None else out
+
+
+def squeezed_axes(shape, placements, mesh_names) -> tuple:
+    """Per squeezed dim of a leaf, the mesh dims that shard it, as
+    ``mesh_names`` names them (in mesh order: DTensor's major to minor);
+    a singleton dim is dropped (JAX ``_squeeze_spec``)."""
+    from torch.distributed.tensor import Shard
+    per = [[] for _ in shape]
+    for md, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            per[pl.dim % len(shape)].append(mesh_names[md])
+    return tuple(tuple(a) for n, a in zip(shape, per) if int(n) != 1)
+
+
+def routed_axes(shape, placements, mesh_names, *, scanned: bool,
+                shared: bool, dq: str) -> Optional[tuple]:
+    """The one factor-sharding rule (JAX transforms.py:896-912), read by
+    the optimizers' routing, ``ShardingRecipe.routed`` and
+    ``psgd_state_specs``: a leaf goes through the dim-sharded fit when it
+    is unscanned, unpooled, its geometry (canonical name) is in
+    ``kron.DIM_SHARDABLE_DQS`` and a squeezed dim is sharded.  Returns its
+    ``squeezed_axes`` then, else None."""
+    from ..precond.kron import DIM_SHARDABLE_DQS
+    if scanned or shared or dq not in DIM_SHARDABLE_DQS:
+        return None
+    axes = squeezed_axes(shape, placements, mesh_names)
+    return axes if any(axes) else None
+
+
+def _named_bools(value, names, what: str) -> dict:
+    """A per-leaf flag (None, True: every leaf, a dict name -> bool) by
+    name."""
+    if value is None or value is True:
+        return {n: value is True for n in names}
+    unknown = sorted(set(value) - set(names))
+    if unknown:
+        raise ValueError(f"{what} names {unknown}, which are not parameters")
+    return {n: bool(value.get(n, False)) for n in names}
+
+
+def psgd_state_specs(param_placements: dict, optimizer, scanned_layers=None,
+                     stack_axis=None, factor_sharding_params=None, mesh=None,
+                     shared_layers=None) -> dict:
+    """The DTensor placements of a KronWhiten or KronNewton state (JAX
+    ``psgd_state_specs``, psgd_torch_tpu/parallel/mesh.py:206-355, with
+    placements where JAX has PartitionSpecs): parameter name ->
+    {"mu", "q", "lips", "pcache"}, each a placements tuple (a tuple of them
+    per factor; None where the state has no such entry).
+
+    ``param_placements``: name -> the parameter's placements (a
+    ``gpt2_partition_specs`` map), in the optimizer's parameters' order
+    once sorted by dotted path.  The momentum follows the parameter; with
+    ``stack_axis`` (a mesh dim name or a tuple of them) a scanned
+    (``scanned_layers``: name -> bool), unpooled leaf's Q, L and cache are
+    ``Shard(0)`` over it; with ``factor_sharding_params`` (name -> tensor,
+    for the leaf shapes) the diagonal factors (and cache) of a leaf that
+    ``routed_axes`` routes, read with the optimizer's plans, are sharded
+    over the axes ``kron.dim_shard_reshard_plan`` gives their dim in the
+    compute layout, given ``mesh``; without ``mesh`` it warns,
+    as JAX does, and takes the raw axes of the parameter's dims; a pooled
+    (``shared_layers``) leaf and everything else is ``Replicate()``.  Where
+    a dim's compute axes are not in mesh order (GPT-2's ``wte`` under
+    (tp, fsdp): tp major), the port's blocks run major to minor in the
+    plan's order, which DTensor's placements do not spell."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..precond.kron import dim_shard_reshard_plan
+    names = sorted(param_placements, key=lambda n: tuple(n.split(".")))
+    params = optimizer.param_groups[0]["params"]
+    if len(params) != len(names):
+        raise ValueError(f"param_placements names {len(names)} parameters, "
+                         f"the optimizer holds {len(params)}")
+    n_mesh = len(param_placements[names[0]]) if names else 0
+    mesh_names = (tuple(mesh.mesh_dim_names) if mesh is not None
+                  else tuple(range(n_mesh)))
+    rep = (Replicate(),) * n_mesh
+
+    def sharded0(axes) -> tuple:
+        out = list(rep)
+        for ax in axes:
+            out[mesh_names.index(ax)] = Shard(0)
+        return tuple(out)
+
+    flags = _named_bools(scanned_layers, names, "scanned_layers")
+    shared = (dict(flags) if shared_layers is True else
+              _named_bools(shared_layers, names, "shared_layers"))
+    shapes = (None if factor_sharding_params is None else
+              {n: tuple(t.shape) for n, t in dict(factor_sharding_params).items()})
+    if shapes is not None and mesh is None:
+        warnings.warn(
+            "psgd_state_specs(factor_sharding_params=...) without mesh=: "
+            "the placements take the raw per-dim axes, not the compute "
+            "layout (dense-dim axes moved onto a diagonal dim by "
+            "dim_shard_reshard_plan) the optimizer holds. Pass mesh= to "
+            "match it.", stacklevel=2)
+    if stack_axis is not None:
+        if mesh is None:
+            raise ValueError("psgd_state_specs: stack_axis needs mesh=")
+        stack = (stack_axis,) if isinstance(stack_axis, str) else tuple(stack_axis)
+
+    def dim_sharded(q, plan, axes) -> tuple:
+        if mesh is not None:       # the compute layout the optimizer holds
+            sizes = dict(zip(mesh_names, (int(s) for s in mesh.mesh.shape)))
+            axes = dim_shard_reshard_plan(plan, axes, sizes)[0]
+        return tuple(sharded0(axes[i]) if f.ndim == 1 and axes[i] else rep
+                     for i, f in enumerate(q))
+
+    out = {}
+    for k, (name, p) in enumerate(zip(names, params)):
+        st = optimizer.state[p]
+        q, pc = st["q"], st.get("pcache")
+        reps = (tuple(rep for _ in q), tuple(rep for _ in st["lips"]))
+        axes = None if shapes is None else routed_axes(
+            shapes[name], param_placements[name], mesh_names,
+            scanned=flags[name], shared=shared[name], dq=optimizer.plans[k].dq)
+        if shared[name]:
+            qs, ls = reps
+        elif flags[name] and stack_axis is not None:
+            qs = tuple(sharded0(stack) for _ in q)
+            ls = tuple(sharded0(stack) for _ in st["lips"])
+        elif axes is not None:
+            qs, ls = dim_sharded(q, optimizer.plans[k], axes), reps[1]
+        else:
+            qs, ls = reps
+        out[name] = {"mu": tuple(param_placements[name]) if "mu" in st else None,
+                     "q": qs, "lips": ls, "pcache": None if pc is None else qs}
+    return out

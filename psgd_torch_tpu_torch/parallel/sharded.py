@@ -46,7 +46,7 @@ from ..precond import kron as kron_p
 from .mesh import all_gather_stack, shard_group
 
 _NOT_PER_SHARD = ("scanned_layers", "shared_layers", "pipelined_fit",
-                  "stack_sharding")
+                  "stack_sharding", "factor_sharding")
 
 
 class _LeafShard:
@@ -173,23 +173,7 @@ class _PerShard:
                 for p, g in zip(local, grads)]
 
     def _global_sums(self, values) -> list:
-        """Each leaf's scalar summed over its shards (every shard once, in
-        shard order); a leaf sharded nowhere keeps its own."""
-        out = list(values)
-        batches = {}      # one gather per set of mesh dims and dtype
-        for i, (s, v) in enumerate(zip(self.shards, values)):
-            if s.axes:
-                batches.setdefault((s.axes, v.dtype), []).append(i)
-        for (axes, _), idx in batches.items():
-            sg = self.groups[axes]
-            local = torch.stack([values[i].reshape(()) for i in idx])[None]
-            every = all_gather_stack(local, sg)      # (k, len(idx))
-            for j, i in enumerate(idx):
-                acc = every[0, j]
-                for r in range(1, sg.size):
-                    acc = acc + every[r, j]
-                out[i] = acc
-        return out
+        return global_sums(values, self.shards, self.groups)
 
     def _global_means(self, values) -> list:
         """The JAX ``pmean`` of each leaf's scalar over its shards."""
@@ -208,6 +192,28 @@ class _PerShard:
             if self.cache_p:
                 st["pcache"] = kron_p.compute_p_factors(
                     kron_p.KronState(q=st["q"], lips=st["lips"]), plan)
+
+
+def global_sums(values, shards, groups) -> list:
+    """Each leaf's scalar summed over its shards (every shard once, in
+    shard order), so every rank holds the same bits; a leaf sharded
+    nowhere keeps its own.  ``shards``: each leaf's ``_LeafShard``;
+    ``groups``: its mesh dims (``_LeafShard.axes``) -> ``ShardGroup``."""
+    out = list(values)
+    batches = {}      # one gather per set of mesh dims and dtype
+    for i, (s, v) in enumerate(zip(shards, values)):
+        if s.axes:
+            batches.setdefault((s.axes, v.dtype), []).append(i)
+    for (axes, _), idx in batches.items():
+        sg = groups[axes]
+        local = torch.stack([values[i].reshape(()) for i in idx])[None]
+        every = all_gather_stack(local, sg)      # (k, len(idx))
+        for j, i in enumerate(idx):
+            acc = every[0, j]
+            for r in range(1, sg.size):
+                acc = acc + every[r, j]
+            out[i] = acc
+    return out
 
 
 def _m4(x) -> torch.Tensor:

@@ -7,7 +7,11 @@ factor, then one product per dim), the damping, and the whitening fit
 (from a gradient g, optionally returning its P damped(g)) and Newton fit
 (from a probe v and its Hessian-vector product h) of every geometry, per
 tensor and for a layer stack, plus the exact EQ whitening
-(``update_kron_whiten_eq_exact``).  Real (bf16, f32, f64) and complex
+(``update_kron_whiten_eq_exact``), and the dim-sharded fit of one global
+preconditioner from a rank's blocks of a leaf whose dims are sharded
+(``update_kron_whiten_dim_sharded`` / ``_newton_``, Q0.5EQ1.5, QUAD and
+QEQ: ``dim_shard_reshard_plan``'s compute layout, the terms summed over
+the mesh through the one fit core's ``reduce`` hook).  Real (bf16, f32, f64) and complex
 (complex64, complex128) tensors alike: every contraction conjugates where
 the JAX package's does (Q^H, x x^H, (p + p^H) / 2), so a complex Q stays
 a Hermitian preconditioner's factor.  f64 and complex factors take the
@@ -61,6 +65,8 @@ DQ_QUAD4P = "QUAD4P"
 DQ_PRO4P = "PRO4P"
 ALL_DQ = (DQ_EQ, DQ_QEP, DQ_QEQ, DQ_QUAD, DQ_Q05EQ15, DQ_QUAD4P, DQ_PRO4P)
 _FIT_P = frozenset({DQ_QUAD4P, DQ_PRO4P})
+# the geometries the dim-sharded (factor_sharding) fit implements
+DIM_SHARDABLE_DQS = frozenset({DQ_Q05EQ15, DQ_QUAD, DQ_QEQ})
 MAX_ORDER = 26
 BALANCE_PROB = 0.01
 
@@ -162,11 +168,13 @@ def init_kron(shape, scale: float = 1.0, max_size: float = float("inf"),
     return init_kron_from_plan(plan, scale, dtype, device), plan
 
 
-def balance_kron(q: Tuple[torch.Tensor, ...],
-                 batched: bool = False) -> Tuple[torch.Tensor, ...]:
+def balance_kron(q: Tuple[torch.Tensor, ...], batched: bool = False,
+                 reduce=None) -> Tuple[torch.Tensor, ...]:
     """Rescale the factors to a common max-abs (their geometric mean),
     preventing over/underflow (reference psgd.py:266-275).  ``batched``:
-    every factor carries a leading layer axis, balanced per layer."""
+    every factor carries a leading layer axis, balanced per layer.
+    ``reduce``: a dim-sharded fit's ``_DimReduce``, whose ``max`` takes a
+    sharded diagonal factor's max-abs over its shards."""
     if len(q) <= 1:
         return q
     acc = lifted_real_dtype(q[0].dtype)
@@ -174,6 +182,8 @@ def balance_kron(q: Tuple[torch.Tensor, ...],
             for f in q]
     norms = [torch.amax(torch.abs(f), dim=d).to(acc) if d else
              torch.abs(f).to(acc) for f, d in zip(q, dims)]
+    if reduce is not None:
+        norms = [reduce.max(i, n) for i, n in enumerate(norms)]
     gmean = torch.prod(torch.stack(norms), dim=0) ** (1.0 / len(q))
     out = []
     for f, n in zip(q, norms):
@@ -184,16 +194,17 @@ def balance_kron(q: Tuple[torch.Tensor, ...],
     return tuple(out)
 
 
-def _maybe_balance(q: Tuple[torch.Tensor, ...], u, prob: float = BALANCE_PROB):
+def _maybe_balance(q: Tuple[torch.Tensor, ...], u, prob: float = BALANCE_PROB,
+                   reduce=None):
     """Balance layer i of a stack when u[i] < prob (the host-decided analogue
     of the reference's torch.rand gate, psgd.py:318).  u: (B,) host
-    uniforms in [0, 1)."""
+    uniforms in [0, 1).  ``reduce`` as ``balance_kron``."""
     if len(q) <= 1:
         return q
     mask = [float(x) < prob for x in u]
     if not any(mask):
         return q
-    bal = balance_kron(q, batched=True)
+    bal = balance_kron(q, batched=True, reduce=reduce)
     if all(mask):
         return bal
     sel = [i for i, m in enumerate(mask) if m]
@@ -258,14 +269,19 @@ def _factor_pass(qs, x: torch.Tensor, transpose: bool) -> torch.Tensor:
     return x
 
 
+def _p_work(q, plan: KronPlan, x: torch.Tensor) -> torch.Tensor:
+    """P x for x already in its work view (batch axis first)."""
+    qs = _batched_factors(q)
+    x = _factor_pass(qs, x, transpose=False)
+    if not plan.fits_p:
+        x = _factor_pass(qs, x, transpose=True)
+    return x
+
+
 def _precond_batched(q, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
     """P g per batch element: Q applied along every dim, then Q^H (for the
     fit-P geometries, Q alone).  q factors and g carry the batch axis."""
-    qs = _batched_factors(q)
-    x = _factor_pass(qs, _work_view(plan, g), transpose=False)
-    if not plan.fits_p:
-        x = _factor_pass(qs, x, transpose=True)
-    return x.reshape(g.shape)
+    return _p_work(q, plan, _work_view(plan, g)).reshape(g.shape)
 
 
 def _single_pass(factors, plan: KronPlan, g: torch.Tensor) -> torch.Tensor:
@@ -503,9 +519,32 @@ def _diag_step(geo: _Geometry, f, e, c):
     return f * (1.0 - c * e)
 
 
+class _DimReduce(NamedTuple):
+    """What a dim-sharded fit reduces over the mesh (JAX
+    ``_update_kron_dim_sharded``, kron.py:1101-1117 and :1181-1191):
+    ``term(i, t)`` sums factor i's term over the axes of the other
+    diagonal dims (the contraction's sharded dims; a dense dim is whole in
+    the compute layout); ``max(i, x)`` takes the max over factor i's own
+    axes (a sharded diagonal factor's ell and max-abs).  ``comm``: a
+    ``parallel.mesh.MeshAxes``; ``diag_axes``: per dim, its axes in the
+    compute layout for a diagonal dim, () for a dense one."""
+    comm: object
+    diag_axes: tuple
+
+    def term(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        red = tuple(ax for d, axes in enumerate(self.diag_axes) if d != i
+                    for ax in axes)
+        return self.comm.sum(t, red) if red else t
+
+    def max(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        axes = self.diag_axes[i]
+        return self.comm.max(x, axes) if axes else x
+
+
 def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
                  lr: float, beta_l: float, damping: float, norm_k: int, draw,
-                 v: Optional[torch.Tensor] = None
+                 v: Optional[torch.Tensor] = None, *, noise_keys=None,
+                 reduce: Optional[_DimReduce] = None
                  ) -> Tuple[KronState, Optional[torch.Tensor]]:
     """The fit of a layer stack in the plan's geometry (``_GEOMETRIES``):
     whitening from src = g (``v`` None), Newton from (v, src = h).  Layer
@@ -518,14 +557,22 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
     Newton form), the largest diagonal entry for a diagonal factor, then
     L' and the step.  Returns the new state and P damped(src) in src's
     shape, formed with the pre-update (QEP: balanced) Q; None for EQ,
-    which never forms it."""
+    which never forms it.
+
+    The dim-sharded fit's two hooks: ``reduce`` (a ``_DimReduce``; src
+    and v are then a rank's blocks in the compute layout, the diagonal
+    factors its blocks of theirs) reduces the terms, a diagonal ell and
+    the balance's max-abs over the mesh; ``noise_keys`` keys the damping
+    (kd = split(noise_keys)[0]) apart from krest = split(keys)[1], which
+    keys every replicated decision."""
     geo = _GEOMETRIES[plan.dq]
     b = src.shape[0]
     keys = fastrand.as_keys(keys).reshape(b, 2)
-    wshape = plan.shape or (1,)
+    gshape = plan.shape or (1,)
+    wshape = gshape if reduce is None else tuple(src.shape[1:])
     q = (state.q[0].reshape(b, 1),) if plan.order == 0 else state.q
-    x = _work_view(plan, src)
-    vw = None if v is None else _work_view(plan, v)
+    x = src.reshape((b,) + wshape)
+    vw = None if v is None else v.reshape((b,) + wshape)
     whiten = vw is None
     pg = None
     if plan.dq == DQ_EQ:
@@ -543,12 +590,13 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
         a = _single_pass(q, plan, h)
         conj_b = _solve_factors(q, plan, vw.conj())
     else:
-        ks = fastrand.split(keys)
-        kd, krest = ks[:, 0], ks[:, 1]
+        krest = fastrand.split(keys)[:, 1]
+        kd = fastrand.split(keys if noise_keys is None else
+                            fastrand.as_keys(noise_keys).reshape(b, 2))[:, 0]
         if geo.qep:
             q = balance_kron(q, batched=True)
         dv = None if draw is None else draw("normal", kd, wshape, src.dtype)
-        pg = _precond_batched(q, plan, _damped_stacked(x, kd, damping, dv))
+        pg = _p_work(q, plan, _damped_stacked(x, kd, damping, dv))
     new_q, new_l = [], []
     for i, f in enumerate(q):
         diag = plan.is_diag[i]
@@ -557,20 +605,26 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
         else:
             y = _apply_factor(f, pg, i, False) if geo.qep else pg
             term1 = _gram(y, i, diag)
+            if reduce is not None:
+                term1 = reduce.term(i, term1)
             if not whiten:
                 vy = _apply_factor(f, vw, i, False) if geo.qep else vw
                 term2 = _gram(vy, i, diag)
+                if reduce is not None:
+                    term2 = reduce.term(i, term2)
             elif geo.qep:
-                term2 = (plan.numel / wshape[i]) * (f * f.conj() if diag
+                term2 = (plan.numel / gshape[i]) * (f * f.conj() if diag
                                                     else f @ f.mH)
             else:
-                term2 = plan.numel / wshape[i]
+                term2 = plan.numel / gshape[i]
         if isinstance(term2, float):
             bound_mat, extra, s_mat, shift = term1, term2, term1, term2
         else:
             bound_mat, extra, s_mat, shift = term1 + term2, 0.0, term1 - term2, None
         if diag:
             ell = torch.amax(torch.real(bound_mat), dim=1) + extra
+            if reduce is not None:
+                ell = reduce.max(i, ell)
             lip = _update_lips(state.lips[i], ell, beta_l)
             c = _coeff(lr / geo.step_div, lip, f.dtype)[:, None]
             fq = _diag_step(geo, f, s_mat if shift is None else s_mat - shift, c)
@@ -591,7 +645,7 @@ def _fit_stacked(state: KronState, plan: KronPlan, src: torch.Tensor, keys,
         kb = fastrand.fold_in(krest, 101)
         u = (fastrand.uniform01(kb) if draw is None
              else draw("uniform", kb, (), torch.float64).tolist())
-        new_q = _maybe_balance(tuple(new_q), u)
+        new_q = _maybe_balance(tuple(new_q), u, reduce=reduce)
     if plan.order == 0:
         new_q = [new_q[0].reshape(b)]
     return (KronState(q=tuple(new_q), lips=tuple(new_l)),
@@ -685,6 +739,185 @@ def update_kron_newton(state: KronState, plan: KronPlan, v: torch.Tensor,
     keyed by ``key`` itself (the JAX per-tensor update's key tree)."""
     return _single_layer(state, plan, h, key, v, lr=lr, beta_l=beta_l,
                          damping=damping, norm_k=norm_k, draw=draw)[0]
+
+
+# ---------------------------------------------------------------------------
+# the dim-sharded fit (factor_sharding): one global preconditioner for a leaf
+# whose dims are sharded over mesh dims, from each rank's local blocks
+# ---------------------------------------------------------------------------
+
+
+def dim_shard_reshard_plan(plan: KronPlan, dim_axes, axis_sizes):
+    """The compute layout of a dim-sharded leaf (JAX kron.py:943-995): each
+    mesh axis that shards a DENSE dim moves onto the largest diagonal dim
+    whose local size it divides (an ``all_to_all`` in the fit), so the
+    contractions split over every shard; a dense dim whose axes find no
+    such target is all-gathered instead (a partial placement is undone).
+
+    ``dim_axes``: per plan dim, the tuple of mesh axis names sharding it
+    (major to minor); ``axis_sizes``: axis name -> size.  Returns
+    (eff_axes, moves, gather_dims): per dim its axes in the compute layout
+    (a diagonal dim gains the moved axes, appended minor to its own); the
+    ordered (dense_dim, axis, target_dim) moves; the dense dims to
+    gather."""
+    eff = [tuple(a) for a in dim_axes]
+    local = [plan.shape[d] for d in range(len(plan.shape))]
+    for d, axes in enumerate(dim_axes):
+        for ax in axes:
+            local[d] //= axis_sizes[ax]
+    moves, gather_set = [], set()
+    for d in range(len(plan.shape)):
+        if plan.is_diag[d] or not dim_axes[d]:
+            continue
+        dim_moves = []
+        ok = True
+        # minor axis first: the moves in list order then reassemble dim d in
+        # global order, and eff[t]'s append order is t's ownership order
+        for ax in reversed(dim_axes[d]):
+            k = axis_sizes[ax]
+            targets = sorted((t for t in range(len(plan.shape))
+                              if plan.is_diag[t] and local[t] % k == 0),
+                             key=lambda t: -local[t])
+            if not targets:
+                ok = False
+                break
+            t = targets[0]
+            dim_moves.append((d, ax, t))
+            local[t] //= k
+            eff[t] = tuple(eff[t]) + (ax,)
+        if ok:
+            moves.extend(dim_moves)
+            eff[d] = ()
+        else:
+            for (_, ax, t) in dim_moves:      # undo the partial placement
+                local[t] *= axis_sizes[ax]
+                eff[t] = tuple(eff[t][:-1])
+            gather_set.add(d)
+    return tuple(eff), moves, tuple(sorted(gather_set))
+
+
+def update_kron_whiten_dim_sharded(state: KronState, plan: KronPlan,
+                                   g: torch.Tensor, key, dim_axes,
+                                   reshard_plan, apply_src: torch.Tensor,
+                                   do_update: bool, comm, lr: float = 0.1,
+                                   beta_l: float = 0.9, damping: float = 1e-9,
+                                   norm_k: int = 32, fit_first: bool = True,
+                                   share: bool = False, pcache=None,
+                                   draw=None):
+    """Whitening fit and apply of one dim-sharded leaf on this rank (JAX
+    ``update_kron_whiten_dim_sharded``, kron.py:998-1040).
+
+    ``state``: dense factors whole (replicated), diagonal factors this
+    rank's blocks in the compute layout (``reshard_plan``'s eff axes);
+    ``g`` and ``apply_src``: this rank's blocks in the leaf's layout, in
+    the plan's (squeezed) order of dims; ``dim_axes`` and ``reshard_plan``
+    as ``dim_shard_reshard_plan``; ``comm``: the mesh's
+    ``parallel.mesh.MeshAxes``.  ``do_update``: the fit gate (a host
+    bool).  ``share``: a fit step's apply is the fit's own P damped(g) (g and
+    ``apply_src`` must be one source, ``fit_first`` False); ``pcache``: the
+    cached P_i in the compute layout, through which the apply runs and
+    which a fit refreshes (factor-local: no collective).  ``draw`` as
+    ``update_kron_whiten_stacked``, at this rank's block shape.
+
+    Returns (new state, P apply_src as this rank's block in the leaf's
+    layout), with the refreshed cache second when ``pcache`` is given."""
+    return _update_kron_dim_sharded(
+        state, plan, (g,), key, dim_axes, reshard_plan, apply_src, do_update,
+        comm, lr, beta_l, damping, norm_k, fit_first, share, pcache, draw)
+
+
+def update_kron_newton_dim_sharded(state: KronState, plan: KronPlan,
+                                   v: torch.Tensor, h: torch.Tensor, key,
+                                   dim_axes, reshard_plan,
+                                   apply_src: torch.Tensor, do_update: bool,
+                                   comm, lr: float = 0.1, beta_l: float = 0.9,
+                                   damping: float = 1e-9, norm_k: int = 32,
+                                   fit_first: bool = True, pcache=None,
+                                   draw=None):
+    """Newton fit (from a probe v and h = H v, this rank's blocks) and
+    apply of one dim-sharded leaf (JAX ``update_kron_newton_dim_sharded``):
+    as the whitening variant, term2 = exprGs(v, v) summed like term1."""
+    return _update_kron_dim_sharded(
+        state, plan, (v, h), key, dim_axes, reshard_plan, apply_src,
+        do_update, comm, lr, beta_l, damping, norm_k, fit_first, False,
+        pcache, draw)
+
+
+def _update_kron_dim_sharded(state, plan, fit_src, key, dim_axes, reshard_plan,
+                             apply_src, do_update, comm, lr, beta_l, damping,
+                             norm_k, fit_first, share, pcache, draw):
+    if plan.dq not in DIM_SHARDABLE_DQS:
+        raise NotImplementedError(
+            "the dim-sharded fit takes Q0.5EQ1.5, QUAD and QEQ")
+    eff_axes, moves, gather_dims = reshard_plan
+
+    def to_compute(x):
+        for d in gather_dims:
+            for ax in reversed(dim_axes[d]):
+                x = comm.all_gather(x, ax, d)
+        for d, ax, t in moves:
+            x = comm.all_to_all(x, ax, split_dim=t, concat_dim=d)
+        return x
+
+    diag_axes = tuple(eff_axes[d] if plan.is_diag[d] else ()
+                      for d in range(plan.order))
+    # the damping's key folds in this rank's block along each still-sharded
+    # (diagonal) dim, so each block draws its own noise; the bound,
+    # Procrustes and balance keys stay unfolded, so every replicated
+    # decision is bitwise equal on every rank
+    key = fastrand.as_keys(key)
+    k_noise = key
+    for axes in diag_axes:
+        if axes:
+            k_noise = fastrand.fold_in(k_noise, comm.index(axes))
+    reduce = _DimReduce(comm, diag_axes)
+
+    def batched(st):
+        return KronState(q=tuple(f[None] for f in st.q),
+                         lips=tuple(l[None] for l in st.lips))
+
+    def fit_core(st):
+        src = [to_compute(x)[None] for x in fit_src]
+        out, pg = _fit_stacked(
+            batched(st), plan, src[-1], key[None], lr, beta_l, damping,
+            norm_k, draw, src[0] if len(src) == 2 else None,
+            noise_keys=k_noise[None], reduce=reduce)
+        return (KronState(q=tuple(f[0] for f in out.q),
+                          lips=tuple(l[0] for l in out.lips)), pg[0])
+
+    def apply(st, pc=None):
+        x = to_compute(apply_src)[None]
+        if pc is not None:
+            return _factor_pass(_batched_factors(tuple(f[None] for f in pc)),
+                                x, transpose=False)[0]
+        return _p_work(tuple(f[None] for f in st.q), plan, x)[0]
+
+    cached = pcache is not None
+    fit = bool(do_update)
+    pc_new = pcache
+    if share:
+        if fit:       # the fit's P damped(g), pre-update Q, is the apply
+            st_new, out = fit_core(state)
+            if cached:
+                pc_new = compute_p_factors(st_new, plan)
+        else:
+            st_new, out = state, apply(state, pcache)
+    elif cached:
+        st_new = fit_core(state)[0] if fit else state
+        if fit:
+            pc_new = compute_p_factors(st_new, plan)
+        out = apply(None, pc_new if fit_first else pcache)
+    else:
+        st_new = fit_core(state)[0] if fit else state
+        out = apply(st_new if fit_first else state)
+    # back to the leaf's layout: the inverse moves, then this rank's block
+    # of each gathered dim
+    for d, ax, t in reversed(moves):
+        out = comm.all_to_all(out, ax, split_dim=d, concat_dim=t)
+    for d in gather_dims:
+        loc = plan.shape[d] // comm.size(dim_axes[d])
+        out = out.narrow(d, comm.index(dim_axes[d]) * loc, loc)
+    return (st_new, pc_new, out) if cached else (st_new, out)
 
 
 def update_kron_whiten_eq_exact(state: KronState, plan: KronPlan,

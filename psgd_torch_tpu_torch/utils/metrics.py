@@ -66,7 +66,8 @@ def psgd_metrics(optimizer, updates: Optional[list] = None,
     clip's engagement signal; with ``per_leaf`` ``L_max/leaf{i}`` and
     ``q_abs_max/leaf{i}``.  Reductions in float32; values are 0-dim tensors
     on the optimizer's device.  An optimizer whose state is its rank's own
-    (``stack_sharding``, the per-shard optimizers) reports that state, and
+    (``stack_sharding``, ``factor_sharding``, the per-shard optimizers)
+    reports that state, and
     every key but ``step`` and the update's says so: ``L_max@rank{r}``."""
     opt = _core(optimizer)
     out: Dict[str, torch.Tensor] = {
@@ -120,20 +121,36 @@ def state_memory_report(optimizer, per_device: bool = False) -> Dict[str, int]:
     ``cache_p`` factors P_i), ``other`` and ``total``.  ``other`` is 0:
     the port keeps count, key and fit_steps on the host, where JAX holds
     its count (int32) and key (uint32[2]) as 12 bytes of device arrays.
-    With ``stack_sharding`` ``per_device`` gives this rank's bytes, else
-    the whole state over the group (each sharded stack's slice times the
-    shard count); a per-shard optimizer reports its rank's own either
-    way."""
+    With ``stack_sharding`` or ``factor_sharding`` ``per_device`` gives
+    this rank's bytes, else the whole state over the mesh (each sharded
+    stack's slice times the shard count; a routed leaf's momentum and
+    diagonal factors, its blocks times theirs, its dense factors and L
+    once); a per-shard optimizer reports its rank's own either way."""
     opt = _core(optimizer)
     report = {"q": 0, "lips": 0, "momentum": _nbytes(_momentum(opt)),
               "pcache": 0, "other": 0}
     precond = getattr(opt, "precond", None)
     if precond is None:
         stack = getattr(opt, "stack", None)
+        routed = getattr(opt, "routed", None)
         for i, p in enumerate(opt.param_groups[0]["params"]):
             st = opt.state[p]
             k = (stack.size if stack is not None and opt.sharded[i]
                  and not per_device else 1)
+            r = routed[i] if routed else None
+            if r is not None and not per_device:
+                eff = r.rplan[0]
+                ks = [opt.comm.size(eff[j]) if f.ndim == 1 else 1
+                      for j, f in enumerate(st["q"])]
+                report["q"] += sum(c * _nbytes((f,)) for c, f in zip(ks, st["q"]))
+                report["pcache"] += sum(c * _nbytes((f,)) for c, f in
+                                        zip(ks, st.get("pcache", ())))
+                report["lips"] += _nbytes(st["lips"])
+                if "mu" in st:
+                    report["momentum"] += (opt.comm.size(
+                        [a for axes in r.dim_axes for a in axes]) - 1) \
+                        * _nbytes((st["mu"],))
+                continue
             report["q"] += k * _nbytes(st["q"])
             report["lips"] += k * _nbytes(st["lips"])
             report["pcache"] += k * _nbytes(st.get("pcache", ()))

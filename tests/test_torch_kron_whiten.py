@@ -157,11 +157,12 @@ def test_decoupled_weight_decay_on_every_leaf():
 
 def test_unported_options_raise():
     _, _, model = carried_pair()
-    # stack_sharding is ported (tests/test_torch_parallel.py); factor_sharding
-    # still raises, naming ROADMAP A8b
-    for kw, where in ((dict(factor_sharding=("mesh", {})), "A8b"),):
-        with pytest.raises(NotImplementedError, match=where):
-            KronWhiten(model.named_parameters(), device="cpu", **kw)
+    # stack_sharding and factor_sharding are ported
+    # (tests/test_torch_parallel.py, tests/test_torch_factor_sharding.py); a
+    # factor_sharding map that names no parameter is refused
+    with pytest.raises(ValueError, match="placements do not match params"):
+        KronWhiten(model.named_parameters(), device="cpu",
+              factor_sharding=("mesh", {}))
     # a geometry other than Q0.5EQ1.5 constructs and steps
     x, y = (torch.from_numpy(t) for t in tokens(1))
     quad = KronWhiten(model.named_parameters(), device="cpu", dq="QUAD",

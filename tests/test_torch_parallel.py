@@ -604,11 +604,16 @@ def test_sharded_metrics_and_memory(ranks):
 
 
 def test_factor_sharding_is_refused_naming_a8b():
+    """factor_sharding is ported (tests/test_torch_factor_sharding.py); a
+    map that cannot be matched to the parameters is refused: unnamed
+    parameters, and a map that names none of them."""
     from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten
-    params = [torch.zeros(4, 3)]
     for opt in (KronWhiten, KronNewton):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            opt(params, device="cpu", factor_sharding=("mesh", {}))
+        with pytest.raises(ValueError, match="named parameters"):
+            opt([torch.zeros(4, 3)], device="cpu", factor_sharding=("mesh", {}))
+        with pytest.raises(ValueError, match=r"\['w'\] have no placements"):
+            opt([("w", torch.zeros(4, 3))], device="cpu",
+                factor_sharding=("mesh", {}))
 
 
 if __name__ == "__main__":

@@ -52,6 +52,7 @@ def test_port_imports_no_jax():
     assert int(lines["N"]) >= 20
     assert lines["HVP"] == "True"
     assert {"psgd_torch_tpu_torch.parallel.mesh",
+            "psgd_torch_tpu_torch.parallel.recipe",
             "psgd_torch_tpu_torch.parallel.sharded"} <= set(lines["PAR"].split(","))
 
 
@@ -89,6 +90,21 @@ def test_entry_points_refuse_the_cpu_without_being_asked():
             opt(model.named_parameters())
         opt(model.named_parameters(), device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_distributed_entry_points_refuse_the_cpu_without_being_asked():
+    """make_mesh on its default CUDA device, and a factor-sharded
+    KronWhiten or KronNewton, raise without a card unless the CPU is asked
+    for (before any process group is touched)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten
+    from psgd_torch_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(axis_names=("fsdp",))
+    for opt in (KronWhiten, KronNewton):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            opt([("w", torch.zeros(4, 3))], factor_sharding=("mesh", {"w": ()}))
 
 
 def test_lra_dense_entry_points_refuse_the_cpu_without_being_asked():

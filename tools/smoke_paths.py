@@ -4,8 +4,8 @@
     python3 tools/smoke_paths.py PATH [PATH ...] [--root DIR ...]
 
 Each PATH is a function of chip_smoke.py that takes (device, card) and
-drives one path: for example ``stack_sharded_path pair_paths`` (the
-distributed paths) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg``
+drives one path: for example ``stack_sharded_path pair_paths
+factor_sharded_path`` (the distributed paths) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg``
 passes ``arg`` first).  For each ``--root`` in the order given (default:
 the checkout this file is in; give a parent checkout and this one as
 ``--root P --root C --root C --root P`` to compare two trees on one card in
