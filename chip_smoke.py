@@ -186,8 +186,8 @@
    kernel library built by this process before any starts; 2 ranks
    sharing one H100 over gloo, so their times are not scaling figures).
    ``stack_sharded_path``: GPT-2 124M by KronWhiten (as 5), GPT-2 124M by
-   KronNewton (as 7) and LLaMA-1.1B by KronWhiten (as 6), 3 steps at p =
-   1 and 3 at 0.1, on 2 ranks with ``stack_sharding`` beside a 1-rank
+   KronNewton (as 7) and LLaMA-1.1B by KronWhiten (as 6), 1 step at p =
+   1 and 2 at 0.1, on 2 ranks with ``stack_sharding`` beside a 1-rank
    reference, all three stepping from rank 0's gradients: every rank's
    parameters and Q (its layers of the reference's for the sharded
    stacks) equal the reference's bit for bit (SHA-256 per tensor), each
@@ -219,13 +219,31 @@
    exact launches per fit step
    (``FACTOR_PER_FIT``), A's loss falling and its other leaves the
    reference's bit for bit; step 3 holds the noise at the arms' B = 1
-   blocks (``FACTOR_NOISE_SHAPES``) and the split route at B = 1.  The
-   ranks' launch counts come back to this process and count toward the
-   kernels' line.
+   blocks (``FACTOR_NOISE_SHAPES``) and the split route at B = 1.
+   ``vector_sharded_path`` (``vector_sharding``: one LRA or dense
+   preconditioner, its rows over the ranks): A, GPT-2 124M by LRAWhiten
+   in __graft_entry__.py:164-167's recipe (rank 4, momentum 0.9) on 2
+   ranks, 3 fit steps from the reference's gradients; B, by LRANewton
+   (rank 4, batch 2 x 1024), 2 fit steps through the closure (rank 0's
+   pass broadcast); each beside a 1-rank reference run first on rank 0
+   and fed the shards' draws (``_ShardProbes``), its readings kept on the
+   host: each step's update and the U, V, d rows within ``VECTOR_COS`` and
+   ``VECTOR_REL`` (``vector_fault_margin`` reads both against planted
+   faults), ``drift_check`` 0 on the parameters and lu, lv, ld, the
+   per-rank state 1/k of the reference's, exact launches per fit
+   (``VECTOR_PER_FIT``), each step's collectives the update's all-gather
+   (n x 4 bytes) and under ``VECTOR_SMALL_BYTES`` else
+   (``utils.collective_bytes``); C, the tensor-rank problem: dense QEQ on
+   4 ranks within ``VECTOR_CP_REL`` of a 1-rank run, its loss falling as
+   that run's, then dense QEQ and LRANewton on 3 ranks (n_pad 1701),
+   their pad rows exact after every step.  Step 3 holds the noise at the
+   path's shapes and keys (``check_vector_noise``).  The ranks' launch
+   counts come back to this process and count toward the kernels' line.
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
-   times at the LRA and dense paths' shapes; rows 1, 3 and 6 also carry
+   times at the LRA and dense paths' shapes, row 2 ``vector_shapes`` at
+   the vector-sharded path's; rows 1, 3 and 6 also carry
    ``step_mat_launches`` and the step
    matrix variant's ``step_mat_ms`` and ``step_mat_bound_ms`` at the
    ``step_mat_shape`` its Newton path gives it: (12, 768) f32, (22, 2048)
@@ -260,6 +278,7 @@ import zlib
 from datetime import timedelta
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -269,10 +288,15 @@ from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
                                         LRANewton, LRAWhiten, classes, hvp)
+from psgd_torch_tpu_torch.optim import transforms as _transforms
 from psgd_torch_tpu_torch.precond import kron as kron_p
-from psgd_torch_tpu_torch.utils import (FailsafeLoop, StepTimer, make_guarded_step,
+from psgd_torch_tpu_torch.precond import lra as lra_p
+from psgd_torch_tpu_torch.utils import (FailsafeLoop, StepTimer, collective_bytes,
+                                        count_collectives, make_guarded_step,
                                         psgd_metrics, restore_checkpoint,
                                         save_checkpoint, state_memory_report)
+
+_OWN_PASS = _transforms._newton_pass
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 without
 # tensor cores, HBM3 bandwidth
@@ -1428,6 +1452,80 @@ def check_lra_dense_shapes(dev, lib_path) -> dict:
                                  "their plain versions")
         del rk, rp
     del q1, qk, qp, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def vector_noise_seeds(fits_splits: int, world: int, folded: bool = True) -> list:
+    """The first fit's noise keys of a vector-sharded optimizer seeded 0
+    (key chain split(key, ``fits_splits``), k_fit the last; kv or kd =
+    split(k_fit)[0]), folded with each shard's index, or k_fit itself
+    (dense, unfolded)."""
+    k_fit = fastrand.split(fastrand.prng_key(0), fits_splits)[-1]
+    if not folded:
+        return [k_fit]
+    kv = fastrand.split(k_fit)[0]
+    return [fastrand.fold_in(kv, r) for r in range(world)]
+
+
+def check_vector_noise(dev, lib_path) -> list:
+    """Row 2 at the vector-sharded path's shapes and seeds, bit for bit
+    against its plain version: arm A's probe and damping (unit and fused)
+    and arm B's damping at (1, n/2) f32 under each shard's folded key, n
+    GPT-2 124M's parameter count; arm C's dense damping at (1, 1700) and
+    (1, 1701) under the unfolded key and LRANewton's at (1, 567) under the
+    3 shards' keys.  The (1, n/2) launches are timed (CUDA events) beside
+    the bound (bytes or the loop's SASS at the SM clock under load, as
+    ``check_lra_dense_shapes``) and ``torch.rand``.  Returns the JSON
+    line's ``vector_shapes`` entries."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n_loc = gpt2_numel() // 2
+    cases = [(n_loc, s, "unit") for s in vector_noise_seeds(3, 2)] + \
+        [(n_loc, s, "fused") for s in vector_noise_seeds(3, 2) + vector_noise_seeds(4, 2)] + \
+        [(n, s, "fused") for n in (1700, 1701) for s in vector_noise_seeds(4, 1, False)] + \
+        [(567, s, "fused") for s in vector_noise_seeds(4, 3)]
+    g = torch.randn((1, n_loc), generator=gen, device=dev)
+    same = []
+    for n, key, mode in cases:
+        seeds = kernels.key_seed_words(key[None], dev)
+        if mode == "unit":
+            a = kernels.unit_noise(seeds, (n,), torch.float32)
+            b = kernels.unit_noise_plain(seeds, (n,), torch.float32)
+        else:
+            a = kernels.damped_noise(g[:, :n], seeds, 1e-9)
+            b = kernels.damped_noise_plain(g[:, :n], seeds, 1e-9)
+        same.append(torch.equal(_bits(a), _bits(b)))
+        del a, b
+    if not all(same):
+        raise AssertionError(f"noise at the vector-sharded shapes differs from its plain "
+                             f"version: {[c[::2] for c, ok in zip(cases, same) if not ok]}")
+    seeds = kernels.key_seed_words(vector_noise_seeds(3, 2)[0][None], dev)
+    unit = lambda: kernels.unit_noise(seeds, (n_loc,), torch.float32)
+    damp = lambda: kernels.damped_noise(g, seeds, 1e-9)
+    ms = {"unit": cuda_ms(unit, 10), "fused": cuda_ms(damp, 10)}
+    plain = {"unit": cuda_ms(lambda: kernels.unit_noise_plain(seeds, (n_loc,),
+                                                              torch.float32), 2, 1),
+             "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
+    rand_ms = cuda_ms(lambda: torch.rand((1, n_loc), device=dev), 10)
+    loops = sass.noise_loops(str(lib_path))
+    clock = sm_clock_hz(damp, max(100, int(500 / ms["fused"])))
+    out = []
+    for mode, nbytes in (("unit", 4 * n_loc), ("fused", 8 * n_loc)):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_instr = instruction_ms(n_loc, loops[("float32", mode == "fused", True)], clock)
+        out.append(dict(shape=f"(1, {n_loc}) float32 {mode}, a shard of 2", ms=ms[mode],
+                        plain_ms=plain[mode], bound_ms=max(t_bytes, t_instr),
+                        bound_by="bytes" if t_bytes >= t_instr else "operations",
+                        max_abs_err=0.0, library_ms=rand_ms))
+        log(f"noise (1, {n_loc}) f32 {mode} (a vector-sharded LRA fit's shard of 2): "
+            f"kernel {ms[mode]:.4f} ms  plain {plain[mode]:.3f} ms  torch.rand "
+            f"{rand_ms:.4f} ms  bound {out[-1]['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, "
+            f"instructions {t_instr:.4f} at {clock / 1e6:.0f} MHz), "
+            f"{out[-1]['bound_ms'] / ms[mode]:.3f} of the bound")
+    log(f"noise bit for bit at the vector-sharded path's {len(cases)} (shape, key, mode) "
+        f"launches: (1, {n_loc}) unit and fused under each shard's folded key (arms A, "
+        f"B), (1, 1700) and (1, 1701) fused unfolded, (1, 567) fused under 3 keys (C)")
+    del g
     torch.cuda.empty_cache()
     return out
 
@@ -3208,7 +3306,10 @@ def profile_steps(label, state, card: str, probs, tensor_cores: bool = True):
 # The distributed paths: ranks are processes on cuda:0 joined by gloo
 # ---------------------------------------------------------------------------
 
-DIST_STEPS = (3, 3)        # p = 1.0, then 0.1
+# p = 1.0, then 0.1 (once 3 and 3): seed 0's gate at p = 0.1 closes
+# at step 1 and opens at 2, so 3 steps keep a fit and a no-fit step after
+# the first
+DIST_STEPS = (1, 2)
 DIST_DP_STEPS = 6
 DIST_TIMEOUT_S = 600
 DIST_LABEL = "2 ranks sharing one H100 over gloo; not a scaling figure"
@@ -3226,9 +3327,10 @@ def _digest(t: torch.Tensor) -> str:
     return h.hexdigest()
 
 
-def _bcast(t: torch.Tensor, src: int = 0) -> None:
-    """Rank ``src``'s tensor into every rank's, bit for bit (its bytes)."""
-    dist.broadcast(t.reshape(-1).view(torch.uint8), src=src)
+def _bcast(t: torch.Tensor, src: int = 0, group=None) -> None:
+    """Rank ``src``'s tensor into every rank's (of ``group``, default the
+    world), bit for bit (its bytes)."""
+    dist.broadcast(t.reshape(-1).view(torch.uint8), src=src, group=group)
 
 
 def _no_nvcc():
@@ -3259,6 +3361,19 @@ def _dist_main(rank: int, world: int, store: str, job: str, out: str) -> None:
     torch.save(result, f"{out}.{rank}")
 
 
+def _host_memory() -> str:
+    """This process's resident set and the host's available memory, from
+    /proc (Linux)."""
+    def field(path, key):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key):
+                    return int(line.split()[1]) / 2 ** 20
+        return float("nan")
+    return (f"RSS {field('/proc/self/status', 'VmRSS'):.1f} GiB, available "
+            f"{field('/proc/meminfo', 'MemAvailable'):.1f} GiB")
+
+
 def _spawn(job: str, world: int) -> list:
     """Run ``job`` in ``world`` spawned rank processes (the parent's memory
     freed first); their results in rank order.  Fails if a rank fails."""
@@ -3266,7 +3381,7 @@ def _spawn(job: str, world: int) -> list:
     torch.cuda.empty_cache()
     log(f"  {job}: {world} ranks; this process holds "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
-        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; host {_host_memory()}")
     OUT_DIR.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=OUT_DIR))
     ctx = multiprocessing.get_context("spawn")
@@ -3322,12 +3437,13 @@ def _dist_arm(arm: str, dev, **options):
     return label, model, loss_fn, opt, (tokens, targets), per_fit
 
 
-def _newton_pass_from(rank: int):
+def _newton_pass_from(rank: int, group=None):
     """The Newton step's autograd pass as rank 0 takes it, broadcast to the
-    other ranks (their gradients and H v equal rank 0's bit for bit, as
-    the ranks' of a data-parallel run are after their all-reduce)."""
+    other ranks of ``group`` (default the world; their gradients and H v
+    equal rank 0's bit for bit, as the ranks' of a data-parallel run are
+    after their all-reduce)."""
     from psgd_torch_tpu_torch.optim import transforms
-    own = transforms._newton_pass
+    own = _OWN_PASS
 
     def shared(closure, params, do_fit, k_v, exact, draw):
         if rank == 0:
@@ -3340,10 +3456,16 @@ def _newton_pass_from(rank: int):
                         [torch.empty_like(p) for p in params]))
         loss = loss.detach().float().reshape(1)
         for t in [loss] + grads + (vs + hvs if do_fit else []):
-            _bcast(t)
+            _bcast(t, group=group)
         return loss[0], grads, vs, hvs
 
     transforms._newton_pass = shared
+
+
+def _own_newton_pass() -> None:
+    """Undo ``_newton_pass_from``: each rank takes its own pass."""
+    from psgd_torch_tpu_torch.optim import transforms
+    transforms._newton_pass = _OWN_PASS
 
 
 def _sharded_leaves(opt) -> list:
@@ -4029,7 +4151,503 @@ def factor_sharded_path(dev, card: str) -> dict:
     return total
 
 
-_DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job}
+
+
+# the vector-sharded path (ROADMAP A8b): one LRA preconditioner over GPT-2
+# 124M's whole parameter vector, its rows over 2 ranks (arm A by
+# LRAWhiten, B by LRANewton, __graft_entry__.py:159-186's recipe at rank
+# 4), and on the tensor-rank problem (n = 1700) dense QEQ over 4 ranks and
+# 3 (n_pad 1701) and LRANewton over 3 (arm C)
+VECTOR_RANK = 4
+VECTOR_FITS = {"whiten": 3, "newton": 2}
+VECTOR_BATCH = {"whiten": 4, "newton": 2}
+VECTOR_LABELS = {"whiten": "GPT-2 124M LRAWhiten", "newton": "GPT-2 124M LRANewton"}
+VECTOR_CP_STEPS = 6
+VECTOR_LABEL = "2 ranks (4 and 3 in arm C) sharing one H100 over gloo, not scaling figures"
+# per fit step and rank: whitening's probe and damping at (1, n/k) f32;
+# Newton's damping at (1, n/k) and GPT-2's 16 probes (rand_like, unfolded,
+# drawn by rank 0's pass, ``_newton_pass_from``); on the tensor-rank
+# problem the damping and its 3 probes
+VECTOR_PER_FIT = {"whiten": {"unit_noise": 1, "damped_noise": 1},
+                  "newton": {"unit_noise": GPT2_LEAVES, "damped_noise": 1},
+                  "cp": {"unit_noise": CP_LEAVES, "damped_noise": 1}}
+# arms A and B against their 1-rank references fed the same per-shard
+# draws, per step update and per state field (U, V, d): 1 - cosine and
+# |x_k - x_1| / |x_1|; the limits sit between the sound arms' readings and
+# the planted faults' (``vector_fault_margin``): on an H100 sound arms read
+# at most 1.2e-11 and 5.2e-6, the smallest fault (A without the sum of
+# V^T x) 1.7e-8 and 1.9e-4 (PERF.md, the vector-sharded slice's call 1)
+VECTOR_COS = 1e-9
+VECTOR_REL = 5e-5
+# arm C's dense QEQ against the 1-rank run: the parameters after each step
+VECTOR_CP_REL = 1e-3
+# a fit step's collectives per rank but the update's all_gather: the fit's
+# r x r and r-sized sums and its scalars, a few hundred bytes at r = 4
+VECTOR_SMALL_BYTES = 4096
+VECTOR_FAULTS = ("none", "vtx", "unfolded", "unmasked")
+
+
+def _plant_vector_fault() -> str:
+    """The fault ``VECTOR_FAULT`` names (``vector_fault_margin``), planted in
+    this rank's precond.lra: "vtx" drops the sum of V^T x over the rows,
+    "unfolded" keys every shard's probe alike, "unmasked" leaves the probe
+    and h on the pad rows."""
+    fault = os.environ.get("VECTOR_FAULT", "none")
+    if fault == "vtx":
+        own = lra_p.ip_uvt_matvec
+        lra_p.ip_uvt_matvec = lambda u, v, x, reduce=None: own(u, v, x)
+    elif fault == "unfolded":
+        lra_p.shard_key = lambda key, reduce: key
+    elif fault == "unmasked":
+        lra_p._pad_zero = lambda h, mask: h
+        lra_p._masked = lambda v, h, mask: (v, h)
+    return fault
+
+
+class _ShardProbes:
+    """A 1-rank LRA optimizer's draw hook that feeds it what k row shards
+    draw: the probe (or damping) of key kv at (n, 1) is each shard's own
+    draw under fold_in(kv, shard) at (n_loc, 1), joined and cut to n; every
+    other draw (U and V, the coin, Newton's probes) the port's own."""
+
+    def __init__(self, n: int, k: int, dev):
+        self.n, self.k, self.dev = n, k, dev
+
+    def __call__(self, kind, keys, shape, dtype):
+        key = np.asarray(keys, np.uint32).reshape(2)
+        if kind == "uniform":
+            return torch.from_numpy(np.asarray(fastrand.uniform01(key[None]))).to(dtype)
+        if tuple(shape) != (self.n, 1):
+            return fastrand.unit_noise(key, shape, dtype, self.dev)[None]
+        n_loc = -(-self.n // self.k)
+        parts = [fastrand.unit_noise(fastrand.fold_in(key, r), (n_loc, 1), dtype, self.dev)
+                 for r in range(self.k)]
+        return torch.cat(parts)[:self.n][None]
+
+
+def _vector_kw(arm: str, dev) -> tuple:
+    """(optimizer class, options) of arm A or B: the recipe of
+    __graft_entry__.py:164-167 (rank 4, lr 1e-3, init scale 1; whitening
+    with momentum 0.9), Newton with ``lra_gpt2_path``'s norm clip 10 and a
+    damping of 1e-3, large enough beside H v that each shard's damping
+    draw shows in the fit (at 1e-9 a wrongly keyed draw would not)."""
+    kw = dict(lr=1e-3, rank_of_approximation=VECTOR_RANK, preconditioner_init_scale=1.0,
+              device=dev)
+    if arm == "whiten":
+        return LRAWhiten, dict(kw, momentum=0.9)
+    return LRANewton, dict(kw, grad_clip_max_norm=10.0, damping=1e-3)
+
+
+def _flat_update(params, before) -> torch.Tensor:
+    return torch.cat([(p.detach() - b).flatten() for p, b in zip(params, before)])
+
+
+def _vector_reference(arm: str, k: int, dev) -> dict:
+    """Rank 0's 1-rank reference of arm A or B, fed the shards' draws
+    (``_ShardProbes``): its gradients (A), per-step updates, losses, final
+    U, V, d and state bytes, kept on the card (at rank 4 they fit beside
+    the sharded run; the host copies cost more than the room), the rest of
+    it freed."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    n = sum(p.numel() for p in model.parameters())
+    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1),
+                                              VECTOR_BATCH[arm], cfg.block_size,
+                                              cfg.vocab_size, device=dev)
+    cls, kw = _vector_kw(arm, dev)
+    ref = cls(model.named_parameters(), draw=_ShardProbes(n, k, dev), **kw)
+    params = ref.param_groups[0]["params"]
+    out = dict(grads=[], updates=[], losses=[], ms=[])
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(VECTOR_FITS[arm]):
+        before = [p.detach().clone() for p in params]
+        if arm == "whiten":
+            ref.zero_grad(set_to_none=True)
+            loss = gpt2.loss_gpt2(model, tokens, targets)
+            loss.backward()
+            out["grads"].append([p.grad for p in params])
+            out["ms"].append(_counted(ref.step, {}))
+        else:
+            losses = []
+            out["ms"].append(_counted(lambda: losses.append(ref.step(
+                lambda: gpt2.loss_gpt2(model, tokens, targets))), {}))
+            loss = losses[0]
+        out["losses"].append(loss.item())
+        out["updates"].append(_flat_update(params, before))
+    out["state"] = {f: getattr(ref.precond, f) for f in ("u", "v", "d")}
+    out["memory"] = state_memory_report(ref)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["n"] = n
+    del model, ref, params, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rows_agree(mine: torch.Tensor, ref, rank: int, pair) -> tuple:
+    """(1 - cosine, relative error) of the 2 ranks' row blocks joined
+    against the reference's whole (rank 0's), in float64, from each rank's
+    partial sums: rank 0 sends rank 1 its block of the reference by one
+    broadcast, and the sums are added over the pair."""
+    n_loc = mine.shape[0]
+    theirs = ref[n_loc:2 * n_loc] if rank == 0 else torch.empty_like(mine)
+    _bcast(theirs, group=pair)
+    a = mine.double().flatten()
+    b = (ref[:n_loc] if rank == 0 else theirs).double().flatten()
+    sums = torch.stack([a @ b, a @ a, b @ b, (a - b) @ (a - b)])
+    dist.all_reduce(sums, group=pair)
+    dot, aa, bb, dd = sums.tolist()
+    return 1 - dot / math.sqrt(aa * bb), math.sqrt(dd / bb)
+
+
+def _vector_arm(rank: int, arm: str, pair) -> dict:
+    """Arm A (``arm`` "whiten") or B ("newton") on the ranks of ``pair``
+    (0 and 1): rank 0 runs the reference first (``_vector_reference``);
+    then each builds GPT-2 124M (seed 0) and the optimizer with
+    vector_sharding=pair and takes the reference's steps: A from the
+    reference's gradients (broadcast by rank 0), B through the closure,
+    rank 0's autograd pass broadcast (``_newton_pass_from``).  Returns the
+    readings the gates read, the phases' seconds and the host's load."""
+    from psgd_torch_tpu_torch.parallel import drift_check
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    phases, load = {}, [os.getloadavg()[0]]
+    k = dist.get_world_size(pair)
+    ref = _vector_reference(arm, k, dev) if rank == 0 else None
+    dist.barrier(group=pair)
+    phases["reference"] = time.perf_counter() - t0
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    cls, kw = _vector_kw(arm, dev)
+    opt = cls(model.named_parameters(), vector_sharding=pair, **kw)
+    if opt.n_pad != opt.n or k != 2:
+        raise AssertionError(f"arms A and B take 2 ranks and an even n: {k}, {opt.n}")
+    params = opt.param_groups[0]["params"]
+    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1),
+                                              VECTOR_BATCH[arm], cfg.block_size,
+                                              cfg.vocab_size, device=dev)
+    per_fit = dict(VECTOR_PER_FIT[arm])
+    if arm == "newton":
+        _newton_pass_from(rank, pair)
+        if rank:     # the probes are drawn where the pass runs
+            per_fit["unit_noise"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    phases["build"] = time.perf_counter() - t0 - phases["reference"]
+    counts, opt_ms, agree, step_bytes, losses = {}, [], [], [], []
+    kernels.reset_launch_counts()
+    for i in range(VECTOR_FITS[arm]):
+        before = [p.detach().clone() for p in params]
+        if arm == "whiten":
+            for j, p in enumerate(params):
+                g = ref["grads"][i][j] if rank == 0 else torch.empty_like(p)
+                _bcast(g, group=pair)
+                p.grad = g
+            step = opt.step
+        else:
+            step = lambda: losses.append(opt.step(
+                lambda: gpt2.loss_gpt2(model, tokens, targets)).item())
+        with count_collectives() as calls:
+            opt_ms.append(_counted(step, counts))
+        step_bytes.append(collective_bytes(calls, per_op=True))
+        if rank == 0:
+            agree.append(_agree(_flat_update(params, before), ref["updates"][i]))
+    del before
+    if arm == "newton":
+        _own_newton_pass()
+    phases["steps"] = time.perf_counter() - t0 - phases["reference"] - phases["build"]
+    st = opt.precond
+    drift = drift_check(dict({f"param {i}": p for i, p in enumerate(params)},
+                             lu=st.lu, lv=st.lv, ld=st.ld), group=pair)
+    rows = {f: _rows_agree(getattr(st, f), None if ref is None else ref["state"][f],
+                           rank, pair) for f in ("u", "v", "d")}
+    load.append(os.getloadavg()[0])
+    out = dict(label=VECTOR_LABELS[arm], counts=counts, per_fit=per_fit,
+               fits=opt.fit_steps, opt_ms=opt_ms, step_bytes=step_bytes, drift=drift,
+               n=opt.n, n_pad=opt.n_pad, mine=state_memory_report(opt, per_device=True),
+               whole=state_memory_report(opt), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.max_memory_reserved() / 1e9, load=load)
+    if rank == 0:
+        out.update(agree=agree, rows=rows, ref_memory=ref["memory"], ref_ms=ref["ms"],
+                   ref_peak_gb=ref["peak_gb"], losses=ref["losses"] if arm == "whiten"
+                   else losses, ref_losses=ref["losses"])
+    del model, opt, params, st, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    phases["checks"] = out["seconds"] - sum(phases.values())
+    out["phases"] = phases
+    return out
+
+
+def _pad_report(opt, seen) -> dict:
+    """Where arm C's pad rows stand on this rank, each 0.0 when exact: LRA's
+    largest |U|, |V|, |momentum| and |update| on them (``seen``: the row
+    blocks ``_unvec`` received) and |d - 1|; dense's largest |Q - I| on
+    its pad rows and on the pad columns.  Zeros where the rank holds no
+    pad row (LRA)."""
+    pads = max(opt.lo + opt.n_loc - opt.n, 0)
+    if hasattr(opt.precond, "u"):
+        if not pads:
+            return dict(uv=0.0, d=0.0, mu=0.0, update=0.0)
+        tail = slice(opt.n_loc - pads, opt.n_loc)
+        st = opt.precond
+        return dict(uv=float(torch.cat([st.u[tail], st.v[tail]]).abs().max()),
+                    d=float((st.d[tail] - 1).abs().max()),
+                    mu=0.0 if opt.mu is None else float(opt.mu[tail].abs().max()),
+                    update=max([float(x[tail].abs().max()) for x in seen] or [0.0]))
+    q = opt.precond.q
+    cols = torch.arange(opt.n_pad, device=q.device)
+    rows = opt.lo + torch.arange(opt.n_loc, device=q.device)
+    off = (q - (rows[:, None] == cols[None, :]).to(q.dtype)).abs()
+    worst = lambda x: float(x.max()) if x.numel() else 0.0
+    return dict(q_rows=worst(off[rows >= opt.n]), q_cols=worst(off[:, cols >= opt.n]))
+
+
+def _vector_cp(rank: int, world: int) -> dict:
+    """Arm C on the tensor-rank problem (``cp_problem``, n = 1700, the
+    example's settings, ``VECTOR_CP_STEPS`` steps): dense QEQ over the 4
+    ranks beside a 1-rank vector_sharding run on rank 0 (taken first; every
+    rank draws the same damping, 4 divides n); dense QEQ and LRANewton
+    (rank 10) over ranks 0-2, n_pad 1701, the pad rows read after every
+    step.  Rank 0 takes each step's autograd pass and broadcasts it over
+    the arm's group."""
+    from psgd_torch_tpu_torch.parallel import drift_check
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    ones = [dist.new_group([r]) for r in range(world)]
+    three = dist.new_group([0, 1, 2])
+    ref = None
+    if rank == 0:
+        params, loss = cp_problem(*CP_FULL, dev)
+        opt = _cp_opt(params, dev, "QEQ", vector_sharding=ones[0])
+        ref = dict(losses=[], params=[])
+        for _ in range(VECTOR_CP_STEPS):
+            ref["losses"].append(opt.step(loss).item())
+            ref["params"].append(torch.cat([p.detach().flatten() for p in params]))
+        del params, opt
+    dist.barrier()
+    out = {}
+    for label, group, members, dq in (("dense QEQ, 4 ranks", dist.group.WORLD, (0, 1, 2, 3),
+                                       "QEQ"),
+                                      ("dense QEQ, 3 ranks", three, (0, 1, 2), "QEQ"),
+                                      ("LRANewton, 3 ranks", three, (0, 1, 2), None)):
+        if rank in members:
+            params, loss = cp_problem(*CP_FULL, dev)
+            opt = _cp_opt(params, dev, dq, vector_sharding=group)
+            _newton_pass_from(rank, group)
+            seen, unvec = [], opt._unvec
+
+            def keep(pre, unvec=unvec, seen=seen):
+                seen.append(pre.detach().clone())
+                return unvec(pre)
+
+            opt._unvec = keep
+            counts, losses, pads, rel = {}, [], [], []
+            kernels.reset_launch_counts()
+            for i in range(VECTOR_CP_STEPS):
+                seen.clear()
+                _counted(lambda: losses.append(opt.step(loss).item()), counts)
+                pads.append(_pad_report(opt, seen))
+                if ref is not None and len(members) == world:
+                    x = torch.cat([p.detach().flatten() for p in params])
+                    rel.append(float((x - ref["params"][i]).norm() / ref["params"][i].norm()))
+            _own_newton_pass()
+            st = opt.precond
+            shared = {"parameters": torch.cat([p.detach().flatten() for p in params])}
+            shared.update({f: getattr(st, f) for f in ("lips", "lu", "lv", "ld")
+                           if hasattr(st, f)})
+            if dq is not None and opt.mu is not None:
+                shared["momentum"] = opt.mu
+            out[label] = dict(
+                counts=counts, fits=opt.fit_steps, losses=losses, pads=pads, rel=rel,
+                drift=drift_check(shared, group=group), k=len(members), n_pad=opt.n_pad,
+                per_fit=dict(VECTOR_PER_FIT["cp"],
+                             unit_noise=CP_LEAVES if rank == 0 else 0),
+                ref_losses=None if ref is None or len(members) < world else ref["losses"])
+            del params, opt, st, shared
+        dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _vector_job(rank: int, world: int, _) -> dict:
+    """Arms A and B on ranks 0 and 1 (the others wait), then arm C on all
+    4, with the fault ``VECTOR_FAULT`` names planted first."""
+    _plant_vector_fault()
+    pair = dist.new_group([0, 1])
+    ab = []
+    for arm in ("whiten", "newton"):
+        ab.append(_vector_arm(rank, arm, pair) if rank < 2 else None)
+        dist.barrier()
+    return dict(ab=ab, c=_vector_cp(rank, world))
+
+
+def _vector_readings(arms: list) -> list:
+    """Per arm A and B of one spawn (``arms[r][j]``) its worst (1 - cosine,
+    relative error) of the updates and of the U, V and d rows against the
+    1-rank reference, its largest drift and non-gather bytes."""
+    out = []
+    for j in range(len(arms[0])):
+        head = arms[0][j]
+        pairs = head["agree"] + list(head["rows"].values())
+        out.append(dict(label=head["label"], one_minus_cos=max(a[0] for a in pairs),
+                        rel_err=max(a[1] for a in pairs),
+                        drift=max(max(a[j]["drift"].values()) for a in arms),
+                        small_bytes=max(sum(v for k, v in b.items() if k != "all-gather")
+                                        for a in arms for b in a[j]["step_bytes"])))
+    return out
+
+
+def _cp_readings(ranks: list) -> dict:
+    """Arm C's worst parameter gap to the 1-rank run and largest pad-row
+    reading over ranks and steps, per sub-arm."""
+    out = {}
+    for label in ranks[0]:
+        if label == "seconds":
+            continue
+        res = [r[label] for r in ranks if label in r]
+        out[label] = dict(rel=max(res[0]["rel"] or [0.0]),
+                          pad=max(max(p.values()) for r in res for p in r["pads"]),
+                          drift=max(max(r["drift"].values()) for r in res))
+    return out
+
+
+def _vector_check(arms: list, card: str) -> dict:
+    """The gates of arms A and B (``arms[r][j]``: rank r, arm j)."""
+    total = {}
+    for j, reading in enumerate(_vector_readings(arms)):
+        ranks = [a[j] for a in arms]
+        head, k = ranks[0], len(ranks)
+        label = head["label"]
+        losses = head["losses"]
+        log(f"{label} vector-sharded over {k} ranks (n = {head['n']}, rank {VECTOR_RANK}): "
+            f"losses {[round(x, 4) for x in losses]}; the 1-rank reference's "
+            f"{[round(x, 4) for x in head['ref_losses']]}")
+        if not all(math.isfinite(x) for x in losses + head["ref_losses"]):
+            raise AssertionError(f"{label}: losses {losses}, reference {head['ref_losses']}")
+        log(f"  updates against the reference per step, (1 - cosine, relative error) "
+            f"{head['agree']}; U, V, d rows {head['rows']}; worst "
+            f"{(reading['one_minus_cos'], reading['rel_err'])}")
+        if not (reading["one_minus_cos"] < VECTOR_COS and reading["rel_err"] < VECTOR_REL):
+            raise AssertionError(f"{label}: against the 1-rank reference "
+                                 f"{(reading['one_minus_cos'], reading['rel_err'])}, need "
+                                 f"< {VECTOR_COS:g} and < {VECTOR_REL:g}")
+        ref = head["ref_memory"]
+        for r, res in enumerate(ranks):
+            if set(res["drift"].values()) != {0.0}:
+                raise AssertionError(f"{label}: rank {r} drift "
+                                     f"{[n for n, v in res['drift'].items() if v]}")
+            fits = res["fits"]
+            per = {key: res["counts"].get(key, 0) / max(fits, 1) for key in res["per_fit"]}
+            if fits != VECTOR_FITS["whiten" if "Whiten" in label else "newton"] or any(
+                    res["counts"].get(key, 0) != n * fits for key, n in res["per_fit"].items()):
+                raise AssertionError(f"{label}: rank {r} launched {per} per fit step over "
+                                     f"{fits} fits, expected {res['per_fit']}")
+            mine = res["mine"]
+            if not (mine["q"] * k == ref["q"] and mine["momentum"] * k == ref["momentum"]
+                    and res["whole"]["q"] == ref["q"]):
+                raise AssertionError(f"{label}: rank {r}'s state {mine}, the reference's {ref}")
+            for b in res["step_bytes"]:
+                small = sum(v for key, v in b.items() if key != "all-gather")
+                if b.get("all-gather") != res["n_pad"] * 4 or small >= VECTOR_SMALL_BYTES:
+                    raise AssertionError(f"{label}: rank {r}'s collectives in a step {b}; "
+                                         f"need the update's gather, {res['n_pad'] * 4} "
+                                         f"bytes, and < {VECTOR_SMALL_BYTES} bytes else")
+            log(f"  [{card}; {VECTOR_LABEL}] rank {r}: optimizer step (median, first "
+                f"excluded) {_median(res['opt_ms'][1:])} ms (the 1-rank reference's "
+                f"{_median(head['ref_ms'][1:])} ms); peak {res['peak_gb']:.2f} GB allocated, "
+                f"{res['reserved_gb']:.2f} GB reserved (the reference {head['ref_peak_gb']:.2f}"
+                f" GB); state per rank U, V, d {mine['q'] / 1e9:.3f} GB, momentum "
+                f"{mine['momentum'] / 1e9:.3f} GB (the reference {ref['q'] / 1e9:.3f} and "
+                f"{ref['momentum'] / 1e9:.3f}); collectives per step {res['step_bytes']}; "
+                f"launches per fit {per}; drift 0.0 on {len(res['drift'])} tensors")
+            _add(total, res["counts"])
+        log(f"  {label}: {head['seconds']:.1f} s in the ranks (rank 0: "
+            f"{', '.join(f'{k} {v:.1f} s' for k, v in head['phases'].items())}; the "
+            f"host's load average {head['load'][0]:.1f} -> {head['load'][1]:.1f})")
+    return total
+
+
+def _cp_check(ranks: list, card: str) -> dict:
+    """The gates of arm C (``ranks[r]``: rank r's sub-arms)."""
+    total = {}
+    readings = _cp_readings(ranks)
+    for label, reading in readings.items():
+        res = [r[label] for r in ranks if label in r]
+        head = res[0]
+        log(f"tensor-rank (n = 1700) {label} vector-sharded (n_pad {head['n_pad']}): loss "
+            f"{head['losses'][0]:.6g} -> {head['losses'][-1]:.6g} in {VECTOR_CP_STEPS} "
+            f"steps" + ("" if head["ref_losses"] is None else
+                         f"; the 1-rank run's {head['ref_losses'][0]:.6g} -> "
+                         f"{head['ref_losses'][-1]:.6g}, parameters' gap per step "
+                         f"{head['rel']}") + f"; pad rows, worst {reading['pad']!r}")
+        if not head["losses"][-1] < head["losses"][0]:
+            raise AssertionError(f"{label}: loss {head['losses']}")
+        if head["ref_losses"] is not None and not (
+                reading["rel"] < VECTOR_CP_REL and head["ref_losses"][-1] < head["ref_losses"][0]):
+            raise AssertionError(f"{label}: parameters' gap to the 1-rank run {head['rel']} "
+                                 f"(need < {VECTOR_CP_REL:g}), its losses {head['ref_losses']}")
+        if reading["pad"] != 0.0 or reading["drift"] != 0.0:
+            raise AssertionError(f"{label}: pad rows {[r['pads'] for r in res]}, drift "
+                                 f"{[r['drift'] for r in res]}")
+        for r, one in enumerate(res):
+            fits = one["fits"]
+            if fits != VECTOR_CP_STEPS or any(one["counts"].get(key, 0) != n * fits
+                                              for key, n in one["per_fit"].items()):
+                raise AssertionError(f"{label}: rank {r} launched {one['counts']} in {fits} "
+                                     f"fits, expected {one['per_fit']} per fit")
+            _add(total, one["counts"])
+    log(f"  arm C: {ranks[0]['seconds']:.1f} s in the ranks")
+    return total
+
+
+def vector_sharded_path(dev, card: str) -> dict:
+    """Arms A and B on 2 ranks, arm C on 4, in one spawn of 4 ranks
+    (``_vector_job``): A and B's
+    updates and U, V, d rows within ``VECTOR_COS`` and ``VECTOR_REL`` of
+    their 1-rank references fed the same per-shard draws, drift 0.0 on the
+    parameters and the estimates, per-rank state 1/k of the reference's,
+    exact launches per fit, each step's collectives the update's gather
+    and under ``VECTOR_SMALL_BYTES`` else; C's dense QEQ within
+    ``VECTOR_CP_REL`` of the 1-rank run and its loss falling, its pad rows
+    (and LRANewton's) exact after every step.  Returns the launches."""
+    t0 = time.perf_counter()
+    ranks = _spawn("vector", 4)
+    total = _vector_check([r["ab"] for r in ranks[:2]], card)
+    _add(total, _cp_check([r["c"] for r in ranks], card))
+    log(f"  [{card}] vector-sharded path {time.perf_counter() - t0:.1f} s; its launches "
+        f"(ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
+    return total
+
+
+def vector_fault_margin(dev, card: str) -> dict:
+    """How far the vector-sharded path's gates sit from a planted fault:
+    arms A, B and C once per ``VECTOR_FAULTS`` entry (planted in every
+    rank, ``_plant_vector_fault``), each arm's worst readings logged, no
+    gate applied; the last log line one JSON object of them all.  Run it
+    alone: ``python3 tools/smoke_paths.py vector_fault_margin``."""
+    result = {}
+    for fault in VECTOR_FAULTS:
+        os.environ["VECTOR_FAULT"] = fault
+        ranks = _spawn("vector", 4)
+        rows = _vector_readings([r["ab"] for r in ranks[:2]])
+        cp = _cp_readings([r["c"] for r in ranks])
+        for row in rows:
+            log(f"[{card}] fault {fault}: {row['label']}: worst 1 - cosine "
+                f"{row['one_minus_cos']!r}, relative error {row['rel_err']!r}, drift "
+                f"{row['drift']!r}, non-gather bytes {row['small_bytes']}")
+        for label, row in cp.items():
+            log(f"[{card}] fault {fault}: tensor-rank {label}: gap to 1 rank {row['rel']!r}, "
+                f"pad rows {row['pad']!r}, drift {row['drift']!r}")
+        result[fault] = dict(ab=rows, c=cp)
+    os.environ.pop("VECTOR_FAULT")
+    log(json.dumps(result))
+    return {}
+
+
+_DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job,
+              "vector": _vector_job}
 
 
 def log_apply_launches(profiles, card: str) -> None:
@@ -4078,6 +4696,7 @@ def main() -> int:
     check_procrustes_loop(dev)
     for k, entries in check_lra_dense_shapes(dev, lib_path).items():
         rows[k]["lra_dense_shapes"] = entries
+    rows["damped_noise"]["vector_shapes"] = check_vector_noise(dev, lib_path)
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
@@ -4119,7 +4738,9 @@ def main() -> int:
              ("Data-parallel drift and per-shard paths",
               lambda: (pair_paths(dev, smi), None), (), False, None),
              ("Factor-sharded path",
-              lambda: (factor_sharded_path(dev, smi), None), (), False, None))
+              lambda: (factor_sharded_path(dev, smi), None), (), False, None),
+             ("Vector-sharded path",
+              lambda: (vector_sharded_path(dev, smi), None), (), False, None))
     profiles = {}
     for label, drive, probs, tensor_cores, tag in paths:
         phase(label)

@@ -77,8 +77,15 @@ is written into ``p.to_local()``.  Every other leaf is a plain tensor,
 replicated (or stack-sharded).  The amplitude clip's RMS, the step-0 init
 scale and Newton's norm clip read the global leaves.  With routed leaves
 ``KronNewton.step`` takes the gradients from ``.grad`` and the pair from
-``hvp_fn=`` or ``vs=``/``hvs=``, as the per-shard optimizers do.  LRA's
-and dense's ``vector_sharding`` raise (ROADMAP A8b).
+``hvp_fn=`` or ``vs=``/``hvs=``, as the per-shard optimizers do.
+``vector_sharding=(mesh, dim)`` (LRAWhiten, LRANewton, DenseNewton with
+dq="QEQ"; or a ``ProcessGroup``) row-shards the one LRA or dense
+preconditioner ZeRO-style, as the JAX transforms' ``vector_sharding``
+does: each rank holds and fits a block of rows of U, V, d and the
+momentum (of Q, for dense), the fit's reductions are r-sized (n-sized
+for dense) sums over the group, and one ``all_gather`` of the update's
+rows assembles the update on every rank (``lra_state_specs``,
+``dense_state_specs`` describe the state).
 """
 
 from __future__ import annotations
@@ -131,6 +138,21 @@ def _amp_clip(g: torch.Tensor, max_avg_amp: float, max_element_amp: float,
     if g.is_complex():
         return g / torch.clamp(torch.abs(g) / max_element_amp, min=1.0)
     return torch.clamp(g, -max_element_amp, max_element_amp)
+
+
+def _sharded_amp_clip(pg: torch.Tensor, clip_amps, total,
+                      numel: int) -> torch.Tensor:
+    """``_amp_clip`` of a block of a sharded tensor of ``numel`` entries,
+    its RMS over the whole (JAX ``_sharded_amp_clip``: a float32 local
+    sum; ``total(x)``, sum(x) over the shards)."""
+    max_avg, max_el = clip_amps
+    ss = total(torch.real(pg * torch.conj(pg)).to(torch.float32))
+    avg = torch.sqrt(ss / numel)
+    pg = pg * torch.clamp(max_avg / torch.clamp(avg, min=1e-30),
+                          max=1.0).to(real_dtype_of(pg.dtype))
+    if pg.is_complex():
+        return pg / torch.clamp(torch.abs(pg) / max_el, min=1.0)
+    return torch.clamp(pg, -max_el, max_el)
 
 
 def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -718,17 +740,9 @@ class _Kron(_Resumable):
 
     def _routed_clip(self, i, pg, clip_amps) -> torch.Tensor:
         """The amplitude clip of a routed leaf's block, its RMS over the
-        global leaf (JAX ``_sharded_amp_clip``: a float32 local sum,
-        summed over the leaf's shards)."""
-        max_avg, max_el = clip_amps
-        rdt = real_dtype_of(pg.dtype)
-        ss = self._sum(i, torch.real(pg * torch.conj(pg)).to(torch.float32))
-        avg = torch.sqrt(ss / self.plans[i].numel)
-        pg = pg * torch.clamp(max_avg / torch.clamp(avg, min=1e-30),
-                              max=1.0).to(rdt)
-        if pg.is_complex():
-            return pg / torch.clamp(torch.abs(pg) / max_el, min=1.0)
-        return torch.clamp(pg, -max_el, max_el)
+        global leaf."""
+        return _sharded_amp_clip(pg, clip_amps, lambda x: self._sum(i, x),
+                                 self.plans[i].numel)
 
     def _local_view(self, i, x) -> torch.Tensor:
         """Leaf i's part of a global tensor: a routed leaf's block (a
@@ -1310,10 +1324,24 @@ def kron_newton(params, learning_rate: float | Callable = 0.01,
 # ---------------------------------------------------------------------------
 
 
-def _refuse_vector_sharding(vector_sharding) -> None:
-    if vector_sharding is not None:
-        raise NotImplementedError(
-            "vector_sharding is not ported yet (ROADMAP A8b)")
+def _vector_group(vector_sharding):
+    """The ``parallel.mesh.RowReduce`` of a ``vector_sharding`` argument
+    (``(mesh, dim)``, a dim or a tuple of dims of a ``DeviceMesh``, or a
+    ``ProcessGroup``, as ``stack_sharding`` takes), or None."""
+    if vector_sharding is None:
+        return None
+    import torch.distributed as dist
+    if not isinstance(vector_sharding, dist.ProcessGroup) and not (
+            isinstance(vector_sharding, (tuple, list))
+            and len(vector_sharding) == 2
+            and hasattr(vector_sharding[0], "mesh_dim_names")):
+        raise TypeError("vector_sharding must be (mesh, dim) with a "
+                        "DeviceMesh, or a ProcessGroup; got "
+                        f"{vector_sharding!r}")
+    from ..parallel.mesh import RowReduce, shard_group
+    return RowReduce(shard_group(vector_sharding))
+
+
 
 
 class _Flat(_Resumable):
@@ -1322,12 +1350,20 @@ class _Flat(_Resumable):
     apply (JAX ``ravel_pytree``) and split back for the step; the momentum
     of that vector, the key chain and the weight decay.  The
     preconditioner's state is ``self.precond``, the momentum ``self.mu``;
-    ``state_dict`` carries both under ``psgd``."""
+    ``state_dict`` carries both under ``psgd``.
+
+    With ``vector_sharding`` (``self.rows``, a ``parallel.mesh.RowReduce``
+    over k ranks) the vector is zero-padded to ``n_pad``, a multiple of k,
+    and rank i works on rows [lo, lo + n_loc), n_loc = n_pad / k
+    (``pad_mask`` marks its true rows, None where it has no pad row).
+    ``ROW_VECTORS``: whether the momentum and the update are row blocks
+    too (LRA), or whole on every rank (dense)."""
+
+    ROW_VECTORS = True
 
     def __init__(self, params, defaults: dict, *, init_scale, momentum: float,
                  momentum_dtype, preconditioner_dtype, seed: int, device,
                  draw, vector_sharding):
-        _refuse_vector_sharding(vector_sharding)
         if defaults["weight_decay_mode"] not in ("decoupled", "classic"):
             raise ValueError(
                 f"unknown weight_decay_mode {defaults['weight_decay_mode']!r}")
@@ -1340,10 +1376,19 @@ class _Flat(_Resumable):
         kron_p.require_real(*(t.dtype for t in tensors),
                             *((preconditioner_dtype,) if preconditioner_dtype
                               else ()))
+        self.rows = _vector_group(vector_sharding)
         super().__init__([{"params": tensors}], defaults)
         self.vec_dtype = functools.reduce(torch.promote_types,
                                           (t.dtype for t in tensors))
         self.n = sum(t.numel() for t in tensors)
+        k = 1 if self.rows is None else self.rows.size
+        self.n_pad = -(-self.n // k) * k
+        self.n_loc = self.n_pad // k
+        self.lo = 0 if self.rows is None else self.rows.index * self.n_loc
+        self.pad_mask = None
+        if self.lo + self.n_loc > self.n:
+            self.pad_mask = (torch.arange(self.lo, self.lo + self.n_loc,
+                                          device=self.device) < self.n)[:, None]
         self.qdtype = preconditioner_dtype or self.vec_dtype
         self.momentum = momentum
         self.init_scale = init_scale
@@ -1351,13 +1396,25 @@ class _Flat(_Resumable):
         self.count = 0
         self.key = fastrand.prng_key(seed)
         self.fit_steps = 0   # steps on which the preconditioner was fitted
-        self.mu = (torch.zeros(self.n, dtype=momentum_dtype or self.vec_dtype,
+        self.mu = (torch.zeros(self.n_loc if self.ROW_VECTORS else self.n_pad,
+                               dtype=momentum_dtype or self.vec_dtype,
                                device=self.device) if momentum > 0 else None)
 
+    @property
+    def per_rank(self) -> bool:
+        """Whether this rank's state is its own (checkpoints: one file
+        per rank)."""
+        return self.rows is not None
+
     def _layout(self) -> dict:
-        return {"optimizer": type(self).__name__,
-                "shapes": [list(p.shape) for p in self.param_groups[0]["params"]],
-                "dq": getattr(self, "dq", None)}
+        out = {"optimizer": type(self).__name__,
+               "shapes": [list(p.shape) for p in self.param_groups[0]["params"]],
+               "dq": getattr(self, "dq", None)}
+        if self.rows is not None:
+            out["vector_sharding"] = dict(world=self.rows.size,
+                                          rank=self.rows.index,
+                                          n_true=self.n, n_pad=self.n_pad)
+        return out
 
     def _extra_state(self) -> dict:
         return {"precond": self.precond._asdict(), "mu": self.mu}
@@ -1373,6 +1430,41 @@ class _Flat(_Resumable):
         params = self.param_groups[0]["params"]
         return [x.view(p.shape).to(p.dtype) for x, p in
                 zip(vec.split([p.numel() for p in params]), params)]
+
+    # -- the vector this rank works on --------------------------------------
+
+    def _rows_of(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows [lo, lo + n_loc) of a whole (n,) vector, zero
+        on the pad rows."""
+        part = x[self.lo:min(self.lo + self.n_loc, self.n)]
+        return torch.nn.functional.pad(part, (0, self.n_loc - part.shape[0]))
+
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(x, (0, self.n_pad - self.n))
+
+    def _vec(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole (n,) vector as this rank works on it: its rows (LRA
+        sharded), padded (dense sharded), or itself."""
+        if self.rows is None:
+            return x
+        return self._rows_of(x) if self.ROW_VECTORS else self._padded(x)
+
+    def _unvec(self, pre: torch.Tensor) -> torch.Tensor:
+        """The whole (n,) update from what ``_vec`` gave: the row blocks
+        of every rank by one ``all_gather`` (the step's one n-sized
+        move), or the padded update cut to n."""
+        if self.rows is None:
+            return pre
+        if self.ROW_VECTORS:
+            from ..parallel.mesh import all_gather_stack
+            pre = all_gather_stack(pre, self.rows.sg)
+        return pre[:self.n]
+
+    def _row_scale(self, d: torch.Tensor, mult: torch.Tensor) -> torch.Tensor:
+        """A row block's true rows times ``mult`` (the on-the-fly init
+        scale), its pad rows kept."""
+        out = d * mult
+        return out if self.pad_mask is None else torch.where(self.pad_mask, out, d)
 
     def _source(self, g: torch.Tensor, count: int) -> torch.Tensor:
         """The apply's source: the momentum after this step's EMA, or g."""
@@ -1397,8 +1489,17 @@ class _FlatNewton(_Flat):
         raise NotImplementedError
 
     @torch.no_grad()
-    def step(self, closure=None):
-        if closure is None:
+    def step(self, closure=None, *, vs=None, hvs=None):
+        """One step.  From the closure's autograd (``_newton_pass``), or,
+        with explicit ``vs`` and ``hvs`` (the probes and H v per parameter,
+        as JAX ``update(g, s, vs=, hvs=)`` takes them), from ``.grad`` and
+        that pair, which fits every step; ``closure``, if given, then only
+        returns the loss."""
+        explicit = vs is not None or hvs is not None
+        if explicit and (vs is None or hvs is None):
+            raise ValueError(f"{type(self).__name__}.step takes vs and hvs "
+                             "together")
+        if closure is None and not explicit:
             raise ValueError(f"{type(self).__name__}.step needs a closure that "
                              "returns the loss (without calling backward)")
         group = self.param_groups[0]
@@ -1406,10 +1507,19 @@ class _FlatNewton(_Flat):
         count = self.count
         keys = fastrand.split(self.key, 4)
         self.key, k_gate, k_v, k_fit = keys[0], keys[1], keys[2], keys[3]
-        do_fit = _host_gate(group["preconditioner_update_probability"], k_gate,
-                            count, self.draw) or count == 0
-        loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
-                                            self.exact_hvp, self.draw)
+        do_fit = explicit or _host_gate(
+            group["preconditioner_update_probability"], k_gate, count,
+            self.draw) or count == 0
+        if explicit:
+            loss = None
+            if closure is not None:
+                with torch.enable_grad():
+                    loss = closure()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+        else:
+            loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
+                                                self.exact_hvp, self.draw)
         g = self._flat(_classic_decay(group, grads, params))
         if do_fit:
             self._fit(self._flat(vs), self._flat(hvs), k_fit, count,
@@ -1417,10 +1527,20 @@ class _FlatNewton(_Flat):
                       _sched(group["betaL"], count),
                       _sched(group["damping"], count))
         self.fit_steps += int(do_fit)
-        pre = self._apply(self._source(g, count).to(self.qdtype)).to(g.dtype)
-        pre = pre * _global_norm_scale(
-            [pre], _sched(group["grad_clip_max_norm"], count))
-        _descend(group, params, self._split(pre), count)
+        src = self._source(self._vec(g), count)
+        pre = self._apply(src.to(self.qdtype)).to(g.dtype)
+        max_norm = _sched(group["grad_clip_max_norm"], count)
+        if self.rows is not None and self.ROW_VECTORS:
+            if not math.isinf(max_norm):
+                # the trust-region norm over the row blocks, in float32
+                sq = self.rows.sum(torch.sum(
+                    torch.real(pre * torch.conj(pre)).to(torch.float32)))
+                pre = pre * torch.clamp(
+                    max_norm / torch.clamp(torch.sqrt(sq), min=1e-38),
+                    max=1.0).to(real_dtype_of(pre.dtype))
+        else:
+            pre = pre * _global_norm_scale([pre], max_norm)
+        _descend(group, params, self._split(self._unvec(pre)), count)
         self.count += 1
         return loss
 
@@ -1450,8 +1570,21 @@ class LRAWhiten(_Flat):
     -lr.  ``params``, ``device``, ``draw``: as ``KronWhiten``.  U and V
     are drawn from key(seed + 1) at construction.  On CUDA a fit launches
     ``kernels.unit_noise`` and ``kernels.damped_noise`` once each (the
-    probe and the damping, the same v).  ``vector_sharding`` raises
-    (ROADMAP A8b)."""
+    probe and the damping, the same v).
+
+    ``vector_sharding=(mesh, dim)`` (or a ``ProcessGroup``) runs the one
+    preconditioner ZeRO-style over the group's k ranks, as the JAX
+    transform's ``vector_sharding``: the vector is zero-padded to a
+    multiple of k, and each rank holds, fits and applies its block of rows
+    of U, V, d and the momentum (U and V drawn whole, as without it, and
+    cut), with r-sized sums and maxes over the group
+    (``precond.lra``'s ``reduce``); its probe is keyed by ``fold_in(kv,
+    rank)`` (so a trajectory differs from the unsharded one by the probes'
+    draws); the amplitude clip's RMS is over the whole vector.  The update
+    is then assembled on every rank by one ``all_gather`` of its rows, the
+    step's only n-sized collective, and every rank steps its whole
+    parameters: the gradients must be equal on every rank (average them
+    first, as DDP does)."""
 
     def __init__(self, params, lr: float | Callable = 1e-3,
                  weight_decay: float = 0.0,
@@ -1489,10 +1622,8 @@ class LRAWhiten(_Flat):
                          vector_sharding=vector_sharding)
         self.update_preconditioner_first = update_preconditioner_first
         self.whiten_grad = whiten_grad
-        self.precond = lra_p.init_lra(
-            self.n, rank_of_approximation, fastrand.prng_key(seed + 1),
-            1.0 if preconditioner_init_scale is None
-            else preconditioner_init_scale, self.qdtype, self.device, draw)
+        self.precond = _init_lra_rows(self, rank_of_approximation, seed,
+                                      preconditioner_init_scale)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -1510,7 +1641,7 @@ class LRAWhiten(_Flat):
         params = group["params"]
         count = self.count
         g = self._flat(_classic_decay(group, grads, params))
-        st, qdt = self.precond, self.qdtype
+        st, qdt, rows = self.precond, self.qdtype, self.rows
         keys = fastrand.split(self.key, 3)
         self.key, k_gate, k_fit = keys[0], keys[1], keys[2]
         do_fit = _host_gate(group["preconditioner_update_probability"], k_gate,
@@ -1519,21 +1650,30 @@ class LRAWhiten(_Flat):
         beta_l = _sched(group["betaL"], count)
         damping = _sched(group["damping"], count)
         amps = tuple(_sched(a, count) for a in group["grad_clip_max_amps"])
+        g_loc = self._vec(g)
         if self.init_scale is None and count == 0:
-            scale = (torch.mean(g.to(torch.float32) ** 4) + damping ** 4) \
-                ** (-1.0 / 8.0)
-            st = st._replace(d=st.d * scale.to(qdt))
-        src = self._source(g, count)
-        fit_src = (g if self.whiten_grad else src).to(qdt)
+            if rows is None:
+                scale = (torch.mean(g.to(torch.float32) ** 4)
+                         + damping ** 4) ** (-1.0 / 8.0)
+            else:    # the mean over the whole vector, its rows summed
+                g4 = rows.sum(torch.sum(torch.abs(g_loc.to(torch.float32)) ** 4))
+                scale = (g4 / self.n + damping ** 4) ** (-1.0 / 8.0)
+            st = st._replace(d=self._row_scale(st.d, scale.to(qdt)))
+        src = self._source(g_loc, count)
+        fit_src = (g_loc if self.whiten_grad else src).to(qdt)
 
         def fit(s):
             return lra_p.update_lra_whiten(s, fit_src, k_fit, lr=lr_q,
                                            beta_l=beta_l, damping=damping,
-                                           draw=self.draw)
+                                           draw=self.draw, reduce=rows,
+                                           pad_mask=self.pad_mask)
 
         def apply(s):
-            pg = lra_p.precond_grad(s, src.to(qdt)).to(g.dtype)
-            return _amp_clip(pg, *amps, stacked=False)
+            pg = lra_p.precond_grad(s, src.to(qdt), rows).to(g.dtype)
+            if rows is None:
+                return _amp_clip(pg, *amps, stacked=False)
+            return _sharded_amp_clip(pg, amps,
+                                     lambda x: rows.sum(torch.sum(x)), self.n)
 
         if self.update_preconditioner_first:
             st = fit(st) if do_fit else st
@@ -1543,8 +1683,23 @@ class LRAWhiten(_Flat):
             st = fit(st) if do_fit else st
         self.precond = st
         self.fit_steps += int(do_fit)
-        _descend(group, params, self._split(pre), count)
+        _descend(group, params, self._split(self._unvec(pre)), count)
         self.count += 1
+
+
+def _init_lra_rows(opt: _Flat, rank: int, seed: int, init_scale):
+    """The LRA state of an LRAWhiten or LRANewton: U and V drawn whole from
+    key(seed + 1); under ``vector_sharding`` padded (``pad_lra_state``)
+    and cut to this rank's rows, so k ranks start where one does."""
+    st = lra_p.init_lra(opt.n, rank, fastrand.prng_key(seed + 1),
+                        1.0 if init_scale is None else init_scale, opt.qdtype,
+                        opt.device, opt.draw)
+    if opt.rows is None:
+        return st
+    st = lra_p.pad_lra_state(st, opt.n_pad - opt.n)
+    rows = slice(opt.lo, opt.lo + opt.n_loc)
+    return st._replace(u=st.u[rows].clone(), v=st.v[rows].clone(),
+                       d=st.d[rows].clone())
 
 
 class LRANewton(_FlatNewton):
@@ -1555,8 +1710,12 @@ class LRANewton(_FlatNewton):
     without ``preconditioner_init_scale`` is mean(v^2)^(1/4) (mean(h^4)
     + damping^4)^(-1/8) of the concatenated pair.  On CUDA a fit launches
     ``kernels.unit_noise`` once per parameter (the probes) and
-    ``kernels.damped_noise`` once (the damping of h).  ``vector_sharding``
-    raises (ROADMAP A8b)."""
+    ``kernels.damped_noise`` once (the damping of h).
+    ``vector_sharding``: as ``LRAWhiten``'s; the probes v and H v are
+    whole on every rank (the closure's autograd, or ``vs``/``hvs``) and
+    each rank fits from its rows of them, its damping keyed by
+    ``fold_in(kd, rank)``; the init scale's means and the norm clip's
+    norm (in float32) are over the whole vector."""
 
     def __init__(self, params, lr: float | Callable = 0.01,
                  weight_decay: float = 0.0,
@@ -1590,21 +1749,29 @@ class LRANewton(_FlatNewton):
                          device=device, draw=draw,
                          vector_sharding=vector_sharding)
         self.exact_hvp = exact_hessian_vector_product
-        self.precond = lra_p.init_lra(
-            self.n, rank_of_approximation, fastrand.prng_key(seed + 1),
-            1.0 if preconditioner_init_scale is None
-            else preconditioner_init_scale, self.qdtype, self.device, draw)
+        self.precond = _init_lra_rows(self, rank_of_approximation, seed,
+                                      preconditioner_init_scale)
 
     def _fit(self, v, h, key, count, lr_q, beta_l, damping) -> None:
-        st = self.precond
+        st, rows = self.precond, self.rows
+        if rows is not None:
+            v, h = self._rows_of(v), self._rows_of(h)
         if self.init_scale is None and count == 0:
-            st = st._replace(d=st.d * _newton_scale(v, h, damping).to(self.qdtype))
+            if rows is None:
+                scale = _newton_scale(v, h, damping)
+            else:    # the means over the whole vector, its rows summed
+                v2 = rows.sum(torch.sum(torch.abs(v.to(torch.float32)) ** 2))
+                h4 = rows.sum(torch.sum(torch.abs(h.to(torch.float32)) ** 4))
+                scale = ((v2 / self.n) ** 0.25
+                         * (h4 / self.n + damping ** 4) ** (-1.0 / 8.0))
+            st = st._replace(d=self._row_scale(st.d, scale.to(self.qdtype)))
         self.precond = lra_p.update_lra_newton(
             st, v.to(self.qdtype), h.to(self.qdtype), key, lr=lr_q,
-            beta_l=beta_l, damping=damping, draw=self.draw)
+            beta_l=beta_l, damping=damping, draw=self.draw, reduce=rows,
+            pad_mask=self.pad_mask)
 
     def _apply(self, src):
-        return lra_p.precond_grad(self.precond, src)
+        return lra_p.precond_grad(self.precond, src, self.rows)
 
 
 class DenseNewton(_FlatNewton):
@@ -1617,8 +1784,20 @@ class DenseNewton(_FlatNewton):
     ``kernels.damped_noise`` once, and Q0.5EQ1.5 one ``kernels.procrustes``
     on the (1, n, n) stack, PRO4P ``linalg.procrustes_loop3`` (10
     ``kernels.tsub`` and 10 skew ``kernels.norm_bound``).  The constructor
-    warns as the JAX transform's ``_advisories`` do.  ``vector_sharding``
-    raises (ROADMAP A8b)."""
+    warns as the JAX transform's ``_advisories`` do.
+
+    ``vector_sharding=(mesh, dim)`` (or a ``ProcessGroup``; QEQ only, as in
+    JAX: the geometry whose update needs no transpose of Q) shards Q's
+    rows over the group's k ranks, n zero-padded to a multiple of k, as
+    ``dense_state_specs`` places them: each rank holds and fits its block
+    of rows (``precond.dense.update_dense_qeq_row_sharded``: one (n,)-sized
+    sum over the group per fit and one per apply), while v, H v, the
+    momentum and the update are whole on every rank.  The damping is keyed
+    by the fit key itself, as JAX's, so every rank draws the same; with no
+    pad row a k-rank run matches a 1-rank ``vector_sharding`` run up to
+    the order of the sums.  The gradients must be equal on every rank."""
+
+    ROW_VECTORS = False
 
     def __init__(self, params, lr: float | Callable = 0.01,
                  weight_decay: float = 0.0,
@@ -1640,7 +1819,9 @@ class DenseNewton(_FlatNewton):
                  device=None,
                  draw=None):
         dq = kron_p.canonical_dq(dq)
-        _refuse_vector_sharding(vector_sharding)
+        if vector_sharding is not None and dq != kron_p.DQ_QEQ:
+            raise ValueError("DenseNewton's vector_sharding takes dq='QEQ' "
+                             f"only (the transpose-free geometry); got {dq!r}")
         _advisories(preconditioner_init_scale, True, 0.0, dq,
                     preconditioner_dtype)
         defaults = dict(
@@ -1654,13 +1835,17 @@ class DenseNewton(_FlatNewton):
                          momentum=momentum if 0.0 < momentum < 1.0 else 0.0,
                          momentum_dtype=momentum_dtype,
                          preconditioner_dtype=preconditioner_dtype, seed=seed,
-                         device=device, draw=draw, vector_sharding=None)
+                         device=device, draw=draw,
+                         vector_sharding=vector_sharding)
         self.exact_hvp = exact_hessian_vector_product
         self.dq = dq
         self.norm_k = norm_k
-        self.precond = dense_p.init_dense(
-            self.n, 1.0 if preconditioner_init_scale is None
+        st = dense_p.init_dense(
+            self.n_pad, 1.0 if preconditioner_init_scale is None
             else preconditioner_init_scale, dq, self.qdtype, self.device)
+        if self.rows is not None:
+            st = st._replace(q=st.q[self.lo:self.lo + self.n_loc].clone())
+        self.precond = st
 
     def _fit(self, v, h, key, count, lr_q, beta_l, damping) -> None:
         st = self.precond
@@ -1668,14 +1853,26 @@ class DenseNewton(_FlatNewton):
             scale = _newton_scale(v, h, damping)
             if self.dq in kron_p._FIT_P:
                 scale = scale * scale
-            st = st._replace(q=st.q * scale.to(real_dtype_of(self.qdtype)))
-        self.precond = dense_p.update_dense(
-            st, v.to(self.qdtype), h.to(self.qdtype), key, self.dq, lr=lr_q,
-            beta_l=beta_l, damping=damping,
-            norm_k=resolve_norm_k(self.norm_k, self.qdtype), draw=self.draw)
+            st = st._replace(q=self._row_scale(
+                st.q, scale.to(real_dtype_of(self.qdtype))))
+        v, h = v.to(self.qdtype), h.to(self.qdtype)
+        if self.rows is None:
+            self.precond = dense_p.update_dense(
+                st, v, h, key, self.dq, lr=lr_q, beta_l=beta_l,
+                damping=damping,
+                norm_k=resolve_norm_k(self.norm_k, self.qdtype), draw=self.draw)
+        else:
+            self.precond = dense_p.DenseState(
+                *dense_p.update_dense_qeq_row_sharded(
+                    st.q, st.lips, self._padded(v), self._padded(h), key,
+                    self.rows, self.n, lr=lr_q, beta_l=beta_l,
+                    damping=damping, draw=self.draw))
 
     def _apply(self, src):
-        return dense_p.precond_grad(self.precond, src, self.dq)
+        if self.rows is None:
+            return dense_p.precond_grad(self.precond, src, self.dq)
+        return dense_p.precond_grad_qeq_row_sharded(self.precond.q, src,
+                                                    self.rows)
 
 
 def lra_whiten(params, learning_rate: float | Callable = 1e-3,

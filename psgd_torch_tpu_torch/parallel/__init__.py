@@ -4,17 +4,21 @@ state placements (``mesh``), the per-shard optimizers over DTensor
 parameters (``sharded``) and the one-declaration layout (``recipe``).  The
 stack-sharded (ZeRO-style) and factor-sharded preconditioners are the
 ``stack_sharding`` and ``factor_sharding`` options of ``optim.KronWhiten``
-and ``optim.KronNewton``."""
+and ``optim.KronNewton``; the row-sharded LRA and dense ones the
+``vector_sharding`` option of ``optim.LRAWhiten``, ``optim.LRANewton`` and
+``optim.DenseNewton``."""
 
-from .mesh import (MeshAxes, ShardGroup, all_gather_stack, drift_check,
-                   gpt2_partition_specs, llama_partition_specs, make_mesh,
+from .mesh import (MeshAxes, RowReduce, ShardGroup, all_gather_stack,
+                   dense_state_specs, drift_check, gpt2_partition_specs,
+                   llama_partition_specs, lra_state_specs, make_mesh,
                    psgd_state_specs, shard_group)
 from .recipe import ShardingRecipe, sharding_recipe
 from .sharded import (PerShardKronNewton, PerShardKronWhiten,
                       per_shard_kron_newton, per_shard_kron_whiten)
 
 __all__ = ["MeshAxes", "PerShardKronNewton", "PerShardKronWhiten",
-           "ShardGroup", "ShardingRecipe", "all_gather_stack", "drift_check",
-           "gpt2_partition_specs", "llama_partition_specs", "make_mesh",
+           "RowReduce", "ShardGroup", "ShardingRecipe", "all_gather_stack",
+           "dense_state_specs", "drift_check", "gpt2_partition_specs",
+           "llama_partition_specs", "lra_state_specs", "make_mesh",
            "per_shard_kron_newton", "per_shard_kron_whiten",
            "psgd_state_specs", "shard_group", "sharding_recipe"]

@@ -19,9 +19,15 @@ gradients stay bit for bit equal.  What is left is where the state lives:
   bit (``all_gather`` of the shards' bytes);
 * ``MeshAxes``: the collectives of the dim-sharded (``factor_sharding``)
   fit over named mesh dims;
-* ``psgd_state_specs``: the placements of a Kron optimizer's state under
-  ``stack_sharding`` and ``factor_sharding``;
+* ``RowReduce``: the sums and maxes of the row-sharded (``vector_sharding``)
+  LRA and dense fits over one group;
+* ``psgd_state_specs``, ``lra_state_specs`` and ``dense_state_specs``: the
+  placements of an optimizer's state under ``stack_sharding``,
+  ``factor_sharding`` and ``vector_sharding``;
 * ``drift_check``: max |x - rank 0's copy| per tensor over a group.
+
+Every collective here but the drift check's reports itself to the open
+``utils.profiling.count_collectives`` windows.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..utils.profiling import record_collective
 
 
 def _factor(n: int, n_axes: int) -> list:
@@ -200,7 +208,47 @@ def all_gather_stack(local: torch.Tensor, sg: ShardGroup) -> torch.Tensor:
     chunks = [_bytes(c) for c in out.chunk(sg.size)]
     dist.all_gather([chunks[s] for s in sg.order], _bytes(local),
                     group=sg.group)
+    record_collective("all-gather", out, sg.group)
     return out
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX ``psum`` over ``group``: in float32 or wider
+    (``torch.promote_types(dtype, float32)``: bf16 partials summed in
+    float32 and cast back once), by an all-reduce, which leaves every rank
+    the same bits."""
+    acc = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+    flat = torch.view_as_real(acc) if acc.is_complex() else acc
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    record_collective("all-reduce", flat, group)
+    return acc.to(x.dtype)
+
+
+def _max(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX ``pmax`` over ``group`` (exact in any dtype)."""
+    x = x.contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    record_collective("all-reduce", x, group)
+    return x
+
+
+class RowReduce:
+    """The reductions of a row-sharded (``vector_sharding``) LRA or dense
+    fit over one ``ShardGroup`` (JAX ``psum`` and ``pmax`` over the mesh
+    axis inside ``shard_map``): ``sum`` (in float32 or wider, as
+    ``MeshAxes.sum``), ``max`` and this rank's shard ``index``, which keys
+    its probes (``precond.lra.shard_key``)."""
+
+    def __init__(self, sg: ShardGroup):
+        self.sg = sg
+        self.index = sg.index
+        self.size = sg.size
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _sum(x, self.sg.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return _max(x, self.sg.group)
 
 
 class MeshAxes:
@@ -272,6 +320,7 @@ class MeshAxes:
         send = torch.cat([_bytes(blocks[s]) for s in sg.order])
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=sg.group)
+        record_collective("all-to-all", recv, sg.group)
         shape = blocks[0].shape
         parts = [None] * sg.size
         for j, part in enumerate(recv.chunk(sg.size)):
@@ -280,16 +329,11 @@ class MeshAxes:
 
     def sum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """JAX ``psum`` over ``axes``, in float32 or wider, cast back."""
-        acc = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-        flat = torch.view_as_real(acc) if acc.is_complex() else acc
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group(axes).group)
-        return acc.to(x.dtype)
+        return _sum(x, self.group(axes).group)
 
     def max(self, x: torch.Tensor, axes) -> torch.Tensor:
         """JAX ``pmax`` over ``axes`` (exact in any dtype)."""
-        x = x.contiguous().clone()
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group(axes).group)
-        return x
+        return _max(x, self.group(axes).group)
 
 
 def drift_check(tensors, group=None):
@@ -440,3 +484,46 @@ def psgd_state_specs(param_placements: dict, optimizer, scanned_layers=None,
         out[name] = {"mu": tuple(param_placements[name]) if "mu" in st else None,
                      "q": qs, "lips": ls, "pcache": None if pc is None else qs}
     return out
+
+
+def _row_placements(mesh, axis) -> tuple:
+    """(rows sharded over ``axis``, replicated) placements on ``mesh``;
+    ``axis`` a mesh dim name or a tuple of them (the rows sharded over
+    each, major to minor)."""
+    return _placements(mesh, (axis,)), _placements(mesh, ())
+
+
+def _flat_core(optimizer, field: str, what: str):
+    opt = getattr(optimizer, "optimizer", optimizer)
+    precond = getattr(opt, "precond", None)
+    if precond is None or not hasattr(precond, field):
+        raise ValueError(f"{what} takes an optimizer whose state is "
+                         f"{'an LRA' if field == 'u' else 'a dense'} "
+                         f"preconditioner, not {type(opt).__name__}")
+    return opt
+
+
+def lra_state_specs(optimizer, mesh, axis) -> dict:
+    """The DTensor placements of an LRAWhiten or LRANewton state (or a
+    closure class's) under ``vector_sharding=(mesh, axis)`` (JAX
+    ``lra_state_specs``, psgd_torch_tpu/parallel/mesh.py:356-376): U, V,
+    d and the momentum ``Shard(0)`` over ``axis``; the Lipschitz
+    estimates, the count and the key ``Replicate()``.  {"u", "v", "d",
+    "lu", "lv", "ld", "mu", "count", "key"}; "mu" None without momentum."""
+    opt = _flat_core(optimizer, "u", "lra_state_specs")
+    rows, rep = _row_placements(mesh, axis)
+    return dict(u=rows, v=rows, d=rows, lu=rep, lv=rep, ld=rep,
+                mu=None if opt.mu is None else rows, count=rep, key=rep)
+
+
+def dense_state_specs(optimizer, mesh, axis) -> dict:
+    """The DTensor placements of a DenseNewton state under
+    ``vector_sharding=(mesh, axis)`` (JAX ``dense_state_specs``,
+    psgd_torch_tpu/parallel/mesh.py:379-397): Q ``Shard(0)`` (its rows)
+    over ``axis``; L, the momentum (a vector of n, whole on every rank),
+    the count and the key ``Replicate()``.  {"q", "lips", "mu", "count",
+    "key"}; "mu" None without momentum."""
+    opt = _flat_core(optimizer, "lips", "dense_state_specs")
+    rows, rep = _row_placements(mesh, axis)
+    return dict(q=rows, lips=rep, mu=None if opt.mu is None else rep,
+                count=rep, key=rep)

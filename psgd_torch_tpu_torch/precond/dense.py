@@ -22,8 +22,15 @@ Per geometry, with a = what Q makes of the damped h and ell = |a|^2 +
 Keys: kd, ku = split(key); kd damps h (``kernels.damped_noise``), ku keys
 the Procrustes rotation or loop.  ``damping=None`` adds no noise (the
 whitening wrapper damps its own pair).  An optional ``draw(kind, keys,
-shape, dtype)`` hook replaces every draw, as in ``precond.kron``.  The
-row-sharded QEQ pair of the JAX module is ROADMAP A8.
+shape, dtype)`` hook replaces every draw, as in ``precond.kron``.
+
+Row-sharded QEQ (JAX ``update_dense_qeq_row_sharded`` and
+``precond_grad_qeq_row_sharded``): each rank holds a block of Q's rows,
+v, h and the gradient whole.  QEQ's fit terms are rank-1 products that
+need no transpose of Q, so a fit is one (n,)-sized sum over the ranks
+(``reduce.sum``, a ``parallel.mesh.RowReduce``) and so is the apply.  n
+is zero-padded to a multiple of the ranks; the damping is masked to the
+true rows, so Q's pad rows and columns stay e_i.
 """
 
 from __future__ import annotations
@@ -206,3 +213,37 @@ def update_dense_whiten(state: DenseState, g: torch.Tensor, key, dq: str,
         h = _damped(g2, kv, damping, v)
     return update_dense(state, v, h, ku, dq, lr=lr, beta_l=beta_l,
                         damping=None, norm_k=norm_k, draw=draw)
+
+
+def update_dense_qeq_row_sharded(q_loc: torch.Tensor, lips: torch.Tensor,
+                                 v: torch.Tensor, h: torch.Tensor, key,
+                                 reduce, n_true: int, lr: float = 0.1,
+                                 beta_l: float = 0.9,
+                                 damping: float | None = 1e-9, draw=None):
+    """One QEQ update on a block of Q's rows (JAX
+    ``update_dense_qeq_row_sharded``, dense.py:185-213): ``q_loc`` (n_loc,
+    n), v and h (n, 1) or (n,) whole and equal on every rank.  The damping
+    is keyed by ``key`` itself, as JAX's, at the padded n (one
+    ``kernels.damped_noise`` launch: every rank draws the same bits) and
+    kept on the true rows (< ``n_true``) only.  Returns (q_loc, lips)."""
+    require_real(v.dtype, h.dtype, q_loc.dtype)
+    v, h = _as_col(v), _as_col(h)
+    rdt = real_dtype_of(q_loc.dtype)
+    if damping is None:
+        hd = h
+    else:
+        mask = (torch.arange(h.shape[0], device=h.device) < n_true)[:, None]
+        hd = torch.where(mask, _damped(h, key, damping, _noise(key, h, draw)), h)
+    a = reduce.sum(q_loc.T @ (q_loc @ hd))
+    lips = _lmax(lips, _sum_sq(a, v), beta_l)
+    c = (lr / lips).to(rdt)
+    return q_loc - c * ((q_loc @ a) @ a.T - (q_loc @ v) @ v.T), lips
+
+
+def precond_grad_qeq_row_sharded(q_loc: torch.Tensor, g: torch.Tensor,
+                                 reduce) -> torch.Tensor:
+    """P g = Q^T (Q g) from a block of Q's rows: the local products and one
+    sum over the ranks; whole on every rank, (n,) or (n, 1) as g."""
+    g2 = _as_col(g)
+    out = reduce.sum(q_loc.T @ (q_loc @ g2))
+    return out[:, 0] if g.ndim == 1 else out

@@ -9,7 +9,8 @@ a crash leaves no half checkpoint (the JAX version is atomic through
 orbax).  ``restore_checkpoint`` reads it with ``weights_only=True``.
 
 An optimizer whose state is its rank's own (``stack_sharding``,
-``factor_sharding``, the per-shard optimizers: ``optimizer.per_rank``)
+``factor_sharding``, ``vector_sharding``, the per-shard optimizers:
+``optimizer.per_rank``)
 writes one file per rank,
 ``path/step_N/state.rank{r}of{k}.pt`` (each renamed into place on its
 own), and each rank restores its own; gathering a whole checkpoint onto

@@ -121,11 +121,13 @@ def state_memory_report(optimizer, per_device: bool = False) -> Dict[str, int]:
     ``cache_p`` factors P_i), ``other`` and ``total``.  ``other`` is 0:
     the port keeps count, key and fit_steps on the host, where JAX holds
     its count (int32) and key (uint32[2]) as 12 bytes of device arrays.
-    With ``stack_sharding`` or ``factor_sharding`` ``per_device`` gives
-    this rank's bytes, else the whole state over the mesh (each sharded
-    stack's slice times the shard count; a routed leaf's momentum and
-    diagonal factors, its blocks times theirs, its dense factors and L
-    once); a per-shard optimizer reports its rank's own either way."""
+    With ``stack_sharding``, ``factor_sharding`` or ``vector_sharding``
+    ``per_device`` gives this rank's bytes, else the whole state over the
+    mesh (each sharded stack's slice times the shard count; a routed
+    leaf's momentum and diagonal factors, its blocks times theirs, its
+    dense factors and L once; LRA's rows of U, V, d and the momentum, and
+    dense's rows of Q, times the ranks, padded n included); a per-shard
+    optimizer reports its rank's own either way."""
     opt = _core(optimizer)
     report = {"q": 0, "lips": 0, "momentum": _nbytes(_momentum(opt)),
               "pcache": 0, "other": 0}
@@ -154,10 +156,18 @@ def state_memory_report(optimizer, per_device: bool = False) -> Dict[str, int]:
             report["q"] += k * _nbytes(st["q"])
             report["lips"] += k * _nbytes(st["lips"])
             report["pcache"] += k * _nbytes(st.get("pcache", ()))
-    elif hasattr(precond, "lips"):
-        report["q"], report["lips"] = _nbytes((precond.q,)), _nbytes((precond.lips,))
     else:
-        report["q"] = _nbytes((precond.u, precond.v, precond.d))
-        report["lips"] = _nbytes((precond.lu, precond.lv, precond.ld))
+        # vector_sharding: the rows times the ranks over the group; the
+        # momentum too where it is a row block (LRA)
+        rows = getattr(opt, "rows", None)
+        k = 1 if rows is None or per_device else rows.size
+        if hasattr(precond, "lips"):
+            report["q"] = k * _nbytes((precond.q,))
+            report["lips"] = _nbytes((precond.lips,))
+        else:
+            report["q"] = k * _nbytes((precond.u, precond.v, precond.d))
+            report["lips"] = _nbytes((precond.lu, precond.lv, precond.ld))
+        if opt.ROW_VECTORS:
+            report["momentum"] *= k
     report["total"] = sum(report.values())
     return report

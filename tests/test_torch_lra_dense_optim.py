@@ -5,7 +5,9 @@ examples/tensor_rank_decomposition.py at R, I, J, K = 2, 3, 4, 5 (n =
 24), in float64 on replayed draws (``jax_draw``), with momentum, gated
 schedules that fit on some steps and not on others, and the on-the-fly
 init scale.  Also the transforms' rules: the JAX ValueErrors, the dense
-advisories, ``vector_sharding`` (ROADMAP A8) and complex parameters (A3).
+advisories, ``vector_sharding``'s argument checks (ROADMAP A8b; the
+sharded runs are tests/test_torch_vector_sharding.py) and complex
+parameters (A3).
 
 Tolerance: rtol 1e-9 (atol 1e-9 of the largest entry) in float64.  Both
 sides take the on-the-fly init scale in float32 (the JAX transforms cast
@@ -210,8 +212,9 @@ def test_newton_three_steps_match_jax(arm):
 
 
 def test_factories_and_rules():
-    """The factories take the JAX names; the JAX ValueErrors, the
-    A8 and A3 refusals, and the dense advisories."""
+    """The factories take the JAX names; the JAX ValueErrors, a malformed
+    ``vector_sharding`` and dense's non-QEQ one, the A3 refusals, and the
+    dense advisories."""
     p = [torch.zeros(16, requires_grad=True)]
     assert isinstance(lra_whiten(p, learning_rate=0.1, device="cpu"), LRAWhiten)
     assert lra_newton(p, device="cpu").param_groups[0]["lr"] == 0.01
@@ -229,12 +232,15 @@ def test_factories_and_rules():
         LRAWhiten(p, weight_decay_mode="other", device="cpu")
     for cls in (LRAWhiten, LRANewton, DenseNewton):
         kw = dict(device="cpu", preconditioner_init_scale=1.0)
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises((TypeError, ValueError), match="vector_sharding"):
             cls(p, vector_sharding=("mesh", "fsdp"), **kw)
         with pytest.raises(NotImplementedError, match="A3"):
             cls([torch.zeros(16, dtype=torch.complex64)], **kw)
         with pytest.raises(NotImplementedError, match="A3"):
             cls(p, preconditioner_dtype=torch.complex64, **kw)
+    with pytest.raises(ValueError, match="QEQ"):
+        DenseNewton(p, dq="Q0.5EQ1.5", vector_sharding=("mesh", "fsdp"),
+                    device="cpu", preconditioner_init_scale=1.0)
     with pytest.raises(ValueError, match="closure"):
         LRANewton(p, device="cpu").step()
     with pytest.warns(UserWarning, match="on the fly"):

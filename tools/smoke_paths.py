@@ -5,8 +5,10 @@
 
 Each PATH is a function of chip_smoke.py that takes (device, card) and
 drives one path: for example ``stack_sharded_path pair_paths
-factor_sharded_path`` (the distributed paths) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg``
-passes ``arg`` first).  For each ``--root`` in the order given (default:
+factor_sharded_path vector_sharded_path`` (the distributed paths),
+``vector_fault_margin`` (the vector-sharded path's arms with a planted
+fault each) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg`` passes
+``arg`` first).  For each ``--root`` in the order given (default:
 the checkout this file is in; give a parent checkout and this one as
 ``--root P --root C --root C --root P`` to compare two trees on one card in
 turns) a fresh process imports that checkout's chip_smoke.py, runs its
