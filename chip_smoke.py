@@ -174,7 +174,9 @@
    whitening fit below half of P = I's, their trajectories logged; the
    JAX test's complex128 sizes in each geometry (kron_matrix_matrix; the
    8 forms are held on the CPU) below 0.30 at its N = 1500 (14 host-bound
-   runs side by side in 7 processes);
+   runs side by side in 7 processes, started before the stack and
+   waited for after the resumable-training path, so they run beside 15,
+   16 and 14);
    exact counts (one complex damping and two XLA tails per fit step).
 16. The complex optimizer path (``complex_optimizer_path``): complex least
    squares over 12 layers of complex64 parameters in GPT-2 124M's
@@ -183,7 +185,9 @@
    tail and its starts; no other row), fit and no-fit step times and peak
    memory, a state_dict round trip keeping Q complex64 bit for bit.
 17. The distributed paths (ranks: processes on cuda:0 joined by gloo, the
-   kernel library built by this process before any starts; 2 ranks
+   kernel library built by this process before any starts, kept for the
+   next path while the world size stays, so the order is stack (3 ranks),
+   pair and trainer (2), factor (2, then 4) and vector (4); 2 ranks
    sharing one H100 over gloo, so their times are not scaling figures).
    ``stack_sharded_path``: GPT-2 124M by KronWhiten (as 5), GPT-2 124M by
    KronNewton (as 7) and LLaMA-1.1B by KronWhiten (as 6), 1 step at p =
@@ -237,8 +241,20 @@
    4 ranks within ``VECTOR_CP_REL`` of a 1-rank run, its loss falling as
    that run's, then dense QEQ and LRANewton on 3 ranks (n_pad 1701),
    their pad rows exact after every step.  Step 3 holds the noise at the
-   path's shapes and keys (``check_vector_noise``).  The ranks' launch
-   counts come back to this process and count toward the kernels' line.
+   path's shapes and keys (``check_vector_noise``).  ``sharded_trainer_path``
+   (examples/train_gpt2_sharded.py's functions): GPT-2 124M at full width
+   and depth, batch 4 x 1024, bf16, on 2 ranks (``make_multihost_mesh``'s
+   one-host mesh, FSDP2's layer-sharded blocks under ``stack_sharding``,
+   the embeddings factor-sharded) and on 1, 3 steps with a checkpoint
+   after 2, under CUDA's deterministic algorithms: the 2-rank resume bit
+   for bit its unbroken run; its checkpoint gathered (``gather_checkpoint``)
+   and resumed on 1 rank, and the 1-rank checkpoint cut for 2 ranks, each
+   step held against the unbroken run that wrote the checkpoint: every
+   parameter but the embeddings bit for bit, their updates within
+   ``FACTOR_COS`` and ``FACTOR_REL``; per-rank parameter and state bytes
+   about half, ``drift_check`` 0.0, ``GPT2_PER_FIT`` launches of rows 1
+   and 2 per fit step.  The ranks' launch counts come back to this
+   process and count toward the kernels' line.
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
@@ -267,6 +283,7 @@ import json
 import math
 import multiprocessing
 import os
+import queue
 import re
 import shutil
 import subprocess
@@ -3008,17 +3025,57 @@ def _fp_small_run(run) -> tuple:
     return form, dq, mode, steps, trail[-1][1], time.perf_counter() - t0
 
 
-def complex_fixed_point_path(dev, card: str) -> dict:
-    """Path A.  The full-width stack (``FP_STACK``, complex64, B layers each
-    with its own H1 (x) H2): the Newton fit must bring the RMS relative
-    error below FP_TOL within FP_NEWTON_STEPS steps, the whitening fit
-    below half of P = I's within FP_WHITEN_STEPS; both trajectories
-    logged.  Then the JAX test's sizes in complex128: each of the seven
-    geometries on kron_matrix_matrix, whitening and Newton, FP_SMALL_STEPS
-    steps each (the JAX test's N), every error below FP_TOL; these 14
-    runs, host-bound, run side by side in FP_WORKERS processes
-    (``_fp_small_run``).
+def start_fp_small_runs(dev) -> tuple:
+    """The JAX test's sizes in complex128, started in the background: each
+    of the seven geometries on kron_matrix_matrix, whitening and Newton,
+    FP_SMALL_STEPS steps each (the JAX test's N); these 14 runs,
+    host-bound, run side by side in FP_WORKERS processes
+    (``_fp_small_run``) while this process goes on with the next paths.
+    Returns what ``fp_small_results`` takes."""
+    runs = [(form, dq, mode, FP_SMALL_STEPS, str(dev))
+            # PRO4P's runs, the longest, first
+            for form, dq in [(FP_SMALL_FORM, dq) for dq in
+                             sorted(GEOMETRIES + ("Q0.5EQ1.5",), key=lambda d: d != "PRO4P")]
+            for mode in ("whiten", "newton")]
+    pool = multiprocessing.get_context("spawn").Pool(FP_WORKERS)
+    return runs, pool, pool.map_async(_fp_small_run, runs, chunksize=1), time.perf_counter()
+
+
+def fp_small_results(card: str, started: tuple) -> dict:
+    """Waits for ``start_fp_small_runs``'s runs (their processes ended):
+    every error below FP_TOL.  Returns no counts (the runs' launches stay
+    in their processes)."""
+    runs, pool, pending, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        results = pending.get(timeout=DIST_TIMEOUT_S)
+    finally:
+        pool.terminate()
+        pool.join()
+    for form, dq, mode, steps, err, seconds in results:
+        log(f"  [{card}] fixed point complex128 {form} {dq} {mode}: error "
+            f"{err:.4f} after {steps} steps ({seconds:.1f} s)")
+        if not err < FP_TOL:
+            raise AssertionError(f"fixed point {form}/{dq}/{mode}: error {err}")
+    log(f"  [{card}] fixed point complex128: {len(runs)} runs in {FP_WORKERS} "
+        f"processes, worst error {max(r[4] for r in results):.4f} (tol {FP_TOL}), "
+        f"{time.perf_counter() - t0:.1f} s from their start, "
+        f"{time.perf_counter() - t_wait:.1f} s of it waited for here")
+    return {}
+
+
+def complex_fixed_point_path(dev, card: str, small: list | None = None) -> dict:
+    """Path A.  The JAX test's complex128 sizes started in the background
+    (``start_fp_small_runs``, appended to ``small``; without it, waited
+    for at the end of this path); then the full-width
+    stack (``FP_STACK``, complex64, B layers each with its own H1 (x) H2):
+    the Newton fit must bring the RMS relative error below FP_TOL within
+    FP_NEWTON_STEPS steps, the whitening fit below half of P = I's within
+    FP_WHITEN_STEPS; both trajectories logged.
     Returns the launch counts."""
+    started = start_fp_small_runs(dev)
+    if small is not None:
+        small.append(started)
     b, m, n = FP_STACK
     gen = torch.Generator(device=dev).manual_seed(21)
     h1 = _spread_hpd(gen, b, m, torch.complex64, dev)
@@ -3059,24 +3116,8 @@ def complex_fixed_point_path(dev, card: str) -> dict:
                              "damping per step")
     del h1, h2
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    runs = [(form, dq, mode, FP_SMALL_STEPS, str(dev))
-            # PRO4P's runs, the longest, first
-            for form, dq in [(FP_SMALL_FORM, dq) for dq in
-                             sorted(GEOMETRIES + ("Q0.5EQ1.5",), key=lambda d: d != "PRO4P")]
-            for mode in ("whiten", "newton")]
-    with multiprocessing.get_context("spawn").Pool(FP_WORKERS) as pool:
-        results = pool.map(_fp_small_run, runs, chunksize=1)
-        pool.close()
-        pool.join()
-    for form, dq, mode, steps, err, seconds in results:
-        log(f"  [{card}] fixed point complex128 {form} {dq} {mode}: error "
-            f"{err:.4f} after {steps} steps ({seconds:.1f} s)")
-        if not err < FP_TOL:
-            raise AssertionError(f"fixed point {form}/{dq}/{mode}: error {err}")
-    log(f"  [{card}] fixed point complex128: {len(runs)} runs in {FP_WORKERS} "
-        f"processes, worst error {max(r[4] for r in results):.4f} (tol {FP_TOL}), "
-        f"{time.perf_counter() - t0:.1f} s")
+    if small is None:
+        fp_small_results(card, started)
     return counts
 
 
@@ -3323,7 +3364,7 @@ DIST_ARMS = ("llama", "gpt2", "gpt2_newton")
 def _digest(t: torch.Tensor) -> str:
     """SHA-256 of a tensor's bytes (its dtype and shape prefixed)."""
     h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
-    h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -3338,9 +3379,11 @@ def _no_nvcc():
                        "builds it before any rank starts")
 
 
-def _dist_main(rank: int, world: int, store: str, job: str, out: str) -> None:
+def _dist_main(rank: int, world: int, store: str, jobs, done, out: str) -> None:
     """One rank: cuda:0, the main path's matmul settings, joined to the
-    others through the file store; runs ``job`` and saves its result.
+    others through the file store once; runs each job it is handed
+    (``jobs``, None ends it) in turn, saves its result and reports it
+    (``done``), its memory and the Newton pass freed between jobs.
     Its allocator grows segments in place: three LLaMA-1.1B processes
     take ~66 GB of the card, and split cached blocks would not fit."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -3353,12 +3396,18 @@ def _dist_main(rank: int, world: int, store: str, job: str, out: str) -> None:
                             world_size=world,
                             timeout=timedelta(seconds=DIST_TIMEOUT_S))
     try:
-        name, arg = job.split(":") if ":" in job else (job, None)
-        result = _DIST_JOBS[name](rank, world, arg)
-        dist.barrier()
+        for n, job in iter(jobs.get, None):
+            name, arg = job.split(":", 1) if ":" in job else (job, None)
+            result = _DIST_JOBS[name](rank, world, arg)
+            dist.barrier()
+            torch.save(result, f"{out}.{n}.{rank}")
+            del result
+            _own_newton_pass()
+            gc.collect()
+            torch.cuda.empty_cache()
+            done.put((n, rank))
     finally:
         dist.destroy_process_group()
-    torch.save(result, f"{out}.{rank}")
 
 
 def _host_memory() -> str:
@@ -3374,40 +3423,93 @@ def _host_memory() -> str:
             f"{field('/proc/meminfo', 'MemAvailable'):.1f} GiB")
 
 
-def _spawn(job: str, world: int) -> list:
-    """Run ``job`` in ``world`` spawned rank processes (the parent's memory
-    freed first); their results in rank order.  Fails if a rank fails."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"  {job}: {world} ranks; this process holds "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
-        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; host {_host_memory()}")
-    OUT_DIR.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=OUT_DIR))
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_dist_main, args=(r, world, str(tmp / "store"), job,
-                                                  str(tmp / "result")))
-             for r in range(world)]
-    try:
-        for p in procs:
+class _Ranks:
+    """``world`` spawned rank processes on this card, kept for the jobs
+    that follow while the world size stays: each path's job runs in
+    them in turn, so consecutive paths of one size pay one spawn, one
+    CUDA start and one process group."""
+
+    def __init__(self, world: int):
+        OUT_DIR.mkdir(exist_ok=True)
+        self.world, self.n = world, 0
+        self.tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=OUT_DIR))
+        ctx = multiprocessing.get_context("spawn")
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.done = ctx.Queue()
+        # daemons: a process that exits without close() takes them along
+        self.procs = [ctx.Process(target=_dist_main, daemon=True, args=(
+            r, world, str(self.tmp / "store"), self.jobs[r], self.done,
+            str(self.tmp / "result"))) for r in range(world)]
+        for p in self.procs:
             p.start()
-        deadline = time.monotonic() + DIST_TIMEOUT_S
+
+    def run(self, job: str) -> list:
+        """``job`` on every rank; their results in rank order.  Fails if a
+        rank fails or the job outlasts DIST_TIMEOUT_S."""
+        self.n += 1
+        for q in self.jobs:
+            q.put((self.n, job))
+        deadline, left = time.monotonic() + DIST_TIMEOUT_S, set(range(self.world))
         # a failed rank ends the run at once: the others would wait in a
         # collective until the group's timeout
-        while any(p.is_alive() for p in procs) and time.monotonic() < deadline and \
-                not any(p.exitcode not in (None, 0) for p in procs):
-            time.sleep(0.2)
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * world:
-            raise AssertionError(f"{job}: rank exit codes {codes}")
-        return [torch.load(tmp / f"result.{r}", weights_only=False)
-                for r in range(world)]
-    finally:
-        for p in procs:
+        while left:
+            if any(p.exitcode is not None for p in self.procs) or \
+                    time.monotonic() > deadline:
+                raise AssertionError(f"{job}: rank exit codes "
+                                     f"{[p.exitcode for p in self.procs]}")
+            try:
+                n, rank = self.done.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            if n == self.n:
+                left.discard(rank)
+        out = []
+        for r in range(self.world):
+            path = self.tmp / f"result.{self.n}.{r}"
+            out.append(torch.load(path, weights_only=False))
+            path.unlink()
+        return out
+
+    def close(self) -> None:
+        """End every rank (terminated if it does not end by itself)."""
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
             if p.is_alive():
                 p.terminate()
                 p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+_RANKS: list = []      # the open _Ranks, at most one
+
+
+def close_ranks() -> None:
+    """End the open rank processes, if any."""
+    while _RANKS:
+        _RANKS.pop().close()
+
+
+def _spawn(job: str, world: int) -> list:
+    """Run ``job`` in ``world`` rank processes (the parent's memory freed
+    first): the open ones when they are ``world``, else new ones, started
+    after the open ones end.  Their results in rank order.  Fails, ending
+    the ranks, if a rank fails."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if _RANKS and _RANKS[0].world != world:
+        close_ranks()
+    log(f"  {job}: {world} ranks ({'kept' if _RANKS else 'spawned'}); this "
+        f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; host {_host_memory()}")
+    if not _RANKS:
+        _RANKS.append(_Ranks(world))
+    try:
+        return _RANKS[0].run(job)
+    except BaseException:
+        close_ranks()
+        raise
 
 
 def _dist_arm(arm: str, dev, **options):
@@ -4629,6 +4731,7 @@ def vector_fault_margin(dev, card: str) -> dict:
     alone: ``python3 tools/smoke_paths.py vector_fault_margin``."""
     result = {}
     for fault in VECTOR_FAULTS:
+        close_ranks()          # the fault is read from the environment at spawn
         os.environ["VECTOR_FAULT"] = fault
         ranks = _spawn("vector", 4)
         rows = _vector_readings([r["ab"] for r in ranks[:2]])
@@ -4641,13 +4744,340 @@ def vector_fault_margin(dev, card: str) -> dict:
             log(f"[{card}] fault {fault}: tensor-rank {label}: gap to 1 rank {row['rel']!r}, "
                 f"pad rows {row['pad']!r}, drift {row['drift']!r}")
         result[fault] = dict(ab=rows, c=cp)
+    close_ranks()
     os.environ.pop("VECTOR_FAULT")
     log(json.dumps(result))
     return {}
 
 
+# the sharded trainer's path: GPT-2 124M through examples/train_gpt2_sharded
+# (FSDP2's layer-sharded blocks, stack_sharding, the routed embeddings) on
+# 2 ranks of cuda:0 and on 1; TRAINER_STEPS steps, the checkpoint after
+# TRAINER_AT; the schedule's length keeps p >= 0.99 over them (every step
+# a fit step, as the smoke checks)
+TRAINER_STEPS = 3
+TRAINER_AT = 2
+TRAINER_SCHEDULE = 200
+TRAINER_BATCH = 4
+# the trainer's default (the JAX example's gradient whitening, fit then
+# apply); with --share-fit-apply a step's update is the fit's P(m +
+# damping noise), whose bf16 damping (eps|m| v) each rank of a routed leaf
+# draws under its own block's key: 1 - cosine 8.4e-5 and relative error
+# 0.013 from 1 rank on wte (PERF.md §6), over FACTOR_COS/FACTOR_REL,
+# which hold P m
+TRAINER_LABEL = "2 ranks sharing one H100 over gloo; not a scaling figure"
+
+
+def _trainer_digests(s) -> dict:
+    """SHA-256 of every parameter block of a trainer's model (its local
+    one under FSDP2) with the dim that shards it (None: whole), and of
+    every tensor of its optimizer's state_dict."""
+    from torch.distributed.tensor import DTensor, Shard
+    params = {}
+    for n, p in s.model.named_parameters():
+        if isinstance(p, DTensor):
+            dims = [pl.dim for pl in p.placements if isinstance(pl, Shard)]
+            params[n] = (_digest(p.to_local()), dims[0] if dims else None)
+        else:
+            params[n] = (_digest(p), None)
+    state = {}
+
+    def walk(x, where):
+        if isinstance(x, torch.Tensor):
+            state[where] = _digest(x)
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{where}/{k}")
+        elif isinstance(x, (tuple, list)):
+            for j, v in enumerate(x):
+                walk(v, f"{where}/{j}")
+    walk(s.opt.state_dict(), "")
+    return dict(params=params, state=state)
+
+
+def _embeddings(s) -> dict:
+    """The routed embeddings' blocks (this rank's, or whole), on the host."""
+    out = {}
+    for n, p in s.model.named_parameters():
+        if n in ("wte", "wpe"):
+            out[n] = (p.to_local() if hasattr(p, "to_local") else p).detach().float().cpu().clone()
+    return out
+
+
+def _trainer_steps(s, make, steps, record=None) -> tuple:
+    """``steps`` trainer steps (their indices): (losses, host ms per step,
+    fits per step); ``record``: the launches of rows 1 and 2 added to it."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    losses, ms, fits = [], [], []
+    for i in steps:
+        before = _all_counts()
+        f0 = s.opt.fit_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(s, *make(i)).item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fits.append(s.opt.fit_steps - f0)
+        if record is not None:
+            _add(record, {k: v - before[k] for k, v in _all_counts().items()})
+    return losses, ms, fits
+
+
+def _trainer_bytes(s) -> dict:
+    """This rank's parameter bytes (its blocks) and optimizer state bytes
+    (``state_memory_report`` per device)."""
+    params = sum((p.to_local() if hasattr(p, "to_local") else p).numel()
+                 * p.element_size() for p in s.model.parameters())
+    state = state_memory_report(s.opt, per_device=True)
+    return dict(params=params, state=sum(state.values()))
+
+
+def _trainer_replicated(s) -> dict:
+    """What every rank holds whole: the replicated parameters and their
+    state, the gathered (diagonal) stacks' Q and L, the routed leaves'
+    dense Q and L."""
+    out = {}
+    opt = s.opt
+    for i, p in enumerate(opt.param_groups[0]["params"]):
+        st = opt.state[p]
+        if opt.dtensors[i] is None:
+            out[f"param {i}"] = p
+            out[f"momentum {i}"] = st["mu"]
+        if opt.owned[i]:
+            continue
+        for j, f in enumerate(st["q"]):
+            if opt.routed[i] is None or f.ndim == 2:
+                out[f"Q {i}[{j}]"] = f
+        for j, f in enumerate(st["lips"]):
+            out[f"L {i}[{j}]"] = f
+    return out
+
+
+def _trainer_job(rank: int, world: int, base: str) -> dict:
+    """The 2-rank runs of ``sharded_trainer_path`` under CUDA's
+    deterministic algorithms: the unbroken run (checkpoint A after
+    TRAINER_AT steps, rank 0 then gathers it), its resume from A, and the
+    resume from the 1-rank checkpoint B (cut to each rank)."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    from psgd_torch_tpu_torch.parallel import drift_check
+    from psgd_torch_tpu_torch.utils import gather_checkpoint
+    dev = torch.device("cuda", 0)
+    a, b = os.path.join(base, "a"), os.path.join(base, "b")
+    out = {}
+    with _deterministic(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = tr.make_config("124m", dev)
+        make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
+        s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+        out["mesh"] = tr.mesh_sizes(s.mesh)
+        out["kinds"] = dict(owned=sum(s.opt.owned),
+                            whole=sum(w is not None for w in s.opt.whole),
+                            routed=sum(r is not None for r in s.opt.routed))
+        kernels.reset_launch_counts()
+        counts = {}
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, fits = _trainer_steps(s, make, range(TRAINER_AT), counts)
+        t0 = time.perf_counter()
+        save_checkpoint(a, TRAINER_AT, s.model, s.opt)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = _trainer_bytes(s)
+        out["at"] = _embeddings(s)
+        more = _trainer_steps(s, make, range(TRAINER_AT, TRAINER_STEPS), counts)
+        out.update(losses=losses + more[0], ms=ms + more[1], fits=fits + more[2],
+                   counts=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   unbroken=_trainer_digests(s), after=_embeddings(s),
+                   drift=drift_check(_trainer_replicated(s)))
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            t0 = time.perf_counter()
+            gather_checkpoint(a, device=dev)
+            out["gather_s"] = time.perf_counter() - t0
+            out["file_bytes"] = {f: os.path.getsize(os.path.join(a, f"step_{TRAINER_AT}", f))
+                                 for f in os.listdir(os.path.join(a, f"step_{TRAINER_AT}"))}
+        dist.barrier()
+        for tag, src in (("same", a), ("cut", b)):
+            s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+            t0 = time.perf_counter()
+            step, _ = restore_checkpoint(src, s.model, s.opt)
+            out[f"{tag}_restore_s"] = time.perf_counter() - t0
+            before = _embeddings(s)
+            res = _trainer_steps(s, make, range(step, TRAINER_STEPS))
+            out[tag] = dict(step=step, losses=res[0], fits=res[2], before=before,
+                            after=_embeddings(s), digests=_trainer_digests(s))
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _trainer_one_rank(make_s, src, make) -> dict:
+    """A 1-rank trainer run (this process, no process group): restored
+    from ``src`` (or from the start, checkpointed to ``make_s``'s
+    directory after TRAINER_AT steps), to TRAINER_STEPS; its readings."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    dev = torch.device("cuda", 0)
+    cfg = tr.make_config("124m", dev)
+    s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+    out, counts = {}, {}
+    kernels.reset_launch_counts()
+    if src is not None:
+        t0 = time.perf_counter()
+        start, _ = restore_checkpoint(src, s.model, s.opt)
+        out["restore_s"] = time.perf_counter() - t0
+    else:
+        res = _trainer_steps(s, make, range(TRAINER_AT), counts)
+        out.update(losses=res[0], ms=res[1], fits=res[2])
+        t0 = time.perf_counter()
+        save_checkpoint(make_s, TRAINER_AT, s.model, s.opt)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = _trainer_bytes(s)
+        start = TRAINER_AT
+    out["at"] = {n: p.detach().clone() for n, p in s.model.named_parameters()}
+    res = _trainer_steps(s, make, range(start, TRAINER_STEPS), counts)
+    out["losses"] = out.get("losses", []) + res[0]
+    out["ms"] = out.get("ms", []) + res[1]
+    out["fits"] = out.get("fits", []) + res[2]
+    out["counts"] = counts
+    out["after"] = {n: p.detach().clone() for n, p in s.model.named_parameters()}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _blocks_agree(label, one, ranks, tag, card) -> None:
+    """A 1-rank run's step TRAINER_STEPS (``one``: its parameters at the
+    checkpoint and after) against the 2-rank run's (``tag``: its unbroken
+    run, or its resume "cut"): every parameter but the routed embeddings
+    bit for bit, block by block (the stack-sharded blocks, as k ranks
+    equal 1), the embeddings' updates within ``FACTOR_COS`` and
+    ``FACTOR_REL``."""
+    worst = (0.0, 0.0)
+    for r, res in enumerate(ranks):
+        if tag == "unbroken":
+            digests, before, after = res["unbroken"]["params"], res["at"], res["after"]
+        else:
+            run = res[tag]
+            digests, before, after = run["digests"]["params"], run["before"], run["after"]
+        for n, (d, dim) in digests.items():
+            if n in before:
+                continue
+            whole = one["after"][n]
+            block = whole if dim is None else whole.chunk(len(ranks), dim)[r]
+            if _digest(block) != d:
+                raise AssertionError(f"{label}: rank {r}'s block of {n} differs "
+                                     "from the 1-rank run's")
+        for n in before:
+            mine = (one["after"][n] - one["at"][n]).float().cpu()
+            cos_gap, rel = _agree(after[n] - before[n], mine.chunk(len(ranks), 1)[r])
+            worst = (max(worst[0], cos_gap), max(worst[1], rel))
+            if not (1 - cos_gap > FACTOR_COS and rel < FACTOR_REL):
+                raise AssertionError(f"{label}: rank {r}'s {n} update 1 - cosine "
+                                     f"{cos_gap:.3g}, relative error {rel:.3g} from "
+                                     "the 1-rank run's")
+    log(f"  [{card}] {label}: every other parameter bit for bit; the wte and wpe "
+        f"updates' worst 1 - cosine {worst[0]!r}, relative error {worst[1]!r}")
+
+
+def sharded_trainer_path(dev, card: str) -> dict:
+    """GPT-2 124M through ``examples/train_gpt2_sharded``'s functions at
+    full width and depth, batch TRAINER_BATCH x 1024, bf16: on 2 ranks of
+    this card (gloo; FSDP2's layer-sharded blocks, stack_sharding over its
+    fsdp dim, the embeddings factor-sharded) and on 1, each TRAINER_STEPS
+    steps with a checkpoint after TRAINER_AT, under CUDA's deterministic
+    algorithms.  (a) The 2-rank run resumed on 2 ranks equals its unbroken
+    step bit for bit (parameters and every state tensor); gathered
+    (``gather_checkpoint``) and resumed on 1 rank, its step holds against
+    the unbroken 2-rank step: every parameter but the embeddings bit for
+    bit, the embeddings' updates within ``FACTOR_COS`` / ``FACTOR_REL``.
+    (b) The 1-rank checkpoint cut for 2 ranks, held the same way against
+    the unbroken 1-rank run.  (c) Per-rank parameter and state bytes about
+    half the 1-rank run's, drift_check 0.0 on the replicated entries,
+    GPT2_PER_FIT launches of rows 1 and 2 per fit step on each rank,
+    finite losses; the step times, the gather's and the cut's seconds and
+    the checkpoint bytes logged.  Returns the 2-rank run's launches."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    t0 = time.perf_counter()
+    base = OUT_DIR / "sharded_trainer"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    cfg = tr.make_config("124m", dev)
+    make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
+    try:
+        with _deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one = _trainer_one_rank(str(base / "b"), None, make)
+        ranks = _spawn(f"trainer:{base}", 2)
+        with _deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            resumed = _trainer_one_rank(None, str(base / "a"), make)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    total = {}
+    log(f"GPT-2 124M by the sharded trainer on mesh {ranks[0]['mesh']} ({TRAINER_LABEL}); "
+        f"{ranks[0]['kinds']} leaves owned by layer / gathered whole / routed; losses "
+        f"{[round(x, 4) for x in ranks[0]['losses']]} (1 rank "
+        f"{[round(x, 4) for x in one['losses']]})")
+    for r, res in enumerate(ranks):
+        if not all(math.isfinite(x) for x in res["losses"]) or res["fits"] != [1] * TRAINER_STEPS:
+            raise AssertionError(f"sharded trainer rank {r}: losses {res['losses']}, "
+                                 f"fits {res['fits']}")
+        if res["same"]["digests"] != res["unbroken"]:
+            raise AssertionError(f"sharded trainer: rank {r}'s 2-rank resume differs "
+                                 "from the unbroken run")
+        if res["cut"]["step"] != TRAINER_AT or res["same"]["step"] != TRAINER_AT:
+            raise AssertionError(f"sharded trainer: rank {r} resumed at "
+                                 f"{res['cut']['step']}, {res['same']['step']}")
+        per = {k: res["counts"].get(k, 0) / TRAINER_STEPS for k in GPT2_PER_FIT}
+        if any(res["counts"].get(k, 0) != n * TRAINER_STEPS for k, n in GPT2_PER_FIT.items()):
+            raise AssertionError(f"sharded trainer: rank {r} launched {per} per fit step, "
+                                 f"expected {GPT2_PER_FIT}")
+        drift = set(res["drift"].values())
+        if drift != {0.0}:
+            raise AssertionError(f"sharded trainer: rank {r} drift {res['drift']}")
+        share = {k: res["bytes"][k] / one["bytes"][k] for k in ("params", "state")}
+        if not all(0.4 < v < 0.6 for v in share.values()):
+            raise AssertionError(f"sharded trainer: rank {r} holds {res['bytes']} bytes, "
+                                 f"the 1-rank run {one['bytes']}")
+        _add(total, res["counts"])
+        log(f"  rank {r}: resumed on 2 ranks bit for bit the unbroken run (parameters and "
+            f"{len(res['unbroken']['state'])} state tensors); launches per fit step {per}; "
+            f"drift 0.0 on {len(res['drift'])} replicated tensors; parameters "
+            f"{res['bytes']['params'] / 1e6:.1f} MB, optimizer state "
+            f"{res['bytes']['state'] / 1e6:.1f} MB (1 rank {one['bytes']['params'] / 1e6:.1f}, "
+            f"{one['bytes']['state'] / 1e6:.1f}: {share['params']:.3f}, {share['state']:.3f}); "
+            f"peak {res['peak_gb']:.2f} GB")
+        log(f"  [{card}; {TRAINER_LABEL}] rank {r}: train step (forward, backward, "
+            f"optimizer; fit) ms {[round(x, 2) for x in res['ms']]}, median after the "
+            f"first {_median(res['ms'][1:])}; 1-rank run {[round(x, 2) for x in one['ms']]}, "
+            f"median after the first {_median(one['ms'][1:])}")
+    for label, run in (("1-rank", one), ("1-rank resumed", resumed)):
+        if not all(math.isfinite(x) for x in run["losses"]) or \
+                any(f != 1 for f in run["fits"]):
+            raise AssertionError(f"sharded trainer {label}: losses {run['losses']}, "
+                                 f"fits {run['fits']}")
+    _blocks_agree("(a) 2 ranks -> gathered -> 1 rank, step 3 against the unbroken "
+                  "2-rank run", resumed, ranks, "unbroken", card)
+    _blocks_agree("(b) 1 rank -> cut -> 2 ranks, step 3 against the unbroken 1-rank run",
+                  one, ranks, "cut", card)
+    files = ranks[0]["file_bytes"]
+    log(f"  [{card}] checkpoint A (2 ranks, step {TRAINER_AT}): "
+        f"{', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in sorted(files.items()))}; save "
+        f"{[round(r['save_s'], 2) for r in ranks]} s per rank; gather (rank 0, on the card) "
+        f"{ranks[0]['gather_s']:.2f} s; 2-rank restore of its own files "
+        f"{[round(r['same_restore_s'], 2) for r in ranks]} s, of the 1-rank file cut "
+        f"{[round(r['cut_restore_s'], 2) for r in ranks]} s; 1-rank restore of the gathered "
+        f"file {resumed['restore_s']:.2f} s; 1-rank save {one['save_s']:.2f} s")
+    log(f"  [{card}] sharded trainer path {time.perf_counter() - t0:.1f} s; its launches "
+        f"(2 ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
+    return total
+
+
 _DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job,
-              "vector": _vector_job}
+              "vector": _vector_job, "trainer": _trainer_job}
 
 
 def log_apply_launches(profiles, card: str) -> None:
@@ -4725,35 +5155,49 @@ def main() -> int:
               False, None),
              ("Rosenbrock path", lambda: (rosenbrock_path(dev, smi), None), (), False,
               None),
+             # its complex128 runs go on in their own processes beside the
+             # next two paths
              ("Complex fixed-point path",
-              lambda: (complex_fixed_point_path(dev, smi), None), (), False, None),
+              lambda: (complex_fixed_point_path(dev, smi, fp_small), None), (), False,
+              None),
              ("Complex optimizer path",
               lambda: (complex_optimizer_path(dev, smi), None), (), False, None),
              # GPT-2 124M's resumed run profiles its own fit step
              ("Resumable training path", lambda: (resume_path(dev, smi), None), (),
               False, None),
-             # rank processes on this card: their counts come back to the parent
+             ("Complex fixed-point path: the JAX test's sizes",
+              lambda: (fp_small_results(smi, fp_small.pop()), None), (), False, None),
+             # rank processes on this card: their counts come back to the
+             # parent; the paths of one world size in a row share them
              ("Stack-sharded path", lambda: (stack_sharded_path(dev, smi), None), (),
               False, None),
              ("Data-parallel drift and per-shard paths",
               lambda: (pair_paths(dev, smi), None), (), False, None),
+             ("Sharded trainer path",
+              lambda: (sharded_trainer_path(dev, smi), None), (), False, None),
              ("Factor-sharded path",
               lambda: (factor_sharded_path(dev, smi), None), (), False, None),
              ("Vector-sharded path",
               lambda: (vector_sharded_path(dev, smi), None), (), False, None))
-    profiles = {}
-    for label, drive, probs, tensor_cores, tag in paths:
-        phase(label)
-        counted, state = drive()
-        for k, v in counted.items():
-            launches[k] = launches.get(k, 0) + v
-        if state is not None:
-            profiles[tag] = profile_steps(tag, state, smi, probs, tensor_cores)
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
-        if tag == "GPT-2 124M options arm A":
-            log_apply_launches(profiles, smi)
+    profiles, fp_small = {}, []
+    try:
+        for label, drive, probs, tensor_cores, tag in paths:
+            phase(label)
+            counted, state = drive()
+            for k, v in counted.items():
+                launches[k] = launches.get(k, 0) + v
+            if state is not None:
+                profiles[tag] = profile_steps(tag, state, smi, probs, tensor_cores)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            if tag == "GPT-2 124M options arm A":
+                log_apply_launches(profiles, smi)
+    finally:
+        close_ranks()
+        for _, pool, _, _ in fp_small:
+            pool.terminate()
+            pool.join()
     phase("done")
     out = [dict(name=k, route="cuda", source=SRC + src, replaces=f"{TPU}{line}",
                 launches=launches.get(k, 0), **rows[k]) for k, src, line in ROWS]

@@ -58,7 +58,19 @@ result does not depend on k, bit for bit; the preconditioned layers are
 then assembled on every rank by one ``all_gather`` of their bytes
 (``parallel.mesh.all_gather_stack``).  Every other leaf, and the
 gradients, momentum, gate and init scale, stay replicated: the ranks
-must see the same gradients (average them first, as DDP does).
+must see the same gradients (average them first, as DDP does).  Under
+``stack_sharding`` a leaf may also be a DTensor parameter that is not
+routed, as FSDP2 (``fully_shard``) leaves them: a stack the optimizer
+shards whose local block is the rank's layers ``Shard(0)`` is fitted,
+applied and stepped in place on that block, never gathered, its
+momentum the block's; any other (a diagonal stack, an unscanned leaf) is
+made whole by an ``all_gather`` of bytes (``parallel.gather_whole``),
+fitted and applied as a replicated leaf, and its update's block written
+back, its momentum the block's too.  A stack sharded within its layers
+raises NotImplementedError (ROADMAP A8c), as KronNewton over such leaves
+does.  ``_pieces`` and ``_unsharded_layout`` say where each rank's state
+sits in the unsharded optimizer's, for checkpoints across world sizes
+(``utils.gather_checkpoint``).
 ``factor_sharding=(mesh, placements)`` (KronWhiten, KronNewton) keeps one
 global preconditioner for each leaf whose dims FSDP or TP shard, as the
 JAX transforms' ``factor_sharding`` does: ``placements`` maps every
@@ -416,6 +428,22 @@ def _first_mismatch(saved, here, where: str) -> Optional[str]:
         f"{where}: saved {_describe(saved)}, here {_describe(here)}"
 
 
+def _box_list(slices, shape) -> list:
+    """Slices (None bounds allowed) over ``shape`` as [start, stop] per
+    dim."""
+    return [list(s.indices(int(n))[:2]) for s, n in zip(slices, shape)]
+
+
+def _piece(shape, slices, local=None) -> dict:
+    """A ``_pieces`` entry: the whole's shape, where this rank's part
+    sits in it, and (``local``) which part of the rank's tensor holds it
+    (default: all of it)."""
+    out = {"shape": [int(n) for n in shape], "index": _box_list(slices, shape)}
+    if local is not None:
+        out["local"] = local
+    return out
+
+
 class _Resumable(torch.optim.Optimizer):
     """``state_dict`` / ``load_state_dict`` for the port's optimizers: the
     whole state the next step reads, as JAX's pure-pytree state.
@@ -555,7 +583,12 @@ class _Kron(_Resumable):
         self.shared = shared
         self.plans = [_kron_plan(t, f, s, max_size, max_skew, dq)
                       for t, f, s in zip(tensors, self.scanned, self.shared)]
-        tensors = self._route(factor_sharding, names, tensors)
+        tensors = self._route(factor_sharding, names, tensors,
+                              stack_sharding is not None)
+        self.stack, self.layers = self._shard_stacks(stack_sharding, names,
+                                                     tensors)
+        self.sharded = [s is not None for s in self.layers]
+        tensors = self._layer_shard(names, tensors)
         for t in tensors:
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
@@ -570,9 +603,6 @@ class _Kron(_Resumable):
         self.count = 0
         self.key = fastrand.prng_key(seed)
         self.fit_steps = 0   # steps on which Q was fitted
-        self.stack, self.layers = self._shard_stacks(stack_sharding, names,
-                                                     tensors)
-        self.sharded = [s is not None for s in self.layers]
         scale0 = 1.0 if init_scale is None else init_scale
         for i, (t, f, plan, s) in enumerate(zip(tensors, self.scanned,
                                                 self.plans, self.layers)):
@@ -581,7 +611,7 @@ class _Kron(_Resumable):
             if self.routed[i] is not None:
                 st = self._compute_blocks(i, st)
             if f:
-                n = t.shape[0] if s is None else s.stop - s.start
+                n = self._global_shape(i, t)[0] if s is None else s.stop - s.start
                 st = kron_p.KronState(
                     q=tuple(x.expand((n,) + x.shape).clone() for x in st.q),
                     lips=tuple(x.expand(n).clone() for x in st.lips))
@@ -592,12 +622,13 @@ class _Kron(_Resumable):
             if momentum > 0:
                 state["mu"] = torch.zeros_like(t, dtype=momentum_dtype or t.dtype)
 
-    def _route(self, factor_sharding, names, tensors) -> list:
+    def _route(self, factor_sharding, names, tensors, layered: bool) -> list:
         """Route the factor-sharded leaves (JAX transforms.py:896-912):
         ``self.routed`` per leaf, the mesh's collectives ``self.comm``;
         returns the tensors with each routed leaf's local block in its
         place.  Raises ValueError, naming the leaf, where the parameters
-        do not match the map."""
+        do not match the map.  ``layered``: other DTensor leaves are
+        ``_layer_shard``'s (stack_sharding given)."""
         self.routed, self.comm = [None] * len(tensors), None
         if factor_sharding is None:
             return tensors
@@ -623,7 +654,7 @@ class _Kron(_Resumable):
                                scanned=self.scanned[i], shared=self.shared[i],
                                dq=plan.dq)
             if axes is None:
-                if isinstance(t, DTensor):
+                if isinstance(t, DTensor) and not layered:
                     raise ValueError(
                         f"factor_sharding: {name} is a DTensor, but it is not "
                         "routed (scanned, shared, unsharded, or a geometry "
@@ -696,23 +727,23 @@ class _Kron(_Resumable):
         return self._sum(i, x) / self.plans[i].numel
 
     def _grads(self) -> list:
-        """The gradients in the parameters' order: ``.grad``, a routed
+        """The gradients in the parameters' order: ``.grad``, a DTensor
         leaf's its DTensor's local block (zeros where there is none)."""
         out = []
-        for p, r in zip(self.param_groups[0]["params"], self.routed):
-            g = p.grad if r is None else (None if r.dparam.grad is None
-                                          else r.dparam.grad.to_local())
+        for p, d in zip(self.param_groups[0]["params"], self.dtensors):
+            g = p.grad if d is None else (None if d.grad is None
+                                          else d.grad.to_local())
             out.append(torch.zeros_like(p) if g is None else g)
         return out
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         super().zero_grad(set_to_none)
-        for r in self.routed:
-            if r is not None and r.dparam.grad is not None:
+        for d in self.dtensors:
+            if d is not None and d.grad is not None:
                 if set_to_none:
-                    r.dparam.grad = None
+                    d.grad = None
                 else:
-                    r.dparam.grad.zero_()
+                    d.grad.zero_()
 
     def _routed(self, i, p, fit_src, apply_src, do_fit: bool, k_fit, lr_q,
                 beta_l, damping, fit_first: bool, share: bool = False):
@@ -780,6 +811,82 @@ class _Kron(_Resumable):
             layers.append(slice(sg.index * n, (sg.index + 1) * n))
         return sg, layers
 
+    def _layer_shard(self, names, tensors) -> list:
+        """The DTensor leaves that are not routed (FSDP2's, under
+        ``stack_sharding``): ``self.dtensors`` per leaf (every DTensor
+        leaf's parameter, routed ones too), ``self.owned`` (a stack the
+        optimizer shards whose local block is this rank's layers: fitted,
+        applied and stepped in place, never gathered) and ``self.whole``
+        (any other: (its mesh's ``MeshAxes``, its placements, where its
+        block sits); gathered whole by bytes, fitted and applied as a
+        replicated leaf, its update's block written back).  Returns the
+        tensors with each local block in its place.  A stack the
+        optimizer shards whose block is not its layers raises
+        NotImplementedError (ROADMAP A8c)."""
+        n = len(tensors)
+        self.dtensors = [None if r is None else r.dparam for r in self.routed]
+        self.owned, self.whole = [False] * n, [None] * n
+        from torch.distributed.tensor import DTensor
+        if not any(isinstance(t, DTensor) and self.routed[i] is None
+                   for i, t in enumerate(tensors)):
+            return tensors
+        from ..parallel.mesh import MeshAxes, sharding_axes
+        from ..parallel.sharded import _LeafShard
+        out, comms = list(tensors), {}
+        for i, t in enumerate(tensors):
+            if self.routed[i] is not None or not isinstance(t, DTensor):
+                continue
+            leaf = names[i] if names is not None else f"leaf {i}"
+            if self.stack is None:
+                raise ValueError(
+                    f"{leaf} is a DTensor: pass stack_sharding (its stacks' "
+                    "layers over FSDP2's shard dim) or factor_sharding, or use "
+                    "the per-shard optimizers")
+            mesh, placements = t.device_mesh, tuple(t.placements)
+            shard = _LeafShard(t, mesh, leaf)
+            self.dtensors[i] = t
+            if self.sharded[i]:
+                s = self.layers[i]
+                if _box_list(shard.slices, t.shape) != _box_list(
+                        [s] + [slice(None)] * (t.ndim - 1), t.shape):
+                    raise NotImplementedError(
+                        f"stack_sharding: {leaf} is a DTensor with placements "
+                        f"{placements} whose local block is not this rank's "
+                        f"layers {s.start}:{s.stop} of the stack: stack "
+                        "sharding over within-layer-sharded blocks is ROADMAP "
+                        "A8c")
+                self.owned[i] = True
+            else:
+                key = id(mesh)
+                if key not in comms:
+                    comms[key] = MeshAxes(mesh)
+                axes = comms[key]
+                axes.groups(*[(name,) for name, _ in sharding_axes(
+                    placements, mesh.mesh_dim_names)])
+                self.whole[i] = (axes, placements, shard)
+            with torch.no_grad():      # the block's storage, updated in place
+                out[i] = t.to_local()
+        return out
+
+    def _wholes(self, xs, owned: bool = False) -> list:
+        """xs (per leaf, this rank's blocks) with each ``self.whole``
+        leaf's made whole (``gather_whole``), and with ``owned`` each owned
+        stack's too (``all_gather_stack``); the others as they are."""
+        from ..parallel.mesh import all_gather_stack, gather_whole
+        out = list(xs)
+        for i, x in enumerate(xs):
+            if x is None:
+                continue
+            if self.whole[i] is not None:
+                out[i] = gather_whole(x, *self.whole[i][:2])
+            elif owned and self.owned[i]:
+                out[i] = all_gather_stack(x.contiguous(), self.stack)
+        return out
+
+    def _global_shape(self, i, p) -> tuple:
+        """Leaf i's shape as one tensor (a DTensor leaf's global one)."""
+        return tuple((p if self.dtensors[i] is None else self.dtensors[i]).shape)
+
     @property
     def per_rank(self) -> bool:
         """Whether this rank's state is its own (checkpoints: one file
@@ -810,23 +917,87 @@ class _Kron(_Resumable):
                                                 self.routed[i].dim_axes]
                 out[f"leaf {i}"]["compute_axes"] = [
                     list(a) for a in self.routed[i].rplan[0]]
+            elif self.dtensors[i] is not None:
+                out[f"leaf {i}"]["block"] = _box_list(
+                    self._block(i), self._global_shape(i, p))
+        return out
+
+    def _unsharded_layout(self) -> dict:
+        """The layout an unsharded optimizer of the same settings holds:
+        no sharding entries, every leaf its global shape."""
+        out = self._layout()
+        out.pop("stack_sharding", None)
+        out.pop("factor_sharding", None)
+        for i, p in enumerate(self.param_groups[0]["params"]):
+            leaf = out[f"leaf {i}"]
+            for k in ("layers", "dim_axes", "compute_axes", "block"):
+                leaf.pop(k, None)
+            leaf["shape"] = list(self._global_shape(i, p))
+        return out
+
+    def _block(self, i) -> list:
+        """Where a DTensor leaf's local block sits in the global tensor:
+        a slice per dim."""
+        shard = (self.routed[i].shard if self.routed[i] is not None else
+                 self.whole[i][2] if self.whole[i] is not None else None)
+        if shard is not None:
+            return list(shard.slices)
+        return [self.layers[i]] + [slice(None)] * (self.dtensors[i].ndim - 1)
+
+    def _pieces(self) -> dict:
+        """Where each tensor of ``state_dict()`` that is this rank's part
+        of a larger one sits in it (``utils.checkpoint``): path -> {"shape":
+        the whole's, "index": [start, stop] per dim}; a tensor not listed
+        is the unsharded optimizer's whole, the same on every rank."""
+        out = {}
+        params = self.param_groups[0]["params"]
+        for i, p in enumerate(params):
+            st = self.state[p]
+            gshape = self._global_shape(i, p)
+            if self.sharded[i]:
+                s = self.layers[i]
+                for key in ("q", "lips", "pcache"):
+                    for j, f in enumerate(st.get(key) or ()):
+                        out[("state", i, key, j)] = _piece(
+                            (gshape[0],) + tuple(f.shape[1:]),
+                            [s] + [slice(None)] * (f.ndim - 1))
+            if self.routed[i] is not None:
+                eff = self.routed[i].rplan[0]
+                for key in ("q", "pcache"):
+                    for j, f in enumerate(st.get(key) or ()):
+                        if self.plans[i].is_diag[j] and eff[j]:
+                            k, loc = self.comm.index(eff[j]), f.shape[0]
+                            out[("state", i, key, j)] = _piece(
+                                (loc * self.comm.size(eff[j]),),
+                                [slice(k * loc, (k + 1) * loc)])
+            if self.dtensors[i] is not None and "mu" in st:
+                out[("state", i, "mu")] = _piece(gshape, self._block(i))
         return out
 
     def _local(self, x, i):
-        """x, or this rank's layers of it for a stack-sharded leaf."""
-        return x if self.layers[i] is None else x[self.layers[i]]
+        """x, or this rank's layers of it for a stack-sharded leaf held
+        whole (an owned stack's x is its layers already)."""
+        return x if self.layers[i] is None or self.owned[i] else x[self.layers[i]]
 
     def _local_shape(self, i, p) -> tuple:
+        """The shape leaf i's fit and apply work at: this rank's layers
+        of a stack-sharded leaf, a gathered leaf's whole."""
+        if self.whole[i] is not None:
+            return self._global_shape(i, p)
         return tuple(self._local(p, i).shape)
 
     def _gather(self, updates: list) -> list:
-        """The stack-sharded leaves' updates assembled from every rank's
-        layers (``all_gather_stack``), in place in ``updates`` (each slice
-        freed once its stack is whole); the others as they are."""
+        """The updates as each parameter takes them, in place in
+        ``updates``: a stack-sharded leaf held whole gets its stack
+        assembled from every rank's layers (``all_gather_stack``; each
+        slice freed once its stack is whole), a gathered leaf its block of
+        the whole update; an owned stack's layers and the others stay."""
         from ..parallel.mesh import all_gather_stack
         for i, s in enumerate(self.sharded):
-            if s:
+            if s and not self.owned[i]:
                 updates[i] = all_gather_stack(updates[i], self.stack)
+            elif self.whole[i] is not None:
+                updates[i] = updates[i][tuple(self.whole[i][2].slices)]
         return updates
 
     def _leaf_key(self, k_fit, i):
@@ -887,7 +1058,7 @@ class _Kron(_Resumable):
             state = kron_p.KronState(q=st["q"], lips=st["lips"])
             views = [_cast(self._view(self._local(x, i), i), qdt) for x in src]
             if self.scanned[i]:
-                keys = fastrand.split(key, p.shape[0])
+                keys = fastrand.split(key, self._global_shape(i, p)[0])
                 if self.sharded[i]:
                     keys = keys[self.layers[i]]
                 out = fit_stacked(state, self.plans[i], *views, keys, **kw)
@@ -1093,7 +1264,8 @@ class KronWhiten(_Kron):
         damping = _sched(group["damping"], count)
         if self.init_scale is None and count == 0:
             self._rescale(params, _whiten_scale_from_grads(
-                grads, self.scanned, damping, self._mean))
+                self._wholes(grads, owned=True), self.scanned, damping,
+                self._mean))
 
         keys = fastrand.split(self.key, 3)
         self.key, k_gate, k_fit = keys[0], keys[1], keys[2]
@@ -1113,15 +1285,17 @@ class KronWhiten(_Kron):
             stale = [(self.state[p]["mu"].clone() if do_fit and r else None,)
                      for p, r in zip(params, self.routed)]
             if do_fit:
-                self._fit(params, [(self.state[p]["mu"],) for p in params],
-                          k_fit, *fit_args)
-            mus = self._momentum(params, grads, count)
+                self._fit(params, [(m,) for m in self._wholes(
+                    [self.state[p]["mu"] for p in params])], k_fit, *fit_args)
+            mus = self._wholes(self._momentum(params, grads, count))
             updates = self._fill_routed(self._apply(params, mus, clip, before),
                                         params, stale, mus, do_fit, k_fit,
                                         fit_args, clip)
         else:
-            mus = (self._momentum(params, grads, count) if self.momentum > 0
-                   else None)
+            mus = (self._wholes(self._momentum(params, grads, count))
+                   if self.momentum > 0 else None)
+            if self.whiten_grad or self.momentum == 0:
+                grads = self._wholes(grads)
             fit_src = [(g,) for g in (grads if self.whiten_grad else mus)]
             apply_src = mus if self.momentum > 0 else grads
             if self.share_fit_apply and do_fit:
@@ -1214,6 +1388,12 @@ class KronNewton(_Kron):
             factor_sharding=factor_sharding)
         _advisories(preconditioner_init_scale, True, 0.0, dq,
                     preconditioner_dtype)
+        if any(d is not None and r is None
+               for d, r in zip(self.dtensors, self.routed)):
+            raise NotImplementedError(
+                "KronNewton over DTensor leaves under stack_sharding (FSDP2's "
+                "blocks) is not ported: its closure's autograd reaches the "
+                "model's unsharded parameters, not the shards (ROADMAP A8c)")
         self.exact_hvp = exact_hessian_vector_product
 
     @torch.no_grad()
@@ -1414,6 +1594,38 @@ class _Flat(_Resumable):
             out["vector_sharding"] = dict(world=self.rows.size,
                                           rank=self.rows.index,
                                           n_true=self.n, n_pad=self.n_pad)
+        return out
+
+    def _unsharded_layout(self) -> dict:
+        """The layout an unsharded optimizer of the same settings holds."""
+        out = self._layout()
+        out.pop("vector_sharding", None)
+        return out
+
+    def _pieces(self) -> dict:
+        """As ``_Kron._pieces``: this rank's true rows of U, V, d and the
+        LRA momentum (of Q's rows, its true columns, for dense; the dense
+        momentum's true entries), in the unsharded optimizer's (n, ...)
+        tensors; the pad rows are left out (each rank's own)."""
+        if self.rows is None:
+            return {}
+        t = max(0, min(self.lo + self.n_loc, self.n) - self.lo)
+        n, lo = self.n, self.lo
+
+        def rows(x, cols=None):
+            rest = list(x.shape[1:]) if cols is None else [cols]
+            whole = [slice(None)] * len(rest)
+            return _piece([n] + rest, [slice(lo, lo + t)] + whole,
+                          local=[[0, t]] + [[0, c] for c in rest])
+
+        out = {}
+        for f, x in self.precond._asdict().items():
+            if x.ndim and x.shape[0] == self.n_loc:
+                out[("psgd", "precond", f)] = rows(
+                    x, n if f == "q" else None)
+        if self.mu is not None:
+            out[("psgd", "mu")] = (rows(self.mu) if self.ROW_VECTORS else
+                                   _piece([n], [slice(None)], local=[[0, n]]))
         return out
 
     def _extra_state(self) -> dict:

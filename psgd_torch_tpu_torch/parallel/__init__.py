@@ -10,15 +10,17 @@ and ``optim.KronNewton``; the row-sharded LRA and dense ones the
 
 from .mesh import (MeshAxes, RowReduce, ShardGroup, all_gather_stack,
                    dense_state_specs, drift_check, gpt2_partition_specs,
-                   llama_partition_specs, lra_state_specs, make_mesh,
-                   psgd_state_specs, shard_group)
+                   gather_whole, llama_partition_specs, lra_state_specs,
+                   make_mesh, make_multihost_mesh, psgd_state_specs,
+                   shard_group)
 from .recipe import ShardingRecipe, sharding_recipe
 from .sharded import (PerShardKronNewton, PerShardKronWhiten,
                       per_shard_kron_newton, per_shard_kron_whiten)
 
 __all__ = ["MeshAxes", "PerShardKronNewton", "PerShardKronWhiten",
            "RowReduce", "ShardGroup", "ShardingRecipe", "all_gather_stack",
-           "dense_state_specs", "drift_check", "gpt2_partition_specs",
-           "llama_partition_specs", "lra_state_specs", "make_mesh",
+           "dense_state_specs", "drift_check", "gather_whole",
+           "gpt2_partition_specs", "llama_partition_specs",
+           "lra_state_specs", "make_mesh", "make_multihost_mesh",
            "per_shard_kron_newton", "per_shard_kron_whiten",
            "psgd_state_specs", "shard_group", "sharding_recipe"]

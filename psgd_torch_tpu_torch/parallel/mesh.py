@@ -8,7 +8,8 @@ host from the same seed (``ops.fastrand``), so replicas that see the same
 gradients stay bit for bit equal.  What is left is where the state lives:
 
 * ``make_mesh``: a ``DeviceMesh`` with named dims, the world size factored
-  as the JAX ``make_mesh`` factors a device count;
+  as the JAX ``make_mesh`` factors a device count; ``make_multihost_mesh``
+  with a leading dim across hosts (``LOCAL_WORLD_SIZE`` ranks each);
 * ``gpt2_partition_specs`` and ``llama_partition_specs``: each parameter
   name of ``models.gpt2`` / ``models.llama`` mapped to its DTensor
   placements on such a mesh (fsdp and tp as the JAX maps place them);
@@ -18,7 +19,8 @@ gradients stay bit for bit equal.  What is left is where the state lives:
 * ``all_gather_stack``: a layer stack assembled from its shards, bit for
   bit (``all_gather`` of the shards' bytes);
 * ``MeshAxes``: the collectives of the dim-sharded (``factor_sharding``)
-  fit over named mesh dims;
+  fit over named mesh dims; ``gather_whole``, a DTensor's local block
+  made whole by ``all_gather`` of bytes over the dims that shard it;
 * ``RowReduce``: the sums and maxes of the row-sharded (``vector_sharding``)
   LRA and dense fits over one group;
 * ``psgd_state_specs``, ``lra_state_specs`` and ``dense_state_specs``: the
@@ -32,6 +34,8 @@ Every collective here but the drift check's reports itself to the open
 
 from __future__ import annotations
 
+import math
+import os
 import warnings
 from typing import NamedTuple, Optional, Sequence
 
@@ -89,6 +93,53 @@ def make_mesh(n_devices: Optional[int] = None,
     else:
         sizes = _factor(world, len(names))
     return init_device_mesh(device_type, tuple(sizes), mesh_dim_names=names)
+
+
+def make_multihost_mesh(axis_names: Sequence[str] = ("dcn", "fsdp", "tp"),
+                        ici_shape: Optional[Sequence[int]] = None,
+                        device_type: str = "cuda"):
+    """A ``DeviceMesh`` whose leading dim spans hosts and whose trailing
+    dims stay within one host (JAX ``make_multihost_mesh``): shard the
+    parameters over the trailing dims, keep the leading one for data
+    parallelism, whose gradient all-reduce tolerates the slower link.
+
+    A host is a node of ranks: ``LOCAL_WORLD_SIZE`` of them (as torchrun
+    sets it; unset, the whole world is one host), numbered host-major, so
+    rank r sits on host r // LOCAL_WORLD_SIZE.  With one host it returns
+    ``make_mesh(axis_names=axis_names)``.  Otherwise ``ici_shape`` (the
+    trailing dims' sizes, multiplying to the per-host count) defaults to
+    the JAX factoring: tp 2 when the per-host count is even and at least
+    4, the rest fsdp, ones before them; fewer axis names than 1 +
+    len(ici_shape) raise ValueError, as JAX does.  ``device_type`` as
+    ``make_mesh``'s."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from .. import resolve_device
+    resolve_device(device_type)
+    world = dist.get_world_size()
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if per_host < 1 or world % per_host:
+        raise ValueError(f"LOCAL_WORLD_SIZE {per_host} does not divide the "
+                         f"world size {world}")
+    n_hosts = world // per_host
+    if n_hosts == 1:
+        return make_mesh(axis_names=axis_names, device_type=device_type)
+    names = tuple(axis_names)
+    min_axes = 1 + (len(ici_shape) if ici_shape is not None else 2)
+    if len(names) < min_axes:
+        raise ValueError(
+            f"make_multihost_mesh needs at least {min_axes} axis names "
+            f"(one leading DCN axis + {min_axes - 1} ICI axes), got "
+            f"{names}. With fewer axes an ICI dimension would "
+            "fold into the DCN axis and its collectives would cross DCN.")
+    if ici_shape is None:
+        tp = 2 if per_host % 2 == 0 and per_host >= 4 else 1
+        ici_shape = [1] * (len(names) - 3) + [per_host // tp, tp]
+    ici = [int(s) for s in ici_shape]
+    if math.prod(ici) != per_host:
+        raise ValueError(f"ici_shape {tuple(ici)} does not multiply to the "
+                         f"{per_host} ranks of a host")
+    shape = [n_hosts] + [1] * (len(names) - 1 - len(ici)) + ici
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
 
 
 def _placements(mesh, dims) -> tuple:
@@ -167,7 +218,9 @@ def shard_group(spec) -> ShardGroup:
     dim name or index, or a tuple of them taken as one flattened dim whose
     shards run major to minor in the tuple's order (JAX
     ``axis_index((a, b))``).  Every rank of the mesh must call it alike:
-    it creates one group per slice of the mesh along the other dims."""
+    one dim is the mesh's own group along it (a mesh cut from a larger one
+    too), several make one group per slice of the mesh along the other
+    dims (the mesh must span the world)."""
     if isinstance(spec, dist.ProcessGroup):
         size = dist.get_world_size(spec)
         return ShardGroup(spec, dist.get_rank(spec), size, tuple(range(size)))
@@ -178,17 +231,27 @@ def shard_group(spec) -> ShardGroup:
     if len(set(idx)) != len(idx):
         raise ValueError(f"stack_sharding dims {tuple(dims)} repeat a dim")
     ranks = mesh.mesh
+    me = dist.get_rank()
+    if len(idx) == 1:
+        cut = list(mesh.get_coordinate())
+        cut[idx[0]] = slice(None)
+        row = ranks[tuple(cut)].reshape(-1).tolist()     # mesh order
+        group = mesh.get_group(idx[0])
+        return ShardGroup(group, row.index(me), len(row), tuple(
+            row.index(r) for r in dist.get_process_group_ranks(group)))
+    if ranks.numel() != dist.get_world_size():
+        raise ValueError(f"stack_sharding over dims {tuple(dims)} of a mesh "
+                         "that does not span the world: pass one dim")
     rest = [d for d in range(ranks.ndim) if d not in idx]
     rows = ranks.permute(rest + idx).reshape(-1, int(
         torch.tensor([ranks.shape[d] for d in idx]).prod()))
-    me = dist.get_rank()
     mine = None
     for row in rows.tolist():
         group = dist.new_group(row)          # collective: every row, in order
         if me in row:
             mine = (group, row)
     group, row = mine
-    order = tuple(row.index(r) for r in sorted(row))
+    order = tuple(row.index(r) for r in dist.get_process_group_ranks(group))
     return ShardGroup(group, row.index(me), len(row), order)
 
 
@@ -334,6 +397,32 @@ class MeshAxes:
     def max(self, x: torch.Tensor, axes) -> torch.Tensor:
         """JAX ``pmax`` over ``axes`` (exact in any dtype)."""
         return _max(x, self.group(axes).group)
+
+
+def sharding_axes(placements, mesh_names) -> list:
+    """(mesh dim name, tensor dim) of each ``Shard`` placement, in mesh
+    order; raises ValueError on a placement that is neither ``Shard`` nor
+    ``Replicate`` (a ``Partial`` parameter has no whole to gather)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name, pl in zip(mesh_names, placements):
+        if isinstance(pl, Shard):
+            out.append((name, pl.dim))
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"placement {pl} is neither Shard nor Replicate")
+    return out
+
+
+def gather_whole(local: torch.Tensor, axes: MeshAxes, placements) -> torch.Tensor:
+    """The whole tensor from every rank's block of a DTensor laid out by
+    ``placements`` on ``axes.mesh`` (evenly divided): an ``all_gather`` of
+    bytes along each sharded tensor dim, the minor mesh dim first, so the
+    whole is each owner's block bit for bit.  Every rank calls it alike."""
+    x = local
+    for name, d in reversed(sharding_axes(placements, axes.mesh.mesh_dim_names)):
+        if axes.size((name,)) > 1:
+            x = axes.all_gather(x.contiguous(), name, d % x.ndim)
+    return x
 
 
 def drift_check(tensors, group=None):

@@ -17,6 +17,17 @@ Usage::
                              scanned_layers=gpt2.scanned_layers_mask(model))
     opt = KronWhiten(recipe.place(model.named_parameters()),
                      **recipe.transform_kwargs)
+
+To shard the model too, by FSDP2 over the recipe's mesh (1-D, or 2-D with
+the replicas first), both take one placement map, ``model_placements()``:
+each stack the optimizer shards ``Shard(0)`` over the stack axis (its
+layers), the routed embeddings at the map's placements, the rest
+replicated (left to FSDP2 as ignored parameters)::
+
+    recipe = sharding_recipe(mesh, gpt2_partition_specs(mesh),
+                             model.named_parameters(), scanned_layers=mask)
+    fully_shard(model, **recipe.fsdp_kwargs(model))
+    opt = KronWhiten(model.named_parameters(), **recipe.transform_kwargs)
 """
 
 from __future__ import annotations
@@ -71,14 +82,82 @@ class ShardingRecipe:
             self.params[n].shape, self.param_placements[n], mesh_names,
             scanned=flags[n], shared=shared[n], dq=self.dq) is not None]
 
+    def model_placements(self) -> dict:
+        """Name -> the placements the parameters take under FSDP2: a routed
+        leaf the map's; a stack the optimizer shards (scanned, unpooled,
+        the stack axis resolved) ``Shard(0)`` over the stack axis; every
+        other leaf ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = tuple(self.mesh.mesh_dim_names)
+        rep = (Replicate(),) * len(names)
+        flags = _named_bools(self.scanned_layers, list(self.params),
+                             "scanned_layers")
+        shared = (dict(flags) if self.shared_layers is True else _named_bools(
+            self.shared_layers, list(self.params), "shared_layers"))
+        stack = ((self.stack_axis,) if isinstance(self.stack_axis, str)
+                 else tuple(self.stack_axis or ()))
+        routed = set(self.routed())
+        out = {}
+        for n in self.params:
+            if n in routed:
+                out[n] = tuple(self.param_placements[n])
+            elif stack and flags[n] and not shared[n]:
+                out[n] = tuple(Shard(0) if m in stack else Replicate()
+                               for m in names)
+            else:
+                out[n] = rep
+        return out
+
+    def fsdp_kwargs(self, model) -> dict:
+        """``fully_shard``'s mesh, ``shard_placement_fn`` and
+        ``ignored_params`` for ``model_placements()``: a sharded leaf's
+        ``Shard`` on the mesh's last dim (FSDP2 shards over it and keeps
+        replicas over a leading dim), a replicated leaf ignored (its
+        gradients must then be equal on every rank, or averaged by the
+        caller).  Raises ValueError for a placement FSDP2 cannot take."""
+        from torch.distributed.tensor import Shard
+        placements = self.model_placements()
+        by_id, ignored = {}, set()
+        for n, p in model.named_parameters():
+            pl = placements[n]
+            if not any(isinstance(x, Shard) for x in pl):
+                ignored.add(p)
+                continue
+            if any(isinstance(x, Shard) for x in pl[:-1]):
+                raise ValueError(f"{n}: placements {pl} shard over a mesh dim "
+                                 "other than the last, which FSDP2 cannot take")
+            by_id[id(p)] = pl[-1]
+        return dict(mesh=self.mesh, shard_placement_fn=lambda p: by_id.get(id(p)),
+                    ignored_params=ignored)
+
     def state_specs(self, optimizer) -> dict:
         """The placements of ``optimizer``'s state in the layout the
-        transform kwargs select (``psgd_state_specs``)."""
-        return psgd_state_specs(
-            self.param_placements, optimizer,
-            scanned_layers=self.scanned_layers, stack_axis=self.stack_axis,
+        transform kwargs select (``psgd_state_specs``).  An optimizer over
+        FSDP2's layer-sharded stacks (non-routed DTensor leaves) is
+        described over ``model_placements()``: the momentum follows each
+        parameter's block, and a stack the optimizer gathers whole, a
+        diagonal one, holds its Q, L and cache ``Replicate()``, where JAX's
+        specs place them over the stack axis."""
+        whole = getattr(optimizer, "whole", ())
+        layer_sharded = any(getattr(optimizer, "owned", ())) or any(
+            w is not None for w in whole)
+        out = psgd_state_specs(
+            self.model_placements() if layer_sharded else self.param_placements,
+            optimizer, scanned_layers=self.scanned_layers,
+            stack_axis=self.stack_axis,
             factor_sharding_params=self.params if self.factor_sharded else None,
             mesh=self.mesh, shared_layers=self.shared_layers)
+        if layer_sharded:
+            from torch.distributed.tensor import Replicate
+            rep = (Replicate(),) * len(self.mesh.mesh_dim_names)
+            names = sorted(out, key=lambda n: tuple(n.split(".")))
+            for name, w in zip(names, whole):
+                if w is not None:
+                    spec = out[name]
+                    for key in ("q", "lips", "pcache"):
+                        if spec[key] is not None:
+                            spec[key] = tuple(rep for _ in spec[key])
+        return out
 
     def place(self, named_params) -> list:
         """(name, parameter) pairs as the optimizer takes them: each routed

@@ -148,6 +148,15 @@ class _PerShard:
     def per_rank(self) -> bool:
         return True
 
+    def _unsharded_layout(self):
+        """None: a per-shard state has no unsharded form (each shard's Q
+        is planned from the shard's shape), so its checkpoint restores only
+        at the world size that wrote it."""
+        return None
+
+    def _pieces(self):
+        return None
+
     def _layout(self) -> dict:
         out = super()._layout()
         out["per_shard"] = dict(

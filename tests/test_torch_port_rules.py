@@ -107,6 +107,25 @@ def test_distributed_entry_points_refuse_the_cpu_without_being_asked():
             opt([("w", torch.zeros(4, 3))], factor_sharding=("mesh", {"w": ()}))
 
 
+def test_sharded_training_entry_points_refuse_the_cpu_without_being_asked():
+    """make_multihost_mesh, the sharded trainer and gather_checkpoint
+    (checkpoints across world sizes) raise without a card unless the CPU
+    is asked for (before any process group or file is touched)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded
+    from psgd_torch_tpu_torch.parallel import make_multihost_mesh
+    from psgd_torch_tpu_torch.utils import gather_checkpoint
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_multihost_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_gpt2_sharded.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gather_checkpoint("/nonexistent/checkpoints")
+    with pytest.raises(FileNotFoundError):
+        gather_checkpoint("/nonexistent/checkpoints", device="cpu")
+
+
 def test_lra_dense_entry_points_refuse_the_cpu_without_being_asked():
     """The LRA and dense optimizers, the closure classes and the LRA and
     dense state constructors raise without a card unless device="cpu"."""

@@ -5,7 +5,8 @@
 
 Each PATH is a function of chip_smoke.py that takes (device, card) and
 drives one path: for example ``stack_sharded_path pair_paths
-factor_sharded_path vector_sharded_path`` (the distributed paths),
+factor_sharded_path vector_sharded_path sharded_trainer_path`` (the
+distributed paths),
 ``vector_fault_margin`` (the vector-sharded path's arms with a planted
 fault each) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg`` passes
 ``arg`` first).  For each ``--root`` in the order given (default:
@@ -34,11 +35,14 @@ torch.cuda.set_device(dev)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 cs.build()
-for spec in sys.argv[1:]:
-    fn, _, arg = spec.partition(':')
-    args = (arg, dev, smi) if arg else (dev, smi)
-    cs.phase(spec)
-    getattr(cs, fn)(*args)
+try:
+    for spec in sys.argv[1:]:
+        fn, _, arg = spec.partition(':')
+        args = (arg, dev, smi) if arg else (dev, smi)
+        cs.phase(spec)
+        getattr(cs, fn)(*args)
+finally:
+    cs.close_ranks()
 """
 
 
