@@ -255,6 +255,22 @@
    about half, ``drift_check`` 0.0, ``GPT2_PER_FIT`` launches of rows 1
    and 2 per fit step.  The ranks' launch counts come back to this
    process and count toward the kernels' line.
+17b. The legacy families path (``legacy_path``, ROADMAP A7, after the
+   complex fixed-point runs are waited for and before the distributed
+   paths): every legacy family (the dense P, the seven Kron kind pairs,
+   newton_inv and newton_tri, UVd's two normalizers and coin branches,
+   XMat at even and odd n, SPLU, Affine with and without v on each side
+   combination) on the card against the same code on the CPU from the
+   same inputs, two updates (the second taking the balances) and an
+   apply, in float64 within ``LEGACY_F64_REL`` and float32 within
+   ``LEGACY_F32_REL``; the JAX tests' nine convergence cases
+   (tests/test_legacy_transforms.py:24-38, 500 steps) each below 1e-3;
+   the reference demos at their widths (``legacy_demos``: LeNet5 by
+   examples/mnist_lenet5.py's functional Kron step, by Affine whitening
+   and by XMat, SPLU and UVd; the 30-unit XOR RNN by Affine and NewtonInv
+   Newton); GPT-2 124M by Affine whitening at bench.py's operating point
+   (``legacy_gpt2``: each leaf's plan, the step, the peak memory).  Fails
+   on a non-finite loss, and if it launched any of the nine kernels.
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
@@ -299,15 +315,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from psgd_torch_tpu_torch.examples import train_gpt2
-from psgd_torch_tpu_torch.models import gpt2, llama
+from psgd_torch_tpu_torch.examples import affine_wrapped_layers, mnist_lenet5, train_gpt2
+from psgd_torch_tpu_torch.models import gpt2, lenet5, llama, rnn
 from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
                                         LRANewton, LRAWhiten, classes, hvp)
+from psgd_torch_tpu_torch.optim import legacy_transforms as legacy_optim
 from psgd_torch_tpu_torch.optim import transforms as _transforms
+from psgd_torch_tpu_torch.precond import affine as affine_p
 from psgd_torch_tpu_torch.precond import kron as kron_p
+from psgd_torch_tpu_torch.precond import legacy as legacy_p
 from psgd_torch_tpu_torch.precond import lra as lra_p
+from psgd_torch_tpu_torch.precond import splu as splu_p
+from psgd_torch_tpu_torch.precond import xmat as xmat_p
 from psgd_torch_tpu_torch.utils import (FailsafeLoop, StepTimer, collective_bytes,
                                         count_collectives, make_guarded_step,
                                         psgd_metrics, restore_checkpoint,
@@ -2310,6 +2331,341 @@ def rosenbrock_path(dev, card: str) -> dict:
         card, ROSENBROCK_FALL)
     log(f"  [{card}] Rosenbrock final loss {last:.3e} (from {first:g})")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the legacy families (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+# card against CPU, one update chain and one apply from the same inputs:
+# float64 within LEGACY_F64_REL, float32 within LEGACY_F32_REL, 12x the
+# worst float32 reading of the first card run (8.0e-7, Affine drop-v
+# dense/dense; the worst float64 one 1.8e-15; PERF.md §6, the legacy
+# families' entry)
+LEGACY_F64_REL = 1e-10
+LEGACY_F32_REL = 1e-5
+LEGACY_SHAPE = (401, 120)     # LeNet5's fc1 [W; b]
+LEGACY_DENSE_N = 512
+LEGACY_N = 4096               # the vector families' n (4097: the odd XMat)
+LEGACY_RANK = 10
+# the JAX tests' own convergence cases (tests/test_legacy_transforms.py:24-38)
+LEGACY_CASES = (("xmat-whiten", "xmat", {}, False, (32,)),
+                ("xmat-newton", "xmat", {"preconditioner_type": "Newton"}, True, (32,)),
+                ("splu-whiten", "splu", {"rank": 5}, False, (32,)),
+                ("splu-newton", "splu", {"rank": 5, "preconditioner_type": "Newton"},
+                 True, (32,)),
+                ("newton_inv", "newton_inv", {"preconditioner_type": "Newton"}, True,
+                 (32,)),
+                ("uvd-whiten", "uvd", {"rank": 5}, False, (32,)),
+                ("uvd-newton", "uvd", {"rank": 5, "preconditioner_type": "Newton"},
+                 True, (32,)),
+                ("affine-whiten", "affine", {}, False, (8, 4)),
+                ("affine-newton", "affine", {"preconditioner_type": "Newton"}, True,
+                 (8, 4)))
+LEGACY_CASE_STEPS = 500
+LEGACY_CASE_LOSS = 1e-3
+LEGACY_DEMO_STEPS = 30
+LEGACY_GPT2_STEPS = 5
+
+
+def _legacy_inputs(gen, *shapes) -> list:
+    """Standard normals on the CPU in float64 from ``gen``."""
+    return [torch.randn(s, generator=gen, dtype=torch.float64) for s in shapes]
+
+
+def _legacy_families(gen) -> list:
+    """(label, inputs, run): ``run(dev, dtype, inputs)`` one update chain
+    (two updates, the second taking the balances that draw) and one apply
+    of a family, returning every tensor it made; ``inputs`` CPU float64."""
+    n, m, (a, b) = LEGACY_N, LEGACY_DENSE_N, LEGACY_SHAPE
+    out = []
+
+    def dense_p(dev, dt, x):
+        q = torch.eye(m, dtype=dt, device=dev) + 0.01 * torch.triu(x[0])
+        q = legacy_p.update_precond_dense(q, x[1], x[2], lr=0.1)
+        q = legacy_p.update_precond_dense(q, x[3], x[4], lr=0.1)
+        return [q, legacy_p.precond_grad_dense(q, x[5])]
+
+    out.append((f"dense P (n = {m})", _legacy_inputs(gen, (m, m), *[(m,)] * 5), dense_p))
+    for kinds in (("dense", "dense"), ("dense", "norm"), ("dense", "scale"),
+                  ("norm", "dense"), ("norm", "scale"), ("scale", "dense"),
+                  ("scale", "norm")):
+        def kron(dev, dt, x, kinds=kinds):
+            ql, qr = legacy_p.init_kron_legacy(LEGACY_SHAPE, *kinds, dtype=dt,
+                                               device=dev)
+            ql, qr = legacy_p.update_precond_kron(ql, qr, x[0], x[1], lr=0.1)
+            ql, qr = legacy_p.update_precond_kron(ql, qr, x[2], x[3], lr=0.1)
+            return [ql, qr, legacy_p.precond_grad_kron(ql, qr, x[4])]
+        out.append((f"Kron {kinds[0]}/{kinds[1]} {LEGACY_SHAPE}",
+                    _legacy_inputs(gen, *[LEGACY_SHAPE] * 5), kron))
+    for norm in ("1st", "2nd"):
+        def newton(dev, dt, x, norm=norm):
+            st = legacy_p.init_newton_inv(m, 1.0, dt, dev)
+            q = torch.eye(m, dtype=dt, device=dev)
+            for v, h in ((x[0], x[1]), (x[2], x[3])):
+                st = legacy_p.update_newton_inv(st, v, h, lr=0.1, step_normalizer=norm)
+                q = legacy_p.update_newton_tri(q, v, h, lr=0.1, step_normalizer=norm)
+            return [*st, q, legacy_p.precond_grad_newton_inv(st, x[4])]
+        out.append((f"newton_inv and newton_tri {norm} (n = {m})",
+                    _legacy_inputs(gen, *[(m,)] * 5), newton))
+        for coin in (0.25, 0.75):
+            def uvd(dev, dt, x, norm=norm, coin=coin):
+                st = legacy_p.init_uvd(n, LEGACY_RANK, 1.0, dt, dev, u=x[0], v=x[1])
+                st = legacy_p.update_uvd(st, x[2], x[3], u_balance=0.5, u_coin=coin,
+                                         lr=0.1, step_normalizer=norm)
+                st = legacy_p.update_uvd(st, x[4], x[5], u_balance=0.005, u_coin=coin,
+                                         lr=0.1, step_normalizer=norm)
+                return [*st, legacy_p.precond_grad_uvd(st, x[6])]
+            out.append((f"UVd {norm} {'U' if coin < 0.5 else 'V'} (n = {n}, r = "
+                        f"{LEGACY_RANK})", _legacy_inputs(
+                            gen, *[(n, LEGACY_RANK)] * 2, *[(n,)] * 5), uvd))
+        for size in (n, n + 1):
+            def xm(dev, dt, x, norm=norm, size=size):
+                st = xmat_p.init_xmat(size, 1.0, dt, dev)
+                st = xmat_p.update_xmat(st, x[0], x[1], lr=0.1, step_normalizer=norm)
+                st = xmat_p.update_xmat_whiten(st, x[2], lr=0.1, step_normalizer=norm,
+                                               v=x[3])
+                return [*st, xmat_p.precond_grad_xmat(st, x[4])]
+            out.append((f"XMat {norm} (n = {size})", _legacy_inputs(
+                gen, *[(size,)] * 5), xm))
+
+    def splu(dev, dt, x):
+        st = splu_p.init_splu(n, LEGACY_RANK, 1.0, dt, dev)
+        st = splu_p.update_splu(st, x[0], x[1], lr=0.1)
+        st = splu_p.update_splu(st, x[2], x[3], lr=0.1)
+        return [*st, splu_p.precond_grad_splu(st, x[4])]
+
+    out.append((f"SPLU (n = {n}, r = {LEGACY_RANK})", _legacy_inputs(
+        gen, *[(n,)] * 5), splu))
+    # Affine: (matrix shape, max_size) for each side combination
+    sides = {"dense/dense": ((a, b), float("inf")), "dense/diag": ((b, a), 200),
+             "diag/dense": ((a, b), 200), "diag/diag": ((a, b), 100)}
+    for label, (shape, max_size) in sides.items():
+        for dropv in (False, True):
+            def aff(dev, dt, x, shape=shape, max_size=max_size, dropv=dropv):
+                st = affine_p.init_affine(shape, 1.0, max_size, dtype=dt, device=dev)
+                for i, ub in enumerate((0.5, 0.005)):
+                    if dropv:
+                        st = affine_p.update_affine_dropv(
+                            st, x[2 * i + 1], u_balance=ub, lr=0.1, v=x[2 * i])
+                    else:
+                        st = affine_p.update_affine(st, x[2 * i], x[2 * i + 1],
+                                                    u_balance=ub, lr=0.1)
+                return [*st, affine_p.precond_grad_affine(st, x[4])]
+            out.append((f"Affine {'drop-v' if dropv else 'with v'} {label} {shape}",
+                        _legacy_inputs(gen, *[shape] * 5), aff))
+    return out
+
+
+def check_legacy_families(dev, card: str) -> None:
+    """Every legacy family on the card against the same code on the CPU,
+    from the same inputs, in float64 (gate LEGACY_F64_REL) and float32
+    (LEGACY_F32_REL): the largest |card - CPU| over the largest |CPU| of
+    each output, the worst output's."""
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    for label, inputs, run in _legacy_families(torch.Generator().manual_seed(17)):
+        rels = []
+        for dt, limit in ((torch.float64, LEGACY_F64_REL), (torch.float32, LEGACY_F32_REL)):
+            got = run(dev, dt, [x.to(dev, dt) for x in inputs])
+            ref = run(torch.device("cpu"), dt, [x.to(dt) for x in inputs])
+            rel = max(float(torch.max(torch.abs(g.cpu() - r)) / torch.max(torch.abs(r)))
+                      for g, r in zip(got, ref))
+            if not all(torch.isfinite(r).all() for r in ref) or not rel <= limit:
+                raise AssertionError(f"legacy {label} {dt}: card against CPU "
+                                     f"{rel:.3e} (limit {limit:g})")
+            worst[dt] = max(worst[dt], rel)
+            rels.append(rel)
+        log(f"  {label}: card against CPU f64 {rels[0]:.3e}, f32 {rels[1]:.3e}")
+    log(f"  [{card}] legacy families, card against CPU: worst f64 "
+        f"{worst[torch.float64]:.3e} (gate {LEGACY_F64_REL:g}), worst f32 "
+        f"{worst[torch.float32]:.3e} (gate {LEGACY_F32_REL:g})")
+
+
+def _legacy_case(dev, factory, kw, newton, shape) -> tuple:
+    """The JAX test's case on the card: the ill-conditioned quadratic,
+    linear_schedule(0.5, 0, 500), momentum 0.9, clip 10, 500 steps.
+    Returns (final loss, ms per step)."""
+    h = torch.diag(10.0 ** torch.linspace(-1, 1, 32, device=dev))
+    w_star = torch.randn(32, generator=torch.Generator().manual_seed(0)).to(dev)
+    w = torch.zeros(shape, device=dev, requires_grad=True)
+
+    def loss():
+        d = w.reshape(-1) - w_star
+        return 0.5 * torch.sum(d * (h @ d))
+
+    opt = getattr(legacy_optim, factory)(
+        [w], lambda c: 0.5 * (1.0 - min(c, LEGACY_CASE_STEPS) / LEGACY_CASE_STEPS),
+        momentum=0.9, grad_clip_max_norm=10.0, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LEGACY_CASE_STEPS):
+        if newton:
+            opt.step(loss)
+        else:
+            opt.zero_grad()
+            loss().backward()
+            opt.step()
+    final = float(loss().detach())
+    return final, (time.perf_counter() - t0) * 1e3 / LEGACY_CASE_STEPS
+
+
+def _legacy_demo(label, step, steps, card) -> None:
+    """``steps`` calls of ``step()`` (which returns the loss): the first and
+    last loss, the median step (host clock to a synchronize); fails on a
+    non-finite loss."""
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  [{card}] {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {steps} "
+        f"steps, median step {_median(ms[1:])} ms")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+
+
+def _closure_step(opt, loss):
+    return lambda: opt.step(loss).detach()
+
+
+def _grad_step(opt, loss):
+    def step():
+        opt.zero_grad()
+        out = loss()
+        out.backward()
+        opt.step()
+        return out.detach()
+    return step
+
+
+def legacy_demos(dev, card: str) -> None:
+    """The reference demos at their own widths, LEGACY_DEMO_STEPS steps
+    each: examples/mnist_lenet5.py's functional Kron step on LeNet5
+    (synthetic_mnist, batch 64), Affine whitening on LeNet5 and Affine
+    Newton on the 30-unit XOR RNN (batch 128, sequence 16) with
+    examples/affine_wrapped_layers.py's settings, XMat, SPLU and UVd (rank
+    10) whitening over LeNet5's 61,706 parameters, NewtonInv over the RNN's
+    1,021."""
+    data = torch.Generator().manual_seed(100)
+    batch = {}
+
+    def lenet_batch():
+        batch["x"], batch["y"] = lenet5.synthetic_mnist(data, 64, device=dev)
+
+    params = lenet5.init_lenet5(torch.Generator().manual_seed(0), device=dev)
+    qs = mnist_lenet5.init_preconditioners(params)
+    gen_v = torch.Generator(device=dev).manual_seed(2)
+
+    def kron_step():
+        nonlocal qs
+        lenet_batch()
+        qs, loss = mnist_lenet5.kron_step(params, qs, 0.1, batch["x"], batch["y"], gen_v)
+        return loss
+
+    _legacy_demo("LeNet5 legacy Kron (5 dense pairs, exact Hvp), batch 64",
+                 kron_step, LEGACY_DEMO_STEPS, card)
+
+    def lenet_loss(ps):
+        def loss():
+            lenet_batch()
+            return lenet5.loss_lenet5(ps, batch["x"], batch["y"])
+        return loss
+
+    # the vector families with the Affine arm's lr and trust region
+    arms = [("Affine whitening", affine_wrapped_layers.lenet5_affine)] + [
+        (f"{cls.__name__} whitening", functools.partial(
+            lambda ps, device, cls, kw: cls(ps, lr=0.05, grad_clip_max_norm=10.0,
+                                            device=device, **kw), cls=cls, kw=kw))
+        for cls, kw in ((legacy_optim.XMat, {}),
+                        (legacy_optim.SPLU, {"rank": LEGACY_RANK}),
+                        (legacy_optim.UVd, {"rank": LEGACY_RANK}))]
+    for name, make in arms:
+        ps = lenet5.init_lenet5(torch.Generator().manual_seed(0), device=dev)
+        opt = make(ps, dev)
+        _legacy_demo(f"LeNet5 {name}, batch 64", _grad_step(opt, lenet_loss(ps)),
+                     LEGACY_DEMO_STEPS, card)
+    for name in ("Affine Newton", "NewtonInv Newton"):
+        ps = rnn.init_rnn(torch.Generator().manual_seed(1), device=dev)
+        opt = (affine_wrapped_layers.rnn_affine(ps, dev) if name.startswith("Affine")
+               else legacy_optim.NewtonInv(ps.items(), lr=0.01,
+                                           preconditioner_type="Newton",
+                                           lr_preconditioner=0.01,
+                                           grad_clip_max_norm=1.0, device=dev))
+        xor = torch.Generator().manual_seed(10)
+
+        def loss():
+            xs, target = rnn.xor_batch(xor, 128, 16, device=dev)
+            return rnn.xor_loss(rnn.apply_rnn(ps, xs), target)
+
+        _legacy_demo(f"XOR RNN (30 units) {name}, batch 128 x 16",
+                     _closure_step(opt, loss), LEGACY_DEMO_STEPS, card)
+
+
+def legacy_gpt2(dev, card: str) -> None:
+    """Affine whitening over GPT-2 124M at its published widths: batch 4 x
+    1024, bf16 compute, bench.py:170-177's operating point (max_skew 2,
+    init scale 1, momentum 0.9, lr 2.5e-4, weight decay 0.01), float32
+    preconditioner, LEGACY_GPT2_STEPS steps; each leaf's plan and dense
+    sides, the median step, the peak memory; fails on a non-finite loss."""
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), 4, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = legacy_optim.Affine(model.named_parameters(), lr=2.5e-4, weight_decay=0.01,
+                              preconditioner_max_skew=2.0,
+                              preconditioner_init_scale=1.0, momentum=0.9,
+                              preconditioner_dtype=torch.float32, device=dev)
+    for p, plan in zip(opt.param_groups[0]["params"], opt.plans):
+        name = next(k for k, v in model.named_parameters() if v is p)
+        sides = "/".join("dense" if opt.state[p][s].ndim == 2 else "diag"
+                         for s in ("ql", "qr"))
+        log(f"  Affine plan {name} {tuple(p.shape)}: perm {plan.perm} -> "
+            f"{plan.matrix_shape}, {sides}")
+    _legacy_demo("GPT-2 124M Affine whitening, batch 4 x 1024, bf16 compute",
+                 _grad_step(opt, lambda: gpt2.loss_gpt2(model, tokens, targets)),
+                 LEGACY_GPT2_STEPS, card)
+    log(f"  [{card}] GPT-2 124M Affine whitening: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def legacy_path(dev, card: str) -> dict:
+    """The legacy families (ROADMAP A7): ``check_legacy_families``, the JAX
+    tests' nine convergence cases on the card (each final loss below
+    LEGACY_CASE_LOSS), ``legacy_demos`` and ``legacy_gpt2``.  The counts
+    are reset before and read after: the path launches none of the nine
+    kernels (it fails if it did).  Returns no counts."""
+    marks = [time.perf_counter()]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    check_legacy_families(dev, card)
+    marks.append(time.perf_counter())
+    for label, factory, kw, newton, shape in LEGACY_CASES:
+        final, ms = _legacy_case(dev, factory, kw, newton, shape)
+        log(f"  [{card}] {label}: final loss {final:.3e} after {LEGACY_CASE_STEPS} "
+            f"steps ({ms:.2f} ms per step)")
+        if not final < LEGACY_CASE_LOSS:
+            raise AssertionError(f"{label}: final loss {final} (limit "
+                                 f"{LEGACY_CASE_LOSS})")
+    marks.append(time.perf_counter())
+    legacy_demos(dev, card)
+    marks.append(time.perf_counter())
+    legacy_gpt2(dev, card)
+    marks.append(time.perf_counter())
+    launched = {k: v for k, v in _all_counts().items() if v}
+    if launched:
+        raise AssertionError(f"the legacy path launched kernels: {launched}")
+    parts = ", ".join(f"{what} {b - a:.1f} s" for what, a, b in zip(
+        ("card against CPU", "cases", "demos", "GPT-2"), marks, marks[1:]))
+    log(f"  [{card}] legacy path: {marks[-1] - marks[0]:.1f} s ({parts}); none "
+        "of the nine kernels launched")
+    return {}
 
 
 def _state_leaves(tree, where: str = "") -> list:
@@ -5167,6 +5523,8 @@ def main() -> int:
               False, None),
              ("Complex fixed-point path: the JAX test's sizes",
               lambda: (fp_small_results(smi, fp_small.pop()), None), (), False, None),
+             ("Legacy families path", lambda: (legacy_path(dev, smi), None), (), False,
+              None),
              # rank processes on this card: their counts come back to the
              # parent; the paths of one world size in a row share them
              ("Stack-sharded path", lambda: (stack_sharded_path(dev, smi), None), (),

@@ -17,6 +17,10 @@ uniform(-sqrt3, sqrt3), zero mean and unit variance -- the whitening math
 only uses E[v v^H] = I, so any white unit-variance noise is sound (same
 argument as psgd_torch_tpu/ops/fastrand.py).  A complex draw is two real
 ones, from the two keys of split(key), each scaled by 2^-0.5.
+
+The legacy families draw standard normals with ``torch.randn`` from a
+``torch.Generator`` seeded by one key (``generator``), so their streams are
+pure functions of the same key tree and launch no kernel of ``ops.kernels``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,16 @@ def uniform01(keys) -> np.ndarray:
     b0, b1 = _threefry2x32(k0, k1, z, z)
     bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
     return bits.view(np.float32) - np.float32(1.0)
+
+
+def generator(key, device) -> "torch.Generator":
+    """A ``torch.Generator`` on ``device`` seeded by one key's two words
+    (the high bit dropped: a seed is at most 2^63 - 1)."""
+    import torch
+    k = as_keys(key).reshape(2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(((int(k[0]) << 32) | int(k[1])) & (2 ** 63 - 1))
+    return gen
 
 
 def noise_keys(keys, dtype) -> np.ndarray:

@@ -3,8 +3,9 @@
 Counterpart of psgd_torch_tpu/ops/linalg.py for what the Kron fits call:
 the dtype policy, the subspace-iteration spectral-norm lower bounds, the
 second- and third-order Procrustes rotations (the third in the loop the
-fit-P geometry PRO4P runs) and the legacy row/column-energy bound of the
-exact EQ whitening.  Every function works on a single matrix (..., n, n)
+fit-P geometry PRO4P runs), the legacy row/column-energy bound of the
+exact EQ whitening, and the legacy families' helpers (``triu01``,
+``damped_pair_vg``, ``woodbury_identity``).  Every function works on a single matrix (..., n, n)
 with any number of leading batch dims, so a layer stack is one call.
 
 Randomness is explicit.  A function that draws takes either ``v0``, the
@@ -366,3 +367,35 @@ def norm_lower_bound(a: torch.Tensor) -> torch.Tensor:
                                   dim=(-2, -1))
     bound = torch.where(use_rows, b0, b1)
     return torch.where(max_abs > 0, max_abs * bound, max_abs)
+
+
+def triu01(a: torch.Tensor) -> torch.Tensor:
+    """triu(A, 0) + triu(A, 1): the cheap approximation of the R factor of
+    qr(I + A) for small A (reference preconditioned...py:115-117, JAX
+    ``triu01``)."""
+    return torch.triu(a) + torch.triu(a, 1)
+
+
+def damped_pair_vg(g: torch.Tensor, damp: float = 2 ** -13,
+                   v: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None):
+    """(v, g + damp mean|g| v): the damped pair of the legacy whitening
+    fits, which lower-bounds E[g g^T] (reference preconditioned...py:50-67,
+    JAX ``damped_pair_vg``).  ``v`` is the pre-drawn standard normal probe;
+    without it one is drawn with ``generator`` on g's device."""
+    if v is None:
+        v = torch.randn(g.shape, dtype=g.dtype, device=g.device,
+                        generator=generator)
+    return v, g + (damp * torch.mean(torch.abs(g))) * v
+
+
+def woodbury_identity(inv_a: torch.Tensor, u: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """inv(A + U V) from inv(A) by the Woodbury identity, inv(A) - inv(A) U
+    (I + V inv(A) U)^-1 V inv(A), the k x k solve in at least float32
+    (reference preconditioned...py:101-112, JAX ``woodbury_identity``)."""
+    iau = inv_a @ u
+    via = v @ inv_a
+    eye = torch.eye(u.shape[1], dtype=inv_a.dtype, device=inv_a.device)
+    sol = torch.linalg.solve(lift2single(eye + v @ iau), lift2single(via))
+    return inv_a - iau @ sol.to(inv_a.dtype)

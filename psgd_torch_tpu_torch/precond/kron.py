@@ -78,15 +78,18 @@ def canonical_dq(dq: str) -> str:
     return dq
 
 
-def require_real(*dtypes: torch.dtype) -> None:
+def require_real(*dtypes: torch.dtype,
+                  what: str = "the LRA and dense preconditioners") -> None:
     """Refuse complex dtypes where the port has no complex form: the LRA
-    and dense preconditioners (ROADMAP A3b; the JAX package's LRA and
-    dense code transposes where a Hermitian preconditioner conjugates)."""
+    and dense preconditioners and the legacy families (ROADMAP A3b; the
+    JAX package's LRA and dense code transposes where a Hermitian
+    preconditioner conjugates, and no JAX test holds the legacy families
+    in complex)."""
     for dt in dtypes:
         if dt.is_complex:
             raise NotImplementedError(
-                f"complex dtype {dt} is not ported yet for the LRA and dense "
-                "preconditioners (ROADMAP A3b; Kron took complex in A3)")
+                f"complex dtype {dt} is not ported yet for {what} "
+                "(ROADMAP A3b; Kron took complex in A3)")
 
 
 class KronPlan(NamedTuple):

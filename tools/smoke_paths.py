@@ -8,7 +8,7 @@ drives one path: for example ``stack_sharded_path pair_paths
 factor_sharded_path vector_sharded_path sharded_trainer_path`` (the
 distributed paths),
 ``vector_fault_margin`` (the vector-sharded path's arms with a planted
-fault each) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg`` passes
+fault each), ``legacy_path`` (the legacy families) or ``newton_path:gpt2 gpt2_path`` (a ``name:arg`` passes
 ``arg`` first).  For each ``--root`` in the order given (default:
 the checkout this file is in; give a parent checkout and this one as
 ``--root P --root C --root C --root P`` to compare two trees on one card in
