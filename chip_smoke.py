@@ -187,7 +187,7 @@
 17. The distributed paths (ranks: processes on cuda:0 joined by gloo, the
    kernel library built by this process before any starts, kept for the
    next path while the world size stays, so the order is stack (3 ranks),
-   pair and trainer (2), factor (2, then 4) and vector (4); 2 ranks
+   pair and trainer (2), factor (2, then 4), vector (4) and tp (4); ranks
    sharing one H100 over gloo, so their times are not scaling figures).
    ``stack_sharded_path``: GPT-2 124M by KronWhiten (as 5), GPT-2 124M by
    KronNewton (as 7) and LLaMA-1.1B by KronWhiten (as 6), 1 step at p =
@@ -244,8 +244,9 @@
    path's shapes and keys (``check_vector_noise``).  ``sharded_trainer_path``
    (examples/train_gpt2_sharded.py's functions): GPT-2 124M at full width
    and depth, batch 4 x 1024, bf16, on 2 ranks (``make_multihost_mesh``'s
-   one-host mesh, FSDP2's layer-sharded blocks under ``stack_sharding``,
-   the embeddings factor-sharded) and on 1, 3 steps with a checkpoint
+   one-host mesh, the blocks' stacks ``Shard(0)`` by layer through
+   ``gpt2.shard_model`` under ``stack_sharding``, the embeddings
+   factor-sharded) and on 1, 3 steps with a checkpoint
    after 2, under CUDA's deterministic algorithms: the 2-rank resume bit
    for bit its unbroken run; its checkpoint gathered (``gather_checkpoint``)
    and resumed on 1 rank, and the 1-rank checkpoint cut for 2 ranks, each
@@ -253,8 +254,23 @@
    parameter but the embeddings bit for bit, their updates within
    ``FACTOR_COS`` and ``FACTOR_REL``; per-rank parameter and state bytes
    about half, ``drift_check`` 0.0, ``GPT2_PER_FIT`` launches of rows 1
-   and 2 per fit step.  The ranks' launch counts come back to this
-   process and count toward the kernels' line.
+   and 2 per fit step.  ``tp_trainer_path`` (ROADMAP A8c; after the
+   vector path, in its 4 kept ranks): the same trainer on 4 ranks as
+   ``make_mesh(4)``'s (dp 1, fsdp 2, tp 2), JAX's production layout (the
+   blocks ``(None, fsdp, tp)`` by ``gpt2.shard_model``, its forward
+   tensor-parallel, ``stack_sharding`` over fsdp resharding each rank's 6
+   layers, Q replicated over tp), beside 1 rank: (a) the optimizer alone
+   from the same gradients, every non-routed block and Q bit for bit, the
+   embeddings within ``FACTOR_COS`` / ``FACTOR_REL``, drift 0.0 over tp;
+   (b) 3 steps with a checkpoint after 2, the first loss within
+   ``TP_LOSS_REL`` of 1 rank's, the first batch's loss lower after the
+   steps, the layout's launches of rows 1 and 2 per fit step exactly,
+   parameter and momentum bytes about a quarter of 1 rank's and Q about a
+   half; (c) the 4-rank resume bit for bit, the checkpoint gathered and
+   resumed on 1 rank within ``TP_COS`` / ``TP_REL`` of the unbroken step,
+   limits set against planted faults (``tp_fault_margin``).  The ranks'
+   launch counts come back to this process and count toward the kernels'
+   line.
 17b. The legacy families path (``legacy_path``, ROADMAP A7, after the
    complex fixed-point runs are waited for and before the distributed
    paths): every legacy family (the dense P, the seven Kron kind pairs,
@@ -5107,10 +5123,10 @@ def vector_fault_margin(dev, card: str) -> dict:
 
 
 # the sharded trainer's path: GPT-2 124M through examples/train_gpt2_sharded
-# (FSDP2's layer-sharded blocks, stack_sharding, the routed embeddings) on
-# 2 ranks of cuda:0 and on 1; TRAINER_STEPS steps, the checkpoint after
-# TRAINER_AT; the schedule's length keeps p >= 0.99 over them (every step
-# a fit step, as the smoke checks)
+# (layer-sharded blocks by gpt2.shard_model, stack_sharding, the routed
+# embeddings) on 2 ranks of cuda:0 and on 1; TRAINER_STEPS steps, the
+# checkpoint after TRAINER_AT; the schedule's length keeps p >= 0.99 over
+# them (every step a fit step, as the smoke checks)
 TRAINER_STEPS = 3
 TRAINER_AT = 2
 TRAINER_SCHEDULE = 200
@@ -5126,7 +5142,7 @@ TRAINER_LABEL = "2 ranks sharing one H100 over gloo; not a scaling figure"
 
 def _trainer_digests(s) -> dict:
     """SHA-256 of every parameter block of a trainer's model (its local
-    one under FSDP2) with the dim that shards it (None: whole), and of
+    one when sharded) with the dim that shards it (None: whole), and of
     every tensor of its optimizer's state_dict."""
     from torch.distributed.tensor import DTensor, Shard
     params = {}
@@ -5341,7 +5357,8 @@ def _blocks_agree(label, one, ranks, tag, card) -> None:
 def sharded_trainer_path(dev, card: str) -> dict:
     """GPT-2 124M through ``examples/train_gpt2_sharded``'s functions at
     full width and depth, batch TRAINER_BATCH x 1024, bf16: on 2 ranks of
-    this card (gloo; FSDP2's layer-sharded blocks, stack_sharding over its
+    this card (gloo; the layer-sharded blocks of ``gpt2.shard_model``,
+    stack_sharding over its
     fsdp dim, the embeddings factor-sharded) and on 1, each TRAINER_STEPS
     steps with a checkpoint after TRAINER_AT, under CUDA's deterministic
     algorithms.  (a) The 2-rank run resumed on 2 ranks equals its unbroken
@@ -5432,8 +5449,521 @@ def sharded_trainer_path(dev, card: str) -> dict:
     return total
 
 
+# the tensor-parallel path (ROADMAP A8c): GPT-2 124M in JAX's production
+# layout, examples/train_gpt2_sharded.py's functions on 4 ranks of cuda:0
+# over gloo as make_mesh(4)'s (dp 1, fsdp 2, tp 2): the blocks (None, fsdp,
+# tp) by gpt2.shard_model (tp forward, the fsdp blocks gathered in it),
+# stack_sharding over fsdp (each rank's 6 layers resharded by bytes, Q
+# replicated over tp), the embeddings factor-sharded; TRAINER_BATCH x 1024,
+# bf16, TRAINER_SCHEDULE's gate (every step a fit step)
+TP_WORLD = 4
+TP_STEPS = 3           # (a)'s fit steps and (b)'s trainer steps
+TP_AT = 2              # (b)'s checkpoint, before its last step
+TP_GRAD_SCALE = 1e-3   # (a)'s gradients: N(0, 1) times this
+# (b)'s first loss against the 1-rank model's on the same tokens (bf16: the
+# tp partial sums round to bf16 before their float32 sum), and (c) the step
+# after the 4-rank checkpoint, gathered and resumed on 1 rank, against the
+# unbroken 4-rank step: each leaf's update within 1 - cosine TP_COS and
+# relative error TP_REL.  Set against planted faults (tp_fault_margin, its
+# readings in PERF.md §6, on an H100 80GB HBM3 at 700 W): sound, loss gap
+# 4.6e-6 and worst update 1.9e-3 / 0.062 (the LayerNorm scales; every
+# other leaf under 2e-4 / 0.02); one head off, 5.0e-4 and 0.37 / 0.87; the
+# reshard one layer off, 1.0 / 1.4; a skipped tp all-reduce, the gather
+# refuses the replicas that drifted
+TP_LOSS_REL = 1e-4
+TP_COS = 2e-2
+TP_REL = 0.3
+# planted faults: a skipped row-parallel all-reduce over tp, the reshard's
+# layers one layer off, the q/k/v regroup one head off
+TP_FAULTS = ("none", "allreduce", "layers", "heads")
+TP_LABEL = "4 ranks sharing one H100 over gloo; not a scaling figure"
+
+
+def _plant_tp_fault(fault: str):
+    """Plant ``fault`` in this process; returns the undo."""
+    from psgd_torch_tpu_torch.parallel import mesh as pmesh
+    lay = gpt2._TPLayout
+    saved = (lay.reduce, gpt2._heads, pmesh.LayerReshard.to_layers)
+
+    def undo():
+        lay.reduce, gpt2._heads, pmesh.LayerReshard.to_layers = saved
+
+    if fault == "allreduce":
+        # the row-parallel products' sums over tp, the only ones in bf16
+        # (the embedding's and the cross-entropy's are float32)
+        own = saved[0]
+        lay.reduce = lambda self, x: x if x.dtype == torch.bfloat16 else own(self, x)
+    elif fault == "heads":
+        def shifted(n_head, tp, index):
+            k = n_head // tp
+            return [(index * k + j + 1) % n_head for j in range(k)]
+        gpt2._heads = shifted
+    elif fault == "layers":
+        own = saved[2]
+        pmesh.LayerReshard.to_layers = lambda self, block: own(self, block).roll(1, 0)
+    elif fault != "none":
+        raise ValueError(f"unknown fault {fault}")
+    return undo
+
+
+def _tp_grads(step: int, model, dev) -> dict:
+    """(a)'s gradients at ``step``: name -> a global tensor, the same on
+    every process (a card generator seeded by the step, the names sorted)."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + step)
+    return {n: TP_GRAD_SCALE * torch.randn(tuple(p.shape), generator=gen, device=dev)
+            for n, p in sorted(model.named_parameters())}
+
+
+def _tp_box(p) -> list:
+    """Where a DTensor parameter's block sits: [start, stop] per dim."""
+    from psgd_torch_tpu_torch.utils.checkpoint import _dtensor_index
+    return _dtensor_index(p)
+
+
+def _cut(x, box) -> torch.Tensor:
+    return x[tuple(slice(a, b) for a, b in box)]
+
+
+def _tp_kinds(opt) -> dict:
+    """Leaf name -> how the optimizer holds it."""
+    return {n: ("resharded" if opt.resharded[i] is not None else
+                "owned" if opt.owned[i] else "routed" if opt.routed[i] is not None
+                else "whole" if opt.whole[i] is not None else "plain")
+            for i, n in enumerate(opt._names)}
+
+
+def _tp_state(opt) -> dict:
+    """name -> (Q factors, L, this rank's layers or None) on the host."""
+    out = {}
+    for i, (n, p) in enumerate(zip(opt._names, opt.param_groups[0]["params"])):
+        st, s = opt.state[p], opt.layers[i]
+        out[n] = ([f.detach().clone() for f in st["q"]],
+                  [f.detach().clone() for f in st["lips"]],
+                  None if s is None else (s.start, s.stop))
+    return out
+
+
+def _tp_alike(opt) -> dict:
+    """What the tp ranks hold alike: every Q and L (a resharded stack's
+    the same layers on both tp ranks) but a routed leaf's diagonal
+    factors, its blocks."""
+    out = {}
+    for n, p, r in zip(opt._names, opt.param_groups[0]["params"], opt.routed):
+        st = opt.state[p]
+        for j, f in enumerate(st["q"]):
+            if r is None or f.ndim == 2:
+                out[f"{n} Q {j}"] = f
+        for j, f in enumerate(st["lips"]):
+            out[f"{n} L {j}"] = f
+    return out
+
+
+def _tp_per_fit(opt) -> dict:
+    """Rows 1 and 2's launches per fit step, from the layout: one damped
+    noise per leaf, one NS update per dense factor of each leaf (a stack's
+    at its B layers)."""
+    return {"fused_ns_update": sum(sum(not d for d in plan.is_diag) for plan in opt.plans),
+            "damped_noise": len(opt.plans)}
+
+
+def _tp_bytes(s) -> dict:
+    """This rank's parameter bytes (its blocks) and optimizer state bytes
+    by role (``state_memory_report`` per device)."""
+    params = sum(_local_of(p).numel() * p.element_size() for p in s.model.parameters())
+    return dict(params=params, **state_memory_report(s.opt, per_device=True))
+
+
+def _local_of(p) -> torch.Tensor:
+    return p.to_local() if hasattr(p, "to_local") else p
+
+
+def _tp_blocks(s) -> dict:
+    """Every parameter's block (float32, on the host) and where it sits."""
+    return {n: (_local_of(p).detach().float().cpu().clone(), _tp_box(p))
+            for n, p in s.model.named_parameters()}
+
+
+def _tp_alone(s, dev) -> dict:
+    """(a): the optimizer alone, TP_STEPS fit steps from ``_tp_grads``
+    (each rank its blocks, as DTensor gradients); its readings."""
+    from torch.distributed.tensor import DTensor
+    from psgd_torch_tpu_torch.parallel import drift_check
+    t0 = time.perf_counter()
+    for i in range(TP_STEPS):
+        grads = _tp_grads(i, s.model, dev)
+        for n, p in s.model.named_parameters():
+            p.grad = DTensor.from_local(_cut(grads[n], _tp_box(p)).contiguous(),
+                                        p.device_mesh, p.placements, run_check=False)
+        del grads
+        s.opt.step()
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, fits=s.opt.fit_steps,
+                kinds=_tp_kinds(s.opt), state=_tp_state(s.opt), blocks=_tp_blocks(s),
+                drift=drift_check(_tp_alike(s.opt), group=s.mesh.get_group("tp")))
+
+
+def _tp_job(rank: int, world: int, arg: str) -> dict:
+    """The 4-rank runs of ``tp_trainer_path`` (``arg``: "base|fault"),
+    under CUDA's deterministic algorithms: (a) the optimizer alone; (b)
+    the trainer, checkpoint A after TP_AT steps, its readings; (c) A
+    resumed on the 4 ranks, then gathered by rank 0."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    from psgd_torch_tpu_torch.parallel import drift_check
+    from psgd_torch_tpu_torch.utils import gather_checkpoint
+    base, fault = arg.split("|")
+    dev = torch.device("cuda", 0)
+    a = os.path.join(base, "a")
+    undo = _plant_tp_fault(fault)
+    out = {}
+    try:
+        with _deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cfg = tr.make_config("124m", dev)
+            make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
+            s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+            out["mesh"] = tr.mesh_sizes(s.mesh)
+            out["alone"] = _tp_alone(s, dev)
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+            out["per_fit"] = _tp_per_fit(s.opt)
+            kernels.reset_launch_counts()
+            counts = {}
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, fits = _trainer_steps(s, make, range(TP_AT), counts)
+            t0 = time.perf_counter()
+            save_checkpoint(a, TP_AT, s.model, s.opt)
+            out["save_s"] = time.perf_counter() - t0
+            out["bytes"] = _tp_bytes(s)
+            out["at"] = _tp_blocks(s)
+            more = _trainer_steps(s, make, range(TP_AT, TP_STEPS), counts)
+            out.update(losses=losses + more[0], ms=ms + more[1], fits=fits + more[2],
+                       counts=counts, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       unbroken=_trainer_digests(s), after=_tp_blocks(s),
+                       drift=drift_check(_tp_alike(s.opt), group=s.mesh.get_group("tp")))
+            with torch.no_grad():    # the first batch again, after the steps
+                out["first_again"] = gpt2.loss_gpt2(s.model, *make(0)).item()
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+            s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+            t0 = time.perf_counter()
+            step, _ = restore_checkpoint(a, s.model, s.opt)
+            out["restore_s"] = time.perf_counter() - t0
+            _trainer_steps(s, make, range(step, TP_STEPS))
+            out["same"] = dict(step=step, digests=_trainer_digests(s))
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                t0 = time.perf_counter()
+                gather_checkpoint(a, device=dev)
+                out["gather_s"] = time.perf_counter() - t0
+                d = os.path.join(a, f"step_{TP_AT}")
+                out["file_bytes"] = {f: os.path.getsize(os.path.join(d, f))
+                                     for f in os.listdir(d)}
+            dist.barrier()
+    finally:
+        undo()
+    return out
+
+
+def _tp_one_alone(cfg, dev, make) -> dict:
+    """The 1-rank runs before the ranks' (this process, no process group):
+    (a)'s optimizer alone from the same gradients, the first loss on (b)'s
+    first batch."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+    out = {"init": {n: p.detach().float().cpu().clone()
+                    for n, p in s.model.named_parameters()}}
+    with torch.no_grad():
+        out["first_loss"] = gpt2.loss_gpt2(s.model, *make(0)).item()
+    params = dict(s.model.named_parameters())
+    for i in range(TP_STEPS):
+        for n, g in _tp_grads(i, s.model, dev).items():
+            params[n].grad = g
+        s.opt.step()
+    out["alone"] = dict(fits=s.opt.fit_steps, state=_tp_state(s.opt),
+                        params={n: p.detach().clone() for n, p in params.items()})
+    out["bytes"] = _tp_bytes(s)
+    return out
+
+
+def _tp_one_resume(cfg, dev, make, a) -> dict:
+    """(c) on 1 rank: the gathered checkpoint ``a`` restored, its last
+    step; the parameters at the checkpoint and after it."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+    t0 = time.perf_counter()
+    step, _ = restore_checkpoint(a, s.model, s.opt)
+    out = {"restore_s": time.perf_counter() - t0,
+           "at": {n: p.detach().float().cpu().clone() for n, p in s.model.named_parameters()}}
+    res = _trainer_steps(s, make, range(step, TP_STEPS))
+    out.update(step=step, losses=res[0], after={
+        n: p.detach().float().cpu().clone() for n, p in s.model.named_parameters()})
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(os.path.dirname(a), "b"), TP_STEPS, s.model, s.opt)
+    out["save_s"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_cut_job(rank: int, world: int, base: str) -> dict:
+    """The 1-rank checkpoint B (after the resumed step) cut for this rank:
+    the restore's seconds and every parameter block."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    dev = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg = tr.make_config("124m", dev)
+        s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
+        t0 = time.perf_counter()
+        step, _ = restore_checkpoint(os.path.join(base, "b"), s.model, s.opt)
+        return dict(step=step, cut_s=time.perf_counter() - t0, blocks=_tp_blocks(s))
+
+
+def _tp_alone_check(one, ranks, check: bool) -> dict:
+    """(a): every non-routed leaf's parameter block and Q (a resharded
+    stack's its layers) the 1-rank run's bit for bit; the routed
+    embeddings' updates within FACTOR_COS and FACTOR_REL; drift 0.0 over
+    tp.  Returns the readings (the number of tensors held bit for bit and
+    the routed leaves' worst gaps)."""
+    same = bad = 0
+    worst = (0.0, 0.0)
+    for r, res in enumerate(ranks):
+        got = res["alone"]
+        if check and (got["fits"] != TP_STEPS or set(got["drift"].values()) != {0.0}):
+            raise AssertionError(f"tp path (a): rank {r} fits {got['fits']}, drift "
+                                 f"{got['drift']}")
+        for n, (block, box) in got["blocks"].items():
+            if got["kinds"][n] == "routed":
+                u = block - _cut(one["init"][n], box)
+                ref = _cut(one["alone"]["params"][n].float().cpu() - one["init"][n], box)
+                cos_gap, rel = _agree(u, ref)
+                worst = (max(worst[0], cos_gap), max(worst[1], rel))
+                if check and not (1 - cos_gap > FACTOR_COS and rel < FACTOR_REL):
+                    raise AssertionError(f"tp path (a): rank {r}'s {n} update 1 - cosine "
+                                         f"{cos_gap:.3g}, relative error {rel:.3g}")
+                continue
+            pairs = [(block, _cut(one["alone"]["params"][n].float().cpu(), box))]
+            qs, ls, cut = got["state"][n]
+            rq, rl, _ = one["alone"]["state"][n]
+            layers = slice(None) if cut is None else slice(*cut)
+            pairs += [(f, g[layers] if g.ndim and cut is not None else g)
+                      for f, g in zip(qs + ls, rq + rl)]
+            for mine, theirs in pairs:
+                if _same_bits(mine.cpu(), theirs.cpu()):
+                    same += 1
+                else:
+                    bad += 1
+                    if check:
+                        raise AssertionError(f"tp path (a): rank {r}'s {n} differs from "
+                                             "the 1-rank run's")
+    return dict(same=same, bad=bad, routed=worst)
+
+
+def _tp_resume_check(one, ranks, check: bool) -> dict:
+    """(c): the gathered checkpoint restored on 1 rank holds every 4-rank
+    block bit for bit; its step's update (each leaf, each rank's block)
+    against the unbroken 4-rank step's, the worst 1 - cosine and relative
+    error over the leaves within TP_COS and TP_REL."""
+    worst, per = (0.0, 0.0), {}
+    for r, res in enumerate(ranks):
+        for n, (block, box) in res["at"].items():
+            if check and not torch.equal(block, _cut(one["at"][n], box)):
+                raise AssertionError(f"tp path (c): rank {r}'s {n} at the checkpoint "
+                                     "differs from the gathered file's")
+            u = res["after"][n][0] - block
+            ref = _cut(one["after"][n] - one["at"][n], box)
+            cos_gap, rel = _agree(u, ref)
+            worst = (max(worst[0], cos_gap), max(worst[1], rel))
+            p = per.get(n, (0.0, 0.0))
+            per[n] = (max(p[0], cos_gap), max(p[1], rel))
+    if check and not (worst[0] < TP_COS and worst[1] < TP_REL):
+        raise AssertionError(f"tp path (c): the resumed step's worst 1 - cosine {worst[0]:.3g}, "
+                             f"relative error {worst[1]:.3g} (limits {TP_COS}, {TP_REL}); "
+                             f"per leaf {per}")
+    for r, res in enumerate(ranks):
+        cut = res["cut"]
+        same = cut["step"] == TP_STEPS and all(
+            torch.equal(block, _cut(one["after"][n], box))
+            for n, (block, box) in cut["blocks"].items())
+        if check and not same:
+            raise AssertionError(f"tp path (c): rank {r}'s cut of the 1-rank checkpoint "
+                                 "differs from the 1-rank run's blocks")
+    return dict(worst=worst, per=per)
+
+
+def _tp_run(dev, card: str, fault: str, check: bool) -> tuple:
+    """The 1-rank runs and the 4-rank job with ``fault`` planted in the
+    ranks; the readings of (a), (b) and (c), gated when ``check``."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    base = OUT_DIR / "tp_trainer"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    cfg = tr.make_config("124m", dev)
+    make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
+    try:
+        with _deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one = _tp_one_alone(cfg, dev, make)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = _spawn(f"tp:{base}|{fault}", TP_WORLD)
+        with _deterministic(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            one.update(_tp_one_resume(cfg, dev, make, str(base / "a")))
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuts = _spawn(f"tpcut:{base}", TP_WORLD)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    for r, cut in enumerate(cuts):
+        ranks[r]["cut"] = cut
+    first = ranks[0]["losses"][0]
+    readings = dict(alone=_tp_alone_check(one, ranks, check),
+                    loss_rel=abs(first - one["first_loss"]) / abs(one["first_loss"]),
+                    resume=_tp_resume_check(one, ranks, check))
+    return one, ranks, readings
+
+
+def tp_trainer_path(dev, card: str) -> dict:
+    """GPT-2 124M at full width and depth in JAX's production layout
+    (ROADMAP A8c) through ``examples/train_gpt2_sharded``'s functions on
+    TP_WORLD ranks of this card (gloo) as (dp 1, fsdp 2, tp 2), beside 1
+    rank, under CUDA's deterministic algorithms.  (a) The optimizer alone
+    from the same gradients: every non-routed leaf's parameter blocks and
+    Q (a resharded stack's its 6 layers) the 1-rank run's bit for bit after
+    TP_STEPS fit steps, the routed embeddings' updates within FACTOR_COS /
+    FACTOR_REL, ``drift_check`` 0.0 over the tp replicas.  (b) The
+    trainer, TP_STEPS steps at TRAINER_BATCH x 1024 bf16 with a checkpoint
+    after TP_AT: its first loss within TP_LOSS_REL of the 1-rank model's
+    on the same tokens, finite losses, the first batch's loss lower after
+    the steps (each step takes another batch), each rank's launches of
+    rows 1 and 2 per fit step the count its layout gives
+    (``_tp_per_fit``), per-rank parameter bytes about a quarter of the
+    1-rank run's and Q bytes about a half (replicated over tp), drift 0.0
+    over tp; the step times, the save, the gather and the restores
+    logged.  (c) Checkpoint A resumed on the 4 ranks bit for bit the
+    unbroken run; gathered and resumed on 1 rank, every block at A bit for
+    bit and the step's updates within TP_COS / TP_REL of the unbroken
+    4-rank step (``tp_fault_margin`` reads the gaps against planted
+    faults); that run's checkpoint B cut for the 4 ranks, every block bit
+    for bit.  Returns the 4 ranks' launches."""
+    t0 = time.perf_counter()
+    one, ranks, readings = _tp_run(dev, card, "none", check=True)
+    total = {}
+    log(f"GPT-2 124M by the sharded trainer on mesh {ranks[0]['mesh']} ({TP_LABEL}); "
+        f"leaves {sorted(set(ranks[0]['alone']['kinds'].values()))}: "
+        f"{ {k: list(ranks[0]['alone']['kinds'].values()).count(k) for k in set(ranks[0]['alone']['kinds'].values())} }")
+    a = readings["alone"]
+    log(f"  (a) the optimizer alone, {TP_STEPS} fit steps on {TP_WORLD} ranks "
+        f"({[round(r['alone']['seconds'], 2) for r in ranks]} s): {a['same']} parameter "
+        f"blocks, Q and L bit for bit the 1-rank run's; the routed embeddings' updates "
+        f"worst 1 - cosine {a['routed'][0]!r}, relative error {a['routed'][1]!r}; drift "
+        f"0.0 over tp on {len(ranks[0]['alone']['drift'])} Q and L")
+    losses1 = one["losses"]
+    for r, res in enumerate(ranks):
+        # each step takes another batch, whose loss the first updates
+        # raise at this operating point, as on 1 rank (the sharded trainer's
+        # 2- and 1-rank runs read 10.9678, 10.9893, 10.9849 on an H100 80GB
+        # HBM3 at 700 W): the loss that falls is the first batch's, read
+        # again after the steps
+        if not all(math.isfinite(x) for x in res["losses"]) or \
+                res["fits"] != [1] * TP_STEPS or not res["first_again"] < res["losses"][0]:
+            raise AssertionError(f"tp path (b): rank {r} losses {res['losses']}, on the "
+                                 f"first batch after them {res['first_again']}, fits "
+                                 f"{res['fits']}")
+        want = {k: n * TP_STEPS for k, n in res["per_fit"].items()}
+        got = {k: res["counts"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"tp path (b): rank {r} launched {got} in {TP_STEPS} fit "
+                                 f"steps, its layout gives {want}")
+        if set(res["drift"].values()) != {0.0}:
+            raise AssertionError(f"tp path (b): rank {r} drift {res['drift']}")
+        share = {k: res["bytes"][k] / one["bytes"][k] for k in ("params", "momentum", "q")}
+        if not (0.24 < share["params"] < 0.27 and 0.24 < share["momentum"] < 0.27
+                and 0.45 < share["q"] < 0.6):
+            raise AssertionError(f"tp path (b): rank {r} holds {res['bytes']} bytes, the "
+                                 f"1-rank run {one['bytes']}")
+        if res["same"]["step"] != TP_AT or res["same"]["digests"] != res["unbroken"]:
+            raise AssertionError(f"tp path (c): rank {r}'s 4-rank resume differs from the "
+                                 "unbroken run")
+        _add(total, res["counts"])
+        log(f"  (b) rank {r}: losses {[round(x, 4) for x in res['losses']]}, the first "
+            f"batch's after them {res['first_again']:.4f}; launches per "
+            f"fit step {res['per_fit']} (the layout's); parameters "
+            f"{res['bytes']['params'] / 1e6:.1f} MB ({share['params']:.3f} of 1 rank's), "
+            f"momentum {res['bytes']['momentum'] / 1e6:.1f} MB ({share['momentum']:.3f}), "
+            f"Q {res['bytes']['q'] / 1e6:.1f} MB ({share['q']:.3f}, replicated over tp), "
+            f"state {res['bytes']['total'] / 1e6:.1f} MB "
+            f"({res['bytes']['total'] / one['bytes']['total']:.3f}); peak {res['peak_gb']:.2f} GB; "
+            f"drift 0.0 over tp on {len(res['drift'])} Q and L")
+        log(f"  [{card}; {TP_LABEL}] rank {r}: train step (forward, backward, optimizer; fit) "
+            f"ms {[round(x, 2) for x in res['ms']]}, median after the first "
+            f"{_median(res['ms'][1:])}")
+    if readings["loss_rel"] > TP_LOSS_REL:
+        raise AssertionError(f"tp path (b): first loss {ranks[0]['losses'][0]!r}, 1 rank "
+                             f"{one['first_loss']!r}: relative {readings['loss_rel']:.3g}")
+    if not all(math.isfinite(x) for x in losses1):
+        raise AssertionError(f"tp path (c): the 1-rank resume's losses {losses1}")
+    res = readings["resume"]
+    log(f"  (b) first loss {ranks[0]['losses'][0]!r} against the 1-rank model's "
+        f"{one['first_loss']!r}: relative {readings['loss_rel']!r} (limit {TP_LOSS_REL})")
+    log(f"  (c) checkpoint A resumed on {TP_WORLD} ranks bit for bit the unbroken run; "
+        f"gathered and resumed on 1 rank: every block at A bit for bit, its step's "
+        f"updates worst 1 - cosine {res['worst'][0]!r}, relative error {res['worst'][1]!r} "
+        f"(limits {TP_COS}, {TP_REL}); per leaf {res['per']}")
+    files = ranks[0]["file_bytes"]
+    log(f"  [{card}] checkpoint A ({TP_WORLD} ranks, step {TP_AT}): "
+        f"{', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in sorted(files.items()))}; save "
+        f"{[round(r['save_s'], 2) for r in ranks]} s per rank; gather (rank 0, on the card) "
+        f"{ranks[0]['gather_s']:.2f} s; {TP_WORLD}-rank restore "
+        f"{[round(r['restore_s'], 2) for r in ranks]} s; 1-rank restore of the gathered "
+        f"file {one['restore_s']:.2f} s; the 1-rank checkpoint B (step {TP_STEPS}) saved in "
+        f"{one['save_s']:.2f} s, cut for {TP_WORLD} ranks in "
+        f"{[round(r['cut']['cut_s'], 2) for r in ranks]} s, every block bit for bit")
+    log(f"  [{card}] tp trainer path {time.perf_counter() - t0:.1f} s; its launches "
+        f"({TP_WORLD} ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
+    return total
+
+
+def tp_fault_margin(dev, card: str) -> dict:
+    """``tp_trainer_path``'s runs sound and with each planted fault of
+    TP_FAULTS in the 4 ranks, ungated: each run's first-loss gap, (a)'s
+    tensors held bit for bit and not, and (c)'s worst update gaps, for
+    the path's limits (a run that raises, as the gather does on drifted
+    replicas, is logged as such).  Run alone: ``python3
+    tools/smoke_paths.py tp_fault_margin``."""
+    result = {}
+    for fault in TP_FAULTS:
+        try:
+            _, ranks, readings = _tp_run(dev, card, fault, check=False)
+        except Exception as e:        # a refusal is a reading here
+            result[fault] = dict(raised=f"{type(e).__name__}: {str(e)[-600:]}")
+            log(f"[{card}] fault {fault}: the run raised {result[fault]['raised']}")
+            continue
+        result[fault] = dict(loss_rel=readings["loss_rel"], alone=readings["alone"],
+                             resume=readings["resume"]["worst"],
+                             per_leaf=readings["resume"]["per"],
+                             losses=ranks[0]["losses"],
+                             drift=max(max(r["drift"].values()) for r in ranks),
+                             ms=ranks[0]["ms"])
+        log(f"[{card}] fault {fault}: first loss gap {readings['loss_rel']!r}; (a) "
+            f"{readings['alone']}; (c) worst 1 - cosine, relative error "
+            f"{readings['resume']['worst']}; per leaf {readings['resume']['per']}; "
+            f"losses {ranks[0]['losses']}; drift over tp {result[fault]['drift']!r}; "
+            f"rank 0 step ms {ranks[0]['ms']}")
+    close_ranks()
+    log(json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "per_leaf"}
+                    for k, v in result.items()}))
+    return {}
+
+
 _DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job,
-              "vector": _vector_job, "trainer": _trainer_job}
+              "vector": _vector_job, "trainer": _trainer_job, "tp": _tp_job,
+              "tpcut": _tp_cut_job}
 
 
 def log_apply_launches(profiles, card: str) -> None:
@@ -5536,7 +6066,9 @@ def main() -> int:
              ("Factor-sharded path",
               lambda: (factor_sharded_path(dev, smi), None), (), False, None),
              ("Vector-sharded path",
-              lambda: (vector_sharded_path(dev, smi), None), (), False, None))
+              lambda: (vector_sharded_path(dev, smi), None), (), False, None),
+             ("Tensor-parallel trainer path",
+              lambda: (tp_trainer_path(dev, smi), None), (), False, None))
     profiles, fp_small = {}, []
     try:
         for label, drive, probs, tensor_cores, tag in paths:

@@ -5,11 +5,18 @@ of the port in one program.
 * the mesh: ``parallel.make_multihost_mesh`` (a leading "dcn" dim across
   hosts, ``LOCAL_WORLD_SIZE`` ranks each; one host: ``make_mesh``);
 * the layout from one declaration: ``gpt2_partition_specs`` and
-  ``sharding_recipe``: the blocks' layer stacks
-  ``Shard(0)`` over fsdp for both FSDP2 (``fully_shard``, which wraps the
-  model whose ``forward`` runs) and the optimizer's ``stack_sharding``,
-  the embeddings at the map's placements for both (their Q dim-sharded,
-  ``factor_sharding``), the final LayerNorm replicated;
+  ``sharding_recipe`` over the whole mesh, the model placed by
+  ``models.gpt2.shard_model`` at ``recipe.model_placements()`` (its forward
+  gathers the fsdp blocks itself and is tensor-parallel over tp) and the
+  optimizer given ``recipe.transform_kwargs``.  With tp 1 (2 ranks of a
+  host): the blocks' layer stacks ``Shard(0)`` over fsdp, each rank's
+  layers fitted and stepped in place by ``stack_sharding``.  With tp > 1
+  (4 or more ranks of a host: (dp 1, fsdp 2, tp 2) at 4, as JAX's
+  ``make_mesh(4)``): JAX's layout, the blocks ``(None, fsdp, tp)``,
+  ``stack_sharding`` over fsdp fitting each rank's layers (resharded by
+  bytes), Q replicated over tp.  Either way the embeddings sit at the
+  map's placements (their Q dim-sharded, ``factor_sharding``) and the final
+  LayerNorm is replicated;
 * ``KronWhiten`` with the JAX example's settings (lr 1e-3, momentum 0.9,
   max_skew 2, init scale 1, update probability 1.0 -> 0.1 over the first
   half), ``--share-fit-apply``; bf16 Q and momentum on the card;
@@ -17,14 +24,14 @@ of the port in one program.
   ``--resume`` from the latest one at this run's world size, whatever
   size wrote it (``utils.restore_checkpoint`` gathers and cuts).
 
-Every rank of a host's fsdp group takes the step's whole batch (the JAX
-example's data sharding over dp only; across hosts each takes its rows),
-so a k-rank run steps as the 1-rank run does.  One rank runs unsharded:
-no FSDP2, the plain optimizer.  Within-layer tensor parallelism (tp > 1)
-is ROADMAP A8c.
+Every rank of a host's fsdp and tp groups takes the step's whole batch
+(the JAX example's data sharding over dp only; across hosts each takes
+its rows), so a k-rank run with tp 1 steps as the 1-rank run does, and
+with tp > 1 as it does up to the rounding of the tp partial sums.  One
+rank runs unsharded: the plain model and optimizer.
 
-Run:  torchrun --nproc-per-node 2 -m psgd_torch_tpu_torch.examples.train_gpt2_sharded [--steps N] [--device cpu]
-      python -m psgd_torch_tpu_torch.examples.train_gpt2_sharded --nproc 2 --device cpu
+Run:  torchrun --nproc-per-node 4 -m psgd_torch_tpu_torch.examples.train_gpt2_sharded [--steps N] [--device cpu]
+      python -m psgd_torch_tpu_torch.examples.train_gpt2_sharded --nproc 4 --device cpu
 """
 
 from __future__ import annotations
@@ -47,9 +54,9 @@ from .train_gpt2 import linear_schedule
 
 
 class Setup(NamedTuple):
-    """What a rank trains: the model (FSDP2's when sharded), its optimizer,
-    the mesh (None on one rank), the config and the dcn (replica) dim's
-    size and this rank's index on it."""
+    """What a rank trains: the model (``shard_model``'s when sharded), its
+    optimizer, the mesh (None on one rank), the config and the dcn
+    (replica) dim's size and this rank's index on it."""
     cfg: gpt2.GPT2Config
     model: gpt2.GPT2
     opt: KronWhiten
@@ -75,7 +82,7 @@ def make_config(model: str, device: torch.device) -> gpt2.GPT2Config:
 def make_optimizer(model, steps: int, device: torch.device,
                    share_fit_apply: bool = False, **sharding) -> KronWhiten:
     """KronWhiten with the JAX example's settings over ``model``'s
-    parameters (DTensors under FSDP2), ``sharding`` the recipe's transform
+    parameters (DTensors when sharded), ``sharding`` the recipe's transform
     kwargs (or the scanned mask alone on one rank)."""
     share = (dict(share_fit_apply=True, whiten_grad=False,
                   update_preconditioner_first=False) if share_fit_apply else {})
@@ -94,7 +101,6 @@ def setup(cfg: gpt2.GPT2Config, steps: int, device: torch.device,
           share_fit_apply: bool = False) -> Setup:
     """The model, its layout and its optimizer on this rank (every rank of
     the default process group calls it alike)."""
-    from torch.distributed.fsdp import fully_shard
     model = gpt2.GPT2(cfg, device=device, seed=0)
     mask = gpt2.scanned_layers_mask(model)
     if not dist.is_initialized() or dist.get_world_size() == 1:
@@ -102,19 +108,14 @@ def setup(cfg: gpt2.GPT2Config, steps: int, device: torch.device,
                              scanned_layers=mask)
         return Setup(cfg, model, opt, None, 1, 0)
     mesh = make_multihost_mesh(device_type=device.type)
-    sizes = mesh_sizes(mesh)
-    if sizes["tp"] > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: tensor parallelism within a layer (tp > 1) is "
-            "ROADMAP A8c; run 2 ranks per host, or pass fsdp the host's ranks")
-    fmesh = mesh["dcn", "fsdp"] if sizes["dcn"] > 1 else mesh["fsdp"]
-    recipe = sharding_recipe(fmesh, gpt2_partition_specs(fmesh),
+    recipe = sharding_recipe(mesh, gpt2_partition_specs(mesh),
                              model.named_parameters(), scanned_layers=mask,
                              stack_axis="fsdp")
-    fully_shard(model, **recipe.fsdp_kwargs(model))
+    gpt2.shard_model(model, mesh, recipe.model_placements())
     opt = make_optimizer(model, steps, device, share_fit_apply,
                          **recipe.transform_kwargs)
-    return Setup(cfg, model, opt, mesh, sizes["dcn"], mesh.get_coordinate()[0])
+    return Setup(cfg, model, opt, mesh, mesh_sizes(mesh)["dcn"],
+                 mesh.get_coordinate()[0])
 
 
 def batch_fn(cfg: gpt2.GPT2Config, batch: int, device: torch.device,
@@ -135,17 +136,19 @@ def batch_fn(cfg: gpt2.GPT2Config, batch: int, device: torch.device,
 
 
 def train_step(s: Setup, tokens, targets) -> torch.Tensor:
-    """One step: forward and backward (FSDP2's collectives), the replicated
-    leaves' gradients averaged over the hosts, the optimizer's step."""
+    """One step: forward and backward (the sharded forward's collectives
+    in them), every gradient block averaged over the hosts, the
+    optimizer's step."""
     s.opt.zero_grad(set_to_none=True)
     loss = gpt2.loss_gpt2(s.model, tokens, targets)
     loss.backward()
     if s.replicas > 1:
         group = s.mesh.get_group("dcn")
-        for p in s.opt.param_groups[0]["params"]:
+        for p in s.model.parameters():
             if p.grad is not None:
-                dist.all_reduce(p.grad, group=group)
-                p.grad /= s.replicas
+                g = p.grad.to_local()
+                dist.all_reduce(g, group=group)
+                g /= s.replicas
     s.opt.step()
     return loss.detach()
 

@@ -71,7 +71,10 @@ def hvp_exact(loss_fn: Callable[[], torch.Tensor],
     """(grads, Hvs): the gradient and the exact Hessian-vector products
     H v, by double backward (reference psgd.py:917-922), the pass under
     the math attention ``HVP_ATTENTION``.  Works through
-    ``checkpoint(..., use_reentrant=False)``."""
+    ``checkpoint(..., use_reentrant=False)`` and through the tensor-parallel
+    collectives (``parallel.tensor_parallel``), whose backward is
+    differentiable; ``params`` may be DTensors, ``vs`` then DTensors of the
+    same placements."""
     params = list(params)
     with torch.enable_grad(), sdpa_kernel(HVP_ATTENTION):
         grads = gradients(loss_fn(), params, create_graph=True)

@@ -60,16 +60,25 @@ then assembled on every rank by one ``all_gather`` of their bytes
 gradients, momentum, gate and init scale, stay replicated: the ranks
 must see the same gradients (average them first, as DDP does).  Under
 ``stack_sharding`` a leaf may also be a DTensor parameter that is not
-routed, as FSDP2 (``fully_shard``) leaves them: a stack the optimizer
-shards whose local block is the rank's layers ``Shard(0)`` is fitted,
-applied and stepped in place on that block, never gathered, its
-momentum the block's; any other (a diagonal stack, an unscanned leaf) is
-made whole by an ``all_gather`` of bytes (``parallel.gather_whole``),
-fitted and applied as a replicated leaf, and its update's block written
-back, its momentum the block's too.  A stack sharded within its layers
-raises NotImplementedError (ROADMAP A8c), as KronNewton over such leaves
-does.  ``_pieces`` and ``_unsharded_layout`` say where each rank's state
-sits in the unsharded optimizer's, for checkpoints across world sizes
+routed, as FSDP2 (``fully_shard``) or ``models.gpt2.shard_model`` leave
+them: a stack the optimizer shards whose local block is the rank's layers
+``Shard(0)`` is fitted, applied and stepped in place on that block, never
+gathered, its momentum the block's; a stack the optimizer shards whose
+block is sharded within its layers (JAX ``gpt2_partition_specs``'
+``(None, fsdp, tp)``) has its sources resharded to the rank's layers by
+bytes (``parallel.mesh.LayerReshard``: an ``all_to_all_single`` over the
+stack axis, an ``all_gather`` over the other dims that shard it), fitted
+and applied as such a stack is, and its update resharded back into the
+block, its momentum the block's, so k ranks equal 1 bit for bit; any
+other (a diagonal stack, an unscanned leaf) is made whole by an
+``all_gather`` of bytes (``parallel.gather_whole``), fitted and applied
+as a replicated leaf, and its update's block written back, its momentum
+the block's too.  KronNewton takes such leaves through the closure
+(autograd differentiates the DTensor parameters, which
+``models.gpt2.shard_model``'s forward reaches; under FSDP2 it cannot and
+raises) or through ``step(hvp_fn=)`` / ``step(vs=, hvs=)``.  ``_pieces``
+and ``_unsharded_layout`` say where each rank's state sits in the
+unsharded optimizer's, for checkpoints across world sizes
 (``utils.gather_checkpoint``).
 ``factor_sharding=(mesh, placements)`` (KronWhiten, KronNewton) keeps one
 global preconditioner for each leaf whose dims FSDP or TP shard, as the
@@ -359,13 +368,44 @@ def _classic_decay(group: dict, grads, params) -> list:
     return grads
 
 
+def _as_param(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A probe drawn at a parameter's global shape as the parameter takes
+    it: a DTensor parameter's block of it, as a DTensor of its placements
+    (no collective)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return v
+    from ..parallel.sharded import _LeafShard
+    block = v[tuple(_LeafShard(p, p.device_mesh, "probe").slices)]
+    return DTensor.from_local(block.contiguous(), p.device_mesh, p.placements,
+                              run_check=False)
+
+
+def _unreached(loss: torch.Tensor, tensors) -> list:
+    """The indices of the leaf ``tensors`` that autograd from ``loss``
+    does not reach: a walk of its graph (no backward)."""
+    want = {id(t): i for i, t in enumerate(tensors)}
+    found, seen, todo = set(), set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)
+        if var is not None and id(var) in want:
+            found.add(want[id(var)])
+        todo.extend(f for f, _ in fn.next_functions)
+    return [i for i in want.values() if i not in found]
+
+
 def _newton_pass(closure, params, do_fit: bool, k_v, exact: bool, draw):
     """The Newton optimizers' autograd: on a fit step the probes v
-    (``hvp.rand_like``, split(k_v) per parameter) and the gradient and
-    H v in one pass (``hvp.hvp_exact``, or ``hvp_finite_diff``), else the
-    gradient by one plain backward.  ``.grad`` is not touched.  Returns
-    (the closure's first loss, grads, vs, hvs); vs, hvs None without a
-    fit."""
+    (``hvp.rand_like``, split(k_v) per parameter, at the parameters'
+    global shapes; a DTensor parameter's block of it as a DTensor) and the
+    gradient and H v in one pass (``hvp.hvp_exact``, or
+    ``hvp_finite_diff``), else the gradient by one plain backward.
+    ``.grad`` is not touched.  Returns (the closure's first loss, grads,
+    vs, hvs); vs, hvs None without a fit."""
     losses = []
 
     def loss_fn():
@@ -373,7 +413,8 @@ def _newton_pass(closure, params, do_fit: bool, k_v, exact: bool, draw):
         return losses[-1]
 
     if do_fit:
-        vs = hvp.rand_like(k_v, params, draw)
+        vs = [_as_param(v, p) for v, p in
+              zip(hvp.rand_like(k_v, params, draw), params)]
         hvp_fn = hvp.hvp_exact if exact else hvp.hvp_finite_diff
         grads, hvs = hvp_fn(loss_fn, params, vs)
     else:
@@ -568,6 +609,7 @@ class _Kron(_Resumable):
 
         items = list(params)
         names, tensors, order = _pytree_order(items)
+        self._names = names
         given = [n for n, _ in items] if names is not None else None
         scan = ([False] * len(tensors) if scanned_layers is None else
                 _leaf_flags("scanned_layers", scanned_layers, given,
@@ -776,25 +818,32 @@ class _Kron(_Resumable):
                                  self.plans[i].numel)
 
     def _local_view(self, i, x) -> torch.Tensor:
-        """Leaf i's part of a global tensor: a routed leaf's block (a
-        DTensor's local one, or cut from a plain tensor); a non-routed
-        leaf's whole."""
+        """Leaf i's part of a global tensor: a DTensor leaf's block (a
+        DTensor's local one, or cut from a plain tensor); a plain leaf's
+        whole."""
         from torch.distributed.tensor import DTensor
-        if self.routed[i] is None:
-            return x
         if isinstance(x, DTensor):
             return x.to_local()
-        return x[tuple(self.routed[i].shard.slices)]
+        if self.dtensors[i] is None:
+            return x
+        return x[tuple(self._block(i))]
 
     def _shard_stacks(self, stack_sharding, names, tensors):
         """(shard group, per leaf this rank's layers or None): the scanned,
         unshared leaves with a dense factor are sharded (JAX
         transforms.py:887-893); a stack whose L does not divide by k
         raises."""
+        self.stack_dims = None
         if stack_sharding is None:
             return None, [None] * len(tensors)
         from ..parallel.mesh import shard_group
         sg = shard_group(stack_sharding)
+        if isinstance(stack_sharding, tuple):
+            mesh, dims = stack_sharding
+            dim_names = tuple(mesh.mesh_dim_names or ())
+            self.stack_dims = tuple(
+                d if isinstance(d, str) else dim_names[int(d)]
+                for d in (dims if isinstance(dims, (tuple, list)) else (dims,)))
         layers = []
         for i, (t, f, plan) in enumerate(zip(tensors, self.scanned,
                                              self.plans)):
@@ -812,20 +861,27 @@ class _Kron(_Resumable):
         return sg, layers
 
     def _layer_shard(self, names, tensors) -> list:
-        """The DTensor leaves that are not routed (FSDP2's, under
-        ``stack_sharding``): ``self.dtensors`` per leaf (every DTensor
-        leaf's parameter, routed ones too), ``self.owned`` (a stack the
+        """The DTensor leaves that are not routed (FSDP2's or
+        ``models.gpt2.shard_model``'s, under ``stack_sharding``):
+        ``self.dtensors`` per leaf (every DTensor leaf's parameter, routed
+        ones too), and one of three kinds: ``self.owned`` (a stack the
         optimizer shards whose local block is this rank's layers: fitted,
-        applied and stepped in place, never gathered) and ``self.whole``
-        (any other: (its mesh's ``MeshAxes``, its placements, where its
-        block sits); gathered whole by bytes, fitted and applied as a
-        replicated leaf, its update's block written back).  Returns the
-        tensors with each local block in its place.  A stack the
-        optimizer shards whose block is not its layers raises
-        NotImplementedError (ROADMAP A8c)."""
+        applied and stepped in place, never gathered), ``self.resharded``
+        (a stack the optimizer shards whose block is sharded within its
+        layers, JAX's ``(None, fsdp, tp)``: (its ``parallel.mesh.
+        LayerReshard``, where its block sits); its sources resharded to
+        this rank's layers, fitted and applied as an owned stack's, its
+        update resharded back into the block; its momentum the block's)
+        and ``self.whole`` (any other: (its mesh's ``MeshAxes``, its
+        placements, where its block sits); gathered whole by bytes, fitted
+        and applied as a replicated leaf, its update's block written
+        back).  Returns the tensors with each local block in its place.
+        A stack whose layout the reshard cannot express raises
+        NotImplementedError naming its placements."""
         n = len(tensors)
         self.dtensors = [None if r is None else r.dparam for r in self.routed]
         self.owned, self.whole = [False] * n, [None] * n
+        self.resharded = [None] * n
         from torch.distributed.tensor import DTensor
         if not any(isinstance(t, DTensor) and self.routed[i] is None
                    for i, t in enumerate(tensors)):
@@ -847,15 +903,14 @@ class _Kron(_Resumable):
             self.dtensors[i] = t
             if self.sharded[i]:
                 s = self.layers[i]
-                if _box_list(shard.slices, t.shape) != _box_list(
+                if _box_list(shard.slices, t.shape) == _box_list(
                         [s] + [slice(None)] * (t.ndim - 1), t.shape):
-                    raise NotImplementedError(
-                        f"stack_sharding: {leaf} is a DTensor with placements "
-                        f"{placements} whose local block is not this rank's "
-                        f"layers {s.start}:{s.stop} of the stack: stack "
-                        "sharding over within-layer-sharded blocks is ROADMAP "
-                        "A8c")
-                self.owned[i] = True
+                    self.owned[i] = True
+                else:
+                    from ..parallel.mesh import LayerReshard
+                    self.resharded[i] = (LayerReshard(
+                        mesh, placements, t.shape, self.stack, self.stack_dims,
+                        leaf), shard)
             else:
                 key = id(mesh)
                 if key not in comms:
@@ -869,16 +924,23 @@ class _Kron(_Resumable):
         return out
 
     def _wholes(self, xs, owned: bool = False) -> list:
-        """xs (per leaf, this rank's blocks) with each ``self.whole``
-        leaf's made whole (``gather_whole``), and with ``owned`` each owned
-        stack's too (``all_gather_stack``); the others as they are."""
+        """xs (per leaf, this rank's blocks) as the fit and apply read
+        them: each ``self.whole`` leaf's made whole (``gather_whole``),
+        each resharded stack's this rank's layers (``to_layers``); with
+        ``owned`` each owned and resharded stack whole (``all_gather_stack``
+        and ``gather_whole``); the others as they are.  Contiguous, so a
+        reduction over one sums in the unsharded optimizer's order."""
         from ..parallel.mesh import all_gather_stack, gather_whole
         out = list(xs)
         for i, x in enumerate(xs):
             if x is None:
                 continue
             if self.whole[i] is not None:
-                out[i] = gather_whole(x, *self.whole[i][:2])
+                out[i] = gather_whole(x, *self.whole[i][:2]).contiguous()
+            elif self.resharded[i] is not None:
+                reshard = self.resharded[i][0]
+                out[i] = (gather_whole(x, reshard.axes, reshard.placements)
+                          .contiguous() if owned else reshard.to_layers(x))
             elif owned and self.owned[i]:
                 out[i] = all_gather_stack(x.contiguous(), self.stack)
         return out
@@ -939,7 +1001,8 @@ class _Kron(_Resumable):
         """Where a DTensor leaf's local block sits in the global tensor:
         a slice per dim."""
         shard = (self.routed[i].shard if self.routed[i] is not None else
-                 self.whole[i][2] if self.whole[i] is not None else None)
+                 self.whole[i][2] if self.whole[i] is not None else
+                 self.resharded[i][1] if self.resharded[i] is not None else None)
         if shard is not None:
             return list(shard.slices)
         return [self.layers[i]] + [slice(None)] * (self.dtensors[i].ndim - 1)
@@ -976,14 +1039,20 @@ class _Kron(_Resumable):
 
     def _local(self, x, i):
         """x, or this rank's layers of it for a stack-sharded leaf held
-        whole (an owned stack's x is its layers already)."""
-        return x if self.layers[i] is None or self.owned[i] else x[self.layers[i]]
+        whole (an owned stack's x is its layers already, a resharded
+        stack's x its layers from ``_wholes``)."""
+        if self.layers[i] is None or self.owned[i] or \
+                self.resharded[i] is not None:
+            return x
+        return x[self.layers[i]]
 
     def _local_shape(self, i, p) -> tuple:
         """The shape leaf i's fit and apply work at: this rank's layers
         of a stack-sharded leaf, a gathered leaf's whole."""
         if self.whole[i] is not None:
             return self._global_shape(i, p)
+        if self.resharded[i] is not None:
+            return (self.resharded[i][0].layers,) + self._global_shape(i, p)[1:]
         return tuple(self._local(p, i).shape)
 
     def _gather(self, updates: list) -> list:
@@ -991,10 +1060,14 @@ class _Kron(_Resumable):
         ``updates``: a stack-sharded leaf held whole gets its stack
         assembled from every rank's layers (``all_gather_stack``; each
         slice freed once its stack is whole), a gathered leaf its block of
-        the whole update; an owned stack's layers and the others stay."""
+        the whole update, a resharded stack its block of every rank's
+        layers (``to_block``); an owned stack's layers and the others
+        stay."""
         from ..parallel.mesh import all_gather_stack
         for i, s in enumerate(self.sharded):
-            if s and not self.owned[i]:
+            if self.resharded[i] is not None:
+                updates[i] = self.resharded[i][0].to_block(updates[i])
+            elif s and not self.owned[i]:
                 updates[i] = all_gather_stack(updates[i], self.stack)
             elif self.whole[i] is not None:
                 updates[i] = updates[i][tuple(self.whole[i][2].slices)]
@@ -1388,46 +1461,77 @@ class KronNewton(_Kron):
             factor_sharding=factor_sharding)
         _advisories(preconditioner_init_scale, True, 0.0, dq,
                     preconditioner_dtype)
-        if any(d is not None and r is None
-               for d, r in zip(self.dtensors, self.routed)):
-            raise NotImplementedError(
-                "KronNewton over DTensor leaves under stack_sharding (FSDP2's "
-                "blocks) is not ported: its closure's autograd reaches the "
-                "model's unsharded parameters, not the shards (ROADMAP A8c)")
         self.exact_hvp = exact_hessian_vector_product
+
+    def _checked(self, closure, params):
+        """``closure`` refusing a loss whose autograd does not reach every
+        DTensor leaf in ``params`` (FSDP2 runs the forward on the
+        unsharded parameters it swaps in, so the shards are never
+        reached); ``closure`` itself without DTensor leaves."""
+        leaves = [i for i, d in enumerate(self.dtensors) if d is not None]
+        if not leaves:
+            return closure
+
+        def checked():
+            loss = closure()
+            missed = [self._names[leaves[j]] if self._names else
+                      f"leaf {leaves[j]}" for j in
+                      _unreached(loss, [params[i] for i in leaves])]
+            if missed:
+                raise NotImplementedError(
+                    f"KronNewton: autograd from the closure's loss does not "
+                    f"reach the DTensor leaves {missed}: under FSDP2 "
+                    "(fully_shard) the forward runs on the unsharded parameters "
+                    "FSDP2 swaps in, not these shards, so the exact Hvp cannot "
+                    "differentiate them. Shard the model with "
+                    "models.gpt2.shard_model (its collectives are in the "
+                    "autograd graph), or pass step(hvp_fn=...) or "
+                    "step(vs=..., hvs=...) computed on the model (ROADMAP A8c)")
+            return loss
+        return checked
 
     @torch.no_grad()
     def step(self, closure=None, *, hvp_fn=None, vs=None, hvs=None):
         """One step.  Without factor-sharded leaves the closure's autograd
         gives the gradients and, on a fit step, the pair (v, H v)
-        (``_newton_pass``).  With them (JAX ``update(g, s, params,
-        hvp_fn=)`` or ``update(g, s, vs=, hvs=)``) the gradients come from
-        ``.grad`` (a routed leaf's DTensor's local block); on a fit step
-        the pair from ``hvp_fn(vs) -> hvs`` (called with the probes at the
-        parameters' global shapes, drawn as ``hvp.rand_like`` draws them
-        on every rank alike; H v per leaf, global plain tensors or
-        DTensors) or the explicit global ``vs`` and ``hvs``, which fit
-        every step; ``closure``, if given, only returns the loss."""
+        (``_newton_pass``; DTensor leaves, ``models.gpt2.shard_model``'s,
+        differentiated as DTensors, their probes their blocks of the global
+        draws).  With DTensor leaves (routed ones must) the step also takes
+        (JAX ``update(g, s, params, hvp_fn=)`` or ``update(g, s, vs=,
+        hvs=)``) the gradients from ``.grad`` (a DTensor leaf's local
+        block); on a fit step the pair from ``hvp_fn(vs) -> hvs`` (called
+        with the probes at the parameters' global shapes, drawn as
+        ``hvp.rand_like`` draws them on every rank alike; H v per leaf,
+        global plain tensors or DTensors) or the explicit global ``vs`` and
+        ``hvs``, which fit every step; ``closure``, if given, only returns
+        the loss."""
         routed = self.comm is not None
-        if not routed and (hvp_fn is not None or vs is not None
-                           or hvs is not None):
-            raise ValueError("KronNewton takes hvp_fn, vs and hvs with "
-                             "factor_sharding only; pass the closure")
-        if not routed and closure is None:
+        given = hvp_fn is not None or vs is not None or hvs is not None
+        if given and not any(d is not None for d in self.dtensors):
+            raise ValueError("KronNewton takes hvp_fn, vs and hvs with DTensor "
+                             "leaves (factor_sharding, or stack_sharding over "
+                             "DTensor blocks) only; pass the closure")
+        if not given and not routed and closure is None:
             raise ValueError("KronNewton.step needs a closure that returns "
                              "the loss (without calling backward)")
-        if routed and hvp_fn is None and (vs is None or hvs is None):
+        if (routed or given) and hvp_fn is None and (vs is None or hvs is None):
             raise ValueError("KronNewton with factor_sharding needs hvp_fn "
                              "or explicit (vs, hvs)")
         params = self.param_groups[0]["params"]
         count = self.count
         keys = fastrand.split(self.key, 4)
         self.key, k_gate, k_v, k_fit = keys[0], keys[1], keys[2], keys[3]
-        explicit = routed and hvp_fn is None     # (vs, hvs): fits every step
+        explicit = hvp_fn is None and vs is not None     # fits every step
         do_fit = explicit or self._gate(k_gate, count) or count == 0
-        if not routed:
-            loss, grads, vs, hvs = _newton_pass(closure, params, do_fit, k_v,
-                                                self.exact_hvp, self.draw)
+        if not (routed or given):
+            targets = [p if d is None else d for p, d in zip(params, self.dtensors)]
+            loss, grads, vs, hvs = _newton_pass(
+                self._checked(closure, targets), targets, do_fit, k_v,
+                self.exact_hvp, self.draw)
+            grads = [self._local_view(i, g) for i, g in enumerate(grads)]
+            if do_fit:
+                vs = [self._local_view(i, v) for i, v in enumerate(vs)]
+                hvs = [self._local_view(i, h) for i, h in enumerate(hvs)]
         else:
             loss = None
             if closure is not None:
@@ -1435,8 +1539,8 @@ class KronNewton(_Kron):
                     loss = closure()
             grads = self._grads()
             if do_fit and hvp_fn is not None:
-                vs = hvp.rand_like(k_v, [p if r is None else r.dparam for p, r
-                                         in zip(params, self.routed)], self.draw)
+                vs = hvp.rand_like(k_v, [p if d is None else d for p, d
+                                         in zip(params, self.dtensors)], self.draw)
                 hvs = hvp_fn(vs)
             if do_fit:
                 vs = [self._local_view(i, v) for i, v in enumerate(vs)]
@@ -1456,29 +1560,39 @@ class KronNewton(_Kron):
                         _sched(group["betaL"], count))
         if do_fit:
             if self.init_scale is None and count == 0:
-                self._rescale(params, _newton_scale_from_vh(vs, hvs, damping,
-                                                            self))
-            self._fit(params, list(zip(vs, hvs)), k_fit, lr_q, beta_l, damping)
+                self._rescale(params, _newton_scale_from_vh(
+                    self._wholes(vs, owned=True), self._wholes(hvs, owned=True),
+                    damping, self))
+            self._fit(params, list(zip(self._wholes(vs), self._wholes(hvs))),
+                      k_fit, lr_q, beta_l, damping)
         self.fit_steps += int(do_fit)
 
         src = self._momentum(params, grads, count) if self.momentum > 0 \
             else grads
         # contiguous: the norm clip then sums each leaf in one order, sharded
         # (gathered) or not
-        pre = self._gather([
-            None if self.routed[i] is not None else
-            self._precond(i, p, x, f).reshape(self._local_shape(i, p)).contiguous()
-            for i, (p, x, f) in enumerate(zip(params, src,
-                                              self._apply_factors(params)))])
+        pre = [None if self.routed[i] is not None else
+               self._precond(i, p, x, f).reshape(self._local_shape(i, p)).contiguous()
+               for i, (p, x, f) in enumerate(zip(params, self._wholes(src),
+                                                 self._apply_factors(params)))]
         for i, p in enumerate(params):
             if self.routed[i] is not None:
                 pair = (vs[i], hvs[i]) if do_fit else (None, None)
                 pre[i] = self._routed(i, p, pair, src[i], do_fit, k_fit, lr_q,
                                       beta_l, damping,
                                       True).reshape(p.shape).contiguous()
-        # the clip reads the whole tree, after the gather (JAX :313-314)
-        scale = _global_norm_scale(pre, _sched(group["grad_clip_max_norm"],
-                                               count), self)
+        max_norm = _sched(group["grad_clip_max_norm"], count)
+        held = list(pre)
+        pre = self._gather(pre)
+        # the clip reads the whole tree, after the gather (JAX :313-314): a
+        # gathered leaf's whole update, an owned or resharded stack's
+        # layers gathered whole
+        from ..parallel.mesh import all_gather_stack
+        tree = pre if math.isinf(max_norm) else [
+            held[i] if self.whole[i] is not None else
+            all_gather_stack(held[i], self.stack) if self.owned[i] or
+            self.resharded[i] is not None else x for i, x in enumerate(pre)]
+        scale = _global_norm_scale(tree, max_norm, self)
         _descend(group, params, [u * scale for u in pre], count)
         self.count += 1
 

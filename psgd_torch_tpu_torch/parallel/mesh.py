@@ -21,6 +21,9 @@ gradients stay bit for bit equal.  What is left is where the state lives:
 * ``MeshAxes``: the collectives of the dim-sharded (``factor_sharding``)
   fit over named mesh dims; ``gather_whole``, a DTensor's local block
   made whole by ``all_gather`` of bytes over the dims that shard it;
+* ``LayerReshard``: a layer stack sharded within its layers (JAX's
+  ``(None, fsdp, tp)``) to and from the rank's layers that
+  ``stack_sharding`` fits, by bytes;
 * ``RowReduce``: the sums and maxes of the row-sharded (``vector_sharding``)
   LRA and dense fits over one group;
 * ``psgd_state_specs``, ``lra_state_specs`` and ``dense_state_specs``: the
@@ -423,6 +426,151 @@ def gather_whole(local: torch.Tensor, axes: MeshAxes, placements) -> torch.Tenso
         if axes.size((name,)) > 1:
             x = axes.all_gather(x.contiguous(), name, d % x.ndim)
     return x
+
+
+def _mesh_coordinate(mesh, rank: int) -> Optional[tuple]:
+    """Where global ``rank`` sits in ``mesh`` (None: not in it)."""
+    hit = (mesh.mesh == int(rank)).nonzero()
+    return tuple(int(c) for c in hit[0]) if hit.shape[0] == 1 else None
+
+
+class LayerReshard:
+    """A layer stack placed within its layers (JAX ``gpt2_partition_specs``'
+    ``(None, fsdp, tp)``: each rank a block of every layer) and the same
+    stack as ``stack_sharding`` fits it: this rank's layers [r L/k, (r+1)
+    L/k), whole within each layer (JAX's shard_map ``in_specs`` /
+    ``out_specs`` ``PS(axis, None, ...)``, psgd_torch_tpu/optim/
+    transforms.py:410-422).  Bytes only, so the layers are each owner's
+    blocks bit for bit.
+
+    ``to_layers(block)``: an ``all_gather`` over each mesh dim outside the
+    stack axis that shards the leaf (``gather_whole``'s, those dims only),
+    then one ``all_to_all_single`` over the stack axis's group (layer chunk
+    ``order[j]`` to group rank j; each rank's block of this rank's layers
+    back, placed by the sender's mesh coordinate).  ``to_layers``'s
+    inverse, ``to_block(layers)``: one ``all_to_all_single`` (each group
+    rank's block of this rank's layers to it; its layers of this rank's
+    block back).  Both report to ``count_collectives``.
+
+    ``mesh`` and ``placements``: the leaf's DTensor layout; ``shape`` its
+    global shape; ``sg`` and ``stack_dims``: the stack axis's
+    ``ShardGroup`` and mesh dim names.  Raises NotImplementedError, naming
+    the placements, for a layout the reshard cannot express: a sharded
+    layer dim, a stack dim the mesh lacks, a tensor dim sharded both over
+    stack dims and over others, an uneven block, a group that is not the
+    stack dims' row of ``mesh``."""
+
+    def __init__(self, mesh, placements, shape, sg: ShardGroup, stack_dims,
+                 name: str):
+        from torch.distributed.tensor import Replicate, Shard
+        names = tuple(mesh.mesh_dim_names or ())
+        self.mesh, self.shape, self.sg = mesh, tuple(int(n) for n in shape), sg
+        self.placements = tuple(placements)
+
+        def refuse(why):
+            raise NotImplementedError(
+                f"stack_sharding: {name} has placements {self.placements} on "
+                f"mesh dims {names}: {why}, which the layer reshard cannot "
+                "express")
+
+        stack = tuple(stack_dims or ())
+        if not stack:
+            refuse("stack_sharding is a process group, not mesh dims")
+        missing = [d for d in stack if d not in names]
+        if missing:
+            refuse(f"the stack dims {missing} are not dims of its mesh")
+        self.by_dim = {}                  # tensor dim -> mesh dims, mesh order
+        for md, pl in enumerate(self.placements):
+            if isinstance(pl, Shard):
+                self.by_dim.setdefault(pl.dim % len(shape), []).append(md)
+            elif not isinstance(pl, Replicate):
+                refuse(f"{pl} is neither Shard nor Replicate")
+        if 0 in self.by_dim:
+            refuse("its layer dim is sharded")
+        in_stack = {names.index(d) for d in stack}
+        self.gather = []                  # (mesh dim name, tensor dim)
+        for d, mds in self.by_dim.items():
+            kinds = {md in in_stack for md in mds}
+            if len(kinds) > 1:
+                refuse(f"dim {d} is sharded over stack dims and others")
+            k = math.prod(mesh.size(md) for md in mds)
+            if self.shape[d] % k:
+                refuse(f"dim {d} of size {self.shape[d]} is not divisible by "
+                       f"its {k}-way sharding")
+            if kinds == {False}:
+                self.gather += [(names[md], d) for md in mds]
+        self.gather.sort(key=lambda x: names.index(x[0]))
+        self.coord = mesh.get_coordinate()
+        # each group rank's mesh coordinate: the stack dims' row of mesh
+        self.members = []
+        for r in dist.get_process_group_ranks(sg.group):
+            c = _mesh_coordinate(mesh, r)
+            if c is None or any(c[m] != self.coord[m] for m in range(len(names))
+                                if m not in in_stack):
+                refuse(f"the stack group's rank {r} is not in this rank's "
+                       f"row of {stack}")
+            self.members.append(c)
+        self.axes = MeshAxes(mesh)
+        self.axes.groups(*[(n,) for n, _ in self.gather])
+        self.layers = self.shape[0] // sg.size
+
+    def block_slices(self, coord, dims=None) -> tuple:
+        """The block of the rank at ``coord``: a slice per tensor dim
+        (``dims``: those tensor dims only, the others whole)."""
+        out = [slice(None)] * len(self.shape)
+        for d, mds in self.by_dim.items():
+            if dims is not None and d not in dims:
+                continue
+            k, idx = 1, 0
+            for md in mds:
+                k *= self.mesh.size(md)
+                idx = idx * self.mesh.size(md) + coord[md]
+            n = self.shape[d] // k
+            out[d] = slice(idx * n, (idx + 1) * n)
+        return tuple(out)
+
+    def _exchange(self, send: list, shapes: list, dtype) -> list:
+        """One all_to_all_single: ``send[j]`` to group rank j; what each
+        group rank sent back, by group rank."""
+        buf = torch.cat([_bytes(x) for x in send])
+        recv = torch.empty_like(buf)
+        dist.all_to_all_single(recv, buf, group=self.sg.group)
+        record_collective("all-to-all", recv, self.sg.group)
+        out, at = [], 0
+        for shape in shapes:
+            n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+            out.append(recv[at:at + n].view(dtype).reshape(shape))
+            at += n
+        return out
+
+    def to_layers(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's layers, whole, from every rank's block: the
+        exchange over the stack axis first (the ranks that differ only
+        outside it hold the same layers), then the gathers."""
+        chunks = block.contiguous().chunk(self.sg.size, 0)
+        part = tuple(chunks[0].shape)
+        got = self._exchange([chunks[s] for s in self.sg.order],
+                             [part] * self.sg.size, block.dtype)
+        kept = set(self.by_dim) - {d for _, d in self.gather}
+        mid = torch.empty([self.shape[d] if d in kept else n
+                           for d, n in enumerate(part)], dtype=block.dtype,
+                          device=block.device)
+        for c, piece in zip(self.members, got):
+            mid[self.block_slices(c, kept)] = piece
+        for name, d in reversed(self.gather):     # the minor dim first
+            mid = self.axes.all_gather(mid.contiguous(), name, d)
+        return mid.contiguous()
+
+    def to_block(self, layers: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole stack from every rank's layers
+        (``to_layers``'s inverse)."""
+        send = [layers[self.block_slices(c)].contiguous() for c in self.members]
+        mine = tuple(layers[self.block_slices(self.coord)].shape)
+        got = self._exchange(send, [mine] * self.sg.size, layers.dtype)
+        parts = [None] * self.sg.size
+        for j, piece in enumerate(got):
+            parts[self.sg.order[j]] = piece
+        return torch.cat(parts, 0)
 
 
 def drift_check(tensors, group=None):

@@ -28,6 +28,18 @@ replicated (left to FSDP2 as ignored parameters)::
                              model.named_parameters(), scanned_layers=mask)
     fully_shard(model, **recipe.fsdp_kwargs(model))
     opt = KronWhiten(model.named_parameters(), **recipe.transform_kwargs)
+
+``models.gpt2.shard_model`` takes the same map on any mesh (the trainer,
+``examples/train_gpt2_sharded.py``, shards so at every tp size).  On a
+mesh whose "tp" dim is larger than 1 (JAX's production layout, (dp, fsdp,
+tp)), ``model_placements()`` is the map itself, the blocks placed within
+their layers as JAX's recipe places them, and only the model shards
+itself, tensor parallelism inside its forward (not FSDP2)::
+
+    recipe = sharding_recipe(mesh, gpt2_partition_specs(mesh),
+                             model.named_parameters(), scanned_layers=mask)
+    gpt2.shard_model(model, mesh, recipe.model_placements())
+    opt = KronWhiten(model.named_parameters(), **recipe.transform_kwargs)
 """
 
 from __future__ import annotations
@@ -54,6 +66,13 @@ class ShardingRecipe:
     factor_sharded: bool           # the dim-sharded embedding path on or off
     dq: str
     shared_layers: Any = None      # the layer-stack pooling mask
+
+    @property
+    def within_layers(self) -> bool:
+        """Whether the mesh has a "tp" dim larger than 1: the blocks then
+        stay within-layer-sharded, as the map places them."""
+        names = tuple(self.mesh.mesh_dim_names)
+        return "tp" in names and int(self.mesh.mesh.shape[names.index("tp")]) > 1
 
     @property
     def transform_kwargs(self) -> dict:
@@ -83,11 +102,17 @@ class ShardingRecipe:
             scanned=flags[n], shared=shared[n], dq=self.dq) is not None]
 
     def model_placements(self) -> dict:
-        """Name -> the placements the parameters take under FSDP2: a routed
-        leaf the map's; a stack the optimizer shards (scanned, unpooled,
-        the stack axis resolved) ``Shard(0)`` over the stack axis; every
-        other leaf ``Replicate()``."""
+        """Name -> the placements the model's parameters take.  On a mesh
+        whose tp dim is larger than 1 (``within_layers``): the map's, every
+        leaf (JAX's recipe ``place``: the blocks ``(None, fsdp, tp)``, for
+        ``models.gpt2.shard_model``).  Otherwise the layer-sharded one
+        (FSDP2's, or ``shard_model``'s): a routed leaf the map's; a stack
+        the optimizer shards (scanned, unpooled, the stack axis resolved)
+        ``Shard(0)`` over the stack axis; every other leaf
+        ``Replicate()``."""
         from torch.distributed.tensor import Replicate, Shard
+        if self.within_layers:
+            return {n: tuple(self.param_placements[n]) for n in self.params}
         names = tuple(self.mesh.mesh_dim_names)
         rep = (Replicate(),) * len(names)
         flags = _named_bools(self.scanned_layers, list(self.params),
@@ -114,8 +139,23 @@ class ShardingRecipe:
         ``Shard`` on the mesh's last dim (FSDP2 shards over it and keeps
         replicas over a leading dim), a replicated leaf ignored (its
         gradients must then be equal on every rank, or averaged by the
-        caller).  Raises ValueError for a placement FSDP2 cannot take."""
+        caller).  Raises ValueError for a placement FSDP2 cannot take,
+        and on a mesh whose tp dim is larger than 1: the port does not hand
+        that layout to FSDP2 (``models.gpt2.shard_model`` shards it, its
+        forward gathering the fsdp blocks itself), because under FSDP2 the
+        forward runs on the unsharded parameters FSDP2 swaps in, which
+        autograd from the loss reaches instead of the DTensor shards, so
+        KronNewton's exact Hvp could not differentiate the shards (ROADMAP
+        A8c)."""
         from torch.distributed.tensor import Shard
+        if self.within_layers:
+            raise ValueError(
+                "fsdp_kwargs: the mesh's tp dim is larger than 1; "
+                "the port shards this layout with models.gpt2.shard_model(model, "
+                "mesh, recipe.model_placements()), not FSDP2: under FSDP2 "
+                "autograd from the loss reaches the unsharded parameters FSDP2 "
+                "swaps in, not the DTensor shards that KronNewton's exact Hvp "
+                "differentiates (ROADMAP A8c)")
         placements = self.model_placements()
         by_id, ignored = {}, set()
         for n, p in model.named_parameters():
@@ -133,14 +173,19 @@ class ShardingRecipe:
     def state_specs(self, optimizer) -> dict:
         """The placements of ``optimizer``'s state in the layout the
         transform kwargs select (``psgd_state_specs``).  An optimizer over
-        FSDP2's layer-sharded stacks (non-routed DTensor leaves) is
-        described over ``model_placements()``: the momentum follows each
-        parameter's block, and a stack the optimizer gathers whole, a
-        diagonal one, holds its Q, L and cache ``Replicate()``, where JAX's
-        specs place them over the stack axis."""
+        DTensor blocks (non-routed DTensor leaves: FSDP2's layer-sharded
+        stacks, or ``shard_model``'s within-layer ones) is described over
+        ``model_placements()``: the momentum follows each parameter's
+        block; a stack the optimizer fits by layer (owned, or resharded to
+        the rank's layers) holds its Q, L and cache ``Shard(0)`` over the
+        stack axis and ``Replicate()`` over the other dims (tp), as
+        ``psgd_state_specs`` says; a stack the optimizer gathers whole, a
+        diagonal one, holds them ``Replicate()``, where JAX's specs place
+        them over the stack axis (ROADMAP A8c)."""
         whole = getattr(optimizer, "whole", ())
         layer_sharded = any(getattr(optimizer, "owned", ())) or any(
-            w is not None for w in whole)
+            w is not None for w in whole) or any(
+            r is not None for r in getattr(optimizer, "resharded", ()))
         out = psgd_state_specs(
             self.model_placements() if layer_sharded else self.param_placements,
             optimizer, scanned_layers=self.scanned_layers,

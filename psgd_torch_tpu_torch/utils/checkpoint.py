@@ -418,6 +418,10 @@ def _gathered(path: str, step: int, d: str, device, group) -> str:
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return gather_checkpoint(path, step, device)
+    # every rank of the group has looked for the file (here and in
+    # restore_checkpoint) before the first writes it: a rank that saw it
+    # would skip the barrier below and pair with another one
+    dist.barrier(group)
     failed = None
     if dist.get_rank(group) == 0:
         try:

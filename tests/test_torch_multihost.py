@@ -14,9 +14,12 @@ ranks as test_torch_parallel.py describes (``rank_results``).
   (dp 2, fsdp 2) mesh) and ``KronWhiten`` with ``stack_sharding`` over the
   same dim: parameters and state bit for bit the unsharded 1-rank run's,
   and no update gather for a layer-sharded stack (``count_collectives``).
-  A stack sharded within its layers raises naming ROADMAP A8c.
-* The trainer (``examples/train_gpt2_sharded.py``) at its tiny width: on
-  the 4 ranks as 2 hosts (HSDP: replicas over dcn stay equal); 2 ranks
+  A stack sharded within its layers and KronNewton over FSDP2-style
+  blocks run, bit for bit the unsharded optimizer; the closure path over
+  shards its loss does not reach raises naming ROADMAP A8c.
+* The trainer (``examples/train_gpt2_sharded.py``, its model sharded by
+  ``gpt2.shard_model``) at its tiny width: on the 4 ranks as 2 hosts
+  (replicas over dcn stay equal); 2 ranks
   save, 1 rank resumes and saves, 2 ranks resume; the loss falls;
   its first loss against the JAX ``gpt2.loss_gpt2`` on the same
   parameters (``params_from_jax``'s layout) and tokens, float32.
@@ -183,29 +186,71 @@ def fsdp_case(mesh) -> dict:
 
 def refusals(mesh) -> dict:
     """A stack sharded within its layers (JAX's (None, fsdp, tp) layout)
-    under stack_sharding; KronNewton over FSDP2's blocks; a DTensor leaf
+    under stack_sharding, by KronWhiten; KronNewton over FSDP2-style
+    layer blocks fed (v, H v); each 2 steps against the unsharded
+    optimizer on the same values, bit for bit.  KronNewton's closure over
+    blocks its loss does not reach (as under FSDP2); a DTensor leaf
     without stack_sharding."""
-    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
     from psgd_torch_tpu_torch.optim import KronNewton, KronWhiten
     fm = mesh["fsdp"]
+    whole = torch.randn(4, 16, 24, generator=torch.Generator().manual_seed(4))
 
     def leaf(pl):
         return torch.nn.Parameter(distribute_tensor(
-            torch.zeros(4, 16, 24), fm, pl, src_data_rank=None))
+            whole.clone(), fm, pl, src_data_rank=None))
 
     kw = dict(scanned_layers={"blocks.w": True}, device="cpu",
               preconditioner_init_scale=1.0)
-    return dict(
-        within=_error(lambda: KronWhiten([("blocks.w", leaf((Shard(1),)))],
-                                         stack_sharding=(fm, "fsdp"), **kw)),
-        newton=_error(lambda: KronNewton([("blocks.w", leaf((Shard(0),)))],
-                                         stack_sharding=(fm, "fsdp"), **kw)),
-        no_stack=_error(lambda: KronWhiten([("blocks.w", leaf((Shard(0),)))], **kw)))
+    out = {}
+    for name, cls, pl in (("within", KronWhiten, Shard(1)),
+                          ("newton", KronNewton, Shard(0))):
+        p, ref = leaf((pl,)), torch.nn.Parameter(whole.clone())
+        opt = cls([("blocks.w", p)], stack_sharding=(fm, "fsdp"), **kw)
+        one = cls([("blocks.w", ref)], **kw)
+        gen = torch.Generator().manual_seed(5)
+        for _ in range(2):
+            g, v, h = (torch.randn(4, 16, 24, generator=gen) for _ in range(3))
+            cut = tuple(slice(a, b) for a, b in _dtensor_box(p))
+            p.grad = DTensor.from_local(g[cut].clone(), fm, (pl,), run_check=False)
+            ref.grad = g
+            if cls is KronWhiten:
+                opt.step()
+                one.step()
+            else:
+                opt.step(vs=[v], hvs=[h])
+                _newton_reference(one, g, v, h)
+        out[name] = dict(kind=("resharded" if opt.resharded[0] is not None else
+                               "owned" if opt.owned[0] else "other"),
+                         same=torch.equal(p.to_local(), ref.detach()[cut]))
+    p = leaf((Shard(0),))
+    opt = KronNewton([("blocks.w", p)], stack_sharding=(fm, "fsdp"), **kw)
+    swapped = whole.clone().requires_grad_()    # what FSDP2 swaps in
+    out["closure"] = _error(lambda: opt.step(lambda: torch.sum(swapped ** 2)))
+    out["no_stack"] = _error(lambda: KronWhiten([("blocks.w", leaf((Shard(0),)))],
+                                                **kw))
+    return out
+
+
+def _dtensor_box(p) -> list:
+    from psgd_torch_tpu_torch.utils.checkpoint import _dtensor_index
+    return _dtensor_index(p)
+
+
+def _newton_reference(opt, g, v, h) -> None:
+    """An unsharded KronNewton's step from the given gradient and pair (a
+    fit step), its key chain advanced as ``step`` advances it."""
+    from psgd_torch_tpu_torch.ops import fastrand
+    keys = fastrand.split(opt.key, 4)
+    opt.key = keys[0]
+    with torch.no_grad():
+        opt._newton_step([g], [v], [h], True, keys[3], opt.count)
 
 
 def hsdp_trainer() -> dict:
-    """The trainer's functions on the 4 ranks as 2 hosts of 2 (FSDP2 over
-    fsdp, replicas over dcn, each host its rows of the batch), 3 steps:
+    """The trainer's functions on the 4 ranks as 2 hosts of 2 (the stacks
+    by layer over fsdp, replicas over dcn, each host its rows of the
+    batch), 3 steps:
     the mesh, this rank's replica, its losses and its blocks' digests."""
     import hashlib
     from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
@@ -382,19 +427,27 @@ def test_state_specs_follow_the_fsdp_layout(ranks):
 
 
 def test_within_layer_stacks_and_newton_raise_naming_a8c(ranks):
-    r = ranks[0][0]["refusals"]
-    assert r["within"].startswith("NotImplementedError") and "ROADMAP A8c" in r["within"]
-    assert "blocks.w" in r["within"]
-    assert r["newton"].startswith("NotImplementedError") and "A8c" in r["newton"]
-    assert r["no_stack"].startswith("ValueError") and "stack_sharding" in r["no_stack"]
+    """A stack sharded within its layers under stack_sharding is resharded
+    to the rank's layers and KronNewton takes FSDP2-style layer blocks:
+    both run, bit for bit the unsharded optimizer, on every rank.  What
+    still raises names what blocks it: KronNewton's closure over shards
+    its loss does not reach (FSDP2's) names ROADMAP A8c; a DTensor leaf
+    without stack_sharding asks for it."""
+    for out in ranks[0]:
+        r = out["refusals"]
+        assert r["within"] == dict(kind="resharded", same=True)
+        assert r["newton"] == dict(kind="owned", same=True)
+        assert r["closure"].startswith("NotImplementedError")
+        assert "ROADMAP A8c" in r["closure"] and "blocks.w" in r["closure"]
+        assert r["no_stack"].startswith("ValueError") and "stack_sharding" in r["no_stack"]
 
 
 def test_trainer_on_two_hosts_keeps_replicas_equal(ranks):
     """The trainer on 2 hosts of 2 (LOCAL_WORLD_SIZE=2): mesh (dcn 2, fsdp
     2, tp 1), each host its half of the batch; after 3 steps the ranks
     that hold the same blocks on the two hosts hold them bit for bit
-    (FSDP2's gradient all-reduce over dcn, the replicated leaves' by the
-    trainer), and the hosts' losses differ (their rows do)."""
+    (the trainer's gradient all-reduce over dcn), and the hosts' losses
+    differ (their rows do)."""
     outs = ranks[0]
     for rank, out in enumerate(outs):
         h = out["hsdp"]
@@ -423,9 +476,10 @@ def test_trainer_saves_and_resumes_across_world_sizes(ranks):
 
 
 def test_trainer_first_loss_matches_jax(ranks):
-    """The trainer's first loss (2 ranks, FSDP2) is the unsharded model's
-    on the same tokens, bit for bit, and the JAX gpt2.loss_gpt2 on the
-    same parameters and tokens at rtol 1e-5 (float32)."""
+    """The trainer's first loss (2 ranks, stacks by layer) is the
+    unsharded model's on the same tokens, bit for bit, and the JAX
+    gpt2.loss_gpt2 on the same parameters and tokens at rtol 1e-5
+    (float32)."""
     runs = ranks[1]
     assert runs["round_trip"]
     assert runs["two"][0] == runs["port_loss"]
