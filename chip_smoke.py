@@ -12,7 +12,8 @@
    the main paths' shapes, and time kernel, plain version and (where one
    PyTorch call computes the same function or its dominant product) that
    call with CUDA events:
-   - the noise kernel bit for bit (GPT-2's and LLaMA's largest stacks on
+   - the noise kernel bit for bit (GPT-2 124M's, GPT-2 774M's (36, 1280,
+     5120) bf16, the ViT's (4, 256, 1024) f32 and LLaMA's largest stacks on
      the vector kernel, (3, 97, 33) on the scalar one), its bound the
      larger of its bytes and its instructions (the loop's SASS counted by
      ``ops/sass.py``, the SM clock read under load), both terms
@@ -25,7 +26,9 @@
      at (12, 768) f32, (22, 2048) and (22, 2560) bf16 (``check_transpose_sub``),
      timed against its bytes bound; ``procrustes`` also logs its share;
    - the single NS route at GPT-2's widths and batches (12 x 768, 1 x 768
-     and 1 x 1024 in bf16, on the tensor cores; 2 x 768 in f32), within
+     and 1 x 1024 in bf16, on the tensor cores; 2 x 768 in f32), GPT-2
+     774M's (36 x 1280 and 1 x 1280 in bf16) and the ViT's (4 x 256, 1 x
+     10, 1 x 48 and 1 x 65 in f32 on the FFMA chain, k = 32) (``NS_CHECKS``), within
      ``kernels.ROUTE_TOL`` and, in bf16, within twice the FFMA chain's
      logged error (``kernels.FFMA_SINGLE_REL``); its profiler split at
      12 x 768 fails on any FFMA ``gemm_kernel``;
@@ -55,8 +58,9 @@
    The tiled route and its pieces are also held (and the pieces timed) at
    B = 1 and the widths 2304 and 3072 in bf16, the shapes the shared GPT-2
    stacks of 5b give it; ``norm_bound`` at the shapes the geometries of 9
-   give it ((12, 768), (1, 768), (1, 1024) in bf16 and f32) and at
-   (3, 100) bf16, a width it takes on the FFMA GEMM
+   give it ((12, 768), (1, 768), (1, 1024) in bf16 and f32), at
+   (3, 100) bf16, a width it takes on the FFMA GEMM, and at GPT-2 774M's
+   (36, 1280) and (1, 1280) bf16 (``A10A_BOUND_SHAPES``)
    (``check_norm_bound_shapes``); PRO4P's Procrustes loop on the card
    against the CPU's (``check_procrustes_loop``).
 4. A tiny GPT-2 trained 3 steps on the card against the CPU's plain path,
@@ -90,6 +94,19 @@
    compute, f32 parameters, trained by KronWhiten in the configuration of
    tools/bench_llama.py for 3 steps at p = 1.0 and 3 at 0.1; one fit step
    profiled.  The GPT-2 state is freed first.
+6b. GPT-2 774M (36 x 1280, 20 heads, vocab 50304; 774.1M parameters) at
+   full width and depth with remat, batch 1 x 1024, bf16 compute, f32
+   parameters, trained by KronWhiten in tools/bench_gpt2_large.py:91-98's
+   configuration (the bench one) for 3 steps at p = 1.0 and 3 at 0.1,
+   ``GPT2_PER_FIT`` per fit step (the same plan at 1280); one fit step
+   profiled.
+6c. The ViT path (``vit_path``): examples/vit_cifar10.py's ``main`` on the
+   card at the JAX configuration (dim 256, depth 4, 8 heads, batch 128,
+   ``vit.synthetic_cifar``: the card has no scikit-learn), Adam and
+   KronWhiten, ``VIT_EPOCHS`` x ``VIT_STEPS`` steps each: each arm's epoch
+   losses below its first step's, the KronWhiten arm launching
+   ``VIT_PER_FIT`` per fit step (row 1 in f32 at (4, 256) and B = 1 at 10,
+   48 and 65; 20 dampings).
 7. GPT-2 124M, batch 2 x 1024, bf16 compute, f32 Q, trained by KronNewton
    (exact Hvp) in the Newton arm of tools/measure_cache_p_tpu.py:134-140
    for 3 steps at p = 1.0 and 3 at 0.1; one fit and one no-fit step
@@ -289,7 +306,8 @@
    on a non-finite loss, and if it launched any of the nine kernels.
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
-   geometry shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
+   geometry shapes; rows 1, 2 and 5 carry ``a10a_shapes``, their times at
+   GPT-2 774M's and the ViT's shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes, row 2 ``vector_shapes`` at
    the vector-sharded path's; rows 1, 3 and 6 also carry
    ``step_mat_launches`` and the step
@@ -331,8 +349,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from psgd_torch_tpu_torch.examples import affine_wrapped_layers, mnist_lenet5, train_gpt2
-from psgd_torch_tpu_torch.models import gpt2, lenet5, llama, rnn
+from psgd_torch_tpu_torch.examples import (affine_wrapped_layers, mnist_lenet5, train_gpt2,
+                                           vit_cifar10)
+from psgd_torch_tpu_torch.models import gpt2, lenet5, llama, rnn, vit
 from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
 from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
@@ -374,6 +393,17 @@ SHARED_TILED_WIDTHS = (2304, 3072)
 GPT2_SHARED_PER_FIT = {"fused_ns_update": 8, "damped_noise": 16, "norm_bound": 6,
                        "tiled_step": 3, "tsub": 3, "scaled_matmul_trace": 6,
                        "combine": 3, "ns_step": 0, "procrustes": 0}
+# GPT-2 774M (max_skew 2) makes GPT-2 124M's plan at 1280: its five dense
+# stacks at (36, 1280), wpe's 1024 and 1280 and wte's 1280 at B = 1, and
+# 16 leaves damped: GPT2_PER_FIT.  The ViT (dim 256, depth 4) by the
+# example's KronWhiten: its five dense stacks at (4, 256) and head_w's 10,
+# patch_w's 48 and pos_emb's 65 at B = 1, f32 on the single route, and 20
+# leaves damped; no other kernel
+VIT_PER_FIT = {"fused_ns_update": 8, "damped_noise": 20, "unit_noise": 0,
+               "ns_step": 0, "procrustes": 0, "norm_bound": 0, "tiled_step": 0,
+               "tsub": 0, "scaled_matmul_trace": 0, "combine": 0}
+VIT_EPOCHS = 2
+VIT_STEPS = 100
 # the six geometries besides Q0.5EQ1.5 on GPT-2 124M (max_skew 2): per fit
 # step each of the 8 dense factors is bounded once by norm_bound (spd) and
 # every leaf damped by damped_noise (16), but EQ whitening, which draws its
@@ -663,10 +693,16 @@ def instruction_ms(numel: int, counts: dict, clock_hz: float) -> float:
     return numel * slots / 32 / (4 * sms * clock_hz) * 1e3
 
 
+# the noise at GPT-2 774M's and the ViT's largest stacks (timed; the row
+# stays LLaMA's)
+NOISE_A10A = (((36, 1280, 5120), torch.bfloat16), ((4, 256, 1024), torch.float32))
+
+
 def check_noise(dev, lib_path) -> dict:
     """Noise kernel, unit and fused mode, bit-exact against plain, at GPT-2
-    124M's and LLaMA-1.1B's largest stacks and at (3, 97, 33), whose length
-    (not a multiple of 8) takes the scalar kernel; the row is LLaMA's.  The
+    124M's, GPT-2 774M's, the ViT's and LLaMA-1.1B's largest stacks and at
+    (3, 97, 33), whose length (not a multiple of 8) takes the scalar
+    kernel; the row is LLaMA's, ``a10a_shapes`` the 774M's and the ViT's.  The
     bound is max(bytes / HBM rate, instructions / issue rate), the loop's
     SASS counted by ``ops/sass.py`` and the SM clock read under
     load; both terms are logged for both modes."""
@@ -681,13 +717,14 @@ def check_noise(dev, lib_path) -> dict:
             f"{'vector' if vec else 'scalar'}> main loop: {c['instructions']} "
             f"instructions, {c['imad_wide_hi']} IMAD.WIDE/HI per {c['elements']:g} "
             f"elements: {c['per_element']:.2f} and {c['imad_per_element']:.2f} per element")
-    row = None
+    row, a10a = None, []
     gen = torch.Generator(device=dev).manual_seed(7)
     for shape, dtype in (((3, 97, 33), torch.float32),
                          ((3, 97, 33), torch.bfloat16),
                          ((12, 768, 2304), torch.bfloat16),
                          ((1, 1024, 768), torch.float32),
                          *((s, torch.bfloat16) for s in FACTOR_NOISE_SHAPES),
+                         *NOISE_A10A,
                          ((22, 2048, 11264), torch.bfloat16)):
         b = shape[0]
         seeds = _seeds(b, gen, dev)
@@ -736,14 +773,19 @@ def check_noise(dev, lib_path) -> dict:
                 f"instructions {t_instr:.4f} ms (SM clock under load "
                 f"{clock / 1e6:.0f} MHz); {max(t_bytes, t_instr) / ms:.3f} of the bound")
         t_bytes, t_instr = terms["fused"]
-        row = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=max(t_bytes, t_instr),
-                   bound_by="bytes" if t_bytes >= t_instr else "operations",
-                   max_abs_err=fused_err, library_ms=ms_rand,
-                   bound_terms_ms={"bytes": t_bytes, "instructions": t_instr},
-                   unit_ms=ms_unit, unit_bound_terms_ms=dict(zip(
-                       ("bytes", "instructions"), terms["unit"])))
+        timed = dict(ms=ms_fused, plain_ms=ms_plain_fused, bound_ms=max(t_bytes, t_instr),
+                     bound_by="bytes" if t_bytes >= t_instr else "operations",
+                     max_abs_err=fused_err, library_ms=ms_rand,
+                     bound_terms_ms={"bytes": t_bytes, "instructions": t_instr},
+                     unit_ms=ms_unit, unit_bound_terms_ms=dict(zip(
+                         ("bytes", "instructions"), terms["unit"])))
+        if (shape, dtype) in NOISE_A10A:
+            a10a.append(dict(shape=f"{shape} {str(dtype)[6:]}", **timed))
+        else:
+            row = timed
         del g
         torch.cuda.empty_cache()
+    row["a10a_shapes"] = a10a
     return row
 
 
@@ -799,24 +841,37 @@ def _true_norm(mat, mode):
     return torch.linalg.eigvalsh(m.mT @ m)[:, -1].clamp(min=0).sqrt()
 
 
-def check_ns(dev, tc_lines=()) -> dict:
-    """The single route at GPT-2's widths and batches against its plain
-    version: q' and L' within ROUTE_TOL (bf16 q' also within twice the FFMA
-    chain's error where it was logged), the norm bound (L' - term2 with L =
-    0) at most 1.001 x the true norm, both branches of the procrustes step
-    where B > 1.  In bf16 (tensor cores) it logs the rate, the share of the
-    bound and a ``bmm`` of its step product; at 12 x 768, the GPT-2 path's
-    stacked shape and the JSON row, its kernel split, which fails on any
-    FFMA ``gemm_kernel``."""
-    row = None
-    for b, n, dtype in ((12, 768, torch.bfloat16), (1, 768, torch.bfloat16),
-                        (1, 1024, torch.bfloat16), (2, 768, torch.float32)):
+# (B, n, dtype, k) of the single route's checks: GPT-2 124M's stacks, wte
+# and wpe in bf16 and an f32 stack; GPT-2 774M's stacks and B = 1 factors
+# in bf16 (k = 128, the paths' norm_k); the ViT's stacks and its head_w,
+# patch_w and pos_emb factors in f32 on the FFMA chain (k = 32, the
+# example's default norm_k for f32 Q)
+NS_CHECKS = ((12, 768, torch.bfloat16, 128), (1, 768, torch.bfloat16, 128),
+             (1, 1024, torch.bfloat16, 128), (2, 768, torch.float32, 128),
+             (36, 1280, torch.bfloat16, 128), (1, 1280, torch.bfloat16, 128),
+             (4, 256, torch.float32, 32), (1, 10, torch.float32, 32),
+             (1, 48, torch.float32, 32), (1, 65, torch.float32, 32))
+# the checks whose times the kernels' line carries beside the row's
+NS_LINE_SHAPES = NS_CHECKS[4:]
+
+
+def check_ns(dev, tc_lines=()) -> tuple[dict, list]:
+    """The single route at ``NS_CHECKS`` against its plain version: q' and
+    L' within ROUTE_TOL (bf16 q' also within twice the FFMA chain's error
+    where it was logged), the norm bound (L' - term2 with L = 0) at most
+    1.001 x the true norm, both branches of the procrustes step where B >
+    1.  In bf16 (tensor cores) it logs the rate, the share of the bound and
+    a ``bmm`` of its step product; at 12 x 768, the GPT-2 path's stacked
+    shape and the JSON row, its kernel split, which fails on any FFMA
+    ``gemm_kernel``.  Returns (the row, the timings at ``NS_LINE_SHAPES``)."""
+    row, shapes = None, []
+    for b, n, dtype, k in NS_CHECKS:
         args = _ns_problem(b, n, dtype, 11, dev) + (0.1, 0.9)
         assert kernels.ns_route(n, dtype) == "single"
-        run = lambda: kernels.fused_ns_update(*args, k=128)
-        run_p = lambda: kernels.fused_ns_update_plain(*args, k=128)
+        run = lambda: kernels.fused_ns_update(*args, k=k)
+        run_p = lambda: kernels.fused_ns_update_plain(*args, k=k)
         (qk, lk), (qp, lp) = run(), run_p()
-        shown, both = _branches(_step_a(kernels.ns_step_plain(*args, k=128)[0],
+        shown, both = _branches(_step_a(kernels.ns_step_plain(*args, k=k)[0],
                                         args[4]))
         torch.cuda.synchronize()
         if not (torch.isfinite(qk.float()).all() and torch.isfinite(lk).all()):
@@ -827,7 +882,7 @@ def check_ns(dev, tc_lines=()) -> dict:
         if dtype == torch.bfloat16 and (b, n) in kernels.FFMA_SINGLE_REL:
             tol_q = min(tol_q, 2 * kernels.FFMA_SINGLE_REL[b, n])
         max_abs = _max_abs(qk, qp)
-        log(f"ns single {b}x{n}x{n} {dtype}: q rel err {q_err:.2e} (tol "
+        log(f"ns single {b}x{n}x{n} {dtype} k={k}: q rel err {q_err:.2e} (tol "
             f"{tol_q:.3g}), L rel err {l_err:.2e} (tol {tol_l}), bound/true max "
             f"{ratio:.5f}, max abs err {max_abs:.3e}, {shown}")
         if q_err > tol_q or l_err > tol_l or ratio > 1.001 or (b > 1 and not both):
@@ -835,13 +890,14 @@ def check_ns(dev, tc_lines=()) -> dict:
                                  "the plain version")
         ms = cuda_ms(run, 10)
         ms_plain = cuda_ms(run_p, 5, 1)
-        k = width_norm_k(128, n)
+        kk = width_norm_k(k, n)
         # three n x n x n products, two bounds of four thin k x n x n each
-        flops = b * (6 * n ** 3 + 16 * k * n * n)
+        flops = b * (6 * n ** 3 + 16 * kk * n * n)
         size = torch.finfo(dtype).bits // 8
-        if dtype == torch.bfloat16:
-            r = _row(ms, ms_plain, flops, b * (3 * n * n * size + 3 * 4), PEAK_BF16,
-                     max_abs)
+        nbytes = b * (3 * n * n * size + 3 * 4)
+        bf16 = dtype == torch.bfloat16
+        r = _row(ms, ms_plain, flops, nbytes, PEAK_BF16 if bf16 else PEAK_F32, max_abs)
+        if bf16:
             # no one PyTorch call computes the route: its step product is
             # the yardstick of its three full products
             bmm = ("torch.bmm(term1, q)",
@@ -852,11 +908,14 @@ def check_ns(dev, tc_lines=()) -> dict:
                 require_tensor_cores("the single route",
                                      log_kernel_split("fused_ns_update", run))
         else:
-            bound, by = bound_ms(flops, b * (3 * n * n * size + 3 * 4), PEAK_F32)
             log(f"  kernel {ms:.3f} ms  plain {ms_plain:.3f} ms  bound "
-                f"{bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP)  kernel rate "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return row
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.3f} GFLOP)  "
+                f"kernel rate {flops / ms / 1e9:.2f} TFLOP/s")
+        if (b, n, dtype, k) in NS_LINE_SHAPES:
+            shapes.append(dict(shape=f"{(b, n, n)} {str(dtype)[6:]}", **r))
+        del args, qk, qp
+    torch.cuda.empty_cache()
+    return row, shapes
 
 
 def check_routes(dev) -> None:
@@ -1265,8 +1324,12 @@ GEOMETRY_BOUND_SHAPES = tuple((b, n, dt) for b, n in ((12, 768), (1, 768), (1, 1
     (3, 100, torch.bfloat16),)
 
 
-def check_norm_bound_shapes(dev) -> list:
-    """Row 5 at ``GEOMETRY_BOUND_SHAPES`` (k = 128, the paths' norm_k): the
+# the 774M's widths, where the tolerance's model was not yet held
+A10A_BOUND_SHAPES = ((36, 1280, torch.bfloat16), (1, 1280, torch.bfloat16))
+
+
+def check_norm_bound_shapes(dev, shapes=GEOMETRY_BOUND_SHAPES) -> list:
+    """Row 5 at ``shapes`` (k = 128, the paths' norm_k): the
     bound of a Wishart stack within ``kernels.norm_bound_rtol`` of its plain
     version (in bf16 at n % 8 == 0 plus the tensor cores' summation; on the
     FFMA GEMM, in f32 and at (3, 100) bf16, ``BOUND_RTOL``) and at most
@@ -1276,7 +1339,7 @@ def check_norm_bound_shapes(dev) -> list:
     FFMA ``gemm_kernel``, the (3, 100) one's on a tensor-core one.
     Returns the timings for the JSON row."""
     out = []
-    for b, n, dtype in GEOMETRY_BOUND_SHAPES:
+    for b, n, dtype in shapes:
         term1, _, _, _, seeds = _ns_problem(b, n, dtype, 17 * n + b, dev)
         run = lambda: kernels.norm_bound(term1, seeds, "spd", 0, k=128)
         run_p = lambda: kernels.norm_bound_plain(term1, seeds, "spd", 0, k=128)
@@ -1860,6 +1923,113 @@ def llama_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
     launches, _ = train("LLaMA-1.1B", model, llama.loss_llama, opt, tokens,
                         targets, steps_p1, steps_p01, LLAMA_PER_FIT, card)
     return launches, (model, llama.loss_llama, opt, tokens, targets)
+
+
+def gpt2_774m_path(dev, card: str, steps_p1: int = 3, steps_p01: int = 3):
+    """GPT-2 774M (36 x 1280, 20 heads) at full width and depth with remat,
+    batch 1 x 1024, bf16 compute, f32 parameters, by KronWhiten in
+    tools/bench_gpt2_large.py:91-98's configuration (the bench
+    configuration: bf16 Q and momentum, norm_k 128)."""
+    cfg = gpt2.gpt2_774m(compute_dtype=torch.bfloat16, remat=True)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    tokens, targets = gpt2.synthetic_lm_batch(
+        torch.Generator().manual_seed(1), 1, cfg.block_size, cfg.vocab_size,
+        device=dev)
+    opt = _bench_opt(model, gpt2.scanned_layers_mask(model), steps_p1, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"GPT-2 774M ({n_params / 1e6:.1f}M params, {cfg.n_layer} x {cfg.n_embd}, "
+        f"{cfg.n_head} heads, remat), batch 1 x {cfg.block_size}, bf16 compute, "
+        f"f32 params, KronWhiten bench_gpt2_large configuration")
+    launches, _ = train("GPT-2 774M", model, gpt2.loss_gpt2, opt, tokens, targets,
+                        steps_p1, steps_p01, GPT2_PER_FIT, card)
+    return launches, (model, gpt2.loss_gpt2, opt, tokens, targets)
+
+
+def vit_path(dev, card: str) -> dict:
+    """The ViT example (``examples/vit_cifar10.main``) on the card at its
+    JAX configuration (dim 256, depth 4, 8 heads, batch 128), both arms,
+    ``VIT_EPOCHS`` x ``VIT_STEPS`` steps on the data the card has (no
+    scikit-learn: ``vit.synthetic_cifar``), with the launch counts reset
+    just before and read just after: each arm's train loss falls (every
+    epoch's mean finite and below its first step's loss), and the
+    KronWhiten arm launches ``VIT_PER_FIT`` per fit step exactly (Adam
+    none).  Logs each arm's step time and accuracy.  At the example's lr
+    1e-3 in bf16 compute the KronWhiten arm can lose its fit in epoch 2
+    and regain it or not, with the kernels and with their plain versions
+    alike (``vit_stability``; PERF.md, Findings), so the loss is not held
+    to fall from epoch to epoch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = vit_cifar10.main(["--device", str(dev), "--epochs", str(VIT_EPOCHS),
+                            "--steps_per_epoch", str(VIT_STEPS)])
+    torch.cuda.synchronize()
+    launches = {name: getattr(kernels, name).launches for name in VIT_PER_FIT}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fits = 0
+    for name, res in out.items():
+        losses = res["epoch_losses"]
+        log(f"  [{card}] ViT {name}: first loss {res['first_loss']:.4f}, epoch train "
+            f"losses {losses}, test accuracy {res['test_acc']:.3f}, step (median, "
+            f"host clock) {res['step_ms']:.2f} ms, fit steps {res['fit_steps']}")
+        if not all(math.isfinite(x) and x < res["first_loss"] for x in losses):
+            raise AssertionError(f"ViT {name}: the train loss did not fall from "
+                                 f"{res['first_loss']}: {losses}")
+        fits += res["fit_steps"] or 0
+    log(f"  ViT: launches {launches} over {fits} fit steps; peak memory {peak_gb:.2f} GB")
+    if fits == 0 or any(launches[k] != n * fits for k, n in VIT_PER_FIT.items()):
+        raise AssertionError(f"ViT: launch counts {launches} for {fits} fit "
+                             f"steps, expected {VIT_PER_FIT} per fit step")
+    return launches
+
+
+# the ViT's KronWhiten arm per step (``vit_stability``): (label, compute
+# dtype, lr, plain versions in place of the kernels)
+VIT_STABILITY_ARMS = (("kernels", torch.bfloat16, 1e-3, False),
+                      ("plain", torch.bfloat16, 1e-3, True),
+                      ("kernels, f32 compute", torch.float32, 1e-3, False),
+                      ("kernels, lr 3e-4", torch.bfloat16, 3e-4, False))
+
+
+def vit_stability(dev, card: str) -> dict:
+    """Not a gate: the ViT example's KronWhiten arm (seed 42, batches from
+    a generator seeded 0, batch 128) for ``VIT_EPOCHS`` x ``VIT_STEPS``
+    steps in each of ``VIT_STABILITY_ARMS``, logging every step's loss and
+    the test accuracy every 50 steps: whether a loss of fit comes with the
+    kernels, with their plain versions on the card, in bf16 compute only,
+    or at lr 1e-3 only.  Run it with tools/smoke_paths.py."""
+    kernels_of = (kernels.fused_ns_update, kernels.damped_noise)
+    test = vit.synthetic_cifar(torch.Generator().manual_seed(999), 1000, device=dev)
+    out = {}
+    for label, cd, lr, plain in VIT_STABILITY_ARMS:
+        if plain:
+            kernels.fused_ns_update = kernels.fused_ns_update_plain
+            kernels.damped_noise = kernels.damped_noise_plain
+        try:
+            model = vit.ViT(vit.ViTConfig(compute_dtype=cd), device=dev, seed=42)
+            opt = KronWhiten(model.named_parameters(), lr=lr, momentum=0.9,
+                             preconditioner_max_skew=2.0, device=dev,
+                             scanned_layers=vit.scanned_layers_mask(model))
+            gen, losses, accs = torch.Generator().manual_seed(0), [], []
+            for i in range(VIT_EPOCHS * VIT_STEPS):
+                x, y = vit.synthetic_cifar(gen, vit_cifar10.BATCH, device=dev)
+                opt.zero_grad(set_to_none=True)
+                loss = vit.loss_vit(model, x, y)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+                if (i + 1) % 50 == 0:
+                    with torch.no_grad():
+                        accs.append(float((model(test[0]).argmax(1) == test[1])
+                                          .float().mean()))
+        finally:
+            kernels.fused_ns_update, kernels.damped_noise = kernels_of
+        means = [round(float(np.mean(losses[i:i + 20])), 4) for i in range(0, len(losses), 20)]
+        log(f"  [{card}] ViT KronWhiten ({label}): means of 20 steps {means}; test "
+            f"accuracy every 50 steps {accs}; every step's loss: "
+            + " ".join(f"{x:.4f}" for x in losses))
+        out[label] = losses
+    return out
 
 
 def _state_size(opt, key: str) -> tuple[int, int]:
@@ -5989,8 +6159,9 @@ def main() -> int:
     phase("build")
     lib_path, tc_lines = build()
     phase("kernels against their plain versions")
-    rows = {"damped_noise": check_noise(dev, lib_path),
-            "fused_ns_update": check_ns(dev, tc_lines)}
+    rows = {"damped_noise": check_noise(dev, lib_path)}
+    rows["fused_ns_update"], ns_shapes = check_ns(dev, tc_lines)
+    rows["fused_ns_update"]["a10a_shapes"] = ns_shapes
     rows["damped_noise"].update(check_noise_complex(dev, lib_path))
     check_transpose_sub(dev)
     check_routes(dev)
@@ -6009,6 +6180,7 @@ def main() -> int:
     for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
     rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
+    rows["norm_bound"]["a10a_shapes"] = check_norm_bound_shapes(dev, A10A_BOUND_SHAPES)
     check_procrustes_loop(dev)
     for k, entries in check_lra_dense_shapes(dev, lib_path).items():
         rows[k]["lra_dense_shapes"] = entries
@@ -6025,6 +6197,9 @@ def main() -> int:
               True, "GPT-2 124M options arm A"),
              ("LLaMA-1.1B path", lambda: llama_path(dev, smi), (1.0,), True,
               "LLaMA-1.1B"),
+             ("GPT-2 774M path", lambda: gpt2_774m_path(dev, smi), (1.0,), True,
+              "GPT-2 774M"),
+             ("ViT path", lambda: (vit_path(dev, smi), None), (), False, None),
              ("GPT-2 124M Newton path", lambda: newton_path("gpt2", dev, smi),
               (1.0, 0.0), False, "GPT-2 124M Newton"),
              ("LLaMA-1.1B Newton path", lambda: newton_path("llama", dev, smi),

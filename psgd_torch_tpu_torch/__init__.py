@@ -7,10 +7,11 @@ only.  Its preconditioners are the three families of the reference:
 Kronecker-factored (``precond.kron``), low-rank approximation
 (``precond.lra``) and dense (``precond.dense``), fitted by whitening or
 from Hessian-vector products.  Entry points (``models.gpt2.GPT2``,
-``models.llama.Llama``, the optimizers ``optim.KronWhiten``,
+``models.llama.Llama``, ``models.vit.ViT``, the optimizers ``optim.KronWhiten``,
 ``KronNewton``, ``LRAWhiten``, ``LRANewton``, ``DenseNewton`` and the
 reference-named closure classes of ``optim.classes``,
-``models.gpt2.synthetic_lm_batch``) run on the CUDA device unless the
+``models.gpt2.synthetic_lm_batch``, ``models.vit.synthetic_cifar``, the
+examples' ``main``) run on the CUDA device unless the
 caller passes ``device="cpu"``; without a card they raise instead of
 falling back.  On CUDA tensors the hot-path kernels (``ops.kernels``: the
 Newton-Schulz update's three routes and their pieces, the norm bound, the

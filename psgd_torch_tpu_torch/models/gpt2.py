@@ -34,6 +34,10 @@ under GSPMD on the same parameters:
 
 Every rank of a tp group must see the same tokens.  On a mesh whose tp
 dim is 1 the sharded forward is the plain one, bit for bit.
+
+``cfg.remat`` recomputes each block in the backward (JAX's ``remat``,
+``jax.checkpoint`` of the block), at every tp size: the recomputation
+repeats the block's tp collectives, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..parallel import tensor_parallel
@@ -59,6 +64,7 @@ class GPT2Config:
     n_embd: int = 768
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = False              # recompute each block in the backward
 
     @property
     def head_dim(self) -> int:
@@ -80,6 +86,39 @@ def gpt2_124m(**kw) -> GPT2Config:
     return GPT2Config(**base)
 
 
+def gpt2_350m(**kw) -> GPT2Config:
+    """GPT-2 medium proportions (24 x 1024, 16 heads)."""
+    base = dict(vocab_size=50304, block_size=1024, n_layer=24, n_head=16,
+                n_embd=1024)
+    base.update(kw)
+    return GPT2Config(**base)
+
+
+def gpt2_774m(**kw) -> GPT2Config:
+    """GPT-2 large proportions (36 x 1280, 20 heads)."""
+    base = dict(vocab_size=50304, block_size=1024, n_layer=36, n_head=20,
+                n_embd=1280)
+    base.update(kw)
+    return GPT2Config(**base)
+
+
+_BLOCK_LEAVES = ("ln1_scale", "ln1_bias", "attn_qkv_w", "attn_qkv_b", "attn_proj_w",
+                 "attn_proj_b", "ln2_scale", "ln2_bias", "mlp_fc_w", "mlp_fc_b",
+                 "mlp_proj_w", "mlp_proj_b")
+
+
+def param_shapes(cfg: GPT2Config) -> dict:
+    """name -> shape of every parameter (the JAX tree's leaves, dotted; the
+    blocks' stacked along the layer axis), without building the model."""
+    d, l = cfg.n_embd, cfg.n_layer
+    per_layer = {"attn_qkv_w": (d, 3 * d), "attn_qkv_b": (3 * d,),
+                 "attn_proj_w": (d, d), "mlp_fc_w": (d, 4 * d),
+                 "mlp_fc_b": (4 * d,), "mlp_proj_w": (4 * d, d)}
+    return {"wte": (cfg.vocab_size, d), "wpe": (cfg.block_size, d),
+            **{f"blocks.{k}": (l, *per_layer.get(k, (d,))) for k in _BLOCK_LEAVES},
+            "lnf_scale": (d,), "lnf_bias": (d,)}
+
+
 def _layer_norm(x, scale, bias, eps=1e-5):
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
@@ -99,10 +138,9 @@ class GPT2(nn.Module):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
-        d, l = cfg.n_embd, cfg.n_layer
         gen = torch.Generator(device=dev).manual_seed(seed)
         pd = cfg.param_dtype
-        std, resid_std = 0.02, 0.02 / math.sqrt(2 * l)
+        std, resid_std = 0.02, 0.02 / math.sqrt(2 * cfg.n_layer)
 
         def normal(shape, s=std):
             t = torch.randn(shape, generator=gen, device=dev,
@@ -112,24 +150,26 @@ class GPT2(nn.Module):
         def const(shape, v):
             return nn.Parameter(torch.full(shape, v, dtype=pd, device=dev))
 
-        self.wte = normal((cfg.vocab_size, d))
-        self.wpe = normal((cfg.block_size, d), 0.01)
+        shape = param_shapes(cfg)
+        blk = {k: shape[f"blocks.{k}"] for k in _BLOCK_LEAVES}
+        self.wte = normal(shape["wte"])
+        self.wpe = normal(shape["wpe"], 0.01)
         self.blocks = nn.ParameterDict({
-            "ln1_scale": const((l, d), 1.0),
-            "ln1_bias": const((l, d), 0.0),
-            "attn_qkv_w": normal((l, d, 3 * d)),
-            "attn_qkv_b": const((l, 3 * d), 0.0),
-            "attn_proj_w": normal((l, d, d), resid_std),
-            "attn_proj_b": const((l, d), 0.0),
-            "ln2_scale": const((l, d), 1.0),
-            "ln2_bias": const((l, d), 0.0),
-            "mlp_fc_w": normal((l, d, 4 * d)),
-            "mlp_fc_b": const((l, 4 * d), 0.0),
-            "mlp_proj_w": normal((l, 4 * d, d), resid_std),
-            "mlp_proj_b": const((l, d), 0.0),
+            "ln1_scale": const(blk["ln1_scale"], 1.0),
+            "ln1_bias": const(blk["ln1_bias"], 0.0),
+            "attn_qkv_w": normal(blk["attn_qkv_w"]),
+            "attn_qkv_b": const(blk["attn_qkv_b"], 0.0),
+            "attn_proj_w": normal(blk["attn_proj_w"], resid_std),
+            "attn_proj_b": const(blk["attn_proj_b"], 0.0),
+            "ln2_scale": const(blk["ln2_scale"], 1.0),
+            "ln2_bias": const(blk["ln2_bias"], 0.0),
+            "mlp_fc_w": normal(blk["mlp_fc_w"]),
+            "mlp_fc_b": const(blk["mlp_fc_b"], 0.0),
+            "mlp_proj_w": normal(blk["mlp_proj_w"], resid_std),
+            "mlp_proj_b": const(blk["mlp_proj_b"], 0.0),
         })
-        self.lnf_scale = const((d,), 1.0)
-        self.lnf_bias = const((d,), 0.0)
+        self.lnf_scale = const(shape["lnf_scale"], 1.0)
+        self.lnf_bias = const(shape["lnf_bias"], 0.0)
         self._tp = _PLAIN       # shard_model's layout
 
     def _block(self, x, bp, lay):
@@ -178,7 +218,11 @@ class GPT2(nn.Module):
         layers = {k: lay.block(p, f"blocks.{k}").unbind(0)
                   for k, p in self.blocks.items()}
         for i in range(self.cfg.n_layer):
-            x = self._block(x, {k: v[i] for k, v in layers.items()}, lay)
+            bp = {k: v[i] for k, v in layers.items()}
+            if self.cfg.remat:
+                x = checkpoint(self._block, x, bp, lay, use_reentrant=False)
+            else:
+                x = self._block(x, bp, lay)
         x = _layer_norm(x, lay.block(self.lnf_scale, "lnf_scale"),
                         lay.block(self.lnf_bias, "lnf_bias"))
         return x, wte

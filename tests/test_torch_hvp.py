@@ -26,7 +26,8 @@ def _problem(model_name, remat=False):
     """(JAX loss of params, JAX params, port closure, port params in JAX
     leaf order, f64 probes in that order) on one batch."""
     if model_name == "gpt2":
-        params, cfgj, model = carried_pair(torch.float64, jnp.float64)
+        params, cfgj, model = carried_pair(torch.float64, jnp.float64, remat=remat)
+        assert model.cfg.remat == remat and cfgj.remat == remat
         x, y = tokens(1)
         jloss = lambda p: jg.loss_gpt2(p, jnp.asarray(x), jnp.asarray(y), cfgj)
         tloss = lambda: tg.loss_gpt2(model, torch.from_numpy(x), torch.from_numpy(y))
@@ -54,7 +55,7 @@ def _close(got, ref, rtol):
                                    atol=rtol * np.abs(r).max())
 
 
-CASES = [("gpt2", False), ("llama", False), ("llama", True)]
+CASES = [("gpt2", False), ("gpt2", True), ("llama", False), ("llama", True)]
 
 
 @pytest.mark.parametrize("model_name,remat", CASES)
@@ -62,7 +63,7 @@ def test_hvp_exact_matches_jax(model_name, remat):
     """f64 parameters; the models compute their logits (and LLaMA its
     RMSNorm and RoPE) in float32 on both sides, so the gradients agree to
     ~1e-7 relative and the Hvps to the same: each leaf within rtol 1e-5,
-    atol 1e-5 x its largest entry.  Remat (LLaMA): the double backward goes
+    atol 1e-5 x its largest entry.  Remat: the double backward goes
     through checkpoint(..., use_reentrant=False).  The parameters' .grad
     stay untouched."""
     jloss, params, jvs, tloss, tparams, vs = _problem(model_name, remat)

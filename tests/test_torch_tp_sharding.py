@@ -30,7 +30,8 @@ sharded within their layers (``(None, fsdp, tp)``), by
   its gradients at ``F32_RTOL``.  Every gap is relative to the largest
   entry of the JAX tensor; the readings were 1e-7 to 5e-7 (a wrong head
   or a skipped tp sum moves them by 1e-2 or more).
-  With tp 1 the sharded forward is the plain one, bit for bit.
+  With tp 1 the sharded forward is the plain one, bit for bit; at tp 2
+  remat (each block recomputed with its collectives) changes no bit.
 * (4) The optimizer alone: the within-layer layout, stack axis fsdp and
   ("fsdp", "tp"), whitening and Newton (with an acting norm clip and the
   on-the-fly init scale), against the unsharded model's optimizer on 1
@@ -85,14 +86,14 @@ ALONE = {"W": dict(whiten_grad=False, preconditioner_init_scale=None,
          "N": dict(grad_clip_max_norm=0.5, preconditioner_init_scale=None)}
 
 
-def _cfg(dtype):
+def _cfg(dtype, **kw):
     from psgd_torch_tpu_torch.models import gpt2
-    return gpt2.tiny_config(compute_dtype=dtype, param_dtype=dtype, **CFG)
+    return gpt2.tiny_config(compute_dtype=dtype, param_dtype=dtype, **CFG, **kw)
 
 
-def _model(dtype, mesh=None):
+def _model(dtype, mesh=None, **kw):
     from psgd_torch_tpu_torch.models import gpt2
-    model = gpt2.GPT2(_cfg(dtype), device="cpu", seed=0)
+    model = gpt2.GPT2(_cfg(dtype, **kw), device="cpu", seed=0)
     return model if mesh is None else gpt2.shard_model(model, mesh)
 
 
@@ -309,6 +310,22 @@ def tp_one() -> dict:
         for n, g in out["sharded"][1].items()})
 
 
+def tp_remat(mesh) -> dict:
+    """The tensor-parallel forward with remat (each block, its tp
+    collectives included, recomputed in the backward) against the same
+    without: the loss and each gradient block (float32)."""
+    from psgd_torch_tpu_torch.models import gpt2
+    x, y = _tokens()
+    out = []
+    for remat in (False, True):
+        model = _model(torch.float32, mesh, remat=remat)
+        loss = gpt2.loss_gpt2(model, x, y)
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        out.append((loss.item(), [_local(g) for g in grads]))
+    (l0, g0), (l1, g1) = out
+    return dict(loss=(l0, l1), equal=[torch.equal(a, b) for a, b in zip(g0, g1)])
+
+
 def refusals(mesh) -> dict:
     """What still raises: a layout the reshard cannot express, a model
     layout the tp forward does not take, FSDP2 at tp > 1."""
@@ -452,6 +469,7 @@ def run_cases(rank, world, draw, record, directory) -> dict:
         _OWN["f64"] = tp_forward(mesh, torch.float64)
         _OWN["f32"] = tp_forward(mesh, torch.float32)
         _OWN["tp_one"] = tp_one()
+        _OWN["remat"] = tp_remat(mesh)
         _OWN["refusals"] = refusals(mesh)
         _OWN["trainer"] = trainer_case(str(directory))
     return out
@@ -690,6 +708,15 @@ def test_tp_one_is_the_plain_forward(ranks):
         r = out["tp_one"]
         assert r["loss"][0] == r["loss"][1]
         assert all(r["grads"].values()), r["grads"]
+
+
+def test_tp_remat_equals_no_remat(ranks):
+    """Remat at tp 2 (fsdp 2 x tp 2): the loss and every gradient block bit
+    for bit the tensor-parallel forward's without remat."""
+    for out in ranks[0]:
+        r = out["remat"]
+        assert r["loss"][0] == r["loss"][1]
+        assert len(r["equal"]) == 16 and all(r["equal"]), r["equal"]
 
 
 def test_what_still_raises(ranks):
