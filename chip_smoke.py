@@ -27,8 +27,10 @@
      timed against its bytes bound; ``procrustes`` also logs its share;
    - the single NS route at GPT-2's widths and batches (12 x 768, 1 x 768
      and 1 x 1024 in bf16, on the tensor cores; 2 x 768 in f32), GPT-2
-     774M's (36 x 1280 and 1 x 1280 in bf16) and the ViT's (4 x 256, 1 x
-     10, 1 x 48 and 1 x 65 in f32 on the FFMA chain, k = 32) (``NS_CHECKS``), within
+     774M's (36 x 1280 and 1 x 1280 in bf16), the ViT's (4 x 256, 1 x
+     10, 1 x 48 and 1 x 65 in f32 on the FFMA chain, k = 32) (``NS_CHECKS``)
+     and the examples' (1 x 6, 16, 30, 33, 84, 120 and 121 in f32, k = 32)
+     (``NS_CHECKS_A10B``), within
      ``kernels.ROUTE_TOL`` and, in bf16, within twice the FFMA chain's
      logged error (``kernels.FFMA_SINGLE_REL``); its profiler split at
      12 x 768 fails on any FFMA ``gemm_kernel``;
@@ -50,7 +52,8 @@
    - the step-matrix variant (the TPU kernels' has_step_mat, which the
      Newton fit launches: S = A - B beside the bound's matrix A + B) of the
      single route at the GPT-2 Newton path's f32 stacks (12, 768), (1, 768)
-     and (1, 1024), at (2, 768) f32 and (12, 768) bf16, the split route at
+     and (1, 1024), at (2, 768) f32 and (12, 768) bf16, at the examples'
+     KronNewton factors (1, 10) and (1, 33) f32 (k = 32), the split route at
      (22, 2048) bf16 and the tiled route at (22, 2560) bf16, within
      ``kernels.ROUTE_TOL`` of the plain route given the same S
      (``check_step_mat``), each timed with its piece (the single route,
@@ -144,12 +147,34 @@
    step's (n, r) passes at the HBM rate beside its bytes bound.
 12. The tensor-rank path (``cp_path``): the reference showcase's rank-10
    CP decomposition of a 20 x 50 x 100 tensor (n = 1700, f32) with the
-   example's settings, DenseNewton Q0.5EQ1.5 and LRANewton 200 steps each
-   and DenseNewton in the six other geometries 20 steps each; the loss
-   falls on every arm, by ``CP_FALL`` or more on Q0.5EQ1.5's.
+   example's settings by DenseNewton in the six geometries besides
+   Q0.5EQ1.5, 20 steps each; the loss falls on every arm.
 13. The Rosenbrock path (``rosenbrock_path``, examples/hello_psgd.py): the
    ``DenseNewton`` closure class on the 100-variable coupled Rosenbrock
-   function, f32, 2000 steps; the loss falls by 1e4 or more from 50.
+   function, f32, 1200 steps; the loss falls by 1e4 or more from 50.
+13b. The examples path (``examples_path``, ROADMAP A10b): the five
+   examples the port takes from examples/, each ``main`` on the card at
+   its published sizes with its steps cut (``EXAMPLE_*``): hello_psgd
+   (``dense_newton``, 2000 iterations, f falls by 1e4 or more),
+   tensor_rank_decomposition (SGD, L-BFGS, DenseNewton, LRANewton,
+   KronNewton, ``CP_STEPS`` each; DenseNewton and KronNewton fall by
+   ``CP_FALL`` or more), logistic_regression (SGD, L-BFGS, LRAWhiten over
+   331,530 parameters, 2 epochs of 50 steps), flat_minima_mdl (Adam and
+   KronWhiten on LeNet5, then the rank-10 LRA log-det fit at each
+   solution; both log-dets finite) and xor_rnn (the RNN by KronWhiten,
+   the LSTM by KronNewton, capped at ``EXAMPLE_XOR_ITERS``); every PSGD
+   arm's loss finite and falling (the XOR cells' last window not above
+   chance, and the LSTM's below its first: ``XOR_WINDOW``), exact launches
+   per fit step (the Kron arms' from their leaf plans,
+   ``_geometry_per_fit``).
+13c. The NS-width sweep path (``ns_widths_path``): tools/
+   bench_ns_widths_torch.py's ``sweep`` at ``NS_WIDTHS`` (bf16 1536 single,
+   4096 tiled, 5120 single above the caps; f32 1280 single, 3072 tiled,
+   4096 single above the caps), every route within ``kernels.ROUTE_TOL``
+   of its plain version and its bound at most 1.001 x the true norm, each
+   width's ms, TFLOP/s, bound and plain ms logged; step 3 holds row 5 and
+   the tiled route's pieces at its tiled widths (``NS_WIDTHS_BOUND_SHAPES``:
+   (2, 4096) bf16, timed, and (3, 3072) f32).
    Paths 11-13 hold their counts per fit step exactly (``_flat_per_fit``:
    the probes per leaf, one damping, Q0.5EQ1.5's procrustes, PRO4P's
    loop), and step 3 also holds rows 2, 4, 5 and 7 at their shapes
@@ -307,7 +332,11 @@
 18. Prints the kernels' JSON line (``launches`` is the sum over the
    paths; row 5 also carries ``geometry_shapes``, its times at 3's
    geometry shapes; rows 1, 2 and 5 carry ``a10a_shapes``, their times at
-   GPT-2 774M's and the ViT's shapes; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
+   GPT-2 774M's and the ViT's shapes; row 1 carries ``a10b_shapes`` and
+   ``step_mat_a10b_shapes``, its times at the examples' factors, and
+   ``ns_widths``, the sweep's single-route records; the split and tiled
+   rows carry ``ns_widths_route``, the sweep's records of their route, its
+   whole time (``route_ms``), and rows 5-9 ``ns_widths_shapes``; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes, row 2 ``vector_shapes`` at
    the vector-sharded path's; rows 1, 3 and 6 also carry
    ``step_mat_launches`` and the step
@@ -349,8 +378,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from psgd_torch_tpu_torch.examples import (affine_wrapped_layers, mnist_lenet5, train_gpt2,
-                                           vit_cifar10)
+from psgd_torch_tpu_torch.examples import (affine_wrapped_layers, flat_minima_mdl, hello_psgd,
+                                           logistic_regression, mnist_lenet5,
+                                           tensor_rank_decomposition, train_gpt2,
+                                           vit_cifar10, xor_rnn)
 from psgd_torch_tpu_torch.models import gpt2, lenet5, llama, rnn, vit
 from psgd_torch_tpu_torch.ops import fastrand, kernels, linalg, sass
 from psgd_torch_tpu_torch.ops.linalg import width_norm_k
@@ -413,16 +444,24 @@ VIT_STEPS = 100
 GEOMETRIES = ("EQ", "QEP", "QEQ", "QUAD", "QUAD4P", "PRO4P")
 LOOP3_STEPS = 10
 GPT2_DENSE = 8
+GPT2_LEAVES = 16
 
 
-def _geometry_per_fit(dq: str, newton: bool) -> dict:
-    loop = GPT2_DENSE * LOOP3_STEPS if dq == "PRO4P" else 0
+def _geometry_per_fit(dq: str, newton: bool, dense: int = GPT2_DENSE,
+                      leaves: int = GPT2_LEAVES) -> dict:
+    """Launches per fit step of a Kron optimizer in geometry ``dq`` over
+    ``leaves`` unstacked leaves with ``dense`` dense factors (GPT-2 124M's
+    by default).  Q0.5EQ1.5 (the examples' Kron arms, every dense factor
+    under 128 wide) runs one NS update per dense factor, on the single
+    route, and no other bound."""
+    loop = dense * LOOP3_STEPS if dq == "PRO4P" else 0
     probe = newton or dq == "EQ"
-    return {"fused_ns_update": 0, "ns_step": 0, "procrustes": 0, "tiled_step": 0,
-            "scaled_matmul_trace": 0, "combine": 0, "tsub": loop,
-            "norm_bound": GPT2_DENSE + loop,
-            "damped_noise": 16 if newton or dq != "EQ" else 0,
-            "unit_noise": 16 if probe else 0}
+    ns = dq == "Q0.5EQ1.5"
+    return {"fused_ns_update": dense if ns else 0, "ns_step": 0, "procrustes": 0,
+            "tiled_step": 0, "scaled_matmul_trace": 0, "combine": 0, "tsub": loop,
+            "norm_bound": 0 if ns else dense + loop,
+            "damped_noise": leaves if newton or dq != "EQ" else 0,
+            "unit_noise": leaves if probe else 0}
 
 
 GPT2_GEOMETRY_PER_FIT = {dq: _geometry_per_fit(dq, False) for dq in GEOMETRIES}
@@ -439,7 +478,6 @@ GEOMETRY_QDTYPE = {dq: torch.float32 if dq in ("QUAD4P", "PRO4P") else torch.bfl
 # and damp h once; DenseNewton's Q0.5EQ1.5 adds one procrustes on the
 # (1, n, n) stack and PRO4P its Procrustes loop's LOOP3_STEPS masked steps
 # (a tsub and a skew norm_bound each)
-GPT2_LEAVES = 16
 CP_LEAVES = 3
 LRA_RANK = 10
 
@@ -453,6 +491,9 @@ def _flat_per_fit(probes: int, dq: str | None = None) -> dict:
 
 
 LRA_WHITEN_PER_FIT = _flat_per_fit(1)
+# an LRA state's construction (``lra.init_lra``): U and V, a unit-noise
+# launch each
+LRA_INIT = {"unit_noise": 2}
 GPT2_LRA_NEWTON_PER_FIT = _flat_per_fit(GPT2_LEAVES)
 # (n, r) passes of one LRA fit, counted from precond/lra.py update_lra
 # (rank > 0): the balancing 6 (the two Gram products, each rotation read
@@ -476,7 +517,57 @@ CP_GEOMETRY_STEPS = 20
 CP_FALL = 2.0
 ROSENBROCK_N = 100
 ROSENBROCK_STEPS = 2000
+# the closure class's run (``rosenbrock_path``; hello_psgd's own 2000 run
+# in ``examples_path``): f falls 5e5x in 1200 steps on an H100
+ROSENBROCK_CLASS_STEPS = 1200
 ROSENBROCK_FALL = 1e4
+# the five examples on the card (``examples_path``), at their published
+# sizes, their steps cut to keep the smoke's time: logistic regression's
+# epochs (of 20), flat minima's training and log-det fit steps (of 400 and
+# 300), the XOR cells' iterations (of 100000; each stops at a loss below
+# 0.1).  On an H100 the RNN step takes ~15 ms and the LSTM's, a double
+# backward through 50 steps, ~104-118 ms; neither cell was solved within
+# 6000 and 3000 iterations (PERF.md §6).  In its first
+# hundreds of iterations each cell sits at chance (ln 2), the JAX
+# example's too (tools/xor_fall_jax.py): every loss finite, the mean of the
+# last XOR_WINDOW below ln 2 + XOR_CHANCE_MARGIN, and the LSTM's below
+# that of its first XOR_WINDOW (the offset of its initial output fitted
+# away; so in every later window of the JAX example's first 1000
+# iterations on the CPU).  The RNN's window means cross (the JAX example's
+# later windows are below its first in 93% of them), so no fall is gated
+# there
+EXAMPLE_LOGISTIC_EPOCHS = 2
+EXAMPLE_MDL_STEPS = (100, 100)
+EXAMPLE_XOR_ITERS = {"rnn": 100, "lstm": 100}
+XOR_WINDOW = 50
+XOR_CHANCE_MARGIN = 0.01
+XOR_FALLS = ("lstm",)
+# their Kron arms' launches per fit step, from the leaf plans (dims of
+# size^2 > max_skew x numel diagonal; max_size inf), every dense factor f32
+# and under 128 wide, so on the single route at B = 1:
+# - KronNewton over the CP factors (10, 20), (10, 50), (10, 100), max_skew
+#   1: the 10 dense in each, the other dim diagonal; 3 probes, 3 dampings
+# - KronWhiten over LeNet5's [W; b] (26, 6), (151, 16), (401, 120),
+#   (121, 84), (85, 10), max_skew 2: dense 6, 16, 120, 121 and 84, 10
+# - the RNN's w1 (33, 30) (30 dense) and w2 (31, 1) (diagonal), max_skew 1
+# - the LSTM's w_gates (33, 120) (33 dense) and w_out (31, 1) (diagonal)
+# (every NS launch of a Newton arm takes the step matrix, none of a
+# whitening arm's)
+
+
+def _example_kron_per_fit(newton: bool, dense: int, leaves: int) -> dict:
+    return dict(_geometry_per_fit("Q0.5EQ1.5", newton, dense, leaves),
+                **{"fused_ns_update.step_mat": dense if newton else 0})
+
+
+CP_KRON_PER_FIT = _example_kron_per_fit(True, dense=3, leaves=CP_LEAVES)
+MDL_KRON_PER_FIT = _example_kron_per_fit(False, dense=6, leaves=5)
+XOR_PER_FIT = {"rnn": _example_kron_per_fit(False, dense=1, leaves=2),
+               "lstm": _example_kron_per_fit(True, dense=1, leaves=2)}
+# the NS-width sweep (``ns_widths_path``): the widths and routes no other
+# path holds on the card; above the caps (bf16 5120, f32 4096) the single
+# route, where the JAX package runs its XLA tail
+NS_WIDTHS = {torch.bfloat16: (1536, 4096, 5120), torch.float32: (1280, 3072, 4096)}
 # the options path's arms: options over the bench configuration
 ARM_OPTIONS = {
     # the production recipe (__graft_entry__.py:69-79) with the cache
@@ -853,19 +944,25 @@ NS_CHECKS = ((12, 768, torch.bfloat16, 128), (1, 768, torch.bfloat16, 128),
              (1, 48, torch.float32, 32), (1, 65, torch.float32, 32))
 # the checks whose times the kernels' line carries beside the row's
 NS_LINE_SHAPES = NS_CHECKS[4:]
+# the examples' f32 factors at B = 1 on the FFMA chain (k = 32, KronWhiten's
+# and KronNewton's norm_k): LeNet5's 6, 16, 84, 120 and 121 (flat minima),
+# the RNN's 30 and the LSTM's 33 (``examples_path``; 10 is in NS_CHECKS)
+NS_CHECKS_A10B = tuple((1, n, torch.float32, 32) for n in (6, 16, 30, 33, 84, 120, 121))
 
 
-def check_ns(dev, tc_lines=()) -> tuple[dict, list]:
-    """The single route at ``NS_CHECKS`` against its plain version: q' and
+def check_ns(dev, tc_lines=(), checks=NS_CHECKS,
+             line_shapes=NS_LINE_SHAPES) -> tuple[dict | None, list]:
+    """The single route at ``checks`` against its plain version: q' and
     L' within ROUTE_TOL (bf16 q' also within twice the FFMA chain's error
     where it was logged), the norm bound (L' - term2 with L = 0) at most
     1.001 x the true norm, both branches of the procrustes step where B >
     1.  In bf16 (tensor cores) it logs the rate, the share of the bound and
     a ``bmm`` of its step product; at 12 x 768, the GPT-2 path's stacked
     shape and the JSON row, its kernel split, which fails on any FFMA
-    ``gemm_kernel``.  Returns (the row, the timings at ``NS_LINE_SHAPES``)."""
+    ``gemm_kernel``.  Returns (the row, None without a bf16 check; the
+    timings at ``line_shapes``)."""
     row, shapes = None, []
-    for b, n, dtype, k in NS_CHECKS:
+    for b, n, dtype, k in checks:
         args = _ns_problem(b, n, dtype, 11, dev) + (0.1, 0.9)
         assert kernels.ns_route(n, dtype) == "single"
         run = lambda: kernels.fused_ns_update(*args, k=k)
@@ -911,7 +1008,7 @@ def check_ns(dev, tc_lines=()) -> tuple[dict, list]:
             log(f"  kernel {ms:.3f} ms  plain {ms_plain:.3f} ms  bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.3f} GFLOP)  "
                 f"kernel rate {flops / ms / 1e9:.2f} TFLOP/s")
-        if (b, n, dtype, k) in NS_LINE_SHAPES:
+        if (b, n, dtype, k) in line_shapes:
             shapes.append(dict(shape=f"{(b, n, n)} {str(dtype)[6:]}", **r))
         del args, qk, qp
     torch.cuda.empty_cache()
@@ -977,6 +1074,12 @@ def _newton_problem(b, n, dtype, seed, dev):
             seeds), (term1 - bb).to(dtype)
 
 
+# the examples' KronNewton factors with the step matrix, f32 at B = 1 on
+# the FFMA chain (k = 32): the CP factors' 10 and the LSTM's 33
+STEP_MAT_A10B = (("fused_ns_update", 1, 10, torch.float32, 32),
+                 ("fused_ns_update", 1, 33, torch.float32, 32))
+
+
 def check_step_mat(dev) -> dict:
     """The step-matrix variant of each route at the Newton paths' shapes,
     chosen by the width rule, against the plain route given the same S:
@@ -985,27 +1088,30 @@ def check_step_mat(dev) -> dict:
     the piece that takes S (the single route itself, ``ns_step``,
     ``tiled_step``) with CUDA events, against the piece without S on the
     same inputs.  The single route is held at the GPT-2 Newton path's f32
-    stacks (12, 768), (1, 768), (1, 1024), at (2, 768) f32 and at
-    (12, 768) bf16 (tensor cores, which no Newton path launches with S).
-    Returns {row: the JSON row's step-matrix fields}: its piece's time and
-    bound (S read in place of term1, or beside it for the bound's matrix)
-    at the row's first shape, the shape and dtype its Newton path gives it
-    with S."""
+    stacks (12, 768), (1, 768), (1, 1024), at (2, 768) f32, at (12, 768)
+    bf16 (tensor cores, which no Newton path launches with S) and at the
+    examples' KronNewton factors (``STEP_MAT_A10B``).  Returns {row: the
+    JSON row's step-matrix fields}: its piece's time and bound (S read in
+    place of term1, or beside it for the bound's matrix) at the row's first
+    shape, the shape and dtype its Newton path gives it with S; row 1's
+    also ``step_mat_a10b_shapes``, the route's and the plain version's
+    times at ``STEP_MAT_A10B``."""
     fields = {}
-    for row, b, n, dtype in (("fused_ns_update", 12, 768, torch.float32),
-                             ("fused_ns_update", 1, 768, torch.float32),
-                             ("fused_ns_update", 1, 1024, torch.float32),
-                             ("fused_ns_update", 2, 768, torch.float32),
-                             ("fused_ns_update", 12, 768, torch.bfloat16),
-                             ("ns_step", 22, 2048, torch.bfloat16),
-                             ("tiled_step", 22, 2560, torch.bfloat16)):
+    for row, b, n, dtype, k in (("fused_ns_update", 12, 768, torch.float32, 128),
+                                ("fused_ns_update", 1, 768, torch.float32, 128),
+                                ("fused_ns_update", 1, 1024, torch.float32, 128),
+                                ("fused_ns_update", 2, 768, torch.float32, 128),
+                                ("fused_ns_update", 12, 768, torch.bfloat16, 128),
+                                ("ns_step", 22, 2048, torch.bfloat16, 128),
+                                ("tiled_step", 22, 2560, torch.bfloat16, 128)) \
+            + STEP_MAT_A10B:
         route = kernels.ns_route(n, dtype)
         args, s = _newton_problem(b, n, dtype, 7 * n, dev)
         args = args + (0.1, 0.9)
-        run = lambda: kernels.fused_ns_update(*args, k=128, step_mat=s)
-        run_p = lambda: kernels.fused_ns_update_plain(*args, k=128, step_mat=s)
+        run = lambda: kernels.fused_ns_update(*args, k=k, step_mat=s)
+        run_p = lambda: kernels.fused_ns_update_plain(*args, k=k, step_mat=s)
         (qk, lk), (qp, lp) = run(), run_p()
-        q_wo = kernels.fused_ns_update_plain(*args, k=128)[0]
+        q_wo = kernels.fused_ns_update_plain(*args, k=k)[0]
         torch.cuda.synchronize()
         if not (torch.isfinite(qk.float()).all() and torch.isfinite(lk).all()):
             raise AssertionError(f"step_mat {route} {b}x{n} {dtype}: non-finite output")
@@ -1023,8 +1129,8 @@ def check_step_mat(dev) -> dict:
         coeff = torch.full((b,), 0.01, device=dev)
         piece = {
             "fused_ns_update": lambda sm: kernels.fused_ns_update(
-                *args, k=128, step_mat=sm),
-            "ns_step": lambda sm: kernels.ns_step(*args, k=128, step_mat=sm),
+                *args, k=k, step_mat=sm),
+            "ns_step": lambda sm: kernels.ns_step(*args, k=k, step_mat=sm),
             "tiled_step": lambda sm: kernels.tiled_step(
                 args[0] if sm is None else sm, args[1], coeff, args[3],
                 sm is not None),
@@ -1032,10 +1138,10 @@ def check_step_mat(dev) -> dict:
         ms_s, ms_t1 = (cuda_ms(lambda: piece(sm), 10, 2) for sm in (s, None))
         ms_route = cuda_ms(run, 3, 1)
         ms_plain = cuda_ms(run_p, 2, 1)
-        k, size, nn = width_norm_k(128, n), torch.finfo(dtype).bits // 8, n * n
+        kk, size, nn = width_norm_k(k, n), torch.finfo(dtype).bits // 8, n * n
         flops, nbytes = {
-            "fused_ns_update": (b * (6 * n ** 3 + 16 * k * nn), b * (4 * nn * size + 12)),
-            "ns_step": (b * (2 * n ** 3 + 8 * k * nn), b * 4 * nn * size),
+            "fused_ns_update": (b * (6 * n ** 3 + 16 * kk * nn), b * (4 * nn * size + 12)),
+            "ns_step": (b * (2 * n ** 3 + 8 * kk * nn), b * 4 * nn * size),
             "tiled_step": (b * 2 * n ** 3, b * 3 * nn * size)}[row]
         bound, by = bound_ms(flops, nbytes, PEAK_BF16 if dtype == torch.bfloat16
                              else PEAK_F32)
@@ -1044,6 +1150,10 @@ def check_step_mat(dev) -> dict:
             f"plain {ms_plain:.3f} ms")
         fields.setdefault(row, dict(step_mat_ms=ms_s, step_mat_bound_ms=bound,
                                     step_mat_shape=f"{(b, n, n)} {dtype}"))
+        if (row, b, n, dtype, k) in STEP_MAT_A10B:
+            fields[row].setdefault("step_mat_a10b_shapes", []).append(dict(
+                shape=f"{(b, n, n)} {str(dtype)[6:]}",
+                **_row(ms_route, ms_plain, flops, nbytes, PEAK_F32, _max_abs(qk, qp))))
         del args, s, qk, qp, q_wo
         torch.cuda.empty_cache()
     return fields
@@ -1093,10 +1203,16 @@ def _short(key: str) -> str:
 
 
 # windows profiled before a phase that saw no device events fails, and the
-# pause before each retry (three empty windows in a row, then none, seen
-# on one machine)
-PROFILE_TRIES = 5
+# pause before the first retry, doubled before each next (three empty
+# windows in a row, then none, seen on one machine; five in a row within
+# 5 s, at 1 s each, on another)
+PROFILE_TRIES = 7
 PROFILE_RETRY_S = 1.0
+# host time inside each window before and after the profiled call: the
+# profiler drops device events whose converted timestamps fall outside its
+# window, and a short window that ends as its last kernel does can lose
+# them all
+PROFILE_PAD_S = 0.025
 
 
 def _profiled(fn, cpu: bool = False):
@@ -1107,20 +1223,23 @@ def _profiled(fn, cpu: bool = False):
     windows the phase fails rather than pass a gate on no data."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    for _ in range(PROFILE_TRIES):
+    for i in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
+            time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and _device_us(e) > 0]
         if kern:
             return kern, wall_ms
-        log("    the profiler saw no device time; profiling again")
-        time.sleep(PROFILE_RETRY_S)
+        log("    the profiler saw no device time")
+        if i + 1 < PROFILE_TRIES:
+            time.sleep(PROFILE_RETRY_S * 2 ** i)
     raise RuntimeError(f"torch.profiler saw no device time in {PROFILE_TRIES} "
                        "windows")
 
@@ -1326,6 +1445,8 @@ GEOMETRY_BOUND_SHAPES = tuple((b, n, dt) for b, n in ((12, 768), (1, 768), (1, 1
 
 # the 774M's widths, where the tolerance's model was not yet held
 A10A_BOUND_SHAPES = ((36, 1280, torch.bfloat16), (1, 1280, torch.bfloat16))
+# the tiled route's new widths in the NS-width sweep (``NS_WIDTHS``)
+NS_WIDTHS_BOUND_SHAPES = ((2, 4096, torch.bfloat16), (3, 3072, torch.float32))
 
 
 def check_norm_bound_shapes(dev, shapes=GEOMETRY_BOUND_SHAPES) -> list:
@@ -1684,22 +1805,15 @@ def _train_tiny(device, name: str, steps: int = 3, **options):
 
 
 def cp_problem(rank: int, sizes, device, seed: int = 0):
-    """The tensor-rank (CP) decomposition of
-    examples/tensor_rank_decomposition.py: a target T = sum_r x_r (x) y_r
-    (x) z_r from random factors, and random starting factors (R, I), (R,
-    J), (R, K), drawn on the CPU from ``seed``.  Returns (params, loss)
-    with loss() = |T - sum_r x_r (x) y_r (x) z_r|^2."""
-    gen = torch.Generator().manual_seed(seed)
-    truth = [torch.randn((rank, s), generator=gen) for s in sizes]
-    target = torch.einsum("ri,rj,rk->ijk", *truth).to(device)
-    params = [torch.randn((rank, s), generator=gen).to(device).requires_grad_()
-              for s in sizes]
-
-    def loss():
-        err = target - torch.einsum("ri,rj,rk->ijk", *params)
-        return torch.sum(err * err)
-
-    return params, loss
+    """The tensor-rank (CP) decomposition of the port's
+    examples/tensor_rank_decomposition.py (``make_problem``: a target T =
+    sum_r x_r (x) y_r (x) z_r from random factors, and random starting
+    factors (R, I), (R, J), (R, K), drawn on the CPU from ``seed``).
+    Returns (params, loss) with loss() = |T - sum_r x_r (x) y_r (x) z_r|^2."""
+    loss_fn, init = tensor_rank_decomposition.make_problem(
+        torch.Generator().manual_seed(seed), rank, sizes, device)
+    params = [x.requires_grad_() for x in init]
+    return params, lambda: loss_fn(params)
 
 
 def _cp_opt(params, device, dq=None, **kw):
@@ -2460,10 +2574,7 @@ def _closure_arm(label, opt, loss, steps, per_fit, card, fall=1.0) -> tuple:
     first, last = losses[0].item(), losses[-1].item()
     log(f"  [{card}] {label}: loss {first:.6g} -> {last:.6g} in {steps} steps "
         f"({first / last:.3g}x), {ms:.2f} ms per step; fit steps {fits}; launches {counts}")
-    if not all(math.isfinite(x.item()) for x in (losses[0], losses[-1])) or \
-            not last * fall < first:
-        raise AssertionError(f"{label}: loss {first} -> {last}, expected a fall "
-                             f"of at least {fall}x")
+    _falls(label, first, last, fall)
     if fits == 0 or any(counts[k] != v * fits for k, v in per_fit.items()):
         raise AssertionError(f"{label}: launch counts {counts} for {fits} fit steps, "
                              f"expected {per_fit} per fit step")
@@ -2474,22 +2585,18 @@ def cp_path(dev, card: str) -> dict:
     """The reference showcase (examples/tensor_rank_decomposition.py:20-37,
     demo_usage_of_all_preconditioners.py): the rank-10 CP decomposition of
     a 20 x 50 x 100 tensor, n = 1700, f32, with the example's settings
-    (``_cp_opt``): DenseNewton in Q0.5EQ1.5 and LRANewton for CP_STEPS
-    steps each, DenseNewton in each of the six other geometries for
-    CP_GEOMETRY_STEPS; every arm from the same start, every step a fit.
-    Gates: the loss falls on every arm, by CP_FALL or more on
-    Q0.5EQ1.5's; exact counts (``_flat_per_fit``).  Returns the arms'
-    launch counts summed."""
+    (``_cp_opt``), by DenseNewton in each of the six geometries besides
+    Q0.5EQ1.5 for CP_GEOMETRY_STEPS; every arm from the same start, every
+    step a fit (the example's own arms, Q0.5EQ1.5 among them, run in
+    ``examples_path``).  Gates: the loss falls on every arm; exact counts
+    (``_flat_per_fit``).  Returns the arms' launch counts summed."""
     total = {}
-    arms = [("DenseNewton Q0.5EQ1.5", "Q0.5EQ1.5", CP_STEPS, CP_FALL),
-            ("LRANewton rank 10", None, CP_STEPS, 1.0)] + [
-        (f"DenseNewton {dq}", dq, CP_GEOMETRY_STEPS, 1.0) for dq in GEOMETRIES]
-    for label, dq, steps, fall in arms:
+    for dq in GEOMETRIES:
         params, loss = cp_problem(*CP_FULL, dev)
         n = sum(p.numel() for p in params)
         opt = _cp_opt(params, dev, dq)
-        counts, *_ = _closure_arm(f"tensor-rank (n = {n}) {label}", opt, loss, steps,
-                                  _flat_per_fit(CP_LEAVES, dq), card, fall)
+        counts, *_ = _closure_arm(f"tensor-rank (n = {n}) DenseNewton {dq}", opt, loss,
+                                  CP_GEOMETRY_STEPS, _flat_per_fit(CP_LEAVES, dq), card)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         del params, opt
@@ -2497,26 +2604,194 @@ def cp_path(dev, card: str) -> dict:
     return total
 
 
-def rosenbrock(x):
-    x1, x2 = x[0::2], x[1::2]
-    return torch.sum(100.0 * (x2 - x1 ** 2) ** 2 + (1.0 - x1) ** 2)
-
-
 def rosenbrock_path(dev, card: str) -> dict:
     """examples/hello_psgd.py: the coupled Rosenbrock function of
     ROSENBROCK_N = 100 variables from 0 (f(0) = 50), f32, by the
     ``DenseNewton`` class of optim.classes (lr_params 1, lr_preconditioner
-    0.5, momentum 0.9), ROSENBROCK_STEPS steps; gate: the loss falls by
+    0.5, momentum 0.9), ROSENBROCK_CLASS_STEPS steps; gate: the loss falls by
     ROSENBROCK_FALL or more.  Returns its launch counts."""
     x = torch.zeros(ROSENBROCK_N, device=dev, requires_grad=True)
     opt = classes.DenseNewton([x], lr_params=1.0, lr_preconditioner=0.5,
                               momentum=0.9, device=dev)
     counts, first, last, _ = _closure_arm(
         f"Rosenbrock (n = {ROSENBROCK_N}) DenseNewton class", opt,
-        lambda: rosenbrock(x), ROSENBROCK_STEPS, _flat_per_fit(1, "Q0.5EQ1.5"),
+        lambda: hello_psgd.rosenbrock(x), ROSENBROCK_CLASS_STEPS,
+        _flat_per_fit(1, "Q0.5EQ1.5"),
         card, ROSENBROCK_FALL)
     log(f"  [{card}] Rosenbrock final loss {last:.3e} (from {first:g})")
     return counts
+
+
+def _arm_counts(per_fit: dict, fits) -> dict:
+    """The launches ``per_fit`` per fit step over ``fits`` fit steps."""
+    return {k: v * (fits or 0) for k, v in per_fit.items()}
+
+
+def _expect(label: str, counted: dict, expected: list) -> dict:
+    """Fail unless the launches counted over a run equal the sum of its
+    arms' ``_arm_counts`` (and it launched something); returns them."""
+    want = {}
+    for arm in expected:
+        for k, v in arm.items():
+            want[k] = want.get(k, 0) + v
+    got = {k: counted.get(k, 0) for k in want}
+    log(f"  {label}: launches {got}")
+    if not any(want.values()) or got != want:
+        raise AssertionError(f"{label}: launch counts {got}, expected {want}")
+    return got
+
+
+def _falls(label: str, first: float, last: float, fall: float = 1.0) -> None:
+    if not (math.isfinite(first) and math.isfinite(last) and last * fall < first):
+        raise AssertionError(f"{label}: loss {first} -> {last}, expected a finite "
+                             f"fall of at least {fall}x")
+
+
+def _example(label: str, run, per_arm, card: str) -> tuple:
+    """Run an example's ``main`` (``run()``), the launch counts reset just
+    before and read just after; ``per_arm(result)`` lists the launches its
+    arms should have made.  Returns (its result, the launches)."""
+    phase(f"examples path: {label}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _expect(f"[{card}] {label}", _all_counts(), per_arm(out))
+
+
+def examples_path(dev, card: str) -> dict:
+    """The five examples of psgd_torch_tpu_torch/examples ported from the
+    JAX examples, each ``main`` on the card at its published sizes, only
+    its steps cut (``EXAMPLE_*``), the launch counts reset just before and
+    read just after each: per example its arms' launches per fit step
+    exactly (``_flat_per_fit``, ``_geometry_per_fit``).
+    - hello_psgd: ``dense_newton`` on the 100-variable Rosenbrock function,
+      2000 iterations; f falls by ROSENBROCK_FALL or more.
+    - tensor_rank_decomposition: its five arms, CP_STEPS steps each after
+      one outside the clock; every PSGD arm's loss finite and falling,
+      DenseNewton's and KronNewton's by CP_FALL or more.
+    - logistic_regression: its three arms, EXAMPLE_LOGISTIC_EPOCHS epochs
+      of 50 steps of 256 (W (33153, 10), 331,530 parameters); the PSGD
+      arm's epoch losses finite and below its first step's.
+    - flat_minima_mdl: Adam and KronWhiten on LeNet5, then the rank-10 LRA
+      log-det fit at each solution (``EXAMPLE_MDL_STEPS``); the KronWhiten
+      arm's loss finite and falling, both log-dets finite.
+    - xor_rnn: the RNN by KronWhiten and the LSTM by KronNewton, each to at
+      most ``EXAMPLE_XOR_ITERS`` iterations; every loss finite, the mean of
+      the last ``XOR_WINDOW`` not above chance (ln 2 + XOR_CHANCE_MARGIN),
+      the LSTM's below that of its first ``XOR_WINDOW``.
+    Logged, not gated: whether the XOR cells were solved, the PSGD arms
+    beside SGD, L-BFGS and Adam, each arm's ms per iteration (host clock).
+    Returns the launches summed."""
+    total = {}
+    dev_arg = ["--device", str(dev)]
+    res, counts = _example("hello_psgd", lambda: hello_psgd.main(
+        dev_arg + ["--iters", str(ROSENBROCK_STEPS)]),
+        lambda r: [_arm_counts(_flat_per_fit(1, "Q0.5EQ1.5"), r["fit_steps"])], card)
+    _add(total, counts)
+    log(f"  [{card}] hello_psgd: f {res['first']:g} -> {res['final']:.3e}, "
+        f"{res['ms_per_it']:.2f} ms/it")
+    _falls("hello_psgd", res["first"], res["final"], ROSENBROCK_FALL)
+
+    per = {"DenseNewton": _flat_per_fit(CP_LEAVES, "Q0.5EQ1.5"),
+           "LRANewton": _flat_per_fit(CP_LEAVES), "KronNewton": CP_KRON_PER_FIT}
+    res, counts = _example("tensor_rank_decomposition", lambda: tensor_rank_decomposition.main(
+        dev_arg + ["--iters", str(CP_STEPS)]),
+        lambda r: [_arm_counts(p, r[name]["fit_steps"]) for name, p in per.items()]
+        + [LRA_INIT], card)
+    _add(total, counts)
+    for name, r in res.items():
+        log(f"  [{card}] tensor-rank {name}: loss {r['start']:.6g} -> {r['final']:.6g} "
+            f"({r['start'] / r['final']:.3g}x; min {r['min']:.6g}), "
+            f"{r['ms_per_it']:.2f} ms/it")
+    for name in per:
+        _falls(f"tensor-rank {name}", res[name]["start"], res[name]["final"],
+               1.0 if name == "LRANewton" else CP_FALL)
+
+    res, counts = _example("logistic_regression", lambda: logistic_regression.main(
+        dev_arg + ["--epochs", str(EXAMPLE_LOGISTIC_EPOCHS)]),
+        lambda r: [_arm_counts(LRA_WHITEN_PER_FIT, r["psgd-lra"]["fit_steps"]), LRA_INIT],
+        card)
+    _add(total, counts)
+    for name, r in res.items():
+        log(f"  [{card}] logistic {name}: first loss {r['first']:.4f}, epoch losses "
+            f"{[round(x, 4) for x in r['epoch_losses']]}, best test err "
+            f"{r['best_err']:.4f}, {r['ms_per_it']:.2f} ms/it")
+    for x in res["psgd-lra"]["epoch_losses"]:
+        _falls("logistic psgd-lra", res["psgd-lra"]["first"], x)
+
+    train_steps, hess_steps = EXAMPLE_MDL_STEPS
+    res, counts = _example("flat_minima_mdl", lambda: flat_minima_mdl.main(
+        dev_arg + ["--train_steps", str(train_steps), "--hess_steps", str(hess_steps)]),
+        lambda r: [_arm_counts(MDL_KRON_PER_FIT, r["psgd-kron"]["fit_steps"]),
+                   _arm_counts(_flat_per_fit(1), 2 * hess_steps), LRA_INIT, LRA_INIT],
+        card)
+    _add(total, counts)
+    for name, r in res.items():
+        log(f"  [{card}] flat minima {name}: loss {r['first_loss']:.4f} -> "
+            f"{r['train_loss']:.4f}, log det(H) ~ {r['logdet_h']:.1f}, "
+            f"{r['ms_per_it']:.2f} ms/step, log-det fit {r['fit_ms']:.2f} ms/fit")
+        if not math.isfinite(r["logdet_h"]):
+            raise AssertionError(f"flat minima {name}: log det {r['logdet_h']}")
+    _falls("flat minima psgd-kron", res["psgd-kron"]["first_loss"],
+           res["psgd-kron"]["train_loss"])
+
+    for cell, iters in EXAMPLE_XOR_ITERS.items():
+        res, counts = _example(f"xor_rnn --cell {cell}", lambda: xor_rnn.main(
+            dev_arg + ["--cell", cell, "--max_iters", str(iters)]),
+            lambda r: [_arm_counts(XOR_PER_FIT[cell], r["fit_steps"])], card)
+        _add(total, counts)
+        solved = (f"solved at iteration {res['solved_at']}" if res["solved_at"] is not None
+                  else f"not solved in {iters} iterations")
+        ls = res["losses"]
+        first, last = (sum(w) / len(w) for w in (ls[:XOR_WINDOW], ls[-XOR_WINDOW:]))
+        log(f"  [{card}] xor_rnn {cell}: {solved}; loss {res['first']:.4f} -> "
+            f"{res['final']:.4f} (means of the first and last {XOR_WINDOW}: "
+            f"{first:.4f}, {last:.4f}), {res['ms_per_it']:.2f} ms/it")
+        if not all(map(math.isfinite, ls)) or last >= math.log(2) + XOR_CHANCE_MARGIN:
+            raise AssertionError(f"xor_rnn {cell}: the losses are not finite or sit "
+                                 f"above chance (the last {XOR_WINDOW}'s mean {last})")
+        if cell in XOR_FALLS:
+            _falls(f"xor_rnn {cell} (means of the first and last {XOR_WINDOW})",
+                   first, last)
+    return total
+
+
+def _bench_ns_widths():
+    """tools/bench_ns_widths_torch.py as a module (tools/ is no package)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "bench_ns_widths_torch.py"
+    spec = importlib.util.spec_from_file_location("bench_ns_widths_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ns_widths_path(dev, card: str, records: list | None = None) -> dict:
+    """tools/bench_ns_widths_torch.py's ``sweep`` at the widths no other
+    path holds (``NS_WIDTHS``), once in bf16 and once in f32, each width on
+    the route ``kernels.ns_route`` picks (single, split or tiled; the
+    single route above the caps), the launch counts reset just before and
+    read just after.  Gates: every width ran its route, q' and L' within
+    ``kernels.ROUTE_TOL`` of the plain version and the spd bound at most
+    1.001 x the true norm.  Logs each width's ms, TFLOP/s, share of the
+    peak, bound and plain ms, and appends the records to ``records``.
+    Returns the launches."""
+    bench = _bench_ns_widths()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    records = [] if records is None else records
+    for dtype, sizes in NS_WIDTHS.items():
+        for rec in bench.sweep(sizes, dtype, dev):
+            log("  " + bench.describe(rec, card))
+            if rec["error"] or rec["route"] != kernels.ns_route(rec["n"], dtype) \
+                    or not rec["within"]:
+                raise AssertionError(f"NS sweep n = {rec['n']} {dtype}: {rec}")
+            records.append(rec)
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    log(f"  NS sweep: launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6149,6 +6424,23 @@ def log_apply_launches(profiles, card: str) -> None:
             f"{plain_us / 1e3:.2f} ms, arm A {arm_n} launches {arm_us / 1e3:.2f} ms")
 
 
+def attach_sweep(rows: dict, sweep: list) -> None:
+    """The sweep's records in the kernels' rows: a single-route width under
+    row 1 (``ns_widths``), its kernel's time; a split or tiled width under
+    each kernel of its route (``ns_widths_route``), the whole route's time
+    (``route_ms`` and the rest)."""
+    route_rows = {"single": (kernels.fused_ns_update,), "split": kernels.SPLIT_KERNELS,
+                  "tiled": kernels.TILED_KERNELS}
+    for rec in sweep:
+        single = rec["route"] == "single"
+        entry = {("" if single or k in ("n", "b", "dtype", "route") else "route_") + k:
+                 rec[k] for k in ("n", "b", "dtype", "route", "ms", "tflops", "bound_ms",
+                                  "bound_by", "plain_ms", "q_rel_err", "bound_over_true")}
+        for f in route_rows[rec["route"]]:
+            rows[f.__name__].setdefault("ns_widths" if single else "ns_widths_route",
+                                        []).append(entry)
+
+
 def main() -> int:
     name, smi = preflight()
     dev = torch.device("cuda", 0)
@@ -6162,6 +6454,8 @@ def main() -> int:
     rows = {"damped_noise": check_noise(dev, lib_path)}
     rows["fused_ns_update"], ns_shapes = check_ns(dev, tc_lines)
     rows["fused_ns_update"]["a10a_shapes"] = ns_shapes
+    rows["fused_ns_update"]["a10b_shapes"] = check_ns(
+        dev, checks=NS_CHECKS_A10B, line_shapes=NS_CHECKS_A10B)[1]
     rows["damped_noise"].update(check_noise_complex(dev, lib_path))
     check_transpose_sub(dev)
     check_routes(dev)
@@ -6181,6 +6475,13 @@ def main() -> int:
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
     rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
     rows["norm_bound"]["a10a_shapes"] = check_norm_bound_shapes(dev, A10A_BOUND_SHAPES)
+    rows["norm_bound"]["ns_widths_shapes"] = check_norm_bound_shapes(
+        dev, NS_WIDTHS_BOUND_SHAPES)
+    # the tiled route's pieces at the sweep's new widths: bf16 timed, f32 held
+    for k, row in check_tiled(dev, *NS_WIDTHS_BOUND_SHAPES[0], timed=True).items():
+        rows[k].setdefault("ns_widths_shapes", []).append(
+            dict(shape=f"{(2, 4096, 4096)} bfloat16", **row))
+    check_tiled(dev, *NS_WIDTHS_BOUND_SHAPES[1], timed=False)
     check_procrustes_loop(dev)
     for k, entries in check_lra_dense_shapes(dev, lib_path).items():
         rows[k]["lra_dense_shapes"] = entries
@@ -6216,6 +6517,9 @@ def main() -> int:
               False, None),
              ("Rosenbrock path", lambda: (rosenbrock_path(dev, smi), None), (), False,
               None),
+             ("Examples path", lambda: (examples_path(dev, smi), None), (), False, None),
+             ("NS-width sweep path",
+              lambda: (ns_widths_path(dev, smi, sweep), None), (), False, None),
              # its complex128 runs go on in their own processes beside the
              # next two paths
              ("Complex fixed-point path",
@@ -6244,7 +6548,7 @@ def main() -> int:
               lambda: (vector_sharded_path(dev, smi), None), (), False, None),
              ("Tensor-parallel trainer path",
               lambda: (tp_trainer_path(dev, smi), None), (), False, None))
-    profiles, fp_small = {}, []
+    profiles, fp_small, sweep = {}, [], []
     try:
         for label, drive, probs, tensor_cores, tag in paths:
             phase(label)
@@ -6264,6 +6568,7 @@ def main() -> int:
             pool.terminate()
             pool.join()
     phase("done")
+    attach_sweep(rows, sweep)
     out = [dict(name=k, route="cuda", source=SRC + src, replaces=f"{TPU}{line}",
                 launches=launches.get(k, 0), **rows[k]) for k, src, line in ROWS]
     for row in out:

@@ -10,7 +10,9 @@ tp_trainer_path`` (the distributed paths; ``tp_trainer_path`` is GPT-2
 124M in JAX's (dp 1, fsdp 2, tp 2) layout on 4 rank processes of one card
 over gloo), ``vector_fault_margin`` and ``tp_fault_margin`` (the
 vector-sharded and tensor-parallel paths' runs with a planted fault
-each), ``legacy_path`` (the legacy families) or ``newton_path:gpt2
+each), ``legacy_path`` (the legacy families), ``examples_path
+ns_widths_path`` (the five examples ported from examples/ and the
+NS-width sweep of tools/bench_ns_widths_torch.py) or ``newton_path:gpt2
 gpt2_path`` (a ``name:arg`` passes ``arg`` first).  For each ``--root`` in the order given (default:
 the checkout this file is in; give a parent checkout and this one as
 ``--root P --root C --root C --root P`` to compare two trees on one card in
