@@ -761,6 +761,12 @@ def _seeds(b, gen, dev):
                          dtype=torch.int64).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _noise_loops(lib_path: str) -> dict:
+    """``sass.noise_loops`` of the built library, read once (cuobjdump)."""
+    return sass.noise_loops(lib_path)
+
+
 def sm_clock_hz(fn, launches: int = 300) -> float:
     """The SM clock nvidia-smi reports while the card runs ``launches``
     calls of fn (queued before the query, waited for after it)."""
@@ -802,7 +808,7 @@ def check_noise(dev, lib_path) -> dict:
         for name, lines in sass.functions(str(lib_path)).items():
             if "noise_kernel" in name:
                 fh.write(f"Function : {name}\n" + "\n".join(lines) + "\n")
-    loops = sass.noise_loops(str(lib_path))
+    loops = _noise_loops(str(lib_path))
     for (dtype, fused, vec), c in sorted(loops.items(), key=str):
         log(f"noise_kernel<{dtype}, {'fused' if fused else 'unit'}, "
             f"{'vector' if vec else 'scalar'}> main loop: {c['instructions']} "
@@ -1615,7 +1621,7 @@ def check_lra_dense_shapes(dev, lib_path) -> dict:
     plain = {"unit": cuda_ms(lambda: kernels.unit_noise_plain(seeds, (n,), torch.float32), 2, 1),
              "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
     rand_ms = cuda_ms(lambda: torch.rand((1, n), device=dev), 10)
-    loops = sass.noise_loops(str(lib_path))
+    loops = _noise_loops(str(lib_path))
     clock = sm_clock_hz(damp, max(100, int(500 / ms["fused"])))
     for mode, nbytes in (("unit", 4 * n), ("fused", 8 * n)):
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1745,7 +1751,7 @@ def check_vector_noise(dev, lib_path) -> list:
                                                               torch.float32), 2, 1),
              "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
     rand_ms = cuda_ms(lambda: torch.rand((1, n_loc), device=dev), 10)
-    loops = sass.noise_loops(str(lib_path))
+    loops = _noise_loops(str(lib_path))
     clock = sm_clock_hz(damp, max(100, int(500 / ms["fused"])))
     out = []
     for mode, nbytes in (("unit", 4 * n_loc), ("fused", 8 * n_loc)):
@@ -3648,7 +3654,7 @@ FP_SMALL_FORM = "kron_matrix_matrix"
 CX_LAYERS = 12
 CX_SHAPES = ((768, 2304), (768, 768))
 CX_BATCH = 4096
-CX_STEPS = 200
+CX_STEPS = 150            # 200 before the complex LRA, dense and legacy path
 CX_STEPS_P1 = 10          # then p = 0.1
 CX_TINY = (2, ((8, 24), (8, 8)), 64)
 # per fit step: one damping per leaf, one XLA tail per dense factor (the
@@ -3667,7 +3673,7 @@ def check_noise_complex(dev, lib_path) -> dict:
     versions and ``torch.randn(..., dtype=torch.complex64)``, and the
     bound: max(bytes at the HBM rate, the loop's SASS instructions at the
     issue rate).  Returns row 2's complex-mode entries."""
-    loops = sass.noise_loops(str(lib_path))
+    loops = _noise_loops(str(lib_path))
     for (dtype, fused, vec), c in sorted(loops.items(), key=str):
         if dtype.startswith("complex"):
             log(f"noise_complex_kernel<{dtype}, {'fused' if fused else 'unit'}, "
@@ -3943,7 +3949,7 @@ def _cx_problem(layers, shapes, batch, dtype, dev, gen):
     X (d, batch) with its rows scaled by 10^[-1, 1] (cond 100 in X X^H),
     Y = W* X + 0.01 noise, W* Gaussian / sqrt(d), drawn from ``gen`` on
     its device.  Returns (params, loss) with loss() = sum 0.5 |W X - Y|^2 /
-    batch."""
+    batch; ``loss.data`` is the (X, Y) of each leaf."""
     params, data = [], []
     for m, d in shapes:
         gdev = gen.device
@@ -3954,7 +3960,12 @@ def _cx_problem(layers, shapes, batch, dtype, dev, gen):
                                             device=gdev, dtype=dtype)
         params.append(torch.zeros((layers, m, d), dtype=dtype, device=dev).requires_grad_())
         data.append((x.to(dev), y.to(dev)))
+    return params, _cx_loss(params, data)
 
+
+def _cx_loss(params, data):
+    """loss() = sum 0.5 |W X - Y|^2 / batch over the leaves and their
+    (X, Y) in ``data``; ``loss.data`` is ``data``."""
     def loss():
         total = 0.0
         for w, (x, y) in zip(params, data):
@@ -3962,7 +3973,8 @@ def _cx_problem(layers, shapes, batch, dtype, dev, gen):
             total = total + 0.5 * torch.sum(torch.real(r * r.conj())) / x.shape[-1]
         return total
 
-    return params, loss
+    loss.data = data
+    return loss
 
 
 def _cx_opt(name, params, dev, steps_p1=None):
@@ -4084,6 +4096,327 @@ def complex_optimizer_path(dev, card: str) -> dict:
         del params, loss, opt, twin, buf
         gc.collect()
         torch.cuda.empty_cache()
+    return total
+
+
+# the complex LRA, dense and legacy path (ROADMAP A3b): complex64 throughout,
+# the JAX package's forms (transposes where a Hermitian preconditioner would
+# conjugate; Affine conjugates).  Arm: (label, JAX factory, port optimizer,
+# Newton, problem, lr, options).  Problems: "full" path B's least squares
+# over CX_LAYERS x CX_SHAPES (n = 28,311,552); "dense" one (17, 100) leaf,
+# n = 1700 (the tensor-rank case's dense width); "pair" one layer of
+# CX_SHAPES (Affine's (768, 2304) and (768, 768) leaves).
+CXL_ARMS = (
+    ("LRAWhiten", "lra_whiten", "LRAWhiten", False, "full", 1e-3,
+     dict(rank_of_approximation=LRA_RANK, momentum=0.9)),
+    ("LRANewton", "lra_newton", "LRANewton", True, "full", 0.2,
+     dict(rank_of_approximation=LRA_RANK)),
+    ("DenseNewton Q0.5EQ1.5", "dense_newton", "DenseNewton", True, "dense", 0.2,
+     dict(dq="Q0.5EQ1.5")),
+    ("DenseNewton PRO4P", "dense_newton", "DenseNewton", True, "dense", 0.2,
+     dict(dq="PRO4P")),
+    ("XMat", "xmat", "XMat", False, "dense", 1e-3, dict()),
+    ("NewtonInv", "newton_inv", "NewtonInv", True, "dense", 0.2,
+     dict(preconditioner_type="Newton")),
+    ("SPLU", "splu", "SPLU", False, "full", 1e-3, dict(rank=LRA_RANK)),
+    # the '1st' normalizer: JAX's UVd '2nd' normalizer takes the least real
+    # part of a complex minimum and leaves the loss non-finite in 2 steps
+    # (tools/complex_fall_jax.py; the port follows it)
+    ("UVd", "uvd", "UVd", False, "full", 1e-3,
+     dict(rank=LRA_RANK, step_normalizer="1st")),
+    ("Affine", "affine", "Affine", False, "pair", 1e-3, dict()),
+)
+CXL_PROBLEMS = {"full": (CX_LAYERS, CX_SHAPES, CX_BATCH),
+                "dense": (1, ((17, 100),), 512),
+                "pair": (1, CX_SHAPES, CX_BATCH)}
+# the same arms at a small size: the card against the CPU, and the JAX
+# package's own run (tools/complex_fall_jax.py)
+CXL_SMALL = {"full": CX_TINY, "dense": (1, ((5, 20),), 64),
+             "pair": (1, CX_TINY[1], CX_TINY[2])}
+CXL_STEPS = 4
+CXL_SMALL_STEPS = 3
+# card against CPU after CXL_SMALL_STEPS steps (Frobenius-relative, the
+# parameters), each arm with an explicit init scale of 1: the on-the-fly
+# scale is a float32 sum, taken in another order on the card, and the dense
+# arms' first steps move their complex128 result 100-200 times as far as
+# that scale moves (on the CPU 4.6e-5 and 1.4e-5 for 2^-22 of it; card
+# against CPU with it 2.3e-5 and 6.8e-6 on an H100).  In complex128 within
+# CXL_SMALL_REL_128, the check of the code path (LRAWhiten's amplitude clip
+# still sums in float32: 1.14e-9 on an H100, as CLIP_RTOL in
+# tests/test_torch_lra_dense_optim.py allows for the same sum); in
+# complex64 within CXL_SMALL_REL (check_complex_small's gate) or, where the
+# arm's steps amplify float32 rounding more, CXL_ROUNDING times the
+# distance of the CPU's own complex64 run from its complex128 run on the
+# same data and draws (the non-Hermitian dense forms: the CPU's complex64
+# PRO4P 8.9e-6 from its complex128).  A fault in a kernel or a form (a
+# dropped conjugate) moves them by 1e-2 or more
+CXL_SMALL_REL = 1e-4
+CXL_SMALL_REL_128 = 1e-6
+CXL_ROUNDING = 10.0
+# the arms whose loss the JAX package's own run brings down at every one of
+# CXL_STEPS steps at the small size (tools/complex_fall_jax.py): gated to
+# fall.  Its DenseNewton Q0.5EQ1.5 rises by step 4 and its XMat after step
+# 2 (both diverge by step 50): not gated
+CXL_FALLS = ("LRAWhiten", "LRANewton", "DenseNewton PRO4P", "NewtonInv", "SPLU", "UVd",
+             "Affine")
+# per fit step: the LRA whitening probe and damping; the Newton probes (one
+# per parameter) and damping; the dense Q0.5EQ1.5 rotation in PyTorch
+# operations and its start; PRO4P's 10 loop starts; the legacy families
+# launch nothing
+CXL_PER_FIT = {
+    "LRAWhiten": {"unit_noise": 1, "damped_noise": 1},
+    "LRANewton": {"unit_noise": len(CX_SHAPES), "damped_noise": 1},
+    "DenseNewton Q0.5EQ1.5": {"unit_noise": 1, "damped_noise": 1, "xla_procrustes": 1,
+                              "philox_start": 1},
+    "DenseNewton PRO4P": {"unit_noise": 1, "damped_noise": 1, "philox_start": 10},
+}
+CXL_COUNTED = ("unit_noise", "damped_noise", "xla_procrustes", "philox_start",
+               "xla_ns_update")
+# row 2's complex mode at this path's shapes: the LRA vector and the dense width
+CXL_NOISE_SHAPES = ((1, 28311552), (1, 1700))
+
+
+def check_noise_complex_shapes(dev, lib_path, shapes=CXL_NOISE_SHAPES) -> list:
+    """Row 2's complex mode (complex64) at ``shapes``, unit and fused, bit
+    for bit against the plain versions, each timed beside its plain
+    version and ``torch.randn(..., dtype=torch.complex64)``, its bound the
+    larger of its bytes (unit: 8 bytes written per element; fused: 8 read
+    and 8 written) and its loop's SASS instructions at the issue rate.
+    Returns the entries for the ``kernels`` line's row 2."""
+    loops = _noise_loops(str(lib_path))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out, clock = [], None
+    for shape in shapes:
+        b, numel = shape[0], math.prod(shape)
+        dtype = torch.complex64
+        seeds = torch.randint(-2**31, 2**31 - 1, (b, 4), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        g = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        unit = lambda: kernels.unit_noise(seeds, shape[1:], dtype)
+        fused = lambda: kernels.damped_noise(g, seeds, 1e-9)
+        for what, k, p in (("unit", unit(), kernels.unit_noise_plain(seeds, shape[1:], dtype)),
+                           ("fused", fused(), kernels.damped_noise_plain(g, seeds, 1e-9))):
+            if not _same_bits(k, p):
+                raise AssertionError(f"noise {what} {shape} complex64: differs from "
+                                     "the plain version")
+            del k, p
+        vec = shape[-1] % 8 == 0
+        iters = 20 if numel > 1e6 else 50
+        ms = {"unit": cuda_ms(unit, iters), "fused": cuda_ms(fused, iters)}
+        plain = {"unit": cuda_ms(lambda: kernels.unit_noise_plain(seeds, shape[1:], dtype),
+                                 2, 1),
+                 "fused": cuda_ms(lambda: kernels.damped_noise_plain(g, seeds, 1e-9), 2, 1)}
+        lib_ms = cuda_ms(lambda: torch.randn(shape, dtype=dtype, device=dev), iters)
+        # the SM clock under the first (largest) shape's load: a launch-bound
+        # shape would take thousands of launches to hold the card busy
+        clock = clock or sm_clock_hz(fused, max(300, int(500 / ms["fused"])))
+        row = dict(shape=list(shape), dtype="complex64", max_abs_err=0.0,
+                   library_ms=lib_ms, kernel=("vector" if vec else "scalar"))
+        for mode, nbytes in (("unit", numel * 8), ("fused", 2 * numel * 8)):
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_instr = instruction_ms(numel, loops[("complex64", mode == "fused", vec)], clock)
+            bound = max(t_bytes, t_instr)
+            pre = "" if mode == "fused" else "unit_"
+            row.update({f"{pre}ms": ms[mode], f"{pre}plain_ms": plain[mode],
+                        f"{pre}bound_ms": bound,
+                        f"{pre}bound_by": "bytes" if t_bytes >= t_instr else "operations"})
+            log(f"  noise complex64 {shape} {mode:5s} ({row['kernel']} kernel): bit-exact; "
+                f"kernel {ms[mode]:.4f} ms  plain {plain[mode]:.3f} ms"
+                f"{f'  torch.randn {lib_ms:.4f} ms' if mode == 'unit' else ''}  bound "
+                f"{bound:.4f} ms: bytes {t_bytes:.4f} ms, instructions {t_instr:.4f} ms "
+                f"(SM clock under load {clock / 1e6:.0f} MHz); {bound / ms[mode]:.3f} of "
+                "the bound")
+        out.append(row)
+        del g
+        torch.cuda.empty_cache()
+    return out
+
+
+_CXL_OPTIMIZERS = {cls.__name__: cls for cls in (
+    LRAWhiten, LRANewton, DenseNewton, legacy_optim.XMat, legacy_optim.SPLU,
+    legacy_optim.NewtonInv, legacy_optim.UVd, legacy_optim.Affine)}
+
+
+def _cxl_opt(arm, params, device, draw=None, **options):
+    """An arm's optimizer over ``params`` on ``device`` (the advisories
+    silenced), ``options`` over the arm's; Affine takes (name, parameter)
+    pairs."""
+    label, _, cls_name, _, kind, lr, kw = arm
+    kw = dict(kw, **options)
+    cls = _CXL_OPTIMIZERS[cls_name]
+    if cls_name == "Affine":
+        params = [(f"w{i}", p) for i, p in enumerate(params)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return cls(params, lr=lr, device=device, draw=draw, **kw)
+
+
+def _cxl_step(arm, opt, loss):
+    """One step: Newton by the closure, whitening by backward and step()."""
+    if arm[3]:
+        return opt.step(loss)
+    opt.zero_grad(set_to_none=True)
+    out = loss()
+    out.backward()
+    opt.step()
+    return out
+
+
+def _cpu_normal(kind, keys, shape, dtype):
+    """A replay hook that draws the legacy families' normals on the CPU
+    (``torch.randn`` from the key's generator, in complex128 or float64,
+    then cast) and their uniforms as the optimizers do, so the card and
+    the CPU, and the complex64 and complex128 runs, see the same draws."""
+    if kind == "uniform":
+        return torch.from_numpy(fastrand.uniform01(keys).astype(np.float64))
+    gen = fastrand.generator(keys[0], "cpu")
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    return torch.randn((len(keys),) + tuple(shape), dtype=wide,
+                       generator=gen).to(dtype)
+
+
+def _cxl_small_run(arm, device, dtype) -> tuple:
+    """An arm's CXL_SMALL_STEPS steps at its small size in ``dtype`` on
+    ``device``, from the same data (drawn in complex128, cast) and seeds:
+    (its parameters flat on the CPU, the optimizer, the parameters)."""
+    draw = None if arm[2] in ("LRAWhiten", "LRANewton", "DenseNewton") else _cpu_normal
+    gen = torch.Generator().manual_seed(41)
+    ref, ref_loss = _cx_problem(*CXL_SMALL[arm[4]], torch.complex128,
+                                torch.device("cpu"), gen)
+    params = [torch.zeros(p.shape, dtype=dtype, device=device, requires_grad=True)
+              for p in ref]
+    loss = _cx_loss(params, [(x.to(device, dtype), y.to(device, dtype))
+                             for x, y in ref_loss.data])
+    opt = _cxl_opt(arm, params, device, draw, preconditioner_init_scale=1.0)
+    for _ in range(CXL_SMALL_STEPS):
+        _cxl_step(arm, opt, loss)
+    return torch.cat([p.detach().cpu().flatten() for p in params]), opt, params
+
+
+def _cx_rel(a, b) -> float:
+    """|a - b| / |b| (Frobenius), complex."""
+    return ((a.to(torch.complex128) - b.to(torch.complex128)).norm() / b.norm()).item()
+
+
+def check_complex_lra_dense_small(dev) -> float:
+    """Every arm of ``CXL_ARMS`` at its small size (``CXL_SMALL``) on the
+    card against the CPU, CXL_SMALL_STEPS steps from the same data and
+    seeds (the LRA and dense noise is the same Philox on both; the legacy
+    families' normals come from ``_cpu_normal`` on both): the parameters
+    within CXL_SMALL_REL_128 in complex128, and in complex64 within the
+    larger of CXL_SMALL_REL and CXL_ROUNDING times the CPU's own
+    complex64-to-complex128 distance (Frobenius-relative).  The card's
+    complex64 optimizer then takes its state_dict round trip
+    (``_cxl_round_trip``).  Returns the worst complex64 gap."""
+    worst, failed = 0.0, []
+    for arm in CXL_ARMS:
+        (card64, opt, params), (cpu64, _, _), (card128, _, _), (cpu128, _, _) = (
+            _cxl_small_run(arm, device, dtype)
+            for dtype in (torch.complex64, torch.complex128)
+            for device in (dev, torch.device("cpu")))
+        mb = _cxl_round_trip(arm, opt, params)
+        rel64, rel128 = _cx_rel(card64, cpu64), _cx_rel(card128, cpu128)
+        rounding = _cx_rel(cpu64, cpu128)
+        gate = max(CXL_SMALL_REL, CXL_ROUNDING * rounding)
+        log(f"  complex small {arm[0]} ({CXL_SMALL[arm[4]]}, {CXL_SMALL_STEPS} steps): "
+            f"card against CPU complex64 {rel64:.2e} (gate {gate:.2e}; the CPU's complex64 "
+            f"from its complex128 {rounding:.2e}), complex128 {rel128:.2e} (gate "
+            f"{CXL_SMALL_REL_128:g}); the card's state_dict round trip ({mb:.2f} MB) "
+            "bit for bit")
+        if not (torch.isfinite(torch.view_as_real(card64)).all() and rel64 < gate
+                and rel128 < CXL_SMALL_REL_128):
+            failed.append((arm[0], rel64, rel128))
+        worst = max(worst, rel64)
+    if failed:
+        raise AssertionError(f"complex small, card against CPU: {failed}")
+    return worst
+
+
+def _cxl_round_trip(arm, opt, params) -> float:
+    """The optimizer's state through torch.save / torch.load(weights_only=
+    True) into a fresh optimizer: every tensor of the state comes back
+    complex64 (or its real dtype) bit for bit.  Returns the MB moved."""
+    import io
+    buf = io.BytesIO()
+    sd = opt.state_dict()
+    torch.save(sd, buf)
+    buf.seek(0)
+    twin = _cxl_opt(arm, params, params[0].device)
+    twin.load_state_dict(torch.load(buf, weights_only=True))
+    mine, theirs = _state_leaves(sd), _state_leaves(twin.state_dict())
+    cx = [w for w, t in mine if t.dtype == torch.complex64]
+    if [w for w, _ in mine] != [w for w, _ in theirs] or not cx or any(
+            a.dtype != b.dtype or not _same_bits(a, b)
+            for (_, a), (_, b) in zip(mine, theirs)):
+        raise AssertionError(f"{arm[0]}: the state_dict round trip changed the state")
+    del twin, sd
+    return buf.getbuffer().nbytes / 1e6
+
+
+def complex_lra_dense_path(dev, card: str) -> dict:
+    """ROADMAP A3b on the card, complex64: each arm of ``CXL_ARMS`` on its
+    problem at full size, CXL_STEPS steps, every step a fit.  Gates: the
+    losses finite, and falling where the JAX package's own run falls
+    (``CXL_FALLS``, from tools/complex_fall_jax.py); exactly
+    ``CXL_PER_FIT`` launches per fit step (all of the noise's in its
+    complex mode), no launch of any other row nor of the XLA tail; and,
+    first, every arm at its small size on the card against the CPU, with
+    a state_dict round trip bit for bit (``check_complex_lra_dense_small``;
+    at full size LRAWhiten's 4983 MB state took 10.6 s to go through
+    ``torch.save`` on an H100 host).
+    Returns the launch counts (with the complex mode's)."""
+    t_start = time.perf_counter()
+    worst = check_complex_lra_dense_small(dev)
+    t_small = time.perf_counter() - t_start
+    total = {}
+    for arm in CXL_ARMS:
+        label, _, _, newton, kind, _, _ = arm
+        gen = torch.Generator(device=dev).manual_seed(33)
+        params, loss = _cx_problem(*CXL_PROBLEMS[kind], torch.complex64, dev, gen)
+        n = sum(p.numel() for p in params)
+        t0 = time.perf_counter()
+        opt = _cxl_opt(arm, params, dev)
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        core = getattr(opt, "optimizer", opt)
+        losses, ms = [], []
+        for _ in range(CXL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(_cxl_step(arm, opt, loss).item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fits = core.fit_steps
+        counts = {k: getattr(kernels, k).launches for k in CXL_COUNTED}
+        cx = {k: getattr(kernels, k).complex_launches for k in ("damped_noise", "unit_noise")}
+        idle = {k: getattr(kernels, k).launches for k in CX_IDLE_ROWS}
+        want = {k: CXL_PER_FIT.get(label, {}).get(k, 0) * fits for k in CXL_COUNTED}
+        log(f"  [{card}] {label} (n = {n}, {'Newton' if newton else 'whitening'}): loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g} in {CXL_STEPS} steps "
+            f"({losses[0] / losses[-1]:.4g}x); init {init_ms:.1f} ms, steps "
+            f"{', '.join(f'{x:.1f}' for x in ms)} ms; peak memory {peak:.2f} GB; fit "
+            f"steps {fits}; launches {counts}, complex mode {cx}, other rows {idle}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: loss {losses}")
+        if label in CXL_FALLS:
+            _falls(label, losses[0], losses[-1])
+        if fits != CXL_STEPS or counts != want or any(idle.values()) or \
+                cx["damped_noise"] != counts["damped_noise"] or \
+                cx["unit_noise"] != counts["unit_noise"]:
+            raise AssertionError(f"{label}: launches {counts} {cx} {idle} for {fits} "
+                                 f"fit steps, expected {want}")
+        _add(total, counts)
+        total["damped_noise.complex"] = total.get("damped_noise.complex", 0) + cx["damped_noise"]
+        total["unit_noise.complex"] = total.get("unit_noise.complex", 0) + cx["unit_noise"]
+        del params, loss, opt, core
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  [{card}] complex LRA, dense and legacy path: "
+        f"{time.perf_counter() - t_start:.1f} s (card against CPU {t_small:.1f} s, worst "
+        f"{worst:.2e})")
     return total
 
 
@@ -6486,6 +6819,7 @@ def main() -> int:
     for k, entries in check_lra_dense_shapes(dev, lib_path).items():
         rows[k]["lra_dense_shapes"] = entries
     rows["damped_noise"]["vector_shapes"] = check_vector_noise(dev, lib_path)
+    rows["damped_noise"]["a3b_complex_shapes"] = check_noise_complex_shapes(dev, lib_path)
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)
@@ -6530,6 +6864,8 @@ def main() -> int:
              # GPT-2 124M's resumed run profiles its own fit step
              ("Resumable training path", lambda: (resume_path(dev, smi), None), (),
               False, None),
+             ("Complex LRA, dense and legacy path",
+              lambda: (complex_lra_dense_path(dev, smi), None), (), False, None),
              ("Complex fixed-point path: the JAX test's sizes",
               lambda: (fp_small_results(smi, fp_small.pop()), None), (), False, None),
              ("Legacy families path", lambda: (legacy_path(dev, smi), None), (), False,

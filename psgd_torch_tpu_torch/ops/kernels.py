@@ -35,7 +35,8 @@ complex64, complex128: ``ns_update_supported``, ``unit_noise_supported``)
 the JAX package runs its XLA tail (``kron._ns_tail_stacked_xla``), and
 ``ns_route`` sends them to ``"xla"``, its counterpart in PyTorch
 operations (``xla_ns_update``: the bound and the Procrustes step of
-``ops.linalg``, their products ``torch.matmul``, cuBLAS on the card).  The
+``ops.linalg``, their products ``torch.matmul``, cuBLAS on the card; the
+dense preconditioner's Procrustes step alone, ``xla_procrustes``).  The
 route is chosen by dtype alone; f32 and bf16 never take it.  The noise
 kernel takes those dtypes itself.
 
@@ -525,6 +526,27 @@ def xla_ns_update(term1, q, lips, term2, seeds, lr, beta_l, max_step=1 / 8,
     return out
 
 
+@_counted
+def xla_procrustes(q1, seeds, max_step=1 / 8, k=NORM_K, start=None):
+    """``procrustes`` as the JAX package's XLA computes it for the dtypes
+    of the XLA tail (``XLA_DTYPES``, which refuses the others): one
+    procrustes_step2 of each q1 (B, n, n) in Q's dtype, PyTorch operations
+    on any device (R = Q^H - Q conjugates), its start a ``philox_start``
+    draw from ``seeds`` ^ ``SKH_TAG`` unless ``start`` gives it.  The
+    dense preconditioner's Q0.5EQ1.5 rotation of a complex or float64 Q.
+    Counts its calls in ``.launches``."""
+    if q1.dtype not in XLA_DTYPES:
+        raise TypeError(f"the XLA Procrustes step takes "
+                        f"{[str(d) for d in XLA_DTYPES]}; {q1.dtype} runs "
+                        "``procrustes``")
+    if start is None:
+        start = philox_start(_tagged(seeds), (width_norm_k(k, q1.shape[-1]),
+                                              q1.shape[-1]))
+    out = _procrustes_plain(q1, seeds, max_step, k, start)
+    xla_procrustes.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the single route (replaces pallas_kernels._ns_kernel)
 # ---------------------------------------------------------------------------
@@ -1008,7 +1030,8 @@ STEP_MAT_KERNELS = (fused_ns_update, ns_step, tiled_step)
 
 def reset_launch_counts() -> None:
     for fn in (fused_ns_update, damped_noise, unit_noise, transpose_sub,
-               xla_ns_update, philox_start, *SPLIT_KERNELS, *TILED_KERNELS):
+               xla_ns_update, xla_procrustes, philox_start, *SPLIT_KERNELS,
+               *TILED_KERNELS):
         fn.launches = 0
     for fn in (*STEP_MAT_KERNELS, xla_ns_update):
         fn.step_mat_launches = 0

@@ -5,8 +5,12 @@ the dtype policy, the subspace-iteration spectral-norm lower bounds, the
 second- and third-order Procrustes rotations (the third in the loop the
 fit-P geometry PRO4P runs), the legacy row/column-energy bound of the
 exact EQ whitening, and the legacy families' helpers (``triu01``,
-``damped_pair_vg``, ``woodbury_identity``).  Every function works on a single matrix (..., n, n)
-with any number of leading batch dims, so a layer stack is one call.
+``damped_pair_vg``, ``woodbury_identity``; ``jax_max`` and
+``jax_maximum``, JAX's order of complex numbers, which the legacy
+families' balancing reads; ``lu_solve_t``, JAX's transposed LU solve,
+which LRA and UVd take).  Every function works on a single matrix
+(..., n, n) with any number of leading batch dims, so a layer stack is
+one call.
 
 Randomness is explicit.  A function that draws takes either ``v0``, the
 pre-drawn (..., k, n) subspace start (tests replay the JAX draws through
@@ -63,6 +67,34 @@ def width_norm_k(k: int, n: int) -> int:
 def sgn(x: torch.Tensor) -> torch.Tensor:
     """Complex-safe sign: x/|x| with sgn(0) = 0."""
     return torch.sgn(x)
+
+
+def lu_solve_t(lu, piv, b: torch.Tensor) -> torch.Tensor:
+    """x with A^T x = b from A's LU (``torch.linalg.lu_factor``): JAX's
+    ``lu_solve(..., trans=1)``, a plain transpose.  torch's ``adjoint=True``
+    solves with A^H, so a complex b is conjugated around it."""
+    if not b.is_complex():
+        return torch.linalg.lu_solve(lu, piv, b, adjoint=True)
+    return torch.linalg.lu_solve(lu, piv, b.conj(), adjoint=True).conj()
+
+
+def jax_max(x: torch.Tensor) -> torch.Tensor:
+    """The largest entry of x; of a complex x in JAX's order, which
+    ``jnp.max`` uses: by the real part, then the imaginary part."""
+    if not x.is_complex():
+        return torch.max(x)
+    re = torch.max(x.real)
+    im = torch.max(torch.where(x.real == re, x.imag, -torch.inf))
+    return torch.complex(re, im)
+
+
+def jax_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The elementwise larger of a and b, complex in JAX's order (as
+    ``jnp.maximum``)."""
+    if not (a.is_complex() or b.is_complex()):
+        return torch.maximum(a, b)
+    take_a = (a.real > b.real) | ((a.real == b.real) & (a.imag >= b.imag))
+    return torch.where(take_a, a, b)
 
 
 def _row_norms(v: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,12 @@ uniform is ``fastrand.uniform01`` of its key; ``draw(kind, keys, shape,
 dtype)`` replaces both (the CPU tests replay the JAX draws).  No kernel of
 ``ops.kernels`` runs: the families' work is products, solves and
 elementwise passes in PyTorch, as the JAX package's is outside any Pallas
-kernel.  The whole state goes through ``state_dict()``.  Real dtypes
-only (complex raises, naming ROADMAP A3b).
+kernel.  The whole state goes through ``state_dict()``.  Real and
+complex (complex64, complex128) parameters and preconditioners alike, in
+the JAX package's forms: XMat, SPLU, NewtonInv and UVd transpose where a
+Hermitian preconditioner conjugates, Affine conjugates; a complex value
+cast to a real dtype keeps its real part, as JAX's ``astype`` does (the
+on-the-fly init scale reads the real parts).
 """
 
 from __future__ import annotations
@@ -61,10 +65,10 @@ from ..precond import affine as affine_p
 from ..precond import legacy as legacy_p
 from ..precond import splu as splu_p
 from ..precond import xmat as xmat_p
-from ..precond.kron import require_real
 from . import hvp
-from .transforms import (_Flat, _Resumable, _classic_decay, _descend, _ema_,
-                         _global_norm_scale, _host_gate, _pytree_order, _sched)
+from .transforms import (_Flat, _Resumable, _cast, _classic_decay, _descend,
+                         _ema_, _global_norm_scale, _host_gate, _pytree_order,
+                         _sched)
 
 
 def _default_lr_precond(lr, step_normalizer: str):
@@ -93,7 +97,8 @@ def _uniform(key, draw) -> float:
 
 
 def _f32_mean(x: torch.Tensor, power: int) -> torch.Tensor:
-    return torch.mean(torch.abs(x.to(torch.float32)) ** power)
+    """mean |x|^power in float32, of a complex x its real part's."""
+    return torch.mean(torch.abs(_cast(x, torch.float32)) ** power)
 
 
 class _Legacy:
@@ -204,10 +209,6 @@ class _LegacyFlat(_Legacy, _Flat):
                  draw=None):
         self._legacy_options(preconditioner_type, step_normalizer)
         params = list(params)
-        _, tensors, _ = _pytree_order(params)
-        require_real(*(t.dtype for t in tensors),
-                     *((preconditioner_dtype,) if preconditioner_dtype else ()),
-                     what=legacy_p.LEGACY)
         defaults = dict(
             lr=lr, weight_decay=weight_decay,
             weight_decay_mode=weight_decay_mode,
@@ -248,12 +249,12 @@ class _LegacyFlat(_Legacy, _Flat):
             if first:
                 st = self._rescaled(st, _f32_mean(v, 2) ** 0.25
                                     * _f32_mean(h, 4) ** (-1.0 / 8.0))
-            v, h = v.to(qdt), h.to(qdt)
+            v, h = _cast(v, qdt), _cast(h, qdt)
         else:
             g = self._flat(grads)
             if first:
                 st = self._rescaled(st, _f32_mean(g, 4) ** (-1.0 / 8.0))
-            v, h = damped_pair_vg(g.to(qdt), _sched(group["damping"], count),
+            v, h = damped_pair_vg(_cast(g, qdt), _sched(group["damping"], count),
                                   v=_normal(k_v, g.shape, qdt, self.device,
                                             self.draw))
         self.precond = self._update(st, v, h, k_fit,
@@ -262,7 +263,8 @@ class _LegacyFlat(_Legacy, _Flat):
     def _apply(self, grads, count) -> list:
         g = self._flat(grads)
         src = self._source(g, count)
-        pre = self._precond_grad(self.precond, src.to(self.qdtype)).to(g.dtype)
+        pre = _cast(self._precond_grad(self.precond, _cast(src, self.qdtype)),
+                    g.dtype)
         pre = pre * _global_norm_scale(
             [pre], _sched(self.param_groups[0]["grad_clip_max_norm"], count))
         return self._split(pre)
@@ -414,9 +416,6 @@ class Affine(_Legacy, _Resumable):
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
                                  f"{self.device}")
-        require_real(*(t.dtype for t in tensors),
-                     *((preconditioner_dtype,) if preconditioner_dtype else ()),
-                     what=legacy_p.LEGACY)
         defaults = dict(
             lr=lr, weight_decay=weight_decay,
             weight_decay_mode=weight_decay_mode,
@@ -459,7 +458,7 @@ class Affine(_Legacy, _Resumable):
         if self.init_scale is None and count == 0:
             if self.newton:
                 numel = sum(v.numel() for v in vs)
-                v2 = sum(torch.sum(torch.abs(v.to(torch.float32)) ** 2)
+                v2 = sum(torch.sum(torch.abs(_cast(v, torch.float32)) ** 2)
                          for v in vs) / numel
                 scale = v2 ** 0.25 * torch.amax(torch.stack(
                     [_f32_mean(h, 4) for h in hvs])) ** (-1.0 / 8.0)
@@ -477,12 +476,12 @@ class Affine(_Legacy, _Resumable):
             key = fastrand.fold_in(k_fit, i)
             if self.newton:
                 st = affine_p.update_affine(
-                    st, affine_p.to_matrix(plan, vs[i]).to(qdt),
-                    affine_p.to_matrix(plan, hvs[i]).to(qdt),
+                    st, _cast(affine_p.to_matrix(plan, vs[i]), qdt),
+                    _cast(affine_p.to_matrix(plan, hvs[i]), qdt),
                     u_balance=_uniform(key, self.draw), **kw)
             else:
                 kb, kv = fastrand.split(key)
-                gm = affine_p.to_matrix(plan, grads[i]).to(qdt)
+                gm = _cast(affine_p.to_matrix(plan, grads[i]), qdt)
                 v = None if affine_p.dropv_branch(st) else _normal(
                     kv, gm.shape, qdt, self.device, self.draw)
                 st = affine_p.update_affine_dropv(
@@ -496,8 +495,8 @@ class Affine(_Legacy, _Resumable):
             src = g if self.momentum == 0 else _ema_(
                 self.state[p]["momentum"], g, count, self.momentum)
             pg = affine_p.precond_grad_affine(
-                st, affine_p.to_matrix(plan, src).to(st.ql.dtype))
-            pre.append(affine_p.from_matrix(plan, pg).to(g.dtype).reshape(g.shape))
+                st, _cast(affine_p.to_matrix(plan, src), st.ql.dtype))
+            pre.append(_cast(affine_p.from_matrix(plan, pg), g.dtype).reshape(g.shape))
         scale = _global_norm_scale(
             pre, _sched(self.param_groups[0]["grad_clip_max_norm"], count))
         return [u * scale for u in pre]

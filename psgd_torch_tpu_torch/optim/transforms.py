@@ -45,8 +45,10 @@ path.  KronWhiten and KronNewton take real and complex parameters and Q
 transforms take it: the sources cast to Q's dtype, the update's real part
 applied); a complex gradient is what torch puts in ``.grad``, the
 conjugate of what ``jax.grad`` returns, and ``p - lr * update`` descends.
-The LRA and dense optimizers still refuse complex parameters (ROADMAP
-A3b).
+The LRA and dense optimizers take them too, in the JAX package's forms
+(``precond.lra``, ``precond.dense``: transposes where a Hermitian
+preconditioner conjugates); only their ``vector_sharding`` refuses
+complex (ROADMAP A3c).
 
 ``stack_sharding=(mesh, dim)`` (KronWhiten, KronNewton; or a
 ``ProcessGroup``, or a tuple of mesh dims taken as one) partitions the
@@ -1667,9 +1669,10 @@ class _Flat(_Resumable):
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
                                  f"{self.device}")
-        kron_p.require_real(*(t.dtype for t in tensors),
-                            *((preconditioner_dtype,) if preconditioner_dtype
-                              else ()))
+        if vector_sharding is not None:
+            kron_p.require_real(*(t.dtype for t in tensors),
+                                *((preconditioner_dtype,) if preconditioner_dtype
+                                  else ()))
         self.rows = _vector_group(vector_sharding)
         super().__init__([{"params": tensors}], defaults)
         self.vec_dtype = functools.reduce(torch.promote_types,
@@ -1754,7 +1757,7 @@ class _Flat(_Resumable):
 
     def _split(self, vec: torch.Tensor) -> list:
         params = self.param_groups[0]["params"]
-        return [x.view(p.shape).to(p.dtype) for x, p in
+        return [_cast(x.view(p.shape), p.dtype) for x, p in
                 zip(vec.split([p.numel() for p in params]), params)]
 
     # -- the vector this rank works on --------------------------------------
@@ -1854,7 +1857,7 @@ class _FlatNewton(_Flat):
                       _sched(group["damping"], count))
         self.fit_steps += int(do_fit)
         src = self._source(self._vec(g), count)
-        pre = self._apply(src.to(self.qdtype)).to(g.dtype)
+        pre = _cast(self._apply(_cast(src, self.qdtype)), g.dtype)
         max_norm = _sched(group["grad_clip_max_norm"], count)
         if self.rows is not None and self.ROW_VECTORS:
             if not math.isinf(max_norm):
@@ -1874,9 +1877,10 @@ class _FlatNewton(_Flat):
 def _newton_scale(v: torch.Tensor, h: torch.Tensor,
                   damping: float) -> torch.Tensor:
     """On-the-fly init scale mean(v^2)^(1/4) (mean(h^4) + damping^4)^(-1/8)
-    of the concatenated pair, in float32 (psgd.py:940-943)."""
-    return (torch.mean(v.to(torch.float32) ** 2) ** 0.25
-            * (torch.mean(h.to(torch.float32) ** 4) + damping ** 4)
+    of the concatenated pair, in float32 (psgd.py:940-943); of a complex
+    pair the real parts, as JAX's ``astype(float32)`` reads them."""
+    return (torch.mean(_cast(v, torch.float32) ** 2) ** 0.25
+            * (torch.mean(_cast(h, torch.float32) ** 4) + damping ** 4)
             ** (-1.0 / 8.0))
 
 
@@ -1979,14 +1983,14 @@ class LRAWhiten(_Flat):
         g_loc = self._vec(g)
         if self.init_scale is None and count == 0:
             if rows is None:
-                scale = (torch.mean(g.to(torch.float32) ** 4)
+                scale = (torch.mean(_cast(g, torch.float32) ** 4)
                          + damping ** 4) ** (-1.0 / 8.0)
             else:    # the mean over the whole vector, its rows summed
                 g4 = rows.sum(torch.sum(torch.abs(g_loc.to(torch.float32)) ** 4))
                 scale = (g4 / self.n + damping ** 4) ** (-1.0 / 8.0)
             st = st._replace(d=self._row_scale(st.d, scale.to(qdt)))
         src = self._source(g_loc, count)
-        fit_src = (g_loc if self.whiten_grad else src).to(qdt)
+        fit_src = _cast(g_loc if self.whiten_grad else src, qdt)
 
         def fit(s):
             return lra_p.update_lra_whiten(s, fit_src, k_fit, lr=lr_q,
@@ -1995,7 +1999,7 @@ class LRAWhiten(_Flat):
                                            pad_mask=self.pad_mask)
 
         def apply(s):
-            pg = lra_p.precond_grad(s, src.to(qdt), rows).to(g.dtype)
+            pg = _cast(lra_p.precond_grad(s, _cast(src, qdt), rows), g.dtype)
             if rows is None:
                 return _amp_clip(pg, *amps, stacked=False)
             return _sharded_amp_clip(pg, amps,
@@ -2092,7 +2096,7 @@ class LRANewton(_FlatNewton):
                          * (h4 / self.n + damping ** 4) ** (-1.0 / 8.0))
             st = st._replace(d=self._row_scale(st.d, scale.to(self.qdtype)))
         self.precond = lra_p.update_lra_newton(
-            st, v.to(self.qdtype), h.to(self.qdtype), key, lr=lr_q,
+            st, _cast(v, self.qdtype), _cast(h, self.qdtype), key, lr=lr_q,
             beta_l=beta_l, damping=damping, draw=self.draw, reduce=rows,
             pad_mask=self.pad_mask)
 
@@ -2181,7 +2185,7 @@ class DenseNewton(_FlatNewton):
                 scale = scale * scale
             st = st._replace(q=self._row_scale(
                 st.q, scale.to(real_dtype_of(self.qdtype))))
-        v, h = v.to(self.qdtype), h.to(self.qdtype)
+        v, h = _cast(v, self.qdtype), _cast(h, self.qdtype)
         if self.rows is None:
             self.precond = dense_p.update_dense(
                 st, v, h, key, self.dq, lr=lr_q, beta_l=beta_l,

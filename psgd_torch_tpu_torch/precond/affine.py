@@ -19,9 +19,9 @@ preconditioned_stochastic_gradient_descent.py:1404-1899):
 The triangular solves run in at least float32.  The 1% balance of the two
 sides is a host decision on a pre-drawn uniform (``u_balance``, the JAX
 package's uniform(key)); drop-v's fallback takes a pre-drawn standard
-normal ``v`` or draws one with ``generator``.  The conjugates of the
-Hermitian form are kept, though the port takes real dtypes only (ROADMAP
-A3b).
+normal ``v`` or draws one with ``generator``.  Real and complex
+(complex64, complex128) dtypes alike: the products conjugate where the
+JAX package's do (the Hermitian form, unlike the other legacy families).
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ import torch
 from .. import resolve_device
 from ..ops.linalg import (lift2single, lifted_real_dtype, norm_lower_bound,
                           real_dtype_of)
-from .kron import require_real
-from .legacy import LEGACY, TINY
+from .legacy import TINY
 
 
 class MatrixPlan(NamedTuple):
@@ -94,7 +93,6 @@ def init_affine(matrix_shape, scale: float = 1.0,
     above ``max_size`` or above ``max_skew`` times the other side's
     (reference initQ, :1475-1494); on the card unless ``device`` names
     another device."""
-    require_real(dtype, what=LEGACY)
     device = resolve_device(device)
     s1, s2 = matrix_shape
     root = scale ** 0.5

@@ -13,14 +13,23 @@ Per geometry, with a = what Q makes of the damped h and ell = |a|^2 +
 * QEP: a = Q Q^T Q h, b = Q v, Q -= c (a a^T - b b^T) Q;
 * QEQ: a = Q^T Q h, Q -= c Q (a a^T - v v^T);
 * Q0.5EQ1.5: a = Q^T Q h, Q -= c (a a^T - v v^T) Q, then one Procrustes
-  rotation, ``kernels.procrustes`` on the (1, n, n) stack (row 4 on CUDA);
+  rotation, ``kernels.procrustes`` on the (1, n, n) stack (row 4 on CUDA;
+  for a complex or float64 Q ``kernels.xla_procrustes``, PyTorch
+  operations, as the JAX package computes it in XLA);
 * PRO4P (Q is P): a = Q h, the same step, then ``linalg.procrustes_loop3``
   (``kernels.tsub`` and the skew ``kernels.norm_bound``, 10 masked steps);
 * QUAD (c halved) and QUAD4P (Q is P): a = Q Q h (resp. Q h), two
   half-steps from the left and the right, then (P + P^T) / 2.
 
-Keys: kd, ku = split(key); kd damps h (``kernels.damped_noise``), ku keys
-the Procrustes rotation or loop.  ``damping=None`` adds no noise (the
+Complex (complex64, complex128) Q takes the JAX package's forms: the
+products above transpose where a Hermitian preconditioner would
+conjugate (P = Q^T Q), ell is the real part of sum(a a) + sum(v v)
+(JAX's ``astype`` of a complex ell to L's real dtype), and the Procrustes
+rotations conjugate (R = Q^H - Q), as JAX's ``ops.linalg`` does.
+
+Keys: kd, ku = split(key); kd damps h (``kernels.damped_noise``, in its
+complex mode for a complex h, keyed by split(kd)), ku keys the Procrustes
+rotation or loop.  ``damping=None`` adds no noise (the
 whitening wrapper damps its own pair).  An optional ``draw(kind, keys,
 shape, dtype)`` hook replaces every draw, as in ``precond.kron``.
 
@@ -60,7 +69,6 @@ def init_dense(n: int, scale: float = 1.0, dq: str = DQ_Q05EQ15,
     """Q = scale I, scale squared for the fit-P geometries (psgd.py:
     1457-1459), on the card unless ``device`` names another device."""
     dq = canonical_dq(dq)
-    require_real(dtype)
     device = resolve_device(device)
     s = torch.tensor(scale, dtype=real_dtype_of(dtype))
     if dq in _FIT_P:
@@ -105,15 +113,21 @@ def _noise(key, h: torch.Tensor, draw) -> torch.Tensor:
                 h.dtype)[0].to(h.device)
 
 
+def _seed_words(key, dtype, device) -> torch.Tensor:
+    """The noise kernel's seed words for one key: (1, 2), or (1, 4) in the
+    complex mode (``fastrand.noise_keys``)."""
+    return kernels.key_seed_words(
+        fastrand.noise_keys(fastrand.as_keys(key)[None], dtype), device)
+
+
 def _damped(h: torch.Tensor, key, damping: float, v=None) -> torch.Tensor:
     """h + (damping + eps|h|) v, v keyed by ``key``: one fused
     ``kernels.damped_noise`` launch, or from the pre-drawn v."""
     if v is not None:
         eps = torch.finfo(real_dtype_of(h.dtype)).eps
         return h + (damping + eps * torch.abs(h)) * v
-    return kernels.damped_noise(
-        h.contiguous()[None], kernels.key_seed_words(fastrand.as_keys(key)[None],
-                                                     h.device), damping)[0]
+    return kernels.damped_noise(h.contiguous()[None],
+                                _seed_words(key, h.dtype, h.device), damping)[0]
 
 
 def _sum_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -121,7 +135,7 @@ def _sum_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _lmax(lips: torch.Tensor, ell: torch.Tensor, beta_l: float) -> torch.Tensor:
-    ell = ell.to(lips.dtype)
+    ell = ell.real.to(lips.dtype)     # JAX's astype: a complex ell's real part
     return torch.maximum(beta_l * lips + (1.0 - beta_l) * ell, ell)
 
 
@@ -142,7 +156,6 @@ def update_dense(state: DenseState, v: torch.Tensor, h: torch.Tensor, key,
     psgd.py:1339-1424; JAX ``update_dense``).  ``damping=None`` adds no
     noise; any float, 0 included, adds the eps|h| floor."""
     dq = canonical_dq(dq)
-    require_real(v.dtype, h.dtype, state.q.dtype)
     v, h = _as_col(v), _as_col(h)
     kd, ku = fastrand.split(key)
     q, lips = state.q, state.lips
@@ -178,11 +191,12 @@ def update_dense(state: DenseState, v: torch.Tensor, h: torch.Tensor, key,
             q = procrustes_loop3(q[None], fastrand.as_keys(ku)[None],
                                  norm_k=norm_k, draw=draw)[0]
         else:
-            q = kernels.procrustes(
-                q.contiguous()[None],
-                kernels.key_seed_words(fastrand.as_keys(ku)[None], q.device),
-                1 / 8, k=norm_k,
-                start=_start(ku, n, norm_k, q.dtype, q.device, draw))[0]
+            step = (kernels.xla_procrustes if q.dtype in kernels.XLA_DTYPES
+                    else kernels.procrustes)
+            q = step(q.contiguous()[None],
+                     kernels.key_seed_words(fastrand.as_keys(ku)[None], q.device),
+                     1 / 8, k=norm_k,
+                     start=_start(ku, n, norm_k, q.dtype, q.device, draw))[0]
         return DenseState(q=q, lips=lips)
     # QUAD (Q symmetric, half step) and QUAD4P (Q is P)
     a = q @ (q @ hd) if dq == DQ_QUAD else q @ hd
@@ -201,12 +215,11 @@ def update_dense_whiten(state: DenseState, g: torch.Tensor, key, dq: str,
     eps|g|) v), both keyed by kv (``kernels.unit_noise`` and
     ``kernels.damped_noise``, the same v), fed undamped to
     ``update_dense`` keyed by ku."""
-    require_real(g.dtype)
     kv, ku = fastrand.split(key)
     g2 = _as_col(g)
     v = _noise(kv, g2, draw)
     if v is None:
-        seeds = kernels.key_seed_words(kv[None], g2.device)
+        seeds = _seed_words(kv, g2.dtype, g2.device)
         v = kernels.unit_noise(seeds, g2.shape, g2.dtype)[0]
         h = kernels.damped_noise(g2.contiguous()[None], seeds, damping)[0]
     else:

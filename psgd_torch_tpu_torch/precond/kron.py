@@ -16,9 +16,9 @@ the mesh through the one fit core's ``reduce`` hook).  Real (bf16, f32, f64) and
 the JAX package's does (Q^H, x x^H, (p + p^H) / 2), so a complex Q stays
 a Hermitian preconditioner's factor.  f64 and complex factors take the
 XLA tail (``kernels.ns_route`` "xla"; the bounds and the Procrustes loop
-in PyTorch operations), as the JAX package does.  The LRA and dense
-preconditioners still refuse complex dtypes (``require_real``, ROADMAP
-A3b).
+in PyTorch operations), as the JAX package does.  Only the row-sharded
+LRA and dense preconditioners still refuse complex dtypes
+(``require_real``, ROADMAP A3c).
 
 Geometries (``_GEOMETRIES``): Q0.5EQ1.5 (the default) steps each dense
 factor through the NS update, ``kernels.fused_ns_update``; QEP, QEQ,
@@ -79,17 +79,16 @@ def canonical_dq(dq: str) -> str:
 
 
 def require_real(*dtypes: torch.dtype,
-                  what: str = "the LRA and dense preconditioners") -> None:
+                  what: str = "the row-sharded LRA and dense preconditioners "
+                              "(vector_sharding)") -> None:
     """Refuse complex dtypes where the port has no complex form: the LRA
-    and dense preconditioners and the legacy families (ROADMAP A3b; the
-    JAX package's LRA and dense code transposes where a Hermitian
-    preconditioner conjugates, and no JAX test holds the legacy families
-    in complex)."""
+    and dense preconditioners row-sharded over ranks (ROADMAP A3c; their
+    unsharded forms took complex in A3b, Kron in A3)."""
     for dt in dtypes:
         if dt.is_complex:
             raise NotImplementedError(
                 f"complex dtype {dt} is not ported yet for {what} "
-                "(ROADMAP A3b; Kron took complex in A3)")
+                "(ROADMAP A3c)")
 
 
 class KronPlan(NamedTuple):

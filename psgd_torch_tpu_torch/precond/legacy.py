@@ -22,6 +22,14 @@ host) run in at least float32.  The products, solves and elementwise
 passes are plain PyTorch, as the JAX package computes them outside any
 Pallas kernel.  UVd's two random decisions (the 1% balance and the U-or-V
 coin) take pre-drawn uniforms, its init pre-drawn normals.
+
+Complex (complex64, complex128) factors take the JAX package's forms:
+every product and solve transposes where a Hermitian preconditioner would
+conjugate (P = Q^T Q), UVd's solve with (I + V^T U)^T included (JAX
+``lu_solve(..., trans=1)``, ``linalg.lu_solve_t``); the balancing reads the
+largest diagonal entry in JAX's order of complex numbers (``jax_max``),
+and a complex step size cast to the real dtype keeps its real part (JAX's
+``astype``), as do UVd's '2nd' minimum and the Newton '2nd' sums.
 """
 
 from __future__ import annotations
@@ -31,12 +39,10 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from ..ops.linalg import (lift2single, norm_lower_bound, real_dtype_of,
-                          woodbury_identity)
-from .kron import require_real
+from ..ops.linalg import (jax_max, lift2single, lu_solve_t, norm_lower_bound,
+                          real_dtype_of, woodbury_identity)
 
 TINY = 1.2e-38
-LEGACY = "the legacy preconditioners"
 
 
 def _solve(a, b, upper: bool, left: bool = True) -> torch.Tensor:
@@ -58,7 +64,13 @@ def _tri_right(a, b) -> torch.Tensor:
 
 
 def _step(lr: float, bound: torch.Tensor, rdt, tiny: float) -> torch.Tensor:
-    return lr / (bound.to(rdt) + tiny)
+    return lr / (bound.real.to(rdt) + tiny)
+
+
+def _rho(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """sqrt(max left / max right), the balance of two sides' dynamic
+    ranges (complex: each max in JAX's order, the principal root)."""
+    return torch.sqrt(jax_max(left) / jax_max(right))
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +104,6 @@ def init_kron_legacy(shape, kind_l: str = "dense", kind_r: str = "dense",
     """(Ql, Qr) for a matrix parameter, each side's kind 'dense' ((n, n)
     identity), 'norm' ((2, n) [ones; zeros]) or 'scale' ((1, n) ones),
     times ``scale`` (reference demo setups, mnist_with_lenet5.py:53)."""
-    require_real(dtype, what=LEGACY)
     device = resolve_device(device)
     m, n = shape
 
@@ -165,7 +176,7 @@ def precond_grad_kron(ql, qr, grad):
 def _update_dense_dense(ql, qr, dx, dg, lr, tiny):
     """(dense, dense) with dynamic-range balancing (reference :243-275)."""
     rdt = real_dtype_of(ql.dtype)
-    rho = torch.sqrt(torch.max(torch.diagonal(ql)) / torch.max(torch.diagonal(qr)))
+    rho = _rho(torch.diagonal(ql), torch.diagonal(qr))
     ql, qr = ql / rho, qr * rho
     a = ql @ dg @ qr.T
     bt = _tri_left(ql, _tri_right(qr, dx), lower=False, trans=True)
@@ -206,7 +217,7 @@ def _norm_side_step(ql, a, bt, lr, rdt, tiny):
 def _update_norm_dense(ql, qr, dx, dg, lr, tiny):
     """(normalization, dense) (reference :293-336)."""
     rdt = real_dtype_of(qr.dtype)
-    rho = torch.sqrt(torch.max(ql[0]) / torch.max(torch.diagonal(qr)))
+    rho = _rho(ql[0], torch.diagonal(qr))
     ql, qr = ql / rho, qr * rho
     a = _norm_apply(ql, dg) @ qr.T
     bt = _tri_right(qr, _norm_inv_t_apply(ql, dx))
@@ -231,7 +242,7 @@ def _update_norm_scale(ql, qr, dx, dg, lr, tiny):
     """(normalization, scaling): Adafactor-like sublinear memory
     (reference :363-405)."""
     rdt = real_dtype_of(qr.dtype)
-    rho = torch.sqrt(torch.max(ql[0]) / torch.max(qr))
+    rho = _rho(ql[0], qr)
     ql, qr = ql / rho, qr * rho
     a = _norm_apply(ql, dg) * qr
     bt = _norm_inv_t_apply(ql, dx) / qr
@@ -249,7 +260,7 @@ def _grad_norm_scale(ql, qr, grad):
 def _update_dense_scale(ql, qr, dx, dg, lr, tiny):
     """(dense, scaling) (reference :431-462)."""
     rdt = real_dtype_of(ql.dtype)
-    rho = torch.sqrt(torch.max(torch.diagonal(ql)) / torch.max(qr))
+    rho = _rho(torch.diagonal(ql), qr)
     ql, qr = ql / rho, qr * rho
     a = ql @ (dg * qr)
     bt = _tri_left(ql, dx / qr, lower=False, trans=True)
@@ -277,14 +288,13 @@ class NewtonInvState(NamedTuple):
 
 def init_newton_inv(n: int, scale: float = 1.0, dtype=torch.float32,
                     device=None) -> NewtonInvState:
-    require_real(dtype, what=LEGACY)
     eye = torch.eye(n, dtype=dtype, device=resolve_device(device))
     return NewtonInvState(q=scale * eye, inv_q=(1.0 / scale) * eye)
 
 
 def _newton_mu(a, b, lr, step_normalizer, rdt, tiny):
     if step_normalizer == "2nd":
-        return lr / (torch.sum(a * a + b * b).to(rdt) + tiny)
+        return _step(lr, torch.sum(a * a + b * b), rdt, tiny)
     return lr * torch.rsqrt(torch.abs(
         torch.sum(a * a) ** 2 + torch.sum(b * b) ** 2
         - 2 * torch.sum(a * b) ** 2).to(rdt) + tiny)
@@ -323,7 +333,7 @@ def update_newton_tri(q: torch.Tensor, v: torch.Tensor, h: torch.Tensor,
     grad = torch.triu(a @ a.T - b @ b.T)
     rdt = real_dtype_of(q.dtype)
     if step_normalizer == "2nd":
-        mu = lr / (torch.sum(a * a + b * b).to(rdt) + tiny)
+        mu = _step(lr, torch.sum(a * a + b * b), rdt, tiny)
     else:
         mu = _step(lr, norm_lower_bound(grad), rdt, tiny)
     return q - mu * (grad @ q)
@@ -348,7 +358,6 @@ def init_uvd(n: int, rank: int, scale: float = 1.0, dtype=torch.float32,
     d = scale (JAX ``init_uvd``, its draws from split(key)).  ``u``, ``v``:
     the pre-drawn normals; without them they are drawn with ``generator``
     on ``device`` (the card unless it names another)."""
-    require_real(dtype, what=LEGACY)
     device = resolve_device(device)
 
     def drawn(x):
@@ -387,16 +396,18 @@ def update_uvd(state: UVdState, v: torch.Tensor, h: torch.Tensor, *,
     ip_vtu = w.T @ u + torch.eye(rank, dtype=u.dtype, device=u.device)
     lu, piv, _ = torch.linalg.lu_factor_ex(lift2single(ip_vtu))
     inv_qtv = v / d
-    inv_qtv = inv_qtv - w @ torch.linalg.lu_solve(
-        lu, piv, lift2single(u.T @ inv_qtv), adjoint=True).to(u.dtype)
+    inv_qtv = inv_qtv - w @ lu_solve_t(lu, piv,
+                                       lift2single(u.T @ inv_qtv)).to(u.dtype)
     inv_pv = inv_qtv - u @ torch.linalg.lu_solve(
         lu, piv, lift2single(w.T @ inv_qtv)).to(u.dtype)
     inv_pv = inv_pv / d
 
     nabla_d = ph * h - v * inv_pv
     if step_normalizer == "2nd":
-        mu = lr * torch.min(torch.rsqrt(ph * ph + v * v + tiny)
-                            * torch.rsqrt(h * h + inv_pv * inv_pv + tiny)).to(rdt)
+        # of a complex minimum JAX keeps the real part: the least real part
+        mu = lr * torch.min(torch.real(
+            torch.rsqrt(ph * ph + v * v + tiny)
+            * torch.rsqrt(h * h + inv_pv * inv_pv + tiny))).to(rdt)
     else:
         mu = _step(lr, torch.max(torch.abs(nabla_d)), rdt, tiny)
     d = d - mu * d * nabla_d

@@ -24,9 +24,18 @@ Randomness: the whitening probe is ``kernels.unit_noise`` and the damping
 ``kernels.damped_noise`` from the same key (so the same v: uniform on
 +-sqrt3, unit variance, where JAX draws a standard normal; the fit needs
 only E[v v^T] = I); the Newton damping of h is ``kernels.damped_noise``;
-the U/V init is ``kernels.unit_noise``.  An optional ``draw(kind, keys,
-shape, dtype)`` hook replaces every draw (the CPU tests replay the JAX
-draws through it).
+the U/V init is ``kernels.unit_noise``.  A complex draw takes the noise
+kernel's complex mode, keyed by split(key) (``fastrand.noise_keys``), each
+part scaled by 2^-0.5 (E|v|^2 = 1, as JAX's complex normal).  An optional
+``draw(kind, keys, shape, dtype)`` hook replaces every draw (the CPU tests
+replay the JAX draws through it).
+
+Complex (complex64, complex128) U, V and d take the JAX package's forms:
+every product transposes where a Hermitian preconditioner would conjugate
+(so P = Q^T Q for a complex Q), and the solve with (I + V^T U)^T is a
+plain transpose (``linalg.lu_solve_t``: JAX ``lu_solve(..., trans=1)``); the init
+norms read the real part of U and V (JAX's ``astype(float32)``); the L
+estimates stay real.  Row sharding refuses complex (ROADMAP A3c).
 
 Row sharding (JAX ``axis_name``, ``pad_lra_state``): with U, V, d, v and h
 row-sharded over a group of ranks, every reduction over n is an r x r,
@@ -51,7 +60,8 @@ import torch
 
 from .. import resolve_device
 from ..ops import fastrand, kernels
-from ..ops.linalg import lift2single, lifted_real_dtype, real_dtype_of
+from ..ops.linalg import (lift2single, lifted_real_dtype, lu_solve_t,
+                          real_dtype_of)
 from .kron import require_real
 
 # the coin's key: fold_in(key, COIN_FOLD)
@@ -89,14 +99,14 @@ def init_lra(n: int, rank: int, key, scale: float = 1.0,
     the card unless ``device`` names another device."""
     if not 0 <= rank < max(n, 1):
         raise ValueError(f"rank {rank} must be in [0, n={n})")
-    require_real(dtype)
     device = resolve_device(device)
     ku, kv = fastrand.split(key)
     if rank > 0:
         uv = []
         for k in (ku, kv):
             x = _normal(k, (n, rank), dtype, device, draw)
-            norm = torch.linalg.vector_norm(x.to(torch.float32))
+            # JAX's u.astype(float32): of a complex U its real part
+            norm = torch.linalg.vector_norm(x.real.to(torch.float32))
             uv.append(x * (0.1 ** 0.5 / norm.to(real_dtype_of(dtype))))
         u, v = uv
     else:
@@ -179,6 +189,12 @@ def _max_abs(x: torch.Tensor, reduce=None) -> torch.Tensor:
     return out if reduce is None else reduce.max(out)
 
 
+def _refuse_complex_rows(reduce, *dtypes) -> None:
+    """Row sharding takes real dtypes only (ROADMAP A3c)."""
+    if reduce is not None:
+        require_real(*dtypes)
+
+
 def _coin(key, draw) -> bool:
     """True: update U; False: update V (uniform(fold_in(key, 7)) < 0.5)."""
     kc = fastrand.fold_in(key, COIN_FOLD)
@@ -202,7 +218,7 @@ def update_lra(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
     update_precond_lra, psgd.py:994-1052; JAX ``update_lra``).  ``key``: a
     host threefry key, the coin's; ``draw`` replays the coin; ``reduce``
     sums and maxes over the row shards (module docstring)."""
-    require_real(v.dtype, h.dtype, state.u.dtype)
+    _refuse_complex_rows(reduce, v.dtype, h.dtype, state.u.dtype)
     v = v[:, None] if v.ndim == 1 else v
     h = h[:, None] if h.ndim == 1 else h
     u, w, d = state.u, state.v, state.d
@@ -233,8 +249,7 @@ def update_lra(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
     ip_vtu = _rsum(w.T @ u, reduce) + eye
     lu_fac, piv, _ = torch.linalg.lu_factor_ex(lift2single(ip_vtu))
     inv_qtv = v / d
-    sol1 = torch.linalg.lu_solve(
-        lu_fac, piv, lift2single(_rsum(u.T @ inv_qtv, reduce)), adjoint=True)
+    sol1 = lu_solve_t(lu_fac, piv, lift2single(_rsum(u.T @ inv_qtv, reduce)))
     inv_qtv = inv_qtv - w @ sol1.to(u.dtype)
     sol2 = torch.linalg.lu_solve(lu_fac, piv,
                                  lift2single(_rsum(w.T @ inv_qtv, reduce)))
@@ -296,7 +311,7 @@ def update_lra_whiten(state: LRAState, g: torch.Tensor, key,
     (psgd.py:1066-1072).  On a row shard (``reduce``) the probe is keyed
     by ``shard_key(kv)`` at this rank's rows and v and h are zeroed where
     ``pad_mask`` ((n_loc, 1) bool, True on the true rows) is False."""
-    require_real(g.dtype)
+    _refuse_complex_rows(reduce, g.dtype)
     kv, ku = fastrand.split(key)
     kv = shard_key(kv, reduce)
     g2 = g[:, None] if g.ndim == 1 else g
@@ -307,7 +322,8 @@ def update_lra_whiten(state: LRAState, g: torch.Tensor, key,
         eps = torch.finfo(real_dtype_of(g2.dtype)).eps
         h = g2 + (damping + eps * torch.abs(g2)) * v
     else:
-        seeds = kernels.key_seed_words(kv[None], g2.device)
+        seeds = kernels.key_seed_words(fastrand.noise_keys(kv[None], g2.dtype),
+                                       g2.device)
         v = kernels.unit_noise(seeds, g2.shape, g2.dtype)[0]
         h = kernels.damped_noise(g2.contiguous()[None], seeds, damping)[0]
         v, h = _masked(v, h, pad_mask)
@@ -324,7 +340,7 @@ def update_lra_newton(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
     (psgd.py:1193-1198).  On a row shard the damping is keyed by
     ``shard_key(kd)`` and zero on the pad rows, as ``update_lra_whiten``'s
     probe."""
-    require_real(v.dtype, h.dtype)
+    _refuse_complex_rows(reduce, v.dtype, h.dtype)
     kd, ku = fastrand.split(key)
     kd = shard_key(kd, reduce)
     v2 = v[:, None] if v.ndim == 1 else v
@@ -337,7 +353,8 @@ def update_lra_newton(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
         hd = h2 + (damping + eps * torch.abs(h2)) * noise
     else:
         hd = _pad_zero(kernels.damped_noise(
-            h2.contiguous()[None], kernels.key_seed_words(kd[None], h2.device),
-            damping)[0], pad_mask)
+            h2.contiguous()[None],
+            kernels.key_seed_words(fastrand.noise_keys(kd[None], h2.dtype),
+                                   h2.device), damping)[0], pad_mask)
     return update_lra(state, v2, hd, ku, lr=lr, beta_l=beta_l, draw=draw,
                       reduce=reduce)

@@ -4,7 +4,9 @@ L = [L1 0; L2 diag(l3)], U = [U1 U2; 0 diag(u3)] and rank-r dense corners.
 Counterpart of psgd_torch_tpu/precond/splu.py (reference
 preconditioned_stochastic_gradient_descent.py:480-617).  Cost is O(r n) per
 step, between the diagonal and the dense preconditioners.  The triangular
-solves on the r x r corners run in at least float32.
+solves on the r x r corners run in at least float32.  Complex factors take
+the JAX package's forms (plain transposes; the balance's maxima in JAX's
+order of complex numbers, ``jax_max`` / ``jax_maximum``).
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from ..ops.linalg import lift2single, norm_lower_bound, real_dtype_of
-from .kron import require_real
-from .legacy import LEGACY, TINY
+from ..ops.linalg import (jax_max, jax_maximum, lift2single, norm_lower_bound,
+                          real_dtype_of)
+from .legacy import TINY
 
 
 class SPLUState(NamedTuple):
@@ -32,7 +34,6 @@ def init_splu(n: int, r: int, scale: float = 1.0, dtype=torch.float32,
     device."""
     if not 0 < r < n:
         raise ValueError(f"rank r={r} must be in (0, n={n})")
-    require_real(dtype, what=LEGACY)
     device = resolve_device(device)
     root = scale ** 0.5
     eye = torch.eye(r, dtype=dtype, device=device)
@@ -59,8 +60,8 @@ def update_splu(state: SPLUState, v: torch.Tensor, h: torch.Tensor,
     rdt = real_dtype_of(l12.dtype)
 
     # balance the dynamic ranges of L and U (reference :497-503)
-    max_l = torch.maximum(torch.max(torch.diagonal(l12[:r])), torch.max(l3))
-    max_u = torch.maximum(torch.max(torch.diagonal(u12[:, :r])), torch.max(u3))
+    max_l = jax_maximum(jax_max(torch.diagonal(l12[:r])), jax_max(l3))
+    max_u = jax_maximum(jax_max(torch.diagonal(u12[:, :r])), jax_max(u3))
     rho = torch.sqrt(max_l / max_u)
     l12, l3 = l12 / rho, l3 / rho
     u12, u3 = u12 * rho, u3 * rho

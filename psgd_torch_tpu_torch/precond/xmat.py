@@ -5,7 +5,10 @@ preconditioned_stochastic_gradient_descent.py:947-991): slightly richer
 than a diagonal preconditioner at the same O(n) cost, the anti-diagonal
 coupling entry i with entry n-1-i.  For odd n the middle anti-diagonal
 entry's gradient is zeroed on every update (reference :971-973).
-Elementwise passes and flips only.
+Elementwise passes and flips only.  Complex a and b take the JAX
+package's forms: products without conjugates, and the '2nd' normalizer's
+complex maximum cast to the real dtype, its real part (the largest real
+part).
 """
 
 from __future__ import annotations
@@ -16,8 +19,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.linalg import real_dtype_of
-from .kron import require_real
-from .legacy import LEGACY, TINY
+from .legacy import TINY
 
 
 class XMatState(NamedTuple):
@@ -27,7 +29,6 @@ class XMatState(NamedTuple):
 
 def init_xmat(n: int, scale: float = 1.0, dtype=torch.float32,
               device=None) -> XMatState:
-    require_real(dtype, what=LEGACY)
     device = resolve_device(device)
     return XMatState(a=scale * torch.ones((n,), dtype=dtype, device=device),
                      b=torch.zeros((n,), dtype=dtype, device=device))
@@ -57,7 +58,7 @@ def update_xmat(state: XMatState, v: torch.Tensor, h: torch.Tensor,
 
     rdt = real_dtype_of(a.dtype)
     if step_normalizer == "2nd":
-        mu = lr / (torch.max(u_ + w_).to(rdt) + tiny)
+        mu = lr / (torch.max(torch.real(u_ + w_)).to(rdt) + tiny)
     else:
         mu = lr / (torch.maximum(torch.max(torch.abs(nabla_a)),
                                  torch.max(torch.abs(nabla_b))).to(rdt) + tiny)

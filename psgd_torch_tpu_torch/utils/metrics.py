@@ -26,14 +26,19 @@ def _core(optimizer):
 def _preconditioners(opt):
     """(name, factors, lips, rows) per preconditioner, in the JAX state's
     order: Kron one per parameter ("leaf{i}", its Q factors and L's);
-    dense one ("leaf", Q, L); LRA one ("leaf", every field, no L), as the
-    JAX module's docstring summarises a state without ``.q``.  ``rows``:
-    whether the factors' row maxima count for ``q_rowmax_min``."""
+    Affine one per parameter ("leaf{i}", its two sides, no L); dense one
+    ("leaf", Q, L); LRA and the other legacy families one ("leaf", every
+    field, no L), as the JAX module summarises a state without ``.q``.
+    ``rows``: whether the factors' row maxima count for
+    ``q_rowmax_min``."""
     precond = getattr(opt, "precond", None)
     if precond is None:
         for i, p in enumerate(opt.param_groups[0]["params"]):
             st = opt.state[p]
-            yield f"leaf{i}", st["q"], st["lips"], True
+            if "q" in st:
+                yield f"leaf{i}", st["q"], st["lips"], True
+            else:
+                yield f"leaf{i}", (st["ql"], st["qr"]), (), False
     elif hasattr(precond, "lips"):
         yield "leaf", (precond.q,), (precond.lips,), True
     else:
@@ -43,8 +48,8 @@ def _preconditioners(opt):
 def _momentum(opt) -> list:
     if getattr(opt, "precond", None) is not None:
         return [] if opt.mu is None else [opt.mu]
-    return [opt.state[p]["mu"] for p in opt.param_groups[0]["params"]
-            if "mu" in opt.state[p]]
+    return [st[k] for st in (opt.state[p] for p in opt.param_groups[0]["params"])
+            for k in ("mu", "momentum") if k in st]
 
 
 def _rms(xs) -> torch.Tensor:

@@ -138,12 +138,13 @@ def test_init_and_precond_grad_match_jax(dq):
 
 
 def test_dense_rules_and_port_draws():
-    """Unknown dQ and complex dtypes refused; the alias accepted; without a
-    replay hook a Q0.5EQ1.5 and a PRO4P update are finite and move Q."""
+    """Unknown dQ refused; complex Q taken (A3b); the alias accepted;
+    without a replay hook a Q0.5EQ1.5 and a PRO4P update are finite and
+    move Q."""
     with pytest.raises(ValueError, match="dQ"):
         tdense.init_dense(4, dq="XYZ", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        tdense.init_dense(4, dtype=torch.complex64, device="cpu")
+    cx = tdense.init_dense(4, dtype=torch.complex64, device="cpu")
+    assert cx.q.dtype == torch.complex64 and cx.lips.dtype == torch.float32
     st = tdense.init_dense(4, dq="Q0p5EQ1p5", device="cpu")
     assert torch.equal(st.q, torch.eye(4))
     gen = torch.Generator().manual_seed(0)

@@ -80,10 +80,11 @@ def _drawer(kind, shape, dtype):
 
 
 def fast_draw(kind, keys, shape, dtype):
-    """The replay hook ``test_torch_kron.jax_draw`` (the same draws), its
-    programs compiled with FAST_COMPILE."""
+    """The replay hook ``test_torch_kron.jax_draw`` (the same draws, complex
+    for a complex dtype), its programs compiled with FAST_COMPILE."""
     out = _drawer(kind, tuple(shape), dtype)(jnp.asarray(np.asarray(keys, np.uint32)))
-    return torch.from_numpy(np.array(out.astype(jnp.float64))).to(dtype)
+    wide = jnp.complex128 if dtype.is_complex else jnp.float64
+    return torch.from_numpy(np.array(out.astype(wide))).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,8 +194,10 @@ def test_kron_rules():
                                     torch.ones(3, 4, dtype=F64))
     with pytest.raises(ValueError, match="shapes"):
         tlegacy.precond_grad_kron(ql, qr, torch.ones(3, 4, dtype=F64))
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tlegacy.init_kron_legacy((3, 4), dtype=torch.complex64, device=CPU)
+    # complex (A3b): complex64 factors
+    ql, qr = tlegacy.init_kron_legacy((3, 4), "dense", "norm",
+                                      dtype=torch.complex64, device=CPU)
+    assert ql.dtype == qr.dtype == torch.complex64
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ the update-probability gate (fitting on some steps and not on others),
 the norm clip and both weight decay modes; Newton through the closure,
 ``hvp_fn`` and explicit ``vs``/``hvs``.  Affine runs over a dict with a
 3-D and a 1-D leaf.  Also each optimizer's ``state_dict()`` round trip
-and the rules (the JAX ValueErrors, the refusals of complex and of a
+and the rules (the JAX ValueErrors, complex dtypes taken, the refusal of a
 missing card).
 
 Tolerance: rtol 1e-9 (atol 1e-9 of the largest entry) in float64.  The
@@ -293,10 +293,16 @@ def test_factories_and_rules():
             cls(p, device="cpu", step_normalizer="3rd")
         with pytest.raises(ValueError, match="weight_decay_mode"):
             cls(p, device="cpu", weight_decay_mode="other")
-        with pytest.raises(NotImplementedError, match="A3b"):
-            cls([torch.zeros(3, dtype=torch.complex64)], device="cpu")
-        with pytest.raises(NotImplementedError, match="A3b"):
-            cls(p, device="cpu", preconditioner_dtype=torch.complex128)
+        # complex (A3b): complex parameters, or a complex preconditioner
+        # over real ones
+        cx = cls([torch.zeros(3, dtype=torch.complex64)], device="cpu")
+        assert all(x.dtype == torch.complex64 for x in (
+            cx.precond if cls is not Affine else
+            cx.state[cx.param_groups[0]["params"][0]].values()))
+        cq = cls(p, device="cpu", preconditioner_dtype=torch.complex128)
+        assert all(x.dtype == torch.complex128 for x in (
+            cq.precond if cls is not Affine else
+            (cq.state[p[0]]["ql"], cq.state[p[0]]["qr"])))
         with pytest.raises(ValueError, match="closure"):
             cls(p, device="cpu", preconditioner_type="Newton").step()
         with pytest.raises(ValueError, match="whitening"):

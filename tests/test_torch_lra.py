@@ -161,8 +161,12 @@ def test_init_lra_rules():
     for rank in (-1, 5, 6):
         with pytest.raises(ValueError, match="rank"):
             tlra.init_lra(5, rank, key, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        tlra.init_lra(5, 2, key, dtype=torch.complex64, device="cpu")
+    # complex (A3b): complex64 U, V and d, the U and V norms from their
+    # real parts (JAX's astype(float32)), real L estimates
+    cx = tlra.init_lra(5, 2, key, dtype=torch.complex64, device="cpu")
+    assert cx.u.dtype == cx.d.dtype == torch.complex64
+    assert cx.lu.dtype == torch.float32 and bool((cx.u.imag != 0).any())
+    assert abs(torch.linalg.vector_norm(cx.u.real).item() - 0.1 ** 0.5) < 1e-6
     # the port's own draws: U and V differ, both at the target norm
     st = tlra.init_lra(50, 3, key, device="cpu")
     assert not torch.equal(st.u, st.v)

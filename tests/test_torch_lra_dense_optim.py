@@ -7,7 +7,9 @@ schedules that fit on some steps and not on others, and the on-the-fly
 init scale.  Also the transforms' rules: the JAX ValueErrors, the dense
 advisories, ``vector_sharding``'s argument checks (ROADMAP A8b; the
 sharded runs are tests/test_torch_vector_sharding.py) and complex
-parameters (A3).
+parameters (A3b: taken, held against JAX in
+tests/test_torch_complex_lra_dense.py; refused under ``vector_sharding``,
+A3c).
 
 Tolerance: rtol 1e-9 (atol 1e-9 of the largest entry) in float64.  Both
 sides take the on-the-fly init scale in float32 (the JAX transforms cast
@@ -213,7 +215,8 @@ def test_newton_three_steps_match_jax(arm):
 
 def test_factories_and_rules():
     """The factories take the JAX names; the JAX ValueErrors, a malformed
-    ``vector_sharding`` and dense's non-QEQ one, the A3 refusals, and the
+    ``vector_sharding`` and dense's non-QEQ one, complex parameters taken
+    (A3b) and refused under ``vector_sharding`` (A3c), and the
     dense advisories."""
     p = [torch.zeros(16, requires_grad=True)]
     assert isinstance(lra_whiten(p, learning_rate=0.1, device="cpu"), LRAWhiten)
@@ -234,10 +237,16 @@ def test_factories_and_rules():
         kw = dict(device="cpu", preconditioner_init_scale=1.0)
         with pytest.raises((TypeError, ValueError), match="vector_sharding"):
             cls(p, vector_sharding=("mesh", "fsdp"), **kw)
-        with pytest.raises(NotImplementedError, match="A3"):
-            cls([torch.zeros(16, dtype=torch.complex64)], **kw)
-        with pytest.raises(NotImplementedError, match="A3"):
-            cls(p, preconditioner_dtype=torch.complex64, **kw)
+        cx = cls([torch.zeros(16, dtype=torch.complex64)], **kw)
+        assert cx.precond[0].dtype == torch.complex64
+        assert cls(p, preconditioner_dtype=torch.complex64,
+                   **kw).precond[0].dtype == torch.complex64
+        sharded = dict(kw, vector_sharding=("mesh", "fsdp"),
+                       **({"dq": "QEQ"} if cls is DenseNewton else {}))
+        with pytest.raises(NotImplementedError, match="A3c"):
+            cls([torch.zeros(16, dtype=torch.complex64)], **sharded)
+        with pytest.raises(NotImplementedError, match="A3c"):
+            cls(p, preconditioner_dtype=torch.complex64, **sharded)
     with pytest.raises(ValueError, match="QEQ"):
         DenseNewton(p, dq="Q0.5EQ1.5", vector_sharding=("mesh", "fsdp"),
                     device="cpu", preconditioner_init_scale=1.0)
