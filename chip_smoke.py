@@ -60,7 +60,8 @@
      ``ns_step``, ``tiled_step``) beside the rows above.
    The tiled route and its pieces are also held (and the pieces timed) at
    B = 1 and the widths 2304 and 3072 in bf16, the shapes the shared GPT-2
-   stacks of 5b give it; ``norm_bound`` at the shapes the geometries of 9
+   stacks of 5b give it, and at (1, 2560) bf16, each LLaMA tp rank's wqkv
+   factor (``LLAMA_TP_TILED``); ``norm_bound`` at the shapes the geometries of 9
    give it ((12, 768), (1, 768), (1, 1024) in bf16 and f32), at
    (3, 100) bf16, a width it takes on the FFMA GEMM, and at GPT-2 774M's
    (36, 1280) and (1, 1280) bf16 (``A10A_BOUND_SHAPES``)
@@ -300,8 +301,9 @@
    vector path, in its 4 kept ranks): the same trainer on 4 ranks as
    ``make_mesh(4)``'s (dp 1, fsdp 2, tp 2), JAX's production layout (the
    blocks ``(None, fsdp, tp)`` by ``gpt2.shard_model``, its forward
-   tensor-parallel, ``stack_sharding`` over fsdp resharding each rank's 6
-   layers, Q replicated over tp), beside 1 rank: (a) the optimizer alone
+   tensor-parallel, ``stack_sharding`` over fsdp resharding each rank's 3
+   layers, Q replicated over tp; GPT-2 124M's widths at ``TP_LAYERS`` 6 of
+   its 12 layers, the cut that pays for the LLaMA path), beside 1 rank: (a) the optimizer alone
    from the same gradients, every non-routed block and Q bit for bit, the
    embeddings within ``FACTOR_COS`` / ``FACTOR_REL``, drift 0.0 over tp;
    (b) 3 steps with a checkpoint after 2, the first loss within
@@ -310,9 +312,22 @@
    parameter and momentum bytes about a quarter of 1 rank's and Q about a
    half; (c) the 4-rank resume bit for bit, the checkpoint gathered and
    resumed on 1 rank within ``TP_COS`` / ``TP_REL`` of the unbroken step,
-   limits set against planted faults (``tp_fault_margin``).  The ranks'
-   launch counts come back to this process and count toward the kernels'
-   line.
+   limits set against planted faults (``tp_fault_margin``).
+   ``llama_tp_path`` (ROADMAP A8c, in the same kept ranks): LLaMA-1.1B at
+   its full widths (n_embd 2048, 32 query and 4 kv heads, SwiGLU 5632,
+   vocab 32000, untied ``lm_head``), depth cut 22 -> ``LLAMA_TP_LAYERS``
+   2, placed by ``llama.shard_model`` over ``llama_partition_specs`` on
+   the same mesh, tools/bench_llama.py:108-114's optimizer with
+   ``stack_sharding`` over fsdp (each rank's layer resharded, wte and
+   lm_head factor-sharded), 1 x 1024 tokens in bf16, beside 1 rank: (a)
+   the optimizer alone as above; (b) 3 fit steps on one batch, the first
+   loss within ``TP_LOSS_REL`` of 1 rank's and the first step's gradients
+   within ``LLAMA_TP_GRAD_COS`` / ``LLAMA_TP_GRAD_REL``, the batch's loss
+   lower after the steps, the launches of rows 1-9 per fit step exactly
+   as the layout derives them (``_tp_per_fit``: the split route on the
+   2048 factors, the tiled one on wqkv's 2560), the bytes a quarter and Q
+   about a half, drift 0.0.  The ranks' launch counts come back to this
+   process and count toward the kernels' line.
 17b. The legacy families path (``legacy_path``, ROADMAP A7, after the
    complex fixed-point runs are waited for and before the distributed
    paths): every legacy family (the dense P, the seven Kron kind pairs,
@@ -336,7 +351,9 @@
    ``step_mat_a10b_shapes``, its times at the examples' factors, and
    ``ns_widths``, the sweep's single-route records; the split and tiled
    rows carry ``ns_widths_route``, the sweep's records of their route, its
-   whole time (``route_ms``), and rows 5-9 ``ns_widths_shapes``; rows 2, 4, 5 and 7 carry ``lra_dense_shapes``, their
+   whole time (``route_ms``), and rows 5-9 ``ns_widths_shapes`` and
+   ``a8c_llama_tp_shapes`` (the LLaMA tp ranks' (1, 2560) bf16); rows 2,
+   4, 5 and 7 carry ``lra_dense_shapes``, their
    times at the LRA and dense paths' shapes, row 2 ``vector_shapes`` at
    the vector-sharded path's; rows 1, 3 and 6 also carry
    ``step_mat_launches`` and the step
@@ -354,6 +371,7 @@ Any failed phase raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import functools
 import gc
@@ -6227,13 +6245,16 @@ def sharded_trainer_path(dev, card: str) -> dict:
     return total
 
 
-# the tensor-parallel path (ROADMAP A8c): GPT-2 124M in JAX's production
-# layout, examples/train_gpt2_sharded.py's functions on 4 ranks of cuda:0
-# over gloo as make_mesh(4)'s (dp 1, fsdp 2, tp 2): the blocks (None, fsdp,
-# tp) by gpt2.shard_model (tp forward, the fsdp blocks gathered in it),
-# stack_sharding over fsdp (each rank's 6 layers resharded by bytes, Q
-# replicated over tp), the embeddings factor-sharded; TRAINER_BATCH x 1024,
-# bf16, TRAINER_SCHEDULE's gate (every step a fit step)
+# the tensor-parallel path (ROADMAP A8c): GPT-2 124M's widths in JAX's
+# production layout, examples/train_gpt2_sharded.py's functions on 4 ranks
+# of cuda:0 over gloo as make_mesh(4)'s (dp 1, fsdp 2, tp 2): the blocks
+# (None, fsdp, tp) by gpt2.shard_model (tp forward, the fsdp blocks
+# gathered in it), stack_sharding over fsdp (each rank's TP_LAYERS / 2
+# layers resharded by bytes, Q replicated over tp), the embeddings
+# factor-sharded; TRAINER_BATCH x 1024, bf16, TRAINER_SCHEDULE's gate
+# (every step a fit step).  Its cut: depth 12 -> TP_LAYERS, which pays for
+# the LLaMA tp path after it
+TP_LAYERS = 6
 TP_WORLD = 4
 TP_STEPS = 3           # (a)'s fit steps and (b)'s trainer steps
 TP_AT = 2              # (b)'s checkpoint, before its last step
@@ -6257,10 +6278,17 @@ TP_FAULTS = ("none", "allreduce", "layers", "heads")
 TP_LABEL = "4 ranks sharing one H100 over gloo; not a scaling figure"
 
 
+def _tp_config(dev):
+    """GPT-2 124M's widths at TP_LAYERS layers, as the trainer computes."""
+    from psgd_torch_tpu_torch.examples import train_gpt2_sharded as tr
+    return dataclasses.replace(tr.make_config("124m", dev), n_layer=TP_LAYERS)
+
+
 def _plant_tp_fault(fault: str):
     """Plant ``fault`` in this process; returns the undo."""
     from psgd_torch_tpu_torch.parallel import mesh as pmesh
-    lay = gpt2._TPLayout
+    from psgd_torch_tpu_torch.parallel import tensor_parallel
+    lay = tensor_parallel.TPLayout
     saved = (lay.reduce, gpt2._heads, pmesh.LayerReshard.to_layers)
 
     def undo():
@@ -6336,12 +6364,27 @@ def _tp_alike(opt) -> dict:
     return out
 
 
+# each NS route's launches per call (``kernels._dispatch``)
+ROUTE_LAUNCHES = {"single": {"fused_ns_update": 1},
+                  "split": {"ns_step": 1, "procrustes": 1},
+                  "tiled": {"norm_bound": 2, "tiled_step": 1, "tsub": 1,
+                            "scaled_matmul_trace": 2, "combine": 1}}
+
+
 def _tp_per_fit(opt) -> dict:
-    """Rows 1 and 2's launches per fit step, from the layout: one damped
-    noise per leaf, one NS update per dense factor of each leaf (a stack's
-    at its B layers)."""
-    return {"fused_ns_update": sum(sum(not d for d in plan.is_diag) for plan in opt.plans),
-            "damped_noise": len(opt.plans)}
+    """Rows 1-9's launches per fit step on this rank, from the layout: one
+    damped noise per leaf, and per dense factor of each leaf (a stack's at
+    its B layers, a routed leaf's whole on every rank) one call of the NS
+    route its width and Q's dtype take (``kernels.ns_route``), whose
+    launches ``ROUTE_LAUNCHES`` gives."""
+    out = dict.fromkeys((name for name, _, _ in ROWS), 0)
+    out["damped_noise"] = len(opt.plans)
+    for p, plan in zip(opt.param_groups[0]["params"], opt.plans):
+        for n, diag, q in zip(plan.shape, plan.is_diag, opt.state[p]["q"]):
+            if not diag:
+                for k, c in ROUTE_LAUNCHES[kernels.ns_route(n, q.dtype)].items():
+                    out[k] += c
+    return out
 
 
 def _tp_bytes(s) -> dict:
@@ -6396,7 +6439,7 @@ def _tp_job(rank: int, world: int, arg: str) -> dict:
     try:
         with _deterministic(), warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            cfg = tr.make_config("124m", dev)
+            cfg = _tp_config(dev)
             make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
             s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
             out["mesh"] = tr.mesh_sizes(s.mesh)
@@ -6494,7 +6537,7 @@ def _tp_cut_job(rank: int, world: int, base: str) -> dict:
     dev = torch.device("cuda", 0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        cfg = tr.make_config("124m", dev)
+        cfg = _tp_config(dev)
         s = tr.setup(cfg, TRAINER_SCHEDULE, dev)
         t0 = time.perf_counter()
         step, _ = restore_checkpoint(os.path.join(base, "b"), s.model, s.opt)
@@ -6580,7 +6623,7 @@ def _tp_run(dev, card: str, fault: str, check: bool) -> tuple:
     base = OUT_DIR / "tp_trainer"
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
-    cfg = tr.make_config("124m", dev)
+    cfg = _tp_config(dev)
     make = tr.batch_fn(cfg, TRAINER_BATCH, dev)
     try:
         with _deterministic(), warnings.catch_warnings():
@@ -6607,12 +6650,12 @@ def _tp_run(dev, card: str, fault: str, check: bool) -> tuple:
 
 
 def tp_trainer_path(dev, card: str) -> dict:
-    """GPT-2 124M at full width and depth in JAX's production layout
-    (ROADMAP A8c) through ``examples/train_gpt2_sharded``'s functions on
+    """GPT-2 124M at full width, TP_LAYERS of its 12 layers, in JAX's
+    production layout (ROADMAP A8c) through ``examples/train_gpt2_sharded``'s functions on
     TP_WORLD ranks of this card (gloo) as (dp 1, fsdp 2, tp 2), beside 1
     rank, under CUDA's deterministic algorithms.  (a) The optimizer alone
     from the same gradients: every non-routed leaf's parameter blocks and
-    Q (a resharded stack's its 6 layers) the 1-rank run's bit for bit after
+    Q (a resharded stack's its 3 layers) the 1-rank run's bit for bit after
     TP_STEPS fit steps, the routed embeddings' updates within FACTOR_COS /
     FACTOR_REL, ``drift_check`` 0.0 over the tp replicas.  (b) The
     trainer, TP_STEPS steps at TRAINER_BATCH x 1024 bf16 with a checkpoint
@@ -6632,7 +6675,8 @@ def tp_trainer_path(dev, card: str) -> dict:
     t0 = time.perf_counter()
     one, ranks, readings = _tp_run(dev, card, "none", check=True)
     total = {}
-    log(f"GPT-2 124M by the sharded trainer on mesh {ranks[0]['mesh']} ({TP_LABEL}); "
+    log(f"GPT-2 124M widths, {TP_LAYERS} of 12 layers, by the sharded trainer on mesh "
+        f"{ranks[0]['mesh']} ({TP_LABEL}); "
         f"leaves {sorted(set(ranks[0]['alone']['kinds'].values()))}: "
         f"{ {k: list(ranks[0]['alone']['kinds'].values()).count(k) for k in set(ranks[0]['alone']['kinds'].values())} }")
     a = readings["alone"]
@@ -6739,9 +6783,231 @@ def tp_fault_margin(dev, card: str) -> dict:
     return {}
 
 
+# the tensor-parallel LLaMA path (ROADMAP A8c): LLaMA-1.1B at its full
+# widths (n_embd 2048, 32 query and 4 kv heads, SwiGLU 5632, vocab 32000,
+# untied lm_head) in JAX's production layout, on TP_WORLD ranks of cuda:0
+# over gloo as make_mesh(4)'s (dp 1, fsdp 2, tp 2): the blocks (None, fsdp,
+# tp) by llama.shard_model (tp forward, the fsdp blocks gathered in it),
+# stack_sharding over fsdp (each rank's layer resharded by bytes, Q
+# replicated over tp), wte and lm_head factor-sharded (the recipe's);
+# tools/bench_llama.py:108-114's optimizer with every step a fit step;
+# 1 x 1024 tokens, bf16 compute, f32 parameters.  The one cut: depth 22 ->
+# LLAMA_TP_LAYERS (each fsdp rank's stacks one layer)
+LLAMA_TP_LAYERS = 2
+# (b): the first step's gradient blocks on the ranks against the 1-rank
+# model's on the same batch, each leaf within 1 - cosine LLAMA_TP_GRAD_COS
+# and relative error LLAMA_TP_GRAD_REL (bf16: the tp partial sums round to
+# bf16 before their float32 sum), where the first loss alone may not see a
+# fault in one rank's hidden block
+LLAMA_TP_GRAD_COS = 1e-3
+LLAMA_TP_GRAD_REL = 5e-2
+# the per-rank shape the path adds to the kernel phase: wqkv's 2560 factor
+# at each rank's one layer, the tiled route (rows 5-9)
+LLAMA_TP_TILED = (1, 2560, torch.bfloat16)
+
+
+def _llama_tp_setup(dev, mesh=None):
+    """The path's model and optimizer on this rank (``mesh`` None: the
+    unsharded model on one rank); (model, opt, mesh) as attributes."""
+    from types import SimpleNamespace
+    from psgd_torch_tpu_torch.parallel import llama_partition_specs, sharding_recipe
+    cfg = llama.llama_1b(compute_dtype=torch.bfloat16, n_layer=LLAMA_TP_LAYERS)
+    model = llama.Llama(cfg, device=dev, seed=0)
+    mask = llama.scanned_layers_mask(model)
+    sharding = {}
+    if mesh is not None:
+        rec = sharding_recipe(mesh, llama_partition_specs(mesh, model),
+                              model.named_parameters(), scanned_layers=mask,
+                              stack_axis="fsdp")
+        llama.shard_model(model, mesh, rec.model_placements())
+        sharding = rec.transform_kwargs
+    return SimpleNamespace(model=model, opt=_bench_opt(model, mask, TP_STEPS, dev,
+                                                       **sharding), mesh=mesh)
+
+
+def _llama_tp_batch(dev) -> tuple:
+    """(b)'s batch, every step's: 1 x 1024 tokens of the synthetic stream."""
+    return llama.synthetic_lm_batch(torch.Generator().manual_seed(1), 1, 1024,
+                                    32000, device=dev)
+
+
+def _llama_tp_job(rank: int, world: int, _) -> dict:
+    """The 4-rank runs of ``llama_tp_path``, under CUDA's deterministic
+    algorithms: (a) the optimizer alone; (b) TP_STEPS train steps on one
+    batch, their readings and the first step's gradient blocks."""
+    from psgd_torch_tpu_torch.parallel import drift_check, make_mesh
+    dev = torch.device("cuda", 0)
+    out = {}
+    with _deterministic(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = make_mesh(device_type="cuda")
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+        s = _llama_tp_setup(dev, mesh)
+        out["alone"] = _tp_alone(s, dev)
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+        s = _llama_tp_setup(dev, mesh)
+        out["per_fit"] = _tp_per_fit(s.opt)
+        batch = _llama_tp_batch(dev)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, fits = [], [], []
+        for i in range(TP_STEPS):
+            fits0 = s.opt.fit_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.opt.zero_grad(set_to_none=True)
+            loss = llama.loss_llama(s.model, *batch)
+            loss.backward()
+            if i == 0:
+                out["grads"] = {n: (_local_of(p.grad).float().cpu(), _tp_box(p))
+                                for n, p in s.model.named_parameters()}
+            s.opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            fits.append(s.opt.fit_steps - fits0)
+        out.update(losses=losses, ms=ms, fits=fits, counts=_all_counts(),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, bytes=_tp_bytes(s),
+                   drift=drift_check(_tp_alike(s.opt), group=mesh.get_group("tp")))
+        with torch.no_grad():    # the batch again, after the steps
+            out["first_again"] = llama.loss_llama(s.model, *batch).item()
+    return out
+
+
+def _llama_tp_one(dev) -> dict:
+    """The 1-rank runs (this process, no process group): the first loss on
+    (b)'s batch and its gradients, (a)'s optimizer alone from the same
+    gradients as the ranks'."""
+    with _deterministic(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        s = _llama_tp_setup(dev)
+        out = {"init": {n: p.detach().float().cpu().clone()
+                        for n, p in s.model.named_parameters()}}
+        loss = llama.loss_llama(s.model, *_llama_tp_batch(dev))
+        loss.backward()
+        out["first_loss"] = loss.item()
+        params = dict(s.model.named_parameters())
+        out["grads"] = {n: p.grad.float().cpu() for n, p in params.items()}
+        for i in range(TP_STEPS):
+            for n, g in _tp_grads(i, s.model, dev).items():
+                params[n].grad = g
+            s.opt.step()
+        out["alone"] = dict(fits=s.opt.fit_steps, state=_tp_state(s.opt),
+                            params={n: p.detach().clone() for n, p in params.items()})
+        out["bytes"] = _tp_bytes(s)
+    return out
+
+
+def _llama_tp_run(dev, job: str = "llamatp") -> tuple:
+    """The 1-rank runs, then ``job`` on the TP_WORLD ranks; (1 rank's
+    readings, the ranks', and (a)'s readings, the first-loss gap and the
+    first step's gradient gaps per leaf (worst over the ranks))."""
+    one = _llama_tp_one(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn(job, TP_WORLD)
+    first = ranks[0]["losses"][0]
+    grads = {}
+    for res in ranks:
+        for n, (block, box) in res.pop("grads").items():
+            gaps = _agree(block, _cut(one["grads"][n], box))
+            grads[n] = tuple(max(x) for x in zip(grads.get(n, (0.0, 0.0)), gaps))
+    return one, ranks, dict(alone=_tp_alone_check(one, ranks, check=False),
+                            loss_rel=abs(first - one["first_loss"]) / abs(one["first_loss"]),
+                            grads=grads)
+
+
+def llama_tp_path(dev, card: str) -> dict:
+    """LLaMA-1.1B at its full widths, depth cut to LLAMA_TP_LAYERS, in JAX's
+    production layout (ROADMAP A8c): ``llama.shard_model`` over
+    ``llama_partition_specs`` and ``stack_sharding`` over fsdp on
+    TP_WORLD ranks of this card (gloo) as (dp 1, fsdp 2, tp 2), beside 1
+    rank, under CUDA's deterministic algorithms.  (a) The optimizer alone
+    from the same gradients: every non-routed leaf's parameter blocks and
+    Q (a resharded stack's its layer) the 1-rank run's bit for bit after
+    TP_STEPS fit steps, the routed wte and lm_head's updates within
+    FACTOR_COS / FACTOR_REL, ``drift_check`` 0.0 over tp.  (b) TP_STEPS
+    train steps, each a fit step, on one 1 x 1024 batch in bf16: the first
+    loss within TP_LOSS_REL of the 1-rank model's and the first step's
+    gradient blocks within LLAMA_TP_GRAD_COS / LLAMA_TP_GRAD_REL of its
+    gradients, each leaf, on the same batch; finite losses, the
+    batch's loss lower after the steps, each rank's launches of rows 1-9
+    per fit step exactly the count its layout gives (``_tp_per_fit``),
+    per-rank parameter and momentum bytes about a quarter of the 1-rank
+    run's and Q bytes about a half, drift 0.0 over tp; the step times
+    logged.  Returns the ranks' launches, summed."""
+    t0 = time.perf_counter()
+    one, ranks, readings = _llama_tp_run(dev)
+    a = readings["alone"]
+    kinds = ranks[0]["alone"]["kinds"]
+    log(f"LLaMA-1.1B widths, {LLAMA_TP_LAYERS} of 22 layers, on mesh {ranks[0]['mesh']} "
+        f"({TP_LABEL}); leaves { {k: list(kinds.values()).count(k) for k in sorted(set(kinds.values()))} }")
+    for r, res in enumerate(ranks):
+        got = res["alone"]
+        if got["fits"] != TP_STEPS or set(got["drift"].values()) != {0.0}:
+            raise AssertionError(f"LLaMA tp path (a): rank {r} fits {got['fits']}, drift "
+                                 f"{got['drift']}")
+    if a["bad"] or not (1 - a["routed"][0] > FACTOR_COS and a["routed"][1] < FACTOR_REL):
+        raise AssertionError(f"LLaMA tp path (a): {a['bad']} tensors differ from the 1-rank "
+                             f"run's; the routed updates' worst 1 - cosine {a['routed'][0]!r}, "
+                             f"relative error {a['routed'][1]!r}")
+    log(f"  (a) the optimizer alone, {TP_STEPS} fit steps on {TP_WORLD} ranks "
+        f"({[round(r['alone']['seconds'], 2) for r in ranks]} s): {a['same']} parameter "
+        f"blocks, Q and L bit for bit the 1-rank run's; wte's and lm_head's updates worst "
+        f"1 - cosine {a['routed'][0]!r}, relative error {a['routed'][1]!r}; drift 0.0 over "
+        f"tp on {len(ranks[0]['alone']['drift'])} Q and L")
+    total = {}
+    for r, res in enumerate(ranks):
+        if not all(math.isfinite(x) for x in res["losses"]) or \
+                res["fits"] != [1] * TP_STEPS or not res["first_again"] < res["losses"][0]:
+            raise AssertionError(f"LLaMA tp path (b): rank {r} losses {res['losses']}, on the "
+                                 f"batch after them {res['first_again']}, fits {res['fits']}")
+        want = {k: n * TP_STEPS for k, n in res["per_fit"].items()}
+        got = {k: res["counts"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"LLaMA tp path (b): rank {r} launched {got} in {TP_STEPS} "
+                                 f"fit steps, its layout gives {want}")
+        if set(res["drift"].values()) != {0.0}:
+            raise AssertionError(f"LLaMA tp path (b): rank {r} drift {res['drift']}")
+        share = {k: res["bytes"][k] / one["bytes"][k] for k in ("params", "momentum", "q")}
+        if not (0.24 < share["params"] < 0.27 and 0.24 < share["momentum"] < 0.27
+                and 0.45 < share["q"] < 0.6):
+            raise AssertionError(f"LLaMA tp path (b): rank {r} holds {res['bytes']} bytes, "
+                                 f"the 1-rank run {one['bytes']}")
+        _add(total, res["counts"])
+        log(f"  (b) rank {r}: losses {[round(x, 4) for x in res['losses']]}, the batch's after "
+            f"them {res['first_again']:.4f}; launches per fit step "
+            f"{ {k: v for k, v in res['per_fit'].items() if v} } (the layout's); parameters "
+            f"{res['bytes']['params'] / 1e6:.1f} MB ({share['params']:.3f} of 1 rank's), "
+            f"momentum {res['bytes']['momentum'] / 1e6:.1f} MB ({share['momentum']:.3f}), "
+            f"Q {res['bytes']['q'] / 1e6:.1f} MB ({share['q']:.3f}); peak "
+            f"{res['peak_gb']:.2f} GB; drift 0.0 over tp on {len(res['drift'])} Q and L")
+        log(f"  [{card}; {TP_LABEL}] rank {r}: train step (forward, backward, optimizer; "
+            f"fit) ms {[round(x, 2) for x in res['ms']]}, median after the first "
+            f"{_median(res['ms'][1:])}")
+    if readings["loss_rel"] > TP_LOSS_REL:
+        raise AssertionError(f"LLaMA tp path (b): first loss {ranks[0]['losses'][0]!r}, 1 rank "
+                             f"{one['first_loss']!r}: relative {readings['loss_rel']:.3g}")
+    worst = tuple(max(x) for x in zip(*readings["grads"].values()))
+    if not (worst[0] < LLAMA_TP_GRAD_COS and worst[1] < LLAMA_TP_GRAD_REL):
+        raise AssertionError(f"LLaMA tp path (b): the first step's gradients against the "
+                             f"1-rank model's, per leaf (1 - cosine, relative error) "
+                             f"{readings['grads']}")
+    log(f"  (b) first loss {ranks[0]['losses'][0]!r} against the 1-rank model's "
+        f"{one['first_loss']!r}: relative {readings['loss_rel']!r} (limit {TP_LOSS_REL}); "
+        f"the first step's gradients worst 1 - cosine {worst[0]!r}, relative error "
+        f"{worst[1]!r} (limits {LLAMA_TP_GRAD_COS}, {LLAMA_TP_GRAD_REL}); per leaf "
+        f"{readings['grads']}")
+    log(f"  [{card}] LLaMA tp path {time.perf_counter() - t0:.1f} s; its launches "
+        f"({TP_WORLD} ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
+    return total
+
+
 _DIST_JOBS = {"stack": _stack_job, "pair": _pair_job, "factor": _factor_job,
               "vector": _vector_job, "trainer": _trainer_job, "tp": _tp_job,
-              "tpcut": _tp_cut_job}
+              "tpcut": _tp_cut_job, "llamatp": _llama_tp_job}
 
 
 def log_apply_launches(profiles, card: str) -> None:
@@ -6806,6 +7072,9 @@ def main() -> int:
     check_tiled(dev, 11, 2560, torch.bfloat16, timed=False)
     for n in SHARED_TILED_WIDTHS:   # timed and logged; the rows stay LLaMA's
         check_tiled(dev, 1, n, torch.bfloat16, timed=True)
+    # each tp rank's wqkv factor (the LLaMA tp path's layer), timed
+    for k, row in check_tiled(dev, *LLAMA_TP_TILED, timed=True).items():
+        rows[k]["a8c_llama_tp_shapes"] = [dict(shape=f"{LLAMA_TP_TILED[:2]} bfloat16", **row)]
     rows["norm_bound"]["geometry_shapes"] = check_norm_bound_shapes(dev)
     rows["norm_bound"]["a10a_shapes"] = check_norm_bound_shapes(dev, A10A_BOUND_SHAPES)
     rows["norm_bound"]["ns_widths_shapes"] = check_norm_bound_shapes(
@@ -6883,7 +7152,9 @@ def main() -> int:
              ("Vector-sharded path",
               lambda: (vector_sharded_path(dev, smi), None), (), False, None),
              ("Tensor-parallel trainer path",
-              lambda: (tp_trainer_path(dev, smi), None), (), False, None))
+              lambda: (tp_trainer_path(dev, smi), None), (), False, None),
+             ("Tensor-parallel LLaMA path",
+              lambda: (llama_tp_path(dev, smi), None), (), False, None))
     profiles, fp_small, sweep = {}, [], []
     try:
         for label, drive, probs, tensor_cores, tag in paths:

@@ -170,7 +170,7 @@ class GPT2(nn.Module):
         })
         self.lnf_scale = const(shape["lnf_scale"], 1.0)
         self.lnf_bias = const(shape["lnf_bias"], 0.0)
-        self._tp = _PLAIN       # shard_model's layout
+        self._tp = tensor_parallel.PLAIN    # shard_model's layout
 
     def _block(self, x, bp, lay):
         cfg = self.cfg
@@ -204,15 +204,7 @@ class GPT2(nn.Module):
         cd, lay = self.cfg.compute_dtype, self._tp
         t = tokens.shape[1]
         wte = lay.block(self.wte, "wte")
-        if lay.size == 1:
-            emb = wte[tokens]
-        else:
-            # vocab-parallel: the tokens of this rank's rows, summed over tp
-            n = wte.shape[0]
-            lo = lay.index * n
-            inside = (tokens >= lo) & (tokens < lo + n)
-            rows = wte[(tokens - lo).clamp(0, n - 1)]
-            emb = lay.reduce(torch.where(inside[..., None], rows, 0.0))
+        emb = tensor_parallel.embedding(wte, tokens, lay)
         x = emb.to(cd) + lay.block(self.wpe, "wpe")[:t].to(cd)[None]
         # unbind once per stack: its backward is one stack per leaf
         layers = {k: lay.block(p, f"blocks.{k}").unbind(0)
@@ -232,68 +224,11 @@ class GPT2(nn.Module):
         cd = self.cfg.compute_dtype
         return (self._tp.copy(x) @ wte.t().to(cd)).float()
 
-    def _vocab_parallel_loss(self, tokens, targets) -> torch.Tensor:
-        """The mean cross-entropy over the vocab-parallel logits (tp > 1)."""
-        lay = self._tp
-        logits = self._logits(*self._hidden(tokens))
-        n = logits.shape[-1]
-        lo = lay.index * n
-        m = lay.max_(logits.detach().amax(-1))
-        total = lay.reduce(torch.exp(logits - m[..., None]).sum(-1))
-        inside = (targets >= lo) & (targets < lo + n)
-        # the target's logit where this rank holds it, else 0 (nll_loss's
-        # ignored rows): its backward has a deterministic CUDA kernel
-        mine = -F.nll_loss(logits.reshape(-1, n),
-                           torch.where(inside, targets - lo, -100).reshape(-1),
-                           reduction="none", ignore_index=-100)
-        target = lay.reduce(mine.reshape(targets.shape))
-        return torch.mean(torch.log(total) + m - target)
-
 
 def _heads(n_head: int, tp: int, index: int):
     """The heads tp rank ``index`` of ``tp`` attends with."""
     k = n_head // tp
     return slice(index * k, (index + 1) * k)
-
-
-class _TPLayout:
-    """A model's tensor-parallel layout: the tp group, its size and this
-    rank's index on it, and per sharded parameter the (group, tensor dim)
-    gathers that make its block its tp block (the minor mesh dim first).
-    The unsharded model's, ``_PLAIN``, has size 1 and no gathers: every
-    collective is then the identity."""
-
-    def __init__(self, group=None, size: int = 1, index: int = 0,
-                 gathers: dict | None = None):
-        self.group, self.size, self.index = group, size, index
-        self.gathers = gathers or {}
-
-    def block(self, p, name: str):
-        """Parameter ``name``'s tp block: a sharded one's local block (in
-        the autograd graph) gathered over the other mesh dims that shard
-        it; an unsharded one as it is."""
-        if name not in self.gathers:
-            return p
-        x = p.to_local()
-        for group, dim in self.gathers[name]:
-            x = tensor_parallel.gather(x, group, dim)
-        return x
-
-    def copy(self, x):
-        return x if self.size == 1 else tensor_parallel.copy(x, self.group)
-
-    def reduce(self, x):
-        return x if self.size == 1 else tensor_parallel.reduce(x, self.group)
-
-    def gather(self, x, dim: int):
-        return x if self.size == 1 else \
-            tensor_parallel.gather(x, self.group, dim)
-
-    def max_(self, x):
-        return tensor_parallel.max_(x, self.group)
-
-
-_PLAIN = _TPLayout()
 
 
 # the tensor dim that tp shards in the JAX layout (others: replicated)
@@ -306,66 +241,13 @@ def shard_model(model: GPT2, mesh, placements: dict | None = None) -> GPT2:
     """Place ``model``'s parameters on ``mesh`` (``placements``: name ->
     DTensor placements, default ``parallel.gpt2_partition_specs(mesh)``)
     and switch its forward to the tensor-parallel one (module docstring);
-    returns the model.  Each DTensor parameter is cut from the whole
-    tensor this rank holds (every rank must hold the same, as the seeded
-    init makes them; no collective).  The mesh dim "tp" (absent: tp 1) must
-    shard the dims the JAX layout shards over tp and no other; the other
-    mesh dims may shard any dim tp does not.  Every rank calls it alike.
-    Raises ValueError for another layout."""
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-    import torch.distributed as dist
+    returns the model.  The layout's rules and refusals are
+    ``parallel.tensor_parallel.shard``'s over ``_TP_DIMS``: tp must shard
+    the dims the JAX layout shards over tp and no other.  Every rank calls
+    it alike.  Raises ValueError for another layout."""
     from ..parallel.mesh import gpt2_partition_specs
-    if model._tp is not _PLAIN:
-        raise ValueError("the model is sharded already")
-    names = tuple(mesh.mesh_dim_names)
-    placements = placements or gpt2_partition_specs(mesh)
-    params = dict(model.named_parameters())
-    if sorted(placements) != sorted(params):
-        raise ValueError(f"placements name {sorted(placements)}, the model "
-                         f"has {sorted(params)}")
-    coord = mesh.get_coordinate()
-
-    def group_of(md):
-        group = mesh.get_group(md)
-        if dist.get_rank(group) != coord[md]:
-            raise ValueError(f"mesh dim {names[md]}: the group's rank order "
-                             "is not the mesh's")
-        return group
-
-    t_md = names.index("tp") if "tp" in names else None
-    tp_size = 1 if t_md is None else mesh.size(t_md)
-    gathers = {}
-    for name, p in params.items():
-        pl = tuple(placements[name])
-        want = _TP_DIMS.get(name)
-        have = Replicate() if t_md is None else pl[t_md]
-        if tp_size > 1 and not (have == Replicate() if want is None else
-                                have == Shard(want)):
-            raise ValueError(f"{name}: placements {pl} put tp on "
-                             f"{have}; the tensor-parallel forward takes "
-                             f"{'Replicate()' if want is None else Shard(want)}")
-        steps = []
-        for md, x in enumerate(pl):
-            if not isinstance(x, (Shard, Replicate)):
-                raise ValueError(f"{name}: placement {x} is neither Shard "
-                                 "nor Replicate")
-            if md == t_md or isinstance(x, Replicate):
-                continue
-            d = x.dim % p.ndim
-            if tp_size > 1 and d == want:
-                raise ValueError(f"{name}: placements {pl} shard dim {d} over "
-                                 f"tp and {names[md]}")
-            steps.append((group_of(md), d))
-        gathers[name] = steps[::-1]              # the minor mesh dim first
-    with torch.no_grad():
-        for name, p in params.items():
-            dt = distribute_tensor(p.detach(), mesh, tuple(placements[name]),
-                                   src_data_rank=None)
-            owner, attr = (model.blocks, name.split(".", 1)[1]) \
-                if name.startswith("blocks.") else (model, name)
-            setattr(owner, attr, nn.Parameter(dt, requires_grad=p.requires_grad))
-    model._tp = _TPLayout(None if t_md is None else group_of(t_md), tp_size,
-                          0 if t_md is None else coord[t_md], gathers)
+    model._tp = tensor_parallel.shard(
+        model, mesh, placements or gpt2_partition_specs(mesh), _TP_DIMS)
     return model
 
 
@@ -374,7 +256,8 @@ def loss_gpt2(model: GPT2, tokens: torch.Tensor,
     """Mean next-token cross-entropy with float32 logits (a sharded
     model's over its vocab-parallel logits)."""
     if model._tp.size > 1:
-        return model._vocab_parallel_loss(tokens, targets)
+        return tensor_parallel.cross_entropy(
+            model._logits(*model._hidden(tokens)), targets, model._tp)
     logits = model(tokens)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))

@@ -13,6 +13,36 @@ Numerics follow the JAX model: float32 parameters cast to ``compute_dtype``
 at each use, RMSNorm in float32 with eps 1e-5, half-split RoPE with float32
 angles, causal attention through PyTorch's scaled_dot_product_attention
 (query head j reads kv head j // (h / kv)), float32 logits.
+
+``shard_model(model, mesh)`` places the parameters as JAX
+``llama_partition_specs`` places them on a (dp, fsdp, tp) mesh (DTensor
+parameters, each rank its block) and switches the forward to the
+tensor-parallel one, which computes what JAX's ``loss_llama`` computes
+under GSPMD on the same parameters.  The machinery is GPT-2's
+(``parallel.tensor_parallel``: each block gathered over the mesh dims
+other than tp, the vocab-parallel embedding and cross-entropy); what
+LLaMA adds:
+
+* ``wqkv``'s (h + 2 kv) hd columns are cut contiguously over tp, so its
+  output is gathered over tp and each rank takes its query heads [r h/tp,
+  (r+1) h/tp) and the kv heads those read (``_heads``): with kv a multiple
+  of tp, kv heads [r kv/tp, (r+1) kv/tp); with kv < tp a kv head is read
+  by several ranks, and the sum over tp in the gather's backward makes its
+  gradient whole.  RoPE is applied per head after the split (its positions
+  do not change);
+* ``w_gu``'s columns are [gate | up], cut contiguously too (tp 2: rank 0
+  holds every gate column), so its output is gathered over tp and each
+  rank takes hidden block r of g and of u (``_gate_up``); ``w_down``
+  row-parallel on that block;
+* ``wo`` and ``w_down`` row-parallel, their products summed over tp in
+  float32; the RMSNorm scales replicated;
+* the logits vocab-parallel: from ``lm_head``'s tp columns (placed
+  (fsdp, tp)) or, tied, from ``wte``'s tp rows; ``forward`` gathers them
+  whole, ``loss_llama`` takes the vocab-parallel cross-entropy.
+
+Every rank of a tp group must see the same tokens.  On a mesh whose tp
+dim is 1 the sharded forward is the plain one, bit for bit.  ``cfg.remat``
+recomputes each block, its tp collectives included, at every tp size.
 """
 
 from __future__ import annotations
@@ -26,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..parallel import tensor_parallel
 from .gpt2 import params_from_jax, synthetic_lm_batch  # noqa: F401  (shared)
 
 
@@ -148,43 +179,116 @@ class Llama(nn.Module):
         self.rmsf_scale = ones((d,))
         self.lm_head = None if cfg.tie_embeddings else \
             normal((d, cfg.vocab_size))
+        self._tp = tensor_parallel.PLAIN    # shard_model's layout
 
-    def _block(self, x, bp):
+    def _block(self, x, bp, lay):
         cfg = self.cfg
         b, t, _ = x.shape
         h, kv, hd, cd = cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.compute_dtype
+        qh, kvh = _heads(h, kv, lay.size, lay.index)
         y = _rms_norm(x, bp["rms1_scale"])
-        qkv = y @ bp["wqkv"].to(cd)
+        qkv = lay.copy(y) @ bp["wqkv"].to(cd)
+        # every tp rank's columns, then this rank's query heads and the kv
+        # heads they read
+        qkv = lay.copy(lay.gather(qkv, -1))
         q, k, v = qkv.split([h * hd, kv * hd, kv * hd], dim=-1)
-        q = _rope(q.reshape(b, t, h, hd), cfg.rope_theta)
-        k = _rope(k.reshape(b, t, kv, hd), cfg.rope_theta)
-        att = attention(q, k, v.reshape(b, t, kv, hd))
-        x = x + att.reshape(b, t, h * hd) @ bp["wo"].to(cd)
+        q = _rope(q.reshape(b, t, h, hd)[:, :, qh], cfg.rope_theta)
+        k = _rope(k.reshape(b, t, kv, hd)[:, :, kvh], cfg.rope_theta)
+        att = attention(q, k, v.reshape(b, t, kv, hd)[:, :, kvh])
+        # the row-parallel products' partial sums, summed over tp
+        x = x + lay.reduce(att.reshape(b, t, -1) @ bp["wo"].to(cd))
         y = _rms_norm(x, bp["rms2_scale"])
-        g, u = (y @ bp["w_gu"].to(cd)).chunk(2, dim=-1)
-        return x + (F.silu(g) * u) @ bp["w_down"].to(cd)
+        gu = lay.copy(lay.gather(lay.copy(y) @ bp["w_gu"].to(cd), -1))
+        g, u = _gate_up(gu, lay.size, lay.index)
+        return x + lay.reduce((F.silu(g) * u) @ bp["w_down"].to(cd))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, T) int tokens -> (B, T, vocab) float32 logits."""
-        cfg = self.cfg
-        cd = cfg.compute_dtype
-        x = self.wte[tokens].to(cd)
+        return self._tp.gather(self._logits(*self._hidden(tokens)), -1)
+
+    def _hidden(self, tokens: torch.Tensor):
+        """(the final RMSNorm's output, this rank's tp block of the head:
+        (d, V/tp))."""
+        cfg, lay = self.cfg, self._tp
+        wte = lay.block(self.wte, "wte")
+        x = tensor_parallel.embedding(wte, tokens, lay).to(cfg.compute_dtype)
         # unbind once per stack: its backward is one stack per leaf
-        layers = {k: p.unbind(0) for k, p in self.blocks.items()}
+        layers = {k: lay.block(p, f"blocks.{k}").unbind(0)
+                  for k, p in self.blocks.items()}
         for i in range(cfg.n_layer):
             bp = {k: v[i] for k, v in layers.items()}
             if cfg.remat:
-                x = checkpoint(self._block, x, bp, use_reentrant=False)
+                x = checkpoint(self._block, x, bp, lay, use_reentrant=False)
             else:
-                x = self._block(x, bp)
-        x = _rms_norm(x, self.rmsf_scale)
-        head = self.wte.t() if cfg.tie_embeddings else self.lm_head
-        return (x @ head.to(cd)).float()
+                x = self._block(x, bp, lay)
+        x = _rms_norm(x, lay.block(self.rmsf_scale, "rmsf_scale"))
+        head = wte.t() if cfg.tie_embeddings else lay.block(self.lm_head, "lm_head")
+        return x, head
+
+    def _logits(self, x, head) -> torch.Tensor:
+        """This rank's columns of the logits, float32."""
+        return (self._tp.copy(x) @ head.to(self.cfg.compute_dtype)).float()
+
+
+def _heads(n_head: int, n_kv_head: int, tp: int, index: int):
+    """(the query heads tp rank ``index`` of ``tp`` attends with, the kv
+    heads they read, in the order ``attention`` pairs them).  Query head j
+    reads kv head j // (h / kv); the rank's query heads [a, a + m) read kv
+    heads [a // g, (a + m - 1) // g + 1), taken as one slice when GQA's
+    grouping of the m heads over them is that reading (every m / n query
+    heads one kv head), else one kv head per query head."""
+    m, g = n_head // tp, n_head // n_kv_head
+    a = index * m
+    lo, hi = a // g, (a + m - 1) // g + 1
+    n = hi - lo
+    if m % n == 0 and all((a + j) // g - lo == j // (m // n) for j in range(m)):
+        return slice(a, a + m), slice(lo, hi)
+    return slice(a, a + m), [(a + j) // g for j in range(m)]
+
+
+def _gate_up(gu: torch.Tensor, tp: int, index: int):
+    """(g, u): hidden block ``index`` of ``tp`` of the gate and of the up
+    projection from the whole [gate | up] output."""
+    hidden = gu.shape[-1] // 2
+    k = hidden // tp
+    lo = index * k
+    return gu[..., lo:lo + k], gu[..., hidden + lo:hidden + lo + k]
+
+
+# the tensor dim that tp shards in the JAX layout (others: replicated)
+_TP_DIMS = {"wte": 0, "lm_head": 1, "blocks.wqkv": 2, "blocks.wo": 1,
+            "blocks.w_gu": 2, "blocks.w_down": 1}
+
+
+def shard_model(model: Llama, mesh, placements: dict | None = None) -> Llama:
+    """Place ``model``'s parameters on ``mesh`` (``placements``: name ->
+    DTensor placements, default ``parallel.llama_partition_specs(mesh,
+    model)``) and switch its forward to the tensor-parallel one (module
+    docstring); returns the model.  The layout's rules and refusals are
+    ``parallel.tensor_parallel.shard``'s over ``_TP_DIMS``.  Every rank
+    calls it alike.  Raises ValueError, naming the dim, when ``n_head``,
+    ``hidden_dim`` or ``vocab_size`` is not a multiple of the mesh's tp
+    dim, or for a tp placement the forward does not take."""
+    from ..parallel.mesh import llama_partition_specs
+    names = tuple(mesh.mesh_dim_names)
+    tp = mesh.size(names.index("tp")) if "tp" in names else 1
+    cfg = model.cfg
+    for dim in ("n_head", "hidden_dim", "vocab_size"):
+        if getattr(cfg, dim) % tp:
+            raise ValueError(f"{dim} {getattr(cfg, dim)} is not a multiple of "
+                             f"the mesh's tp {tp}")
+    model._tp = tensor_parallel.shard(
+        model, mesh, placements or llama_partition_specs(mesh, model), _TP_DIMS)
+    return model
 
 
 def loss_llama(model: Llama, tokens: torch.Tensor,
                targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy with float32 logits."""
+    """Mean next-token cross-entropy with float32 logits (a sharded
+    model's over its vocab-parallel logits)."""
+    if model._tp.size > 1:
+        return tensor_parallel.cross_entropy(
+            model._logits(*model._hidden(tokens)), targets, model._tp)
     logits = model(tokens)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))

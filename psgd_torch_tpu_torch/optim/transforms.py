@@ -62,11 +62,12 @@ then assembled on every rank by one ``all_gather`` of their bytes
 gradients, momentum, gate and init scale, stay replicated: the ranks
 must see the same gradients (average them first, as DDP does).  Under
 ``stack_sharding`` a leaf may also be a DTensor parameter that is not
-routed, as FSDP2 (``fully_shard``) or ``models.gpt2.shard_model`` leave
-them: a stack the optimizer shards whose local block is the rank's layers
-``Shard(0)`` is fitted, applied and stepped in place on that block, never
-gathered, its momentum the block's; a stack the optimizer shards whose
-block is sharded within its layers (JAX ``gpt2_partition_specs``'
+routed, as FSDP2 (``fully_shard``) or the ``shard_model`` of
+``models.gpt2`` and ``models.llama`` leave them: a stack the optimizer
+shards whose local block is the rank's layers ``Shard(0)`` is fitted,
+applied and stepped in place on that block, never gathered, its momentum
+the block's; a stack the optimizer shards whose block is sharded within
+its layers (JAX ``gpt2_partition_specs``' and ``llama_partition_specs``'
 ``(None, fsdp, tp)``) has its sources resharded to the rank's layers by
 bytes (``parallel.mesh.LayerReshard``: an ``all_to_all_single`` over the
 stack axis, an ``all_gather`` over the other dims that shard it), fitted
@@ -76,9 +77,9 @@ other (a diagonal stack, an unscanned leaf) is made whole by an
 ``all_gather`` of bytes (``parallel.gather_whole``), fitted and applied
 as a replicated leaf, and its update's block written back, its momentum
 the block's too.  KronNewton takes such leaves through the closure
-(autograd differentiates the DTensor parameters, which
-``models.gpt2.shard_model``'s forward reaches; under FSDP2 it cannot and
-raises) or through ``step(hvp_fn=)`` / ``step(vs=, hvs=)``.  ``_pieces``
+(autograd differentiates the DTensor parameters, which the
+``shard_model`` forwards of ``models.gpt2`` and ``models.llama`` reach;
+under FSDP2 it cannot and raises) or through ``step(hvp_fn=)`` / ``step(vs=, hvs=)``.  ``_pieces``
 and ``_unsharded_layout`` say where each rank's state sits in the
 unsharded optimizer's, for checkpoints across world sizes
 (``utils.gather_checkpoint``).
@@ -656,9 +657,13 @@ class _Kron(_Resumable):
                 st = self._compute_blocks(i, st)
             if f:
                 n = self._global_shape(i, t)[0] if s is None else s.stop - s.start
+                # contiguous copies: clone keeps an expanded one-layer stack's
+                # stride 0, whose bytes no collective can view
                 st = kron_p.KronState(
-                    q=tuple(x.expand((n,) + x.shape).clone() for x in st.q),
-                    lips=tuple(x.expand(n).clone() for x in st.lips))
+                    q=tuple(x.expand((n,) + x.shape).clone(
+                        memory_format=torch.contiguous_format) for x in st.q),
+                    lips=tuple(x.expand(n).clone(memory_format=torch.contiguous_format)
+                               for x in st.lips))
             state = self.state[t]
             state["q"], state["lips"] = st.q, st.lips
             if cache_p:
@@ -1486,7 +1491,8 @@ class KronNewton(_Kron):
                     "(fully_shard) the forward runs on the unsharded parameters "
                     "FSDP2 swaps in, not these shards, so the exact Hvp cannot "
                     "differentiate them. Shard the model with "
-                    "models.gpt2.shard_model (its collectives are in the "
+                    "models.gpt2.shard_model or models.llama.shard_model (their "
+                    "collectives are in the "
                     "autograd graph), or pass step(hvp_fn=...) or "
                     "step(vs=..., hvs=...) computed on the model (ROADMAP A8c)")
             return loss

@@ -587,7 +587,8 @@ def drift_check(tensors, group=None):
     src = 0 if group is None else dist.get_global_rank(group, 0)
     out = []
     for x in xs:
-        x0 = x.detach().clone()
+        # a contiguous copy, its bytes a view that the broadcast writes
+        x0 = x.detach().clone(memory_format=torch.contiguous_format)
         dist.broadcast(_bytes(x0), src=src, group=group)
         d = torch.amax(torch.abs(x.detach() - x0)) if x.numel() else \
             torch.zeros((), device=x.device)

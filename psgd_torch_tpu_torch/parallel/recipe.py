@@ -29,16 +29,17 @@ replicated (left to FSDP2 as ignored parameters)::
     fully_shard(model, **recipe.fsdp_kwargs(model))
     opt = KronWhiten(model.named_parameters(), **recipe.transform_kwargs)
 
-``models.gpt2.shard_model`` takes the same map on any mesh (the trainer,
-``examples/train_gpt2_sharded.py``, shards so at every tp size).  On a
-mesh whose "tp" dim is larger than 1 (JAX's production layout, (dp, fsdp,
-tp)), ``model_placements()`` is the map itself, the blocks placed within
-their layers as JAX's recipe places them, and only the model shards
-itself, tensor parallelism inside its forward (not FSDP2)::
+``models.gpt2.shard_model`` and ``models.llama.shard_model`` take the
+same map on any mesh (the trainer, ``examples/train_gpt2_sharded.py``,
+shards so at every tp size).  On a mesh whose "tp" dim is larger than 1
+(JAX's production layout, (dp, fsdp, tp)), ``model_placements()`` is the
+map itself, the blocks placed within their layers as JAX's recipe places
+them, and only the model shards itself, tensor parallelism inside its
+forward (not FSDP2)::
 
-    recipe = sharding_recipe(mesh, gpt2_partition_specs(mesh),
+    recipe = sharding_recipe(mesh, llama_partition_specs(mesh, model),
                              model.named_parameters(), scanned_layers=mask)
-    gpt2.shard_model(model, mesh, recipe.model_placements())
+    llama.shard_model(model, mesh, recipe.model_placements())
     opt = KronWhiten(model.named_parameters(), **recipe.transform_kwargs)
 """
 
@@ -105,7 +106,8 @@ class ShardingRecipe:
         """Name -> the placements the model's parameters take.  On a mesh
         whose tp dim is larger than 1 (``within_layers``): the map's, every
         leaf (JAX's recipe ``place``: the blocks ``(None, fsdp, tp)``, for
-        ``models.gpt2.shard_model``).  Otherwise the layer-sharded one
+        ``models.gpt2.shard_model`` and ``models.llama.shard_model``).
+        Otherwise the layer-sharded one
         (FSDP2's, or ``shard_model``'s): a routed leaf the map's; a stack
         the optimizer shards (scanned, unpooled, the stack axis resolved)
         ``Shard(0)`` over the stack axis; every other leaf
@@ -141,7 +143,8 @@ class ShardingRecipe:
         gradients must then be equal on every rank, or averaged by the
         caller).  Raises ValueError for a placement FSDP2 cannot take,
         and on a mesh whose tp dim is larger than 1: the port does not hand
-        that layout to FSDP2 (``models.gpt2.shard_model`` shards it, its
+        that layout to FSDP2 (``models.gpt2.shard_model`` or
+        ``models.llama.shard_model`` shards it, its
         forward gathering the fsdp blocks itself), because under FSDP2 the
         forward runs on the unsharded parameters FSDP2 swaps in, which
         autograd from the loss reaches instead of the DTensor shards, so
@@ -151,8 +154,9 @@ class ShardingRecipe:
         if self.within_layers:
             raise ValueError(
                 "fsdp_kwargs: the mesh's tp dim is larger than 1; "
-                "the port shards this layout with models.gpt2.shard_model(model, "
-                "mesh, recipe.model_placements()), not FSDP2: under FSDP2 "
+                "the port shards this layout with models.gpt2.shard_model or "
+                "models.llama.shard_model(model, mesh, "
+                "recipe.model_placements()), not FSDP2: under FSDP2 "
                 "autograd from the loss reaches the unsharded parameters FSDP2 "
                 "swaps in, not the DTensor shards that KronNewton's exact Hvp "
                 "differentiates (ROADMAP A8c)")

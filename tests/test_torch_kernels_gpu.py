@@ -564,10 +564,12 @@ def test_step_mat_is_checked(dev):
                 call()
 
 
-@pytest.mark.parametrize("n", [2304, 3072])
+@pytest.mark.parametrize("n", [2304, 2560, 3072])
 def test_tiled_route_one_layer_wide(dev, n):
     """The tiled route at B = 1 and the widths of GPT-2 124M's shared stacks
-    (2304 = 18 x 128, 3072 = 24 x 128, bf16): q' and L' within the route
+    (2304 = 18 x 128, 3072 = 24 x 128, bf16) and of LLaMA-1.1B's wqkv
+    factor on each rank of the tensor-parallel path (2560, its one layer
+    there): q' and L' within the route
     tolerances of the plain route, the same bits twice, the spd bound at
     most 1.001 x the true norm."""
     assert kernels.ns_route(n, torch.bfloat16) == "tiled"

@@ -6,9 +6,9 @@
 Each PATH is a function of chip_smoke.py that takes (device, card) and
 drives one path: for example ``stack_sharded_path pair_paths
 factor_sharded_path vector_sharded_path sharded_trainer_path
-tp_trainer_path`` (the distributed paths; ``tp_trainer_path`` is GPT-2
-124M in JAX's (dp 1, fsdp 2, tp 2) layout on 4 rank processes of one card
-over gloo), ``vector_fault_margin`` and ``tp_fault_margin`` (the
+tp_trainer_path llama_tp_path`` (the distributed paths; ``tp_trainer_path``
+is GPT-2 124M's widths and ``llama_tp_path`` LLaMA-1.1B's in JAX's (dp 1,
+fsdp 2, tp 2) layout on 4 rank processes of one card over gloo), ``vector_fault_margin`` and ``tp_fault_margin`` (the
 vector-sharded and tensor-parallel paths' runs with a planted fault
 each), ``legacy_path`` (the legacy families), ``examples_path
 ns_widths_path`` (the five examples ported from examples/ and the
