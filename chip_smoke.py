@@ -387,6 +387,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 import zlib
 from datetime import timedelta
@@ -408,6 +409,7 @@ from psgd_torch_tpu_torch.optim import (DenseNewton, KronNewton, KronWhiten,
 from psgd_torch_tpu_torch.optim import legacy_transforms as legacy_optim
 from psgd_torch_tpu_torch.optim import transforms as _transforms
 from psgd_torch_tpu_torch.precond import affine as affine_p
+from psgd_torch_tpu_torch.precond import dense as dense_p
 from psgd_torch_tpu_torch.precond import kron as kron_p
 from psgd_torch_tpu_torch.precond import legacy as legacy_p
 from psgd_torch_tpu_torch.precond import lra as lra_p
@@ -4250,6 +4252,49 @@ def check_noise_complex_shapes(dev, lib_path, shapes=CXL_NOISE_SHAPES) -> list:
     return out
 
 
+# row 2's complex mode at the vector-sharded complex arms' shapes (ROADMAP
+# A3c): a shard of 2 of the least squares' vector (arms D and E) and the
+# dense arm's padded n over 3 ranks (F)
+CX_VECTOR_NOISE_SHAPES = ((1, CX_LAYERS * sum(m * d for m, d in CX_SHAPES) // 2), (1, 1701))
+
+
+def check_vector_noise_complex(dev, lib_path) -> list:
+    """Row 2's complex mode (complex64) bit for bit against its plain
+    version at the keys arms D, E and F launch it under on their first
+    fit: D's probe and damping (unit and fused) and E's damping at (1, n/2)
+    under each shard's folded key, F's damping at (1, 1701) under the
+    unfolded key; then both shapes timed and bounded as
+    ``check_noise_complex_shapes`` does (beside ``torch.randn`` in
+    complex64).  Returns the entries for the ``kernels`` line's row 2."""
+    dtype = torch.complex64
+    (_, n_loc), (_, n_pad) = CX_VECTOR_NOISE_SHAPES
+    gen = torch.Generator(device=dev).manual_seed(37)
+    g = torch.randn((1, n_loc), generator=gen, device=dev, dtype=dtype)
+    cases = [(n_loc, key, mode) for key in vector_noise_seeds(3, 2) for mode in ("unit", "fused")] \
+        + [(n_loc, key, "fused") for key in vector_noise_seeds(4, 2)] \
+        + [(n_pad, key, "fused") for key in vector_noise_seeds(4, 1, False)]
+    differ = []
+    for n, key, mode in cases:
+        seeds = kernels.key_seed_words(fastrand.noise_keys(key[None], dtype), dev)
+        if mode == "unit":
+            a = kernels.unit_noise(seeds, (n,), dtype)
+            b = kernels.unit_noise_plain(seeds, (n,), dtype)
+        else:
+            a = kernels.damped_noise(g[:, :n], seeds, 1e-9)
+            b = kernels.damped_noise_plain(g[:, :n], seeds, 1e-9)
+        if not _same_bits(a, b):
+            differ.append((n, mode))
+        del a, b
+    del g
+    if differ:
+        raise AssertionError(f"complex noise at the vector-sharded arms' keys differs from "
+                             f"its plain version: {differ}")
+    log(f"noise complex64 bit for bit at the vector-sharded complex arms' {len(cases)} "
+        f"(shape, key, mode) launches: (1, {n_loc}) unit and fused under each shard's "
+        f"folded key (arms D, E), (1, {n_pad}) fused unfolded (F)")
+    return check_noise_complex_shapes(dev, lib_path, CX_VECTOR_NOISE_SHAPES)
+
+
 _CXL_OPTIMIZERS = {cls.__name__: cls for cls in (
     LRAWhiten, LRANewton, DenseNewton, legacy_optim.XMat, legacy_optim.SPLU,
     legacy_optim.NewtonInv, legacy_optim.UVd, legacy_optim.Affine)}
@@ -5148,8 +5193,8 @@ def _counted(fn, total: dict) -> float:
 
 def _agree(a, b) -> tuple:
     """(1 - cosine, relative error |a - b| / |b|) of an update a against
-    the reference's b, in float64."""
-    a, b = a.detach().double().flatten(), b.detach().double().flatten()
+    the reference's b, in float64 (complex values as ``_real64`` pairs)."""
+    a, b = _real64(a), _real64(b)
     return (float(1 - a @ b / (a.norm() * b.norm())),
             float((a - b).norm() / b.norm()))
 
@@ -5427,20 +5472,32 @@ def factor_sharded_path(dev, card: str) -> dict:
 # 124M's whole parameter vector, its rows over 2 ranks (arm A by
 # LRAWhiten, B by LRANewton, __graft_entry__.py:159-186's recipe at rank
 # 4), and on the tensor-rank problem (n = 1700) dense QEQ over 4 ranks and
-# 3 (n_pad 1701) and LRANewton over 3 (arm C)
+# 3 (n_pad 1701) and LRANewton over 3 (arm C); complex64 (ROADMAP A3c): the
+# complex LRA path's least squares (CXL_PROBLEMS["full"], n = 28,311,552)
+# by LRAWhiten (arm D) and LRANewton (E) over 2 ranks, and its dense
+# problem (n = 1700) by DenseNewton QEQ over 3 ranks, n_pad 1701 (F)
 VECTOR_RANK = 4
-VECTOR_FITS = {"whiten": 3, "newton": 2}
+VECTOR_FITS = {"whiten": 3, "newton": 2, "cx_whiten": 3, "cx_newton": 2}
 VECTOR_BATCH = {"whiten": 4, "newton": 2}
-VECTOR_LABELS = {"whiten": "GPT-2 124M LRAWhiten", "newton": "GPT-2 124M LRANewton"}
+VECTOR_LABELS = {"whiten": "GPT-2 124M LRAWhiten", "newton": "GPT-2 124M LRANewton",
+                 "cx_whiten": "complex64 least squares LRAWhiten",
+                 "cx_newton": "complex64 least squares LRANewton"}
 VECTOR_CP_STEPS = 6
-VECTOR_LABEL = "2 ranks (4 and 3 in arm C) sharing one H100 over gloo, not scaling figures"
+VECTOR_CX_DENSE_STEPS = 4
+VECTOR_LABEL = ("2 ranks (4 and 3 in arms C and F) sharing one H100 over gloo, not "
+                "scaling figures")
 # per fit step and rank: whitening's probe and damping at (1, n/k) f32;
 # Newton's damping at (1, n/k) and GPT-2's 16 probes (rand_like, unfolded,
 # drawn by rank 0's pass, ``_newton_pass_from``); on the tensor-rank
-# problem the damping and its 3 probes
+# problem the damping and its 3 probes; the complex arms' the same draws,
+# every one in the noise kernel's complex mode (".complex")
+_CX_MODE = lambda per_fit: dict(per_fit, **{f"{k}.complex": v for k, v in per_fit.items()})
 VECTOR_PER_FIT = {"whiten": {"unit_noise": 1, "damped_noise": 1},
                   "newton": {"unit_noise": GPT2_LEAVES, "damped_noise": 1},
-                  "cp": {"unit_noise": CP_LEAVES, "damped_noise": 1}}
+                  "cp": {"unit_noise": CP_LEAVES, "damped_noise": 1},
+                  "cx_whiten": _CX_MODE({"unit_noise": 1, "damped_noise": 1}),
+                  "cx_newton": _CX_MODE({"unit_noise": len(CX_SHAPES), "damped_noise": 1}),
+                  "cx_dense": _CX_MODE({"unit_noise": 1, "damped_noise": 1})}
 # arms A and B against their 1-rank references fed the same per-shard
 # draws, per step update and per state field (U, V, d): 1 - cosine and
 # |x_k - x_1| / |x_1|; the limits sit between the sound arms' readings and
@@ -5449,19 +5506,35 @@ VECTOR_PER_FIT = {"whiten": {"unit_noise": 1, "damped_noise": 1},
 # V^T x) 1.7e-8 and 1.9e-4 (PERF.md, the vector-sharded slice's call 1)
 VECTOR_COS = 1e-9
 VECTOR_REL = 5e-5
+# arms D and E (complex64) likewise, on the complex values (1 - Re<a, b> /
+# (|a| |b|)), and arm F's updates and Q rows against its 1-rank run, each
+# ~10x over its sound reading and under its planted faults' (an H100 80GB
+# HBM3 at 700 W, PERF.md §6, the complex vector-sharded arms): D sound 9.4e-12 / 4.6e-6, "vtx" 3.1e-10 / 2.5e-5, "unfolded"
+# 0.55 / 1.2, "unconj" 0.30 / 190; E sound 7.1e-11 / 2.0e-5, "unfolded"
+# 5.0e-6 / 3.5e-3, "unconj" 0.80 / 259 ("vtx" 2.2e-10 / 2.3e-5 is not
+# apart from sound there: arm B and the CPU tests hold it); F sound 3.1e-11 /
+# 1.3e-5, "densesum" 1.3 / 266 ("unmasked" reads on the pad gate)
+VECTOR_LIMITS = {"whiten": (VECTOR_COS, VECTOR_REL), "newton": (VECTOR_COS, VECTOR_REL),
+                 "cx_whiten": (1e-10, 5e-5), "cx_newton": (1e-9, 2e-4),
+                 "cx_dense": (1e-9, 2e-4)}
 # arm C's dense QEQ against the 1-rank run: the parameters after each step
 VECTOR_CP_REL = 1e-3
 # a fit step's collectives per rank but the update's all_gather: the fit's
-# r x r and r-sized sums and its scalars, a few hundred bytes at r = 4
-VECTOR_SMALL_BYTES = 4096
-VECTOR_FAULTS = ("none", "vtx", "unfolded", "unmasked")
+# r x r and r-sized sums and its scalars, a few hundred bytes at r = 4 (a
+# few thousand at the complex arms' rank 10 in complex64)
+VECTOR_SMALL_BYTES = {"whiten": 4096, "newton": 4096, "cx_whiten": 8192,
+                      "cx_newton": 8192}
+VECTOR_FAULTS = ("none", "vtx", "unfolded", "unmasked", "unconj", "densesum")
 
 
 def _plant_vector_fault() -> str:
     """The fault ``VECTOR_FAULT`` names (``vector_fault_margin``), planted in
-    this rank's precond.lra: "vtx" drops the sum of V^T x over the rows,
-    "unfolded" keys every shard's probe alike, "unmasked" leaves the probe
-    and h on the pad rows."""
+    this rank's precond.lra and precond.dense: "vtx" drops the sum of V^T x
+    over the rows, "unfolded" keys every shard's probe alike, "unmasked"
+    leaves the probe and h on the pad rows (LRA) and the damping on them
+    (dense), "unconj" takes the row-sharded norm's squares as x x without
+    the conjugate, "densesum" drops the row-sharded QEQ fit's sum of
+    Q^T Q h over the ranks."""
     fault = os.environ.get("VECTOR_FAULT", "none")
     if fault == "vtx":
         own = lra_p.ip_uvt_matvec
@@ -5471,6 +5544,20 @@ def _plant_vector_fault() -> str:
     elif fault == "unmasked":
         lra_p._pad_zero = lambda h, mask: h
         lra_p._masked = lambda v, h, mask: (v, h)
+        own_dense = dense_p.update_dense_qeq_row_sharded
+        dense_p.update_dense_qeq_row_sharded = (
+            lambda q, lips, v, h, key, reduce, n_true, **kw:
+            own_dense(q, lips, v, h, key, reduce, h.shape[0], **kw))
+    elif fault == "unconj":
+        own_norm = lra_p._norm
+        lra_p._norm = lambda x, reduce: (own_norm(x, reduce) if reduce is None else
+                                         torch.sqrt(reduce.sum(torch.sum(x * x))))
+    elif fault == "densesum":
+        own_dense = dense_p.update_dense_qeq_row_sharded
+        own_sum = types.SimpleNamespace(sum=lambda x: x)
+        dense_p.update_dense_qeq_row_sharded = (
+            lambda q, lips, v, h, key, reduce, n_true, **kw:
+            own_dense(q, lips, v, h, key, own_sum, n_true, **kw))
     return fault
 
 
@@ -5505,7 +5592,48 @@ def _vector_kw(arm: str, dev) -> tuple:
               device=dev)
     if arm == "whiten":
         return LRAWhiten, dict(kw, momentum=0.9)
-    return LRANewton, dict(kw, grad_clip_max_norm=10.0, damping=1e-3)
+    if arm == "newton":
+        return LRANewton, dict(kw, grad_clip_max_norm=10.0, damping=1e-3)
+    # arms D and E: the complex LRA path's arms (CXL_ARMS: rank 10, the init
+    # scale on the fly), E with B's norm clip and a damping of 0.1: beside
+    # this problem's H v a damping of 1e-3 hid a wrongly keyed shard's draw
+    # (a CPU rehearsal read the "unfolded" fault at 1.2e-5, the sound arm
+    # at 5e-7; at 0.1, 1.2e-3)
+    kw = dict(rank_of_approximation=LRA_RANK, device=dev)
+    if arm == "cx_whiten":
+        return LRAWhiten, dict(kw, lr=1e-3, momentum=0.9)
+    return LRANewton, dict(kw, lr=0.2, grad_clip_max_norm=10.0, damping=0.1)
+
+
+def _vector_problem(arm: str, dev) -> tuple:
+    """(parameters, as (name, tensor) pairs for GPT-2, and loss()) of an
+    arm: GPT-2 124M (seed 0) on its batch, or the complex least squares
+    of ``CXL_PROBLEMS["full"]`` in complex64 (generator seed 33 on the
+    card, so every rank draws the same)."""
+    if arm.startswith("cx_"):
+        gen = torch.Generator(device=dev).manual_seed(33)
+        return _cx_problem(*CXL_PROBLEMS["full"], torch.complex64, dev, gen)
+    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
+    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1),
+                                              VECTOR_BATCH[arm], cfg.block_size,
+                                              cfg.vocab_size, device=dev)
+    return list(model.named_parameters()), lambda: gpt2.loss_gpt2(model, tokens, targets)
+
+
+def _is_whiten(arm: str) -> bool:
+    return arm.endswith("whiten")
+
+
+def _counted_modes(fn, total: dict) -> float:
+    """``_counted``, with the noise's complex-mode launches as
+    "damped_noise.complex" and "unit_noise.complex"."""
+    noise = (kernels.damped_noise, kernels.unit_noise)
+    before = [f.complex_launches for f in noise]
+    ms = _counted(fn, total)
+    _add(total, {f"{f.__name__}.complex": f.complex_launches - b
+                 for f, b in zip(noise, before)})
+    return ms
 
 
 def _flat_update(params, before) -> torch.Tensor:
@@ -5513,34 +5641,29 @@ def _flat_update(params, before) -> torch.Tensor:
 
 
 def _vector_reference(arm: str, k: int, dev) -> dict:
-    """Rank 0's 1-rank reference of arm A or B, fed the shards' draws
-    (``_ShardProbes``): its gradients (A), per-step updates, losses, final
-    U, V, d and state bytes, kept on the card (at rank 4 they fit beside
-    the sharded run; the host copies cost more than the room), the rest of
-    it freed."""
-    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
-    model = gpt2.GPT2(cfg, device=dev, seed=0)
-    n = sum(p.numel() for p in model.parameters())
-    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1),
-                                              VECTOR_BATCH[arm], cfg.block_size,
-                                              cfg.vocab_size, device=dev)
+    """Rank 0's 1-rank reference of arm A, B, D or E, fed the shards' draws
+    (``_ShardProbes``): its gradients (whitening), per-step updates,
+    losses, final U, V, d and state bytes, kept on the card (at rank 4 they
+    fit beside the sharded run; the host copies cost more than the room),
+    the rest of it freed."""
+    named, loss_fn = _vector_problem(arm, dev)
+    n = sum(p.numel() for p in (x[1] if isinstance(x, tuple) else x for x in named))
     cls, kw = _vector_kw(arm, dev)
-    ref = cls(model.named_parameters(), draw=_ShardProbes(n, k, dev), **kw)
+    ref = cls(named, draw=_ShardProbes(n, k, dev), **kw)
     params = ref.param_groups[0]["params"]
     out = dict(grads=[], updates=[], losses=[], ms=[])
     torch.cuda.reset_peak_memory_stats()
     for _ in range(VECTOR_FITS[arm]):
         before = [p.detach().clone() for p in params]
-        if arm == "whiten":
+        if _is_whiten(arm):
             ref.zero_grad(set_to_none=True)
-            loss = gpt2.loss_gpt2(model, tokens, targets)
+            loss = loss_fn()
             loss.backward()
             out["grads"].append([p.grad for p in params])
             out["ms"].append(_counted(ref.step, {}))
         else:
             losses = []
-            out["ms"].append(_counted(lambda: losses.append(ref.step(
-                lambda: gpt2.loss_gpt2(model, tokens, targets))), {}))
+            out["ms"].append(_counted(lambda: losses.append(ref.step(loss_fn)), {}))
             loss = losses[0]
         out["losses"].append(loss.item())
         out["updates"].append(_flat_update(params, before))
@@ -5548,36 +5671,57 @@ def _vector_reference(arm: str, k: int, dev) -> dict:
     out["memory"] = state_memory_report(ref)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["n"] = n
-    del model, ref, params, before
+    del named, loss_fn, ref, params, before
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _rows_agree(mine: torch.Tensor, ref, rank: int, pair) -> tuple:
-    """(1 - cosine, relative error) of the 2 ranks' row blocks joined
-    against the reference's whole (rank 0's), in float64, from each rank's
-    partial sums: rank 0 sends rank 1 its block of the reference by one
-    broadcast, and the sums are added over the pair."""
+def _real64(x: torch.Tensor) -> torch.Tensor:
+    """x flat in float64, a complex x as its (re, im) pairs: dot products
+    of these are Re<a, b>, so cosines and norms are the complex values'."""
+    x = x.detach()
+    return (torch.view_as_real(x.contiguous()) if x.is_complex() else x).double().flatten()
+
+
+def _rows_agree(mine: torch.Tensor, ref, rank: int, group, n=None, cols=None) -> tuple:
+    """(1 - cosine, relative error) of the ranks' row blocks joined against
+    the reference's whole (rank 0's), in float64 (complex values as their
+    (re, im) pairs), from each rank's partial sums: rank 0 sends every
+    other rank its block of the reference by one broadcast each, and the
+    sums are added over ``group``.  Rows at or past ``n`` (pad rows) and,
+    with ``cols``, columns past it are left out."""
+    k = dist.get_world_size(group)
     n_loc = mine.shape[0]
-    theirs = ref[n_loc:2 * n_loc] if rank == 0 else torch.empty_like(mine)
-    _bcast(theirs, group=pair)
-    a = mine.double().flatten()
-    b = (ref[:n_loc] if rank == 0 else theirs).double().flatten()
+    n = k * n_loc if n is None else n
+    true = [max(0, min((r + 1) * n_loc, n) - r * n_loc) for r in range(k)]
+    cut = lambda x, t: x[:t] if cols is None else x[:t, :cols]
+    mine, theirs = cut(mine, true[rank]), None
+    for r in range(1, k):
+        block = (cut(ref[r * n_loc:], true[r]).contiguous() if rank == 0 else
+                 torch.empty_like(mine) if rank == r else
+                 torch.empty((true[r],) + mine.shape[1:], dtype=mine.dtype,
+                             device=mine.device))
+        _bcast(block, group=group)
+        theirs = block if rank == r else theirs
+    a = _real64(mine)
+    b = _real64(cut(ref, true[0]) if rank == 0 else theirs)
     sums = torch.stack([a @ b, a @ a, b @ b, (a - b) @ (a - b)])
-    dist.all_reduce(sums, group=pair)
+    dist.all_reduce(sums, group=group)
     dot, aa, bb, dd = sums.tolist()
     return 1 - dot / math.sqrt(aa * bb), math.sqrt(dd / bb)
 
 
 def _vector_arm(rank: int, arm: str, pair) -> dict:
-    """Arm A (``arm`` "whiten") or B ("newton") on the ranks of ``pair``
-    (0 and 1): rank 0 runs the reference first (``_vector_reference``);
-    then each builds GPT-2 124M (seed 0) and the optimizer with
-    vector_sharding=pair and takes the reference's steps: A from the
-    reference's gradients (broadcast by rank 0), B through the closure,
-    rank 0's autograd pass broadcast (``_newton_pass_from``).  Returns the
-    readings the gates read, the phases' seconds and the host's load."""
+    """Arm A (``arm`` "whiten"), B ("newton"), D ("cx_whiten") or E
+    ("cx_newton") on the ranks of ``pair`` (0 and 1): rank 0 runs the
+    reference first (``_vector_reference``); then each builds the arm's
+    problem (``_vector_problem``) and the optimizer with
+    vector_sharding=pair and takes the reference's steps: whitening from
+    the reference's gradients (broadcast by rank 0), Newton through the
+    closure, rank 0's autograd pass broadcast (``_newton_pass_from``).
+    Returns the readings the gates read, the phases' seconds and the
+    host's load."""
     from psgd_torch_tpu_torch.parallel import drift_check
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -5586,21 +5730,17 @@ def _vector_arm(rank: int, arm: str, pair) -> dict:
     ref = _vector_reference(arm, k, dev) if rank == 0 else None
     dist.barrier(group=pair)
     phases["reference"] = time.perf_counter() - t0
-    cfg = gpt2.gpt2_124m(compute_dtype=torch.bfloat16)
-    model = gpt2.GPT2(cfg, device=dev, seed=0)
+    named, loss_fn = _vector_problem(arm, dev)
     cls, kw = _vector_kw(arm, dev)
-    opt = cls(model.named_parameters(), vector_sharding=pair, **kw)
+    opt = cls(named, vector_sharding=pair, **kw)
     if opt.n_pad != opt.n or k != 2:
-        raise AssertionError(f"arms A and B take 2 ranks and an even n: {k}, {opt.n}")
+        raise AssertionError(f"arms A, B, D and E take 2 ranks and an even n: {k}, {opt.n}")
     params = opt.param_groups[0]["params"]
-    tokens, targets = gpt2.synthetic_lm_batch(torch.Generator().manual_seed(1),
-                                              VECTOR_BATCH[arm], cfg.block_size,
-                                              cfg.vocab_size, device=dev)
     per_fit = dict(VECTOR_PER_FIT[arm])
-    if arm == "newton":
+    if not _is_whiten(arm):
         _newton_pass_from(rank, pair)
         if rank:     # the probes are drawn where the pass runs
-            per_fit["unit_noise"] = 0
+            per_fit.update({key: 0 for key in per_fit if key.startswith("unit_noise")})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     phases["build"] = time.perf_counter() - t0 - phases["reference"]
@@ -5608,22 +5748,21 @@ def _vector_arm(rank: int, arm: str, pair) -> dict:
     kernels.reset_launch_counts()
     for i in range(VECTOR_FITS[arm]):
         before = [p.detach().clone() for p in params]
-        if arm == "whiten":
+        if _is_whiten(arm):
             for j, p in enumerate(params):
                 g = ref["grads"][i][j] if rank == 0 else torch.empty_like(p)
                 _bcast(g, group=pair)
                 p.grad = g
             step = opt.step
         else:
-            step = lambda: losses.append(opt.step(
-                lambda: gpt2.loss_gpt2(model, tokens, targets)).item())
+            step = lambda: losses.append(opt.step(loss_fn).item())
         with count_collectives() as calls:
-            opt_ms.append(_counted(step, counts))
+            opt_ms.append(_counted_modes(step, counts))
         step_bytes.append(collective_bytes(calls, per_op=True))
         if rank == 0:
             agree.append(_agree(_flat_update(params, before), ref["updates"][i]))
     del before
-    if arm == "newton":
+    if not _is_whiten(arm):
         _own_newton_pass()
     phases["steps"] = time.perf_counter() - t0 - phases["reference"] - phases["build"]
     st = opt.precond
@@ -5632,16 +5771,17 @@ def _vector_arm(rank: int, arm: str, pair) -> dict:
     rows = {f: _rows_agree(getattr(st, f), None if ref is None else ref["state"][f],
                            rank, pair) for f in ("u", "v", "d")}
     load.append(os.getloadavg()[0])
-    out = dict(label=VECTOR_LABELS[arm], counts=counts, per_fit=per_fit,
+    out = dict(arm=arm, label=VECTOR_LABELS[arm], counts=counts, per_fit=per_fit,
                fits=opt.fit_steps, opt_ms=opt_ms, step_bytes=step_bytes, drift=drift,
-               n=opt.n, n_pad=opt.n_pad, mine=state_memory_report(opt, per_device=True),
+               n=opt.n, n_pad=opt.n_pad, item=torch.empty((), dtype=opt.vec_dtype).element_size(),
+               dtype=str(st.u.dtype), mine=state_memory_report(opt, per_device=True),
                whole=state_memory_report(opt), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                reserved_gb=torch.cuda.max_memory_reserved() / 1e9, load=load)
     if rank == 0:
         out.update(agree=agree, rows=rows, ref_memory=ref["memory"], ref_ms=ref["ms"],
-                   ref_peak_gb=ref["peak_gb"], losses=ref["losses"] if arm == "whiten"
+                   ref_peak_gb=ref["peak_gb"], losses=ref["losses"] if _is_whiten(arm)
                    else losses, ref_losses=ref["losses"])
-    del model, opt, params, st, ref
+    del named, loss_fn, opt, params, st, ref
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
@@ -5741,27 +5881,105 @@ def _vector_cp(rank: int, world: int) -> dict:
     return out
 
 
+def _vector_cx_dense(rank: int, world: int) -> dict:
+    """Arm F: DenseNewton QEQ (the complex path's dense arm's settings, lr
+    0.2) on ``CXL_PROBLEMS["dense"]`` in complex64 (n = 1700) over ranks
+    0-2, n_pad 1701 (rank 2 holds the pad row), ``VECTOR_CX_DENSE_STEPS``
+    steps through the closure, rank 0's autograd pass broadcast; beside a
+    1-rank vector_sharding run on rank 0 (taken first), which draws the
+    same damping on the true rows (each entry of a noise draw is a
+    function of its key and index, not of the length).  Per step the
+    update against the 1-rank run's, at the end Q's true rows and columns
+    against its Q, the pad rows and columns after every step."""
+    from psgd_torch_tpu_torch.parallel import drift_check
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    one, three = dist.new_group([0]), dist.new_group([0, 1, 2])
+    problem = lambda: _cx_problem(*CXL_PROBLEMS["dense"], torch.complex64, dev,
+                                  torch.Generator(device=dev).manual_seed(33))
+    make = lambda params, group: DenseNewton(params, lr=0.2, dq="QEQ", vector_sharding=group,
+                                             device=dev)
+    ref = None
+    if rank == 0:
+        params, loss = problem()
+        opt = make(params, one)
+        ref = dict(losses=[], updates=[], memory=state_memory_report(opt))
+        for _ in range(VECTOR_CX_DENSE_STEPS):
+            before = [p.detach().clone() for p in params]
+            ref["losses"].append(opt.step(loss).item())
+            ref["updates"].append(_flat_update(params, before))
+        ref["q"] = opt.precond.q
+        del params, opt
+    dist.barrier()
+    out = None
+    if rank < 3:
+        params, loss = problem()
+        opt = make(params, three)
+        _newton_pass_from(rank, three)
+        seen, unvec = [], opt._unvec
+
+        def keep(pre):
+            seen.append(pre.detach().clone())
+            return unvec(pre)
+
+        opt._unvec = keep
+        counts, losses, pads, agree = {}, [], [], []
+        kernels.reset_launch_counts()
+        for i in range(VECTOR_CX_DENSE_STEPS):
+            seen.clear()
+            before = [p.detach().clone() for p in params]
+            _counted_modes(lambda: losses.append(opt.step(loss).item()), counts)
+            pads.append(_pad_report(opt, seen))
+            if rank == 0:
+                agree.append(_agree(_flat_update(params, before), ref["updates"][i]))
+        _own_newton_pass()
+        st = opt.precond
+        rows = _rows_agree(st.q, None if ref is None else ref["q"], rank, three,
+                           n=opt.n, cols=opt.n)
+        drift = drift_check({"parameters": torch.cat([p.detach().flatten() for p in params]),
+                             "lips": st.lips}, group=three)
+        out = dict(counts=counts, fits=opt.fit_steps, losses=losses, pads=pads,
+                   agree=agree, rows=rows, drift=drift, k=3, n=opt.n, n_pad=opt.n_pad,
+                   dtype=str(st.q.dtype), mine=state_memory_report(opt, per_device=True),
+                   whole=state_memory_report(opt),
+                   per_fit=dict(VECTOR_PER_FIT["cx_dense"],
+                                **({} if rank == 0 else {"unit_noise": 0,
+                                                         "unit_noise.complex": 0})))
+        if rank == 0:
+            out.update(ref_losses=ref["losses"], ref_memory=ref["memory"])
+        del params, opt, st
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if out is not None:
+        out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _vector_job(rank: int, world: int, _) -> dict:
-    """Arms A and B on ranks 0 and 1 (the others wait), then arm C on all
-    4, with the fault ``VECTOR_FAULT`` names planted first."""
+    """Arms A, B, D and E on ranks 0 and 1 (the others wait), then arm C on
+    all 4 and arm F on ranks 0-2, with the fault ``VECTOR_FAULT`` names
+    planted first."""
     _plant_vector_fault()
     pair = dist.new_group([0, 1])
-    ab = []
-    for arm in ("whiten", "newton"):
-        ab.append(_vector_arm(rank, arm, pair) if rank < 2 else None)
+    ab, cx = [], []
+    for arm, into in (("whiten", ab), ("newton", ab), ("cx_whiten", cx), ("cx_newton", cx)):
+        into.append(_vector_arm(rank, arm, pair) if rank < 2 else None)
         dist.barrier()
-    return dict(ab=ab, c=_vector_cp(rank, world))
+    return dict(ab=ab, cx=cx, c=_vector_cp(rank, world), f=_vector_cx_dense(rank, world))
 
 
 def _vector_readings(arms: list) -> list:
-    """Per arm A and B of one spawn (``arms[r][j]``) its worst (1 - cosine,
-    relative error) of the updates and of the U, V and d rows against the
-    1-rank reference, its largest drift and non-gather bytes."""
+    """Per arm A and B (or D and E) of one spawn (``arms[r][j]``) its worst
+    (1 - cosine, relative error) of the updates and of the U, V and d rows
+    against the 1-rank reference, its largest drift and non-gather bytes."""
     out = []
     for j in range(len(arms[0])):
         head = arms[0][j]
         pairs = head["agree"] + list(head["rows"].values())
-        out.append(dict(label=head["label"], one_minus_cos=max(a[0] for a in pairs),
+        out.append(dict(arm=head["arm"], label=head["label"],
+                        one_minus_cos=max(a[0] for a in pairs),
                         rel_err=max(a[1] for a in pairs),
                         drift=max(max(a[j]["drift"].values()) for a in arms),
                         small_bytes=max(sum(v for k, v in b.items() if k != "all-gather")
@@ -5784,25 +6002,30 @@ def _cp_readings(ranks: list) -> dict:
 
 
 def _vector_check(arms: list, card: str) -> dict:
-    """The gates of arms A and B (``arms[r][j]``: rank r, arm j)."""
+    """The gates of arms A and B, or D and E (``arms[r][j]``: rank r, arm
+    j); the complex arms' losses also fall, as the JAX package's own
+    complex LRA runs do (``CXL_FALLS``)."""
     total = {}
     for j, reading in enumerate(_vector_readings(arms)):
         ranks = [a[j] for a in arms]
         head, k = ranks[0], len(ranks)
-        label = head["label"]
+        label, arm = head["label"], head["arm"]
+        cos_limit, rel_limit = VECTOR_LIMITS[arm]
         losses = head["losses"]
-        log(f"{label} vector-sharded over {k} ranks (n = {head['n']}, rank {VECTOR_RANK}): "
+        log(f"{label} vector-sharded over {k} ranks (n = {head['n']}, {head['dtype']}): "
             f"losses {[round(x, 4) for x in losses]}; the 1-rank reference's "
             f"{[round(x, 4) for x in head['ref_losses']]}")
         if not all(math.isfinite(x) for x in losses + head["ref_losses"]):
             raise AssertionError(f"{label}: losses {losses}, reference {head['ref_losses']}")
+        if arm.startswith("cx_"):
+            _falls(label, losses[0], losses[-1])
         log(f"  updates against the reference per step, (1 - cosine, relative error) "
             f"{head['agree']}; U, V, d rows {head['rows']}; worst "
             f"{(reading['one_minus_cos'], reading['rel_err'])}")
-        if not (reading["one_minus_cos"] < VECTOR_COS and reading["rel_err"] < VECTOR_REL):
+        if not (reading["one_minus_cos"] < cos_limit and reading["rel_err"] < rel_limit):
             raise AssertionError(f"{label}: against the 1-rank reference "
                                  f"{(reading['one_minus_cos'], reading['rel_err'])}, need "
-                                 f"< {VECTOR_COS:g} and < {VECTOR_REL:g}")
+                                 f"< {cos_limit:g} and < {rel_limit:g}")
         ref = head["ref_memory"]
         for r, res in enumerate(ranks):
             if set(res["drift"].values()) != {0.0}:
@@ -5810,7 +6033,7 @@ def _vector_check(arms: list, card: str) -> dict:
                                      f"{[n for n, v in res['drift'].items() if v]}")
             fits = res["fits"]
             per = {key: res["counts"].get(key, 0) / max(fits, 1) for key in res["per_fit"]}
-            if fits != VECTOR_FITS["whiten" if "Whiten" in label else "newton"] or any(
+            if fits != VECTOR_FITS[arm] or any(
                     res["counts"].get(key, 0) != n * fits for key, n in res["per_fit"].items()):
                 raise AssertionError(f"{label}: rank {r} launched {per} per fit step over "
                                      f"{fits} fits, expected {res['per_fit']}")
@@ -5818,12 +6041,13 @@ def _vector_check(arms: list, card: str) -> dict:
             if not (mine["q"] * k == ref["q"] and mine["momentum"] * k == ref["momentum"]
                     and res["whole"]["q"] == ref["q"]):
                 raise AssertionError(f"{label}: rank {r}'s state {mine}, the reference's {ref}")
+            gather, small_limit = res["n_pad"] * res["item"], VECTOR_SMALL_BYTES[arm]
             for b in res["step_bytes"]:
                 small = sum(v for key, v in b.items() if key != "all-gather")
-                if b.get("all-gather") != res["n_pad"] * 4 or small >= VECTOR_SMALL_BYTES:
+                if b.get("all-gather") != gather or small >= small_limit:
                     raise AssertionError(f"{label}: rank {r}'s collectives in a step {b}; "
-                                         f"need the update's gather, {res['n_pad'] * 4} "
-                                         f"bytes, and < {VECTOR_SMALL_BYTES} bytes else")
+                                         f"need the update's gather, {gather} "
+                                         f"bytes, and < {small_limit} bytes else")
             log(f"  [{card}; {VECTOR_LABEL}] rank {r}: optimizer step (median, first "
                 f"excluded) {_median(res['opt_ms'][1:])} ms (the 1-rank reference's "
                 f"{_median(head['ref_ms'][1:])} ms); peak {res['peak_gb']:.2f} GB allocated, "
@@ -5872,20 +6096,81 @@ def _cp_check(ranks: list, card: str) -> dict:
     return total
 
 
+def _cx_dense_readings(ranks: list) -> dict:
+    """Arm F's worst (1 - cosine, relative error) of the updates and Q's
+    rows against the 1-rank run, largest pad-row reading and drift."""
+    head = ranks[0]
+    pairs = head["agree"] + [head["rows"]]
+    return dict(one_minus_cos=max(a[0] for a in pairs), rel_err=max(a[1] for a in pairs),
+                pad=max(max(p.values()) for r in ranks for p in r["pads"]),
+                drift=max(max(r["drift"].values()) for r in ranks))
+
+
+def _cx_dense_check(ranks: list, card: str) -> dict:
+    """The gates of arm F (``ranks[r]``: rank r of 0-2): the losses finite
+    and falling, as the JAX package's own vector-sharded complex dense QEQ
+    falls at each of its first 4 steps on the small problem
+    (``tools/complex_fall_jax.py --vector``), the updates and Q's true rows within
+    ``VECTOR_LIMITS["cx_dense"]`` of the 1-rank run, the pad row and
+    columns exact and no drift after every step, exact launches (all in
+    the complex mode), each rank's Q a third of the padded whole."""
+    total, head = {}, ranks[0]
+    reading = _cx_dense_readings(ranks)
+    cos_limit, rel_limit = VECTOR_LIMITS["cx_dense"]
+    label = "complex64 dense QEQ, 3 ranks"
+    log(f"{label} (n = {head['n']}, n_pad {head['n_pad']}, {head['dtype']}): losses "
+        f"{[round(x, 6) for x in head['losses']]}; the 1-rank run's "
+        f"{[round(x, 6) for x in head['ref_losses']]}; updates against it per step "
+        f"{head['agree']}, Q's rows {head['rows']}; pad row and columns, worst "
+        f"{reading['pad']!r}; drift {reading['drift']!r}")
+    if not all(math.isfinite(x) for x in head["losses"] + head["ref_losses"]):
+        raise AssertionError(f"{label}: losses {head['losses']}, the 1-rank run's "
+                             f"{head['ref_losses']}")
+    _falls(label, head["losses"][0], head["losses"][-1])
+    if not (reading["one_minus_cos"] < cos_limit and reading["rel_err"] < rel_limit):
+        raise AssertionError(f"{label}: against the 1-rank run "
+                             f"{(reading['one_minus_cos'], reading['rel_err'])}, need "
+                             f"< {cos_limit:g} and < {rel_limit:g}")
+    if reading["pad"] != 0.0 or reading["drift"] != 0.0:
+        raise AssertionError(f"{label}: pad rows {[r['pads'] for r in ranks]}, drift "
+                             f"{[r['drift'] for r in ranks]}")
+    item = 8     # complex64
+    for r, one in enumerate(ranks):
+        fits = one["fits"]
+        if fits != VECTOR_CX_DENSE_STEPS or any(one["counts"].get(key, 0) != n * fits
+                                                for key, n in one["per_fit"].items()):
+            raise AssertionError(f"{label}: rank {r} launched {one['counts']} in {fits} "
+                                 f"fits, expected {one['per_fit']} per fit")
+        if not (one["mine"]["q"] * one["k"] == one["whole"]["q"] == one["n_pad"] ** 2 * item
+                and head["ref_memory"]["q"] == one["n"] ** 2 * item):
+            raise AssertionError(f"{label}: rank {r}'s Q {one['mine']}, the whole "
+                                 f"{one['whole']}, the 1-rank run's {head['ref_memory']}")
+        _add(total, one["counts"])
+    log(f"  arm F: {head['seconds']:.1f} s in the ranks; Q per rank "
+        f"{head['mine']['q'] / 1e6:.2f} MB of {head['whole']['q'] / 1e6:.2f} MB")
+    return total
+
+
 def vector_sharded_path(dev, card: str) -> dict:
-    """Arms A and B on 2 ranks, arm C on 4, in one spawn of 4 ranks
-    (``_vector_job``): A and B's
-    updates and U, V, d rows within ``VECTOR_COS`` and ``VECTOR_REL`` of
+    """Arms A, B, D and E on 2 ranks, C on 4, F on 3, in one spawn of 4
+    ranks (``_vector_job``): A, B, D and E's
+    updates and U, V, d rows within ``VECTOR_LIMITS`` of
     their 1-rank references fed the same per-shard draws, drift 0.0 on the
     parameters and the estimates, per-rank state 1/k of the reference's,
-    exact launches per fit, each step's collectives the update's gather
-    and under ``VECTOR_SMALL_BYTES`` else; C's dense QEQ within
+    exact launches per fit (D and E's all in the noise's complex mode),
+    each step's collectives the update's gather and under
+    ``VECTOR_SMALL_BYTES`` else, D and E's losses falling; C's dense QEQ within
     ``VECTOR_CP_REL`` of the 1-rank run and its loss falling, its pad rows
-    (and LRANewton's) exact after every step.  Returns the launches."""
+    (and LRANewton's) exact after every step; F's gates
+    (``_cx_dense_check``).  The complex arms' losses fall as the JAX
+    package's own vector-sharded runs do (``tools/complex_fall_jax.py
+    --vector``).  Returns the launches."""
     t0 = time.perf_counter()
     ranks = _spawn("vector", 4)
     total = _vector_check([r["ab"] for r in ranks[:2]], card)
+    _add(total, _vector_check([r["cx"] for r in ranks[:2]], card))
     _add(total, _cp_check([r["c"] for r in ranks], card))
+    _add(total, _cx_dense_check([r["f"] for r in ranks[:3]], card))
     log(f"  [{card}] vector-sharded path {time.perf_counter() - t0:.1f} s; its launches "
         f"(ranks summed) {{{', '.join(f'{k}: {v}' for k, v in total.items() if v)}}}")
     return total
@@ -5893,7 +6178,7 @@ def vector_sharded_path(dev, card: str) -> dict:
 
 def vector_fault_margin(dev, card: str) -> dict:
     """How far the vector-sharded path's gates sit from a planted fault:
-    arms A, B and C once per ``VECTOR_FAULTS`` entry (planted in every
+    arms A to F once per ``VECTOR_FAULTS`` entry (planted in every
     rank, ``_plant_vector_fault``), each arm's worst readings logged, no
     gate applied; the last log line one JSON object of them all.  Run it
     alone: ``python3 tools/smoke_paths.py vector_fault_margin``."""
@@ -5902,8 +6187,10 @@ def vector_fault_margin(dev, card: str) -> dict:
         close_ranks()          # the fault is read from the environment at spawn
         os.environ["VECTOR_FAULT"] = fault
         ranks = _spawn("vector", 4)
-        rows = _vector_readings([r["ab"] for r in ranks[:2]])
+        rows = (_vector_readings([r["ab"] for r in ranks[:2]])
+                + _vector_readings([r["cx"] for r in ranks[:2]]))
         cp = _cp_readings([r["c"] for r in ranks])
+        dense = _cx_dense_readings([r["f"] for r in ranks[:3]])
         for row in rows:
             log(f"[{card}] fault {fault}: {row['label']}: worst 1 - cosine "
                 f"{row['one_minus_cos']!r}, relative error {row['rel_err']!r}, drift "
@@ -5911,7 +6198,10 @@ def vector_fault_margin(dev, card: str) -> dict:
         for label, row in cp.items():
             log(f"[{card}] fault {fault}: tensor-rank {label}: gap to 1 rank {row['rel']!r}, "
                 f"pad rows {row['pad']!r}, drift {row['drift']!r}")
-        result[fault] = dict(ab=rows, c=cp)
+        log(f"[{card}] fault {fault}: complex64 dense QEQ, 3 ranks: worst 1 - cosine "
+            f"{dense['one_minus_cos']!r}, relative error {dense['rel_err']!r}, pad rows "
+            f"{dense['pad']!r}, drift {dense['drift']!r}")
+        result[fault] = dict(ab=rows, c=cp, f=dense)
     close_ranks()
     os.environ.pop("VECTOR_FAULT")
     log(json.dumps(result))
@@ -7089,6 +7379,7 @@ def main() -> int:
         rows[k]["lra_dense_shapes"] = entries
     rows["damped_noise"]["vector_shapes"] = check_vector_noise(dev, lib_path)
     rows["damped_noise"]["a3b_complex_shapes"] = check_noise_complex_shapes(dev, lib_path)
+    rows["damped_noise"]["a3c_complex_shapes"] = check_vector_noise_complex(dev, lib_path)
     torch.cuda.empty_cache()
     phase("small path")
     check_small_path(dev)

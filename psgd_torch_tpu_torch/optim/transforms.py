@@ -47,8 +47,7 @@ applied); a complex gradient is what torch puts in ``.grad``, the
 conjugate of what ``jax.grad`` returns, and ``p - lr * update`` descends.
 The LRA and dense optimizers take them too, in the JAX package's forms
 (``precond.lra``, ``precond.dense``: transposes where a Hermitian
-preconditioner conjugates); only their ``vector_sharding`` refuses
-complex (ROADMAP A3c).
+preconditioner conjugates), with or without ``vector_sharding``.
 
 ``stack_sharding=(mesh, dim)`` (KronWhiten, KronNewton; or a
 ``ProcessGroup``, or a tuple of mesh dims taken as one) partitions the
@@ -1675,10 +1674,6 @@ class _Flat(_Resumable):
             if t.device != self.device:
                 raise ValueError(f"parameter on {t.device}, optimizer on "
                                  f"{self.device}")
-        if vector_sharding is not None:
-            kron_p.require_real(*(t.dtype for t in tensors),
-                                *((preconditioner_dtype,) if preconditioner_dtype
-                                  else ()))
         self.rows = _vector_group(vector_sharding)
         super().__init__([{"params": tensors}], defaults)
         self.vec_dtype = functools.reduce(torch.promote_types,
@@ -1992,7 +1987,7 @@ class LRAWhiten(_Flat):
                 scale = (torch.mean(_cast(g, torch.float32) ** 4)
                          + damping ** 4) ** (-1.0 / 8.0)
             else:    # the mean over the whole vector, its rows summed
-                g4 = rows.sum(torch.sum(torch.abs(g_loc.to(torch.float32)) ** 4))
+                g4 = rows.sum(torch.sum(torch.abs(_cast(g_loc, torch.float32)) ** 4))
                 scale = (g4 / self.n + damping ** 4) ** (-1.0 / 8.0)
             st = st._replace(d=self._row_scale(st.d, scale.to(qdt)))
         src = self._source(g_loc, count)
@@ -2096,8 +2091,8 @@ class LRANewton(_FlatNewton):
             if rows is None:
                 scale = _newton_scale(v, h, damping)
             else:    # the means over the whole vector, its rows summed
-                v2 = rows.sum(torch.sum(torch.abs(v.to(torch.float32)) ** 2))
-                h4 = rows.sum(torch.sum(torch.abs(h.to(torch.float32)) ** 4))
+                v2 = rows.sum(torch.sum(torch.abs(_cast(v, torch.float32)) ** 2))
+                h4 = rows.sum(torch.sum(torch.abs(_cast(h, torch.float32)) ** 4))
                 scale = ((v2 / self.n) ** 0.25
                          * (h4 / self.n + damping ** 4) ** (-1.0 / 8.0))
             st = st._replace(d=self._row_scale(st.d, scale.to(self.qdtype)))

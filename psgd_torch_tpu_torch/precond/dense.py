@@ -54,7 +54,7 @@ from ..ops import fastrand, kernels
 from ..ops.linalg import (lift2single, lifted_real_dtype, procrustes_loop3,
                           real_dtype_of, width_norm_k)
 from .kron import (DQ_EQ, DQ_PRO4P, DQ_Q05EQ15, DQ_QEP, DQ_QEQ, DQ_QUAD,
-                   _FIT_P, canonical_dq, require_real)
+                   _FIT_P, canonical_dq)
 
 
 class DenseState(NamedTuple):
@@ -239,7 +239,6 @@ def update_dense_qeq_row_sharded(q_loc: torch.Tensor, lips: torch.Tensor,
     is keyed by ``key`` itself, as JAX's, at the padded n (one
     ``kernels.damped_noise`` launch: every rank draws the same bits) and
     kept on the true rows (< ``n_true``) only.  Returns (q_loc, lips)."""
-    require_real(v.dtype, h.dtype, q_loc.dtype)
     v, h = _as_col(v), _as_col(h)
     rdt = real_dtype_of(q_loc.dtype)
     if damping is None:

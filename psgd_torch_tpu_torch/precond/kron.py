@@ -16,9 +16,7 @@ the mesh through the one fit core's ``reduce`` hook).  Real (bf16, f32, f64) and
 the JAX package's does (Q^H, x x^H, (p + p^H) / 2), so a complex Q stays
 a Hermitian preconditioner's factor.  f64 and complex factors take the
 XLA tail (``kernels.ns_route`` "xla"; the bounds and the Procrustes loop
-in PyTorch operations), as the JAX package does.  Only the row-sharded
-LRA and dense preconditioners still refuse complex dtypes
-(``require_real``, ROADMAP A3c).
+in PyTorch operations), as the JAX package does.
 
 Geometries (``_GEOMETRIES``): Q0.5EQ1.5 (the default) steps each dense
 factor through the NS update, ``kernels.fused_ns_update``; QEP, QEQ,
@@ -76,19 +74,6 @@ def canonical_dq(dq: str) -> str:
     if dq not in ALL_DQ:
         raise ValueError(f"Invalid dQ {dq!r}; valid choices: {ALL_DQ}")
     return dq
-
-
-def require_real(*dtypes: torch.dtype,
-                  what: str = "the row-sharded LRA and dense preconditioners "
-                              "(vector_sharding)") -> None:
-    """Refuse complex dtypes where the port has no complex form: the LRA
-    and dense preconditioners row-sharded over ranks (ROADMAP A3c; their
-    unsharded forms took complex in A3b, Kron in A3)."""
-    for dt in dtypes:
-        if dt.is_complex:
-            raise NotImplementedError(
-                f"complex dtype {dt} is not ported yet for {what} "
-                "(ROADMAP A3c)")
 
 
 class KronPlan(NamedTuple):

@@ -35,7 +35,8 @@ every product transposes where a Hermitian preconditioner would conjugate
 (so P = Q^T Q for a complex Q), and the solve with (I + V^T U)^T is a
 plain transpose (``linalg.lu_solve_t``: JAX ``lu_solve(..., trans=1)``); the init
 norms read the real part of U and V (JAX's ``astype(float32)``); the L
-estimates stay real.  Row sharding refuses complex (ROADMAP A3c).
+estimates stay real.  Row-sharded, the Frobenius norms sum real(x conj x)
+over the rows (JAX ``_gnorm``), as ``vector_norm`` does unsharded.
 
 Row sharding (JAX ``axis_name``, ``pad_lra_state``): with U, V, d, v and h
 row-sharded over a group of ranks, every reduction over n is an r x r,
@@ -62,7 +63,6 @@ from .. import resolve_device
 from ..ops import fastrand, kernels
 from ..ops.linalg import (lift2single, lifted_real_dtype, lu_solve_t,
                           real_dtype_of)
-from .kron import require_real
 
 # the coin's key: fold_in(key, COIN_FOLD)
 COIN_FOLD = 7
@@ -143,10 +143,11 @@ def _rsum(x: torch.Tensor, reduce) -> torch.Tensor:
 
 
 def _norm(x: torch.Tensor, reduce) -> torch.Tensor:
-    """||x||_F over the row shards (JAX ``_gnorm``)."""
+    """||x||_F over the row shards (JAX ``_gnorm``: real(x conj x) summed,
+    so a complex x counts |x|^2)."""
     if reduce is None:
         return torch.linalg.vector_norm(x)
-    return torch.sqrt(reduce.sum(torch.sum(x * x)))
+    return torch.sqrt(reduce.sum(torch.sum(torch.real(x * torch.conj(x)))))
 
 
 def ip_uvt_matvec(u: torch.Tensor, v: torch.Tensor, x: torch.Tensor,
@@ -189,12 +190,6 @@ def _max_abs(x: torch.Tensor, reduce=None) -> torch.Tensor:
     return out if reduce is None else reduce.max(out)
 
 
-def _refuse_complex_rows(reduce, *dtypes) -> None:
-    """Row sharding takes real dtypes only (ROADMAP A3c)."""
-    if reduce is not None:
-        require_real(*dtypes)
-
-
 def _coin(key, draw) -> bool:
     """True: update U; False: update V (uniform(fold_in(key, 7)) < 0.5)."""
     kc = fastrand.fold_in(key, COIN_FOLD)
@@ -218,7 +213,6 @@ def update_lra(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
     update_precond_lra, psgd.py:994-1052; JAX ``update_lra``).  ``key``: a
     host threefry key, the coin's; ``draw`` replays the coin; ``reduce``
     sums and maxes over the row shards (module docstring)."""
-    _refuse_complex_rows(reduce, v.dtype, h.dtype, state.u.dtype)
     v = v[:, None] if v.ndim == 1 else v
     h = h[:, None] if h.ndim == 1 else h
     u, w, d = state.u, state.v, state.d
@@ -311,7 +305,6 @@ def update_lra_whiten(state: LRAState, g: torch.Tensor, key,
     (psgd.py:1066-1072).  On a row shard (``reduce``) the probe is keyed
     by ``shard_key(kv)`` at this rank's rows and v and h are zeroed where
     ``pad_mask`` ((n_loc, 1) bool, True on the true rows) is False."""
-    _refuse_complex_rows(reduce, g.dtype)
     kv, ku = fastrand.split(key)
     kv = shard_key(kv, reduce)
     g2 = g[:, None] if g.ndim == 1 else g
@@ -340,7 +333,6 @@ def update_lra_newton(state: LRAState, v: torch.Tensor, h: torch.Tensor, key,
     (psgd.py:1193-1198).  On a row shard the damping is keyed by
     ``shard_key(kd)`` and zero on the pad rows, as ``update_lra_whiten``'s
     probe."""
-    _refuse_complex_rows(reduce, v.dtype, h.dtype)
     kd, ku = fastrand.split(key)
     kd = shard_key(kd, reduce)
     v2 = v[:, None] if v.ndim == 1 else v

@@ -285,12 +285,16 @@ class WorldDraws:
         return vs.ShardProbes(self.n, self.k)(kind, keys, shape, dtype)
 
 
-def vector_resumes(groups, rank, directory) -> dict:
+VECTOR_MOVES = ((2, 1), (1, 2), (2, 3))
+
+
+def vector_resumes(groups, rank, directory, cplx=False,
+                   moves=VECTOR_MOVES) -> dict:
     """Each test_torch_vector_sharding.py case at n = 22: 2 steps at k, a checkpoint, 1 step at
-    k' (on the ranks that k' takes), for (k, k') in (2, 1), (1, 2), (2,
-    3); the 1-rank reference fed each step's world's draws.  "1 rank" is
-    LRA's unsharded optimizer and dense's one-rank group (the row-sharded
-    QEQ keys its damping as a group does)."""
+    k' (on the ranks that k' takes), for (k, k') in ``moves``; the 1-rank
+    reference fed each step's world's draws.  "1 rank" is LRA's unsharded
+    optimizer and dense's one-rank group (the row-sharded QEQ keys its
+    damping as a group does).  ``cplx``: the cases' complex form."""
     from psgd_torch_tpu_torch.utils import restore_checkpoint
     n, out = 22, {}
     for case in vs.CASES:
@@ -301,19 +305,20 @@ def vector_resumes(groups, rank, directory) -> dict:
                 return groups[1] if dense else None
             return groups[k]
 
-        for k, k2 in ((2, 1), (1, 2), (2, 3)):
+        for k, k2 in moves:
             draw = WorldDraws(n, dense)
-            pr, orf = vs.build(case, n, spec(1), draw)
+            pr, orf = vs.build(case, n, spec(1), draw, cplx=cplx)
             draw.k = k if k > 1 else None
             vs.steps(case, n, pr, orf, 2)
             draw.k = k2 if k2 > 1 else None
             vs.steps(case, n, pr, orf, 1, start=2)
-            ckpt = os.path.join(directory, f"vector_{case}_{k}_{k2}")
-            pa, oa = vs.build(case, n, spec(k), None)
+            ckpt = os.path.join(directory, f"vector_{case}_{k}_{k2}"
+                                + "_complex" * cplx)
+            pa, oa = vs.build(case, n, spec(k), None, cplx=cplx)
             vs.steps(case, n, pa, oa, 2)
             _save(ckpt, 2, _holder(pa), oa, only_rank0=k == 1 and not dense)
             if k2 != 3 or rank != 3:       # 3 ranks: rank 3 sits this one out
-                pb, ob = vs.build(case, n, spec(k2), None)
+                pb, ob = vs.build(case, n, spec(k2), None, cplx=cplx)
                 # 3 ranks restore: the first of them gathers the file
                 restore_checkpoint(ckpt, _holder(pb), ob,
                                    group=groups[3] if k2 == 3 else None)
@@ -537,11 +542,17 @@ def test_vector_sharded_resume_across_world_sizes(ranks, case, move):
     whose norm clip acts, at 1e-6) and the rank's rows of U, V and d (Q)
     and of the momentum at 1e-9; the pad rows exact (U, V and the
     momentum 0, d 1, Q's rows e_i)."""
-    for rank, out in enumerate(ranks[0]):
-        if move not in [m[1:] for m in out["vector"] if m[0] == case]:
+    hold_vector_resume([out["vector"] for out in ranks[0]], case, move)
+
+
+def hold_vector_resume(results, case, move):
+    """``test_vector_sharded_resume_across_world_sizes``'s checks of each
+    rank's ``vector_resumes`` result for ``case`` and ``move``."""
+    for rank, vector in enumerate(results):
+        if move not in [m[1:] for m in vector if m[0] == case]:
             assert move == (2, 3) and rank == 3
             continue
-        res = out["vector"][(case,) + move]
+        res = vector[(case,) + move]
         got, ref = res["got"], res["ref"]
         rows = slice(res["lo"], res["lo"] + res["n_loc"])
         for k in ref["params"]:

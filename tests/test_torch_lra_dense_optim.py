@@ -8,8 +8,8 @@ init scale.  Also the transforms' rules: the JAX ValueErrors, the dense
 advisories, ``vector_sharding``'s argument checks (ROADMAP A8b; the
 sharded runs are tests/test_torch_vector_sharding.py) and complex
 parameters (A3b: taken, held against JAX in
-tests/test_torch_complex_lra_dense.py; refused under ``vector_sharding``,
-A3c).
+tests/test_torch_complex_lra_dense.py; under ``vector_sharding`` since
+A3c, held in tests/test_torch_complex_vector_sharding.py).
 
 Tolerance: rtol 1e-9 (atol 1e-9 of the largest entry) in float64.  Both
 sides take the on-the-fly init scale in float32 (the JAX transforms cast
@@ -216,8 +216,8 @@ def test_newton_three_steps_match_jax(arm):
 def test_factories_and_rules():
     """The factories take the JAX names; the JAX ValueErrors, a malformed
     ``vector_sharding`` and dense's non-QEQ one, complex parameters taken
-    (A3b) and refused under ``vector_sharding`` (A3c), and the
-    dense advisories."""
+    (A3b) and under ``vector_sharding`` (A3c: built with complex rows on
+    rank 0 of a 2-rank fake process group), and the dense advisories."""
     p = [torch.zeros(16, requires_grad=True)]
     assert isinstance(lra_whiten(p, learning_rate=0.1, device="cpu"), LRAWhiten)
     assert lra_newton(p, device="cpu").param_groups[0]["lr"] == 0.01
@@ -241,12 +241,20 @@ def test_factories_and_rules():
         assert cx.precond[0].dtype == torch.complex64
         assert cls(p, preconditioner_dtype=torch.complex64,
                    **kw).precond[0].dtype == torch.complex64
-        sharded = dict(kw, vector_sharding=("mesh", "fsdp"),
-                       **({"dq": "QEQ"} if cls is DenseNewton else {}))
-        with pytest.raises(NotImplementedError, match="A3c"):
-            cls([torch.zeros(16, dtype=torch.complex64)], **sharded)
-        with pytest.raises(NotImplementedError, match="A3c"):
-            cls(p, preconditioner_dtype=torch.complex64, **sharded)
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+        try:      # rank 0 of 2: n = 15 padded to 16, its 8 rows complex
+            sharded = dict(kw, vector_sharding=dist.group.WORLD,
+                           **({"dq": "QEQ"} if cls is DenseNewton else {}))
+            for opt in (cls([torch.zeros(15, dtype=torch.complex64)], **sharded),
+                        cls([torch.zeros(15)], preconditioner_dtype=torch.complex64,
+                            **sharded)):
+                assert opt.precond[0].dtype == torch.complex64
+                assert opt.precond[0].shape[0] == opt.n_loc == 8
+                assert opt.pad_mask is None and opt.n_pad == 16
+        finally:
+            dist.destroy_process_group()
     with pytest.raises(ValueError, match="QEQ"):
         DenseNewton(p, dq="Q0.5EQ1.5", vector_sharding=("mesh", "fsdp"),
                     device="cpu", preconditioner_init_scale=1.0)

@@ -70,34 +70,45 @@ def tree(n):
     return {"a": (3, 5), "b": (n - 15,)}
 
 
-def problem(n):
-    """(initial values, c, b) per leaf, float64, from seed n."""
+def problem(n, cplx=False):
+    """(initial values, c, b) per leaf, float64, from seed n; ``cplx``:
+    the initial values and b complex128 (their imaginary parts drawn
+    after the real stream), c stays real."""
     rng = np.random.default_rng(n)
     init, c, b = {}, {}, {}
     for name, shape in tree(n).items():
         init[name] = 0.5 * rng.standard_normal(shape)
         c[name] = 10.0 ** rng.uniform(-1, 1, shape)
         b[name] = rng.standard_normal(shape)
+    if cplx:
+        for name, shape in tree(n).items():
+            init[name] = init[name] + 0.5j * rng.standard_normal(shape)
+            b[name] = b[name] + 1j * rng.standard_normal(shape)
     return init, c, b
 
 
-def start(n):
+def start(n, cplx=False):
     """The LRA cases' U and V at their start: (n_pad, r) from seed 200 + n,
-    zero on the pad rows."""
+    zero on the pad rows; ``cplx``: complex."""
     rng = np.random.default_rng(200 + n)
     uv = 0.05 * rng.standard_normal((2, n, RANK))
+    if cplx:
+        uv = uv + 0.05j * rng.standard_normal((2, n, RANK))
     return np.concatenate([uv, np.zeros((2, 24 - n, RANK))], axis=1)
 
 
-def pairs(n):
-    """STEPS explicit (v, H v) pairs per leaf: v in {+-1/2, +-1}, H v =
-    v times {1/2, 1, 2}, so every float32 sum of their powers is exact."""
+def pairs(n, cplx=False):
+    """STEPS explicit (v, H v) pairs per leaf: v in {+-1/2, +-1} (and so
+    its imaginary part with ``cplx``), H v = v times {1/2, 1, 2}, so every
+    float32 sum of their powers is exact."""
     rng = np.random.default_rng(100 + n)
     out = []
     for _ in range(STEPS):
         vs, hs = {}, {}
         for name, shape in tree(n).items():
             vs[name] = rng.choice([-1.0, -0.5, 0.5, 1.0], shape)
+            if cplx:
+                vs[name] = vs[name] + 1j * rng.choice([-1.0, -0.5, 0.5, 1.0], shape)
             hs[name] = vs[name] * rng.choice([0.5, 1.0, 2.0], shape)
         out.append((vs, hs))
     return out
@@ -108,12 +119,13 @@ def pairs(n):
 # ---------------------------------------------------------------------------
 
 
-def build(case, n, spec, draw, seeded=False, **over):
+def build(case, n, spec, draw, seeded=False, cplx=False, **over):
     """(parameters by name, optimizer) of ``case`` at n; ``seeded``: an
-    LRA optimizer's U and V rows from ``start``."""
+    LRA optimizer's U and V rows from ``start``; ``cplx``: complex128
+    parameters (``problem``)."""
     from psgd_torch_tpu_torch.optim import DenseNewton, LRANewton, LRAWhiten
     cls = {"whiten": LRAWhiten, "newton": LRANewton, "dense": DenseNewton}[case]
-    init, _, _ = problem(n)
+    init, _, _ = problem(n, cplx)
     params = {k: torch.tensor(v, requires_grad=True) for k, v in init.items()}
     kw = dict(CASES[case][1], **over)
     with warnings.catch_warnings():
@@ -121,17 +133,28 @@ def build(case, n, spec, draw, seeded=False, **over):
         opt = cls(list(params.items()), vector_sharding=spec, device="cpu",
                   draw=draw, **kw)
     if seeded and case != "dense":
-        u, v = (torch.from_numpy(x[opt.lo:opt.lo + opt.n_loc]) for x in start(n))
+        u, v = (torch.from_numpy(x[opt.lo:opt.lo + opt.n_loc])
+                for x in start(n, cplx))
         opt.precond = opt.precond._replace(u=u, v=v)
     return params, opt
 
 
 def steps(case, n, params, opt, count=STEPS, start=0):
-    _, c, b = problem(n)
+    """``count`` steps from step ``start``: the gradient c p + b (dense:
+    of the closure's loss), the Newton cases' pairs explicit.  Complex
+    parameters take torch's form of the loss, 0.5 c |p|^2 + Re(conj(b) p),
+    whose ``.grad`` is c p + b (the JAX side's 0.5 c p^2 + b p, real
+    part, has the same ``jax.grad``)."""
+    cplx = next(iter(params.values())).is_complex()
+    _, c, b = problem(n, cplx)
     cs = {k: torch.from_numpy(v) for k, v in c.items()}
     bs = {k: torch.from_numpy(v) for k, v in b.items()}
 
     def loss():
+        if cplx:
+            return sum(torch.sum(0.5 * cs[k] * torch.real(p.conj() * p)
+                                 + torch.real(bs[k].conj() * p))
+                       for k, p in params.items())
         return sum(torch.sum(0.5 * cs[k] * p * p + bs[k] * p)
                    for k, p in params.items())
 
@@ -144,7 +167,7 @@ def steps(case, n, params, opt, count=STEPS, start=0):
         if case == "whiten":
             opt.step()
         else:
-            vs, hs = pairs(n)[i]
+            vs, hs = pairs(n, cplx)[i]
             opt.step(vs=[torch.from_numpy(vs[k]) for k in params],
                      hvs=[torch.from_numpy(hs[k]) for k in params])
 
@@ -197,19 +220,20 @@ def k_against_one(mesh, rank) -> dict:
     return out
 
 
-def resume(mesh2, mesh) -> dict:
+def resume(mesh2, mesh, cplx=False) -> dict:
     """LRAWhiten at n = 22 on 4 ranks: 3 steps unbroken against 2 steps, a
     per-rank state_dict through torch.save and load into a fresh
-    optimizer, and 1 more; a 2-rank state offered to a 4-rank optimizer."""
-    pa, oa = build("whiten", 22, (mesh, "fsdp"), None)
+    optimizer, and 1 more; a 2-rank state offered to a 4-rank optimizer.
+    ``cplx``: complex parameters and state."""
+    pa, oa = build("whiten", 22, (mesh, "fsdp"), None, cplx=cplx)
     steps("whiten", 22, pa, oa)
-    pb, ob = build("whiten", 22, (mesh, "fsdp"), None)
+    pb, ob = build("whiten", 22, (mesh, "fsdp"), None, cplx=cplx)
     steps("whiten", 22, pb, ob, 2)
     buf = io.BytesIO()
     torch.save(ob.state_dict(), buf)
     buf.seek(0)
     saved = torch.load(buf, weights_only=True)
-    pc, oc = build("whiten", 22, (mesh, "fsdp"), None)
+    pc, oc = build("whiten", 22, (mesh, "fsdp"), None, cplx=cplx)
     with torch.no_grad():
         for k in pc:
             pc[k].copy_(pb[k])
@@ -220,13 +244,15 @@ def resume(mesh2, mesh) -> dict:
             and all(np.array_equal(a["precond"][f], c["precond"][f])
                     for f in a["precond"])
             and np.array_equal(a["mu"], c["mu"]))
-    _, two = build("whiten", 22, (mesh2, "fsdp"), None)
+    _, two = build("whiten", 22, (mesh2, "fsdp"), None, cplx=cplx)
     try:
         oc.load_state_dict(two.state_dict())
         refused = "no error"
     except ValueError as e:
         refused = str(e)
-    return dict(bitwise=same, refused=refused, count=oc.count)
+    return dict(bitwise=same, refused=refused, count=oc.count,
+                dtypes={f: str(getattr(oc.precond, f).dtype)
+                        for f in oc.precond._fields})
 
 
 def specs_and_collectives(mesh, mesh2, rank) -> dict:
@@ -319,6 +345,65 @@ def run_cases(rank, world, draw, record, directory) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def jax_case(case, n, mesh, cplx=False, compiler_options=None):
+    """The JAX transform of ``case`` with vector_sharding over ``mesh``'s
+    fsdp after STEPS steps at n: ({params, precond, mu, log_det}, its
+    optimizer state).  ``cplx``: ``problem``'s complex form, the loss
+    0.5 c p^2 + b p's real part (``jax.grad`` c p + b)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import psgd_torch_tpu.optim as jopt
+    from psgd_torch_tpu.optim.hvp import make_hvp_fn
+    factory, options = CASES[case]
+    init, c, b = problem(n, cplx)
+    cj = {k: jnp.asarray(v) for k, v in c.items()}
+    bj = {k: jnp.asarray(v) for k, v in b.items()}
+    kw = dict(options)
+    kw["learning_rate"] = kw.pop("lr")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        opt = getattr(jopt, factory)(vector_sharding=(mesh, "fsdp"), **kw)
+
+    def loss(p):
+        return sum(jnp.sum(jnp.real(0.5 * cj[k] * p[k] ** 2 + bj[k] * p[k]))
+                   for k in p)
+
+    def step(p, s, v=None, h=None):
+        g = jax.tree_util.tree_map(lambda x, cc, bb: cc * x + bb, p, cj, bj)
+        if case == "whiten":
+            u, s = opt.update(g, s, p)
+        elif case == "newton":
+            u, s = opt.update(g, s, p, vs=v, hvs=h)
+        else:
+            u, s = opt.update(g, s, p, hvp_fn=make_hvp_fn(loss))
+        return optax.apply_updates(p, u), s
+
+    step = jax.jit(step, compiler_options=compiler_options)
+    params = {k: jnp.asarray(v) for k, v in init.items()}
+    st = opt.init(params)
+    if case != "dense":
+        u, v = (jnp.asarray(x) for x in start(n, cplx))
+        st = tuple(s._replace(precond=s.precond._replace(u=u, v=v))
+                   if hasattr(s, "precond") else s for s in st)
+    for i in range(STEPS):
+        if case == "newton":
+            v, h = pairs(n, cplx)[i]
+            params, st = step(params, st, {k: jnp.asarray(x) for k, x in v.items()},
+                              {k: jnp.asarray(x) for k, x in h.items()})
+        else:
+            params, st = step(params, st)
+    core = [s for s in st if hasattr(s, "precond")][0]
+    ref = dict(params={k: np.asarray(v) for k, v in params.items()},
+               precond={f: np.asarray(getattr(core.precond, f))
+                        for f in core.precond._fields},
+               mu=None if core.mu is None else np.asarray(core.mu))
+    if case != "dense":     # over the whole padded state, unsharded
+        from psgd_torch_tpu.precond.lra import log_det
+        ref["log_det"] = float(log_det(core.precond))
+    return ref, st
+
+
 def _jax_references() -> dict:
     """The JAX transforms with vector_sharding over 4 devices: (params,
     state) after STEPS steps per case and n; the specs; the collectives'
@@ -326,9 +411,7 @@ def _jax_references() -> dict:
     import jax
     import jax.numpy as jnp
     import optax
-    import psgd_torch_tpu.optim as jopt
     from jax.sharding import PartitionSpec as PS
-    from psgd_torch_tpu.optim.hvp import make_hvp_fn
     from psgd_torch_tpu.parallel import make_mesh
     from psgd_torch_tpu.parallel.mesh import dense_state_specs, lra_state_specs
     from psgd_torch_tpu.utils.compat import shard_map
@@ -336,53 +419,9 @@ def _jax_references() -> dict:
                                                 collective_bytes)
     mesh = make_mesh(WORLD, axis_names=("fsdp",))
     refs = {}
-    for case, (factory, options) in CASES.items():
+    for case in CASES:
         for n in NS:
-            init, c, b = problem(n)
-            cj = {k: jnp.asarray(v) for k, v in c.items()}
-            bj = {k: jnp.asarray(v) for k, v in b.items()}
-            kw = dict(options)
-            kw["learning_rate"] = kw.pop("lr")
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                opt = getattr(jopt, factory)(vector_sharding=(mesh, "fsdp"), **kw)
-
-            def loss(p):
-                return sum(jnp.sum(0.5 * cj[k] * p[k] ** 2 + bj[k] * p[k]) for k in p)
-
-            def step(p, s, v=None, h=None):
-                g = jax.tree_util.tree_map(lambda x, cc, bb: cc * x + bb, p, cj, bj)
-                if case == "whiten":
-                    u, s = opt.update(g, s, p)
-                elif case == "newton":
-                    u, s = opt.update(g, s, p, vs=v, hvs=h)
-                else:
-                    u, s = opt.update(g, s, p, hvp_fn=make_hvp_fn(loss))
-                return optax.apply_updates(p, u), s
-
-            step = jax.jit(step)
-            params = {k: jnp.asarray(v) for k, v in init.items()}
-            st = opt.init(params)
-            if case != "dense":
-                u, v = (jnp.asarray(x) for x in start(n))
-                st = tuple(s._replace(precond=s.precond._replace(u=u, v=v))
-                           if hasattr(s, "precond") else s for s in st)
-            for i in range(STEPS):
-                if case == "newton":
-                    v, h = pairs(n)[i]
-                    params, st = step(params, st, {k: jnp.asarray(x) for k, x in v.items()},
-                                      {k: jnp.asarray(x) for k, x in h.items()})
-                else:
-                    params, st = step(params, st)
-            core = [s for s in st if hasattr(s, "precond")][0]
-            refs[(case, n)] = dict(
-                params={k: np.asarray(v) for k, v in params.items()},
-                precond={f: np.asarray(getattr(core.precond, f))
-                         for f in core.precond._fields},
-                mu=None if core.mu is None else np.asarray(core.mu))
-            if case != "dense":     # over the whole padded state, unsharded
-                from psgd_torch_tpu.precond.lra import log_det
-                refs[(case, n)]["log_det"] = float(log_det(core.precond))
+            refs[(case, n)], st = jax_case(case, n, mesh)
             if n == NS[1]:
                 specs = (lra_state_specs if case != "dense" else dense_state_specs)(
                     st, "fsdp")
@@ -422,8 +461,12 @@ def ranks(tmp_path_factory):
 
 
 def _close(got, want, what, rtol=RTOL):
-    want = np.asarray(want, np.float64)
-    np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=rtol,
+    """got against want at rtol (atol rtol of want's largest entry), as
+    float64, or complex128 where either is complex."""
+    wide = (np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(want)
+            else np.float64)
+    want = np.asarray(want, wide)
+    np.testing.assert_allclose(np.asarray(got, wide), want, rtol=rtol,
                                atol=rtol * max(np.abs(want).max(initial=0.0), 1e-300),
                                err_msg=what)
 

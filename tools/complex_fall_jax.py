@@ -3,7 +3,7 @@ least-squares loss in their first steps: the reference that the port's
 ``chip_smoke.py`` complex LRA, dense and legacy path gates its losses
 against (it gates a fall only where this run falls).
 
-    python tools/complex_fall_jax.py [--steps N] [--json PATH]
+    python tools/complex_fall_jax.py [--steps N] [--json PATH] [--vector]
 
 Runs on the CPU, complex64: each arm of ``chip_smoke.CXL_ARMS`` (its JAX
 factory, learning rate and options) on the arm's small problem
@@ -14,7 +14,11 @@ gradient conj(jax.grad) (torch's ``.grad``) and the Hessian action
 conj(jvp(jax.grad)) (torch's double backward; checked here against
 V X X^H / batch).  Prints, per arm, the loss after each of the smoke's
 ``CXL_STEPS`` steps and after ``--steps``, and whether it is finite and
-below the first.
+below the first.  ``--vector`` runs instead the vector-sharded complex
+arms of the smoke's vector-sharded path (``chip_smoke._vector_kw``: arms
+D and E, LRAWhiten and LRANewton over 2 shards; arm F, DenseNewton QEQ
+over 3) with the JAX transforms' ``vector_sharding`` over as many CPU
+devices, on the same small problems.
 """
 
 import argparse
@@ -23,6 +27,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+# the vector-sharded arms' meshes: 2 and 3 CPU devices
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=4")
 
 import jax  # noqa: E402
 
@@ -46,8 +53,25 @@ def problem(kind):
     return [jnp.asarray(p.detach().numpy()) for p in params], data
 
 
+# the smoke's vector-sharded complex arms: CXL_ARMS-shaped, then the shards
+VECTOR_ARMS = tuple(
+    (label, factory, None, newton, kind, kw.pop("lr"), kw, k)
+    for label, factory, newton, kind, kw, k in (
+        ("LRAWhiten, 2 shards", "lra_whiten", False, "full",
+         {key: v for key, v in cs._vector_kw("cx_whiten", None)[1].items()
+          if key != "device"}, 2),
+        ("LRANewton, 2 shards", "lra_newton", True, "full",
+         {key: v for key, v in cs._vector_kw("cx_newton", None)[1].items()
+          if key != "device"}, 2),
+        ("DenseNewton QEQ, 3 shards", "dense_newton", True, "dense",
+         dict(lr=0.2, dq="QEQ"), 3)))
+
+
 def losses(arm, steps):
-    label, factory, _, newton, kind, lr, kw = arm
+    label, factory, _, newton, kind, lr, kw = arm[:7]
+    if len(arm) > 7:
+        from psgd_torch_tpu.parallel import make_mesh
+        kw = dict(kw, vector_sharding=(make_mesh(arm[7], axis_names=("fsdp",)), "fsdp"))
     ws, data = problem(kind)
 
     def loss(ws):
@@ -95,10 +119,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--json", default=None, help="write every loss there")
+    ap.add_argument("--vector", action="store_true",
+                    help="the vector-sharded complex arms instead")
     args = ap.parse_args()
     record = {}
     n = cs.CXL_STEPS
-    for arm in cs.CXL_ARMS:
+    for arm in VECTOR_ARMS if args.vector else cs.CXL_ARMS:
         ls = losses(arm, max(args.steps, n))
         first = ls[:n]
         finite = all(np.isfinite(first))
